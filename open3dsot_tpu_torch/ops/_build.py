@@ -1,0 +1,91 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+The sources under `open3dsot_tpu_torch/csrc/` have a plain C interface, so
+they build in seconds without PyTorch's headers. The shared library goes
+into `open3dsot_tpu_torch/_build/` (git-ignored), named by a hash of the
+source and flags, at first use; later calls and processes reuse it. Nothing
+here runs at import: the CPU tests import every module, and this machine
+may have no nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_PI = ctypes.POINTER(ctypes.c_int)
+_LL = ctypes.c_longlong
+
+# C signatures of each library's entries (argtypes, restype int).
+SIGNATURES = {
+    "chain_fused": {
+        "chain_fused_k1": [_P, _P, _LL, _PI, _I, _I, _I, _I, _P, _P, _P],
+        "chain_fused_k2": [_P, _P, _P, _P, _LL, _PI, _I, _I, _I, _I, _P, _P, _P],
+    },
+}
+
+
+class KernelLibrary:
+    """A loaded kernel library: its ctypes handle and how it was built."""
+
+    def __init__(self, name: str, path: Path, build_seconds: float, build_log: str):
+        self.name = name
+        self.path = path
+        self.build_seconds = build_seconds  # 0.0 when an earlier build was reused
+        self.build_log = build_log  # nvcc's output, with -Xptxas -v register/spill lines
+        self.lib = ctypes.CDLL(str(path))
+        for fn, argtypes in SIGNATURES[name].items():
+            f = getattr(self.lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (Path(cuda_home) / "bin" / "nvcc", shutil.which("nvcc")):
+        if cand and Path(cand).is_file():
+            return str(cand)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH): "
+                       "the port's CUDA kernels are built from source at first use")
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(name: str) -> KernelLibrary:
+    """Build `csrc/<name>.cu` if no build of this source exists, then load it."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"lib{name}-{digest}.so"
+    if out.is_file():
+        return KernelLibrary(name, out, 0.0, "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    # build under a temporary name, then rename: a concurrent process never
+    # loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to build {src} (exit {proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return KernelLibrary(name, out, time.perf_counter() - t0, proc.stdout + proc.stderr)

@@ -1,0 +1,157 @@
+"""Each numpy host module that the port carries as a copy gives the
+original's output on seeded inputs (config, quaternion, data_classes,
+points_utils, iou, metrics, synthetic data, the test sampler)."""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+import open3dsot_tpu.config as j_config
+import open3dsot_tpu.geometry.iou as j_iou
+import open3dsot_tpu.geometry.points_utils as j_pu
+import open3dsot_tpu.utils.metrics as j_metrics
+from open3dsot_tpu.data import get_dataset as j_get_dataset
+from open3dsot_tpu.geometry import Box as JBox
+from open3dsot_tpu.geometry import PointCloud as JPC
+from open3dsot_tpu.geometry import Quaternion as JQ
+import open3dsot_tpu_torch.config as p_config
+import open3dsot_tpu_torch.geometry.iou as p_iou
+import open3dsot_tpu_torch.geometry.points_utils as p_pu
+import open3dsot_tpu_torch.utils.metrics as p_metrics
+from open3dsot_tpu_torch.data import get_dataset as p_get_dataset
+from open3dsot_tpu_torch.geometry import Box as PBox
+from open3dsot_tpu_torch.geometry import PointCloud as PPC
+from open3dsot_tpu_torch.geometry import Quaternion as PQ
+
+
+def _boxes(seed, n=6):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        c = rng.uniform(-5, 5, 3)
+        wlh = rng.uniform(1, 4, 3)
+        ang = rng.uniform(-np.pi, np.pi)
+        out.append((JBox(c, wlh, JQ(axis=[0, 0, 1], radians=ang)),
+                    PBox(c, wlh, PQ(axis=[0, 0, 1], radians=ang))))
+    return out
+
+
+def test_config_copy():
+    for path in ("cfgs/M2_track_synthetic.yaml", "cfgs/M2_track_kitti.yaml"):
+        over = {"seed": 3, "point_sample_size": 64}
+        assert p_config.load_config(path, over).to_dict() == j_config.load_config(path, over).to_dict()
+    assert p_config.DEFAULTS == j_config.DEFAULTS
+    with pytest.raises(ValueError):
+        p_config.make_config({"coordinate_mode": "bogus"})
+
+
+def test_quaternion_copy():
+    rng = np.random.default_rng(0)
+    for _ in range(5):
+        axis, ang = rng.standard_normal(3), rng.uniform(-3, 3)
+        jq, pq = JQ(axis=axis, radians=ang), PQ(axis=axis, radians=ang)
+        np.testing.assert_array_equal(pq.rotation_matrix, jq.rotation_matrix)
+        np.testing.assert_array_equal(PQ(matrix=pq.rotation_matrix).elements,
+                                      JQ(matrix=jq.rotation_matrix).elements)
+        np.testing.assert_array_equal((pq * pq.inverse).elements, (jq * jq.inverse).elements)
+        assert pq.radians == jq.radians and pq.degrees == jq.degrees
+        np.testing.assert_array_equal(pq.axis, jq.axis)
+
+
+def test_box_and_pointcloud_copy():
+    rng = np.random.default_rng(1)
+    for jb, pb in _boxes(1):
+        np.testing.assert_array_equal(pb.corners(1.25), jb.corners(1.25))
+        np.testing.assert_array_equal(pb.bottom_corners(), jb.bottom_corners())
+        q = rng.uniform(-1, 1)
+        jb.rotate(JQ(axis=[0, 0, 1], radians=q))
+        pb.rotate(PQ(axis=[0, 0, 1], radians=q))
+        jb.translate([1.0, 2.0, 3.0])
+        pb.translate([1.0, 2.0, 3.0])
+        np.testing.assert_array_equal(pb.center, jb.center)
+        np.testing.assert_array_equal(pb.orientation.elements, jb.orientation.elements)
+    pts = rng.standard_normal((3, 50))
+    jp, pp = JPC(pts.copy()), PPC(pts.copy())
+    R = JQ(axis=[0, 0, 1], radians=0.3).rotation_matrix
+    jp.rotate(R)
+    pp.rotate(R)
+    np.testing.assert_array_equal(pp.points, jp.points)
+
+
+def test_points_utils_copy():
+    rng = np.random.default_rng(2)
+    for k, (jb, pb) in enumerate(_boxes(2)):
+        pts = (rng.uniform(-8, 8, (3, 400))).astype(np.float32)
+        jsub = j_pu.generate_subwindow(JPC(pts.copy()), jb, scale=1.25, offset=2)
+        psub = p_pu.generate_subwindow(PPC(pts.copy()), pb, scale=1.25, offset=2)
+        # the original may take its native C++ crop (same strict-bound
+        # semantics, tests/test_native.py): same points up to rounding
+        np.testing.assert_allclose(psub.points, jsub.points, atol=1e-5)
+        jc, pc = j_pu.transform_box(jb, jb), p_pu.transform_box(pb, pb)
+        np.testing.assert_array_equal(pc.center, jc.center)
+        np.testing.assert_array_equal(p_pu.points_in_box(pc, pts, 1.25),
+                                      j_pu.points_in_box(jc, pts, 1.25))
+        np.testing.assert_array_equal(p_pu.get_point_to_box_distance(pts.T, pc),
+                                      j_pu.get_point_to_box_distance(pts.T, jc))
+        a, ia = p_pu.regularize_pc(pts.T, 64 + k * 100, seed=1)
+        b, ib = j_pu.regularize_pc(pts.T, 64 + k * 100, seed=1)
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(ia, ib)
+        off = rng.uniform(-1, 1, 4)
+        for kw in (dict(degrees=False, use_z=True, limit_box=False),
+                   dict(degrees=True, use_z=False, limit_box=False)):
+            po, jo = p_pu.getOffsetBB(pb, off, **kw), j_pu.getOffsetBB(jb, off, **kw)
+            np.testing.assert_array_equal(po.center, jo.center)
+            np.testing.assert_array_equal(po.orientation.elements, jo.orientation.elements)
+
+
+def test_iou_copy():
+    boxes = _boxes(3)
+    for (ja, pa), (jb, pb) in zip(boxes, boxes[1:] + boxes[:1]):
+        for dim in (2, 3):
+            assert (p_iou.estimateOverlap(pa, pb, dim=dim, up_axis=[0, 0, 1])
+                    == j_iou.estimateOverlap(ja, jb, dim=dim, up_axis=[0, 0, 1]))
+            assert (p_iou.estimateAccuracy(pa, pb, dim=dim, up_axis=[0, 0, 1])
+                    == j_iou.estimateAccuracy(ja, jb, dim=dim, up_axis=[0, 0, 1]))
+        assert p_iou.estimateOverlap(pa, pa, dim=3, up_axis=[0, 0, 1]) == pytest.approx(1.0)
+
+
+def test_metrics_copy():
+    rng = np.random.default_rng(4)
+    for P, J, scale in ((p_metrics.Success, j_metrics.Success, 1.0),
+                        (p_metrics.Precision, j_metrics.Precision, 2.5)):
+        p, j = P(), J()
+        for _ in range(3):
+            v = rng.uniform(0, scale, 17)
+            p.update(v)
+            j.update(v)
+        assert p.compute() == j.compute()
+        np.testing.assert_array_equal(p.state(), j.state())
+
+
+def test_synthetic_dataset_and_test_sampler_copy():
+    over = dict(syn_num_tracklets=2, syn_tracklet_len=3, seed=9)
+    jcfg = j_config.load_config("cfgs/M2_track_synthetic.yaml", over)
+    pcfg = p_config.load_config("cfgs/M2_track_synthetic.yaml", over)
+    js, ps = j_get_dataset(jcfg, "test", "test"), p_get_dataset(pcfg, "test", "test")
+    assert len(js) == len(ps) == 2
+    for i in range(2):
+        for jf, pf in zip(js[i], ps[i]):
+            np.testing.assert_array_equal(pf["pc"].points, jf["pc"].points)
+            np.testing.assert_array_equal(pf["3d_bbox"].center, jf["3d_bbox"].center)
+            np.testing.assert_array_equal(pf["3d_bbox"].wlh, jf["3d_bbox"].wlh)
+
+
+def test_unported_datasets_and_models_are_refused():
+    from open3dsot_tpu_torch.models import get_model
+
+    cfg = p_config.make_config({"dataset": "kitti"})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        p_get_dataset(cfg, "test", "test")
+    cfg = p_config.make_config({"dataset": "synthetic"})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        p_get_dataset(cfg, "train_motion", "train")
+    for name in ("p2b", "bat"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_model(name)
