@@ -1,7 +1,8 @@
-"""CLI entry point of the port (eval only so far).
+"""CLI entry point of the port (eval only so far), for M2-Track, BAT and P2B.
 
     python -m open3dsot_tpu_torch.main --cfg cfgs/M2_track_synthetic.yaml --test \
         [--checkpoint port.pt] [--max_tracklets N] [--device cuda]
+    python -m open3dsot_tpu_torch.main --cfg cfgs/BAT_synthetic.yaml --test --device cuda
 
 Flags keep the JAX CLI's names (main.py). `--checkpoint` is a file written
 by `torch.save(model.net.state_dict(), path)`; without one the weights are

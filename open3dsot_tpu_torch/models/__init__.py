@@ -1,6 +1,6 @@
 """Model registry, port of `open3dsot_tpu/models/__init__.py`.
 
-Only M2-Track is ported so far; p2b and bat raise NotImplementedError.
+Names are case-insensitive: m2track, p2b, bat (eval only so far).
 """
 
 from __future__ import annotations
@@ -12,7 +12,12 @@ def get_model(name: str):
         from open3dsot_tpu_torch.models.m2track import M2TrackModel
 
         return M2TrackModel
-    if name in ("p2b", "bat"):
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet: see ROADMAP.md (matching models, kernels K3-K5)")
+    if name == "p2b":
+        from open3dsot_tpu_torch.models.p2b import P2BModel
+
+        return P2BModel
+    if name == "bat":
+        from open3dsot_tpu_torch.models.bat import BATModel
+
+        return BATModel
     raise ValueError(f"unknown model {name!r}")

@@ -18,6 +18,14 @@ import torch.nn.functional as F
 from open3dsot_tpu_torch.ops.chain_fused import BN_EPS, fold_dense_bn
 
 
+def resolve_device(device) -> torch.device:
+    """The device a model runs on; 'cuda' without a CUDA device raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but no CUDA device is available")
+    return device
+
+
 class DenseBNRelu(nn.Module):
     """Dense -> BatchNorm (eval) -> ReLU over the last axis (any leading shape)."""
 

@@ -18,7 +18,7 @@ import torch
 import torch.nn as nn
 
 from open3dsot_tpu_torch.geometry import rigid
-from open3dsot_tpu_torch.models.layers import MLP
+from open3dsot_tpu_torch.models.layers import MLP, resolve_device
 from open3dsot_tpu_torch.models.pointnet import MiniPointNet, SegPointNet
 
 
@@ -110,9 +110,7 @@ class M2TrackModel:
 
     def __init__(self, config, device="cpu", fused_eval: bool = True):
         self.config = config
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device 'cuda' requested but no CUDA device is available")
+        self.device = resolve_device(device)
         self.net = M2TrackNet(
             box_aware=getattr(config, "box_aware", False),
             use_motion_cls=getattr(config, "use_motion_cls", True),

@@ -1,17 +1,21 @@
-"""PointNet encoders of M2-Track, port of `open3dsot_tpu/models/pointnet.py`
-(MiniPointNet, SegPointNet; reference models/backbone/pointnet.py:91-204).
+"""PointNet encoders, port of `open3dsot_tpu/models/pointnet.py`:
+MiniPointNet and SegPointNet of M2-Track (reference
+models/backbone/pointnet.py:91-204), SetAbstraction and PointnetBackbone of
+BAT/P2B (pointnet2_modules.py:24-149, pointnet.py:12-88).
 
-With `fused_eval` (the default) the eval forward goes through the fused
-chain kernels K1/K2 (ops/chain_fused.py); the plain layer stack is kept for
-`fused_eval=False` (the plain PyTorch forward that the kernels are held
-against) and for training later. The folded weights are cached and folded
-again whenever a parameter or buffer changes: a load_state_dict (in-place
-copy, bumping the tensor version) or a .to() (new storage).
+With `fused_eval` (the default) the eval forward goes through the kernels:
+K1/K2 (ops/chain_fused.py) for the M2 encoders, K3 (ops/sampling.py) and
+K4 (ops/sa_fused.py) for the SA layers. `fused_eval=False` is the plain
+PyTorch forward that the kernels are held against: the layer stack with
+BatchNorm unfolded, and for SA the plain FPS, ball query and grouping. The
+folded weights are cached and folded again whenever a parameter or buffer
+changes: a load_state_dict (in-place copy, bumping the tensor version) or a
+.to() (new storage).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -22,6 +26,10 @@ from open3dsot_tpu_torch.ops.chain_fused import (
     fused_pointnet_encoder,
     fused_seg_head,
 )
+from open3dsot_tpu_torch.ops.grouping import gather_points
+from open3dsot_tpu_torch.ops.neighbors import ball_query
+from open3dsot_tpu_torch.ops.sa_fused import fused_sa_apply, group_inputs
+from open3dsot_tpu_torch.ops.sampling import furthest_point_sample, furthest_point_sample_plain
 
 
 class _FoldCache(nn.Module):
@@ -111,3 +119,77 @@ class SegPointNet(_FoldCache):
         for i in range(self.n2):
             x = getattr(self, f"mlp2_{i}")(x)
         return self.fc(x)
+
+
+class SetAbstraction(_FoldCache):
+    """Single-scale-grouping SA layer.
+
+    Centroids: FPS when use_fps, else the first `npoint` points; neighbors:
+    ball query with pad-with-first; features: [centred xyz (/radius if
+    normalize_xyz) || grouped features] -> shared MLP -> max over nsample.
+    `in_features` is the width of the point features (0: none).
+    """
+
+    def __init__(self, in_features: int, mlp: Sequence[int], radius: float, nsample: int,
+                 use_xyz: bool = True, use_fps: bool = False, normalize_xyz: bool = False,
+                 fused_eval: bool = True, device=None):
+        super().__init__()
+        c_in = in_features + 3 if (use_xyz or in_features == 0) else in_features
+        self.mlp_shared = MLP(c_in, mlp, device=device)
+        self.radius, self.nsample = radius, nsample
+        self.use_xyz, self.use_fps, self.normalize_xyz = use_xyz, use_fps, normalize_xyz
+        self.fused_eval = fused_eval
+
+    def _fold(self):
+        return self.mlp_shared.folded()
+
+    def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor], npoint: int):
+        """xyz (B, N, 3), features (B, N, C) or None -> (new_xyz (B, S, 3),
+        new_features (B, S, mlp[-1]), sample_idxs (B, S) int32)."""
+        B = xyz.shape[0]
+        xyz = xyz.contiguous()
+        if self.use_fps:
+            fps = furthest_point_sample if self.fused_eval else furthest_point_sample_plain
+            sample_idxs = fps(xyz, npoint)
+        else:
+            sample_idxs = torch.arange(npoint, dtype=torch.int32,
+                                       device=xyz.device)[None].expand(B, npoint)
+        new_xyz = gather_points(xyz, sample_idxs)
+        kw = dict(radius=self.radius, normalize_xyz=self.normalize_xyz, use_xyz=self.use_xyz)
+        if self.fused_eval:
+            out = fused_sa_apply(xyz, features, new_xyz, None, self.folded_chains(),
+                                 nsample=self.nsample, **kw)
+            return new_xyz, out, sample_idxs
+        idx = ball_query(self.radius, self.nsample, xyz, new_xyz)  # (B, S, K)
+        grouped = group_inputs(xyz, features, new_xyz, idx, **kw)
+        return new_xyz, self.mlp_shared(grouped).amax(dim=2), sample_idxs
+
+
+class PointnetBackbone(nn.Module):
+    """3-layer SSG PointNet++ encoder: radii 0.3/0.5/0.7, nsample 32, FPS (if
+    enabled) at layer 1 only; layers 2-3 take the first npoint centroids."""
+
+    SPECS = (((64, 64, 128), 0.3), ((128, 128, 256), 0.5), ((256, 256, 256), 0.7))
+    OUT_CHANNELS = SPECS[-1][0][-1]
+
+    def __init__(self, use_fps: bool = False, normalize_xyz: bool = False,
+                 input_channels: int = 0, fused_eval: bool = True, device=None):
+        super().__init__()
+        c = input_channels
+        for i, (mlp, radius) in enumerate(self.SPECS):
+            self.add_module(f"sa{i}", SetAbstraction(
+                c, mlp, radius, 32, use_xyz=True, use_fps=use_fps and i == 0,
+                normalize_xyz=normalize_xyz, fused_eval=fused_eval, device=device))
+            c = mlp[-1]
+
+    def forward(self, pointcloud: torch.Tensor, numpoints: Sequence[int]):
+        """pointcloud (B, N, 3 + input_channels) -> (xyz (B, S3, 3),
+        features (B, S3, 256), sample_idxs of layer 1 (B, S1))."""
+        xyz = pointcloud[..., 0:3]
+        features = pointcloud[..., 3:] if pointcloud.shape[-1] > 3 else None
+        first_idxs = None
+        for i in range(len(self.SPECS)):
+            xyz, features, idxs = getattr(self, f"sa{i}")(xyz, features, numpoints[i])
+            if i == 0:
+                first_idxs = idxs
+        return xyz, features, first_idxs

@@ -18,7 +18,9 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Dict
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -30,12 +32,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _PI = ctypes.POINTER(ctypes.c_int)
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 
 # C signatures of each library's entries (argtypes, restype int).
 SIGNATURES = {
     "chain_fused": {
         "chain_fused_k1": [_P, _P, _LL, _PI, _I, _I, _I, _I, _P, _P, _P],
         "chain_fused_k2": [_P, _P, _P, _P, _LL, _PI, _I, _I, _I, _I, _P, _P, _P],
+    },
+    "fps": {
+        "fps_k3": [_P, _I, _I, _I, _P, _P],
+    },
+    "sa_fused": {
+        "sa_fused_k4": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _I, _F, _P],
     },
 }
 
@@ -62,6 +72,12 @@ def _nvcc() -> str:
             return str(cand)
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH): "
                        "the port's CUDA kernels are built from source at first use")
+
+
+def load_libraries(names) -> Dict[str, KernelLibrary]:
+    """Build (one nvcc process each, side by side) and load several libraries."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(load_library, names)))
 
 
 @functools.lru_cache(maxsize=None)

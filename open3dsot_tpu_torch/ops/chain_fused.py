@@ -26,6 +26,8 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from open3dsot_tpu_torch.ops._launch import check, on_cuda, raise_on, stream_of
+
 BN_EPS = 1e-5  # models/layers.py::DenseBNRelu epsilon, as on the JAX side
 
 _ERRORS = {-1: "layer count, widths or packed size not accepted",
@@ -107,32 +109,6 @@ def seg_head_plain(tap: torch.Tensor, pooled: torch.Tensor, chain: FoldedChain) 
 
 # --- kernel wrappers ------------------------------------------------------
 
-def _check(name: str, t: torch.Tensor, device: torch.device, shape=None) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-
-
-def _on_cuda(x: torch.Tensor) -> bool:
-    """True for a CUDA tensor, False for a CPU one; anything else raises."""
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"no kernel for device {x.device}")
-
-
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        msg = _ERRORS.get(rc, f"CUDA error {rc}")
-        raise RuntimeError(f"{what} kernel failed: {msg}")
-
-
 def _widths(chain: FoldedChain):
     w = chain.packed_widths
     return (ctypes.c_int * len(w))(*w), len(w) - 1
@@ -149,14 +125,14 @@ def fused_pointnet_encoder(x: torch.Tensor, chain: FoldedChain, *,
         raise ValueError(f"x must be (B, N, {chain.widths[0]}), got {tuple(x.shape)}")
     if chain.split:
         raise ValueError("K1 takes a chain without a split first layer")
-    if not _on_cuda(x):
+    if not on_cuda(x):
         return pointnet_encoder_plain(x, chain, tap_at)
     from open3dsot_tpu_torch.ops._build import load_library
 
     B, N, _ = x.shape
     dev = x.device
-    _check("x", x, dev)
-    _check("packed weights", chain.packed, dev)
+    check("x", x, dev)
+    check("packed weights", chain.packed, dev)
     tap = None
     if tap_at is not None:
         tap = torch.empty(B, N, chain.widths[tap_at + 1], device=dev)
@@ -167,8 +143,8 @@ def fused_pointnet_encoder(x: torch.Tensor, chain: FoldedChain, *,
         x.data_ptr(), chain.packed.data_ptr(), chain.packed.numel(), widths, n_layers,
         B, N, -1 if tap_at is None else tap_at,
         None if tap is None else tap.data_ptr(), pooled.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "K1 chain_fused_k1")
+        stream_of(x))
+    raise_on(rc, "K1 chain_fused_k1", _ERRORS)
     fused_pointnet_encoder.launches += 1
     return tap, pooled
 
@@ -185,16 +161,16 @@ def fused_seg_head(tap: torch.Tensor, pooled: torch.Tensor, chain: FoldedChain) 
     if chain.split != tap.shape[2] or chain.widths[0] != tap.shape[2] + pooled.shape[1]:
         raise ValueError(f"chain split {chain.split} / width {chain.widths[0]} does not match "
                          f"tap {tap.shape[2]} + pooled {pooled.shape[1]}")
-    if not _on_cuda(tap):
+    if not on_cuda(tap):
         return seg_head_plain(tap, pooled, chain)
     from open3dsot_tpu_torch.ops._build import load_library
 
     B, N, _ = tap.shape
     dev = tap.device
-    _check("tap", tap, dev)
-    _check("pooled", pooled, dev)
-    _check("packed weights", chain.packed, dev)
-    _check("w_pool", chain.w_pool, dev)
+    check("tap", tap, dev)
+    check("pooled", pooled, dev)
+    check("packed weights", chain.packed, dev)
+    check("w_pool", chain.w_pool, dev)
     g = torch.empty(B, chain.widths[1], device=dev)
     out = torch.empty(B, N, chain.widths[-1], device=dev)
     widths, n_layers = _widths(chain)
@@ -202,8 +178,8 @@ def fused_seg_head(tap: torch.Tensor, pooled: torch.Tensor, chain: FoldedChain) 
     rc = lib.chain_fused_k2(
         tap.data_ptr(), pooled.data_ptr(), chain.w_pool.data_ptr(), chain.packed.data_ptr(),
         chain.packed.numel(), widths, n_layers, pooled.shape[1], B, N,
-        g.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "K2 chain_fused_k2")
+        g.data_ptr(), out.data_ptr(), stream_of(tap))
+    raise_on(rc, "K2 chain_fused_k2", _ERRORS)
     fused_seg_head.launches += 1
     return out
 

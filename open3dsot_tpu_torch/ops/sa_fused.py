@@ -1,0 +1,151 @@
+"""Fused eval-mode set abstraction, port of `open3dsot_tpu/ops/sa_fused.py`
+(kernels K4 and K5).
+
+One SA layer of PointNet++ in eval mode: for each centroid, the first K
+points within the radius (ball query), their centred xyz (divided by r if
+`normalize_xyz`) concatenated with their features, three Dense layers with
+eval BatchNorm folded in and ReLU, and the max over the K neighbors.
+
+  K4 `fused_sa_apply(..., idx=None, nsample=K)`: the ball query runs in the
+     kernel (csrc/sa_fused.cu; the design note is there).
+  K5 `fused_sa_apply(..., idx=idx)`: the same with precomputed indices.
+
+Both kernels take layer 1 in A-form (`a_form`, computed here with
+torch.matmul as JAX computes it in XLA outside the pallas_call): only the
+C1-wide rows A[j] are gathered, and the centroid enters as ct[s].
+
+`sa_eval_plain` is the plain PyTorch version: ball query by direct
+differences (ops/neighbors.py::ball_query), group, centre, the folded MLP
+over the (B, S, K, C) grid, max over K. The wrapper takes it for a CPU
+tensor and launches the kernel for a CUDA tensor, or raises. Launches are
+counted in `fused_sa_apply.launches` (K4) and
+`fused_sa_apply.idx_launches` (K5).
+
+Layout is channels-last (B, N, C); `folded` is the three (W' (in, out),
+b') pairs of a SetAbstraction's `mlp_shared` (models/layers.py::MLP.folded,
+which uses ops/chain_fused.py::fold_dense_bn).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from open3dsot_tpu_torch.ops._launch import check, on_cuda, raise_on, stream_of
+from open3dsot_tpu_torch.ops.grouping import group_points
+from open3dsot_tpu_torch.ops.neighbors import ball_query, radius_sq
+
+Folded = Sequence[Tuple[torch.Tensor, torch.Tensor]]
+
+_ERRORS = {-1: "B, N, S, K (1..128) or widths not accepted",
+           -2: "a width C1, C2 or C3 is not a multiple of 4",
+           -3: "the activations of the smallest tile do not fit in shared memory"}
+
+
+def a_form(xyz: torch.Tensor, features: Optional[torch.Tensor], new_xyz: torch.Tensor,
+           w1: torch.Tensor, b1: torch.Tensor, *, inv_r: float, use_xyz: bool
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Layer 1 as A[j] + ct[s] (sa_fused.py::a_form): a = (x * inv_r) @ W1_xyz
+    + f @ W1_feat over all N points, ct = b1 - (c * inv_r) @ W1_xyz.
+    Returns (a (B, N, C1), ct (B, S, C1)), f32."""
+    B, S = xyz.shape[0], new_xyz.shape[1]
+    ct = b1[None, None, :].expand(B, S, w1.shape[1])
+    parts = []
+    if use_xyz or features is None:
+        w1x = w1[:3]
+        parts.append(torch.matmul(xyz * inv_r, w1x))
+        ct = ct - torch.matmul(new_xyz * inv_r, w1x)
+        w1f = w1[3:]
+    else:
+        w1f = w1
+    if features is not None:
+        parts.append(torch.matmul(features, w1f))
+    a = parts[0] if len(parts) == 1 else parts[0] + parts[1]
+    return a.contiguous(), ct.contiguous()
+
+
+def group_inputs(xyz: torch.Tensor, features: Optional[torch.Tensor], new_xyz: torch.Tensor,
+                 idx: torch.Tensor, *, radius: float, normalize_xyz: bool, use_xyz: bool
+                 ) -> torch.Tensor:
+    """The SA MLP's input at each centroid's neighbors idx (B, S, K): centred
+    xyz (/radius if normalize_xyz) || grouped features -> (B, S, K, C)."""
+    grouped = group_points(xyz, idx) - new_xyz[:, :, None, :]  # (B, S, K, 3)
+    if normalize_xyz:
+        grouped = grouped / radius
+    if features is not None:
+        grouped_feats = group_points(features, idx)
+        grouped = torch.cat([grouped, grouped_feats], dim=-1) if use_xyz else grouped_feats
+    return grouped
+
+
+def sa_eval_plain(xyz: torch.Tensor, features: Optional[torch.Tensor], new_xyz: torch.Tensor,
+                  idx: Optional[torch.Tensor], folded: Folded, *, radius: float,
+                  normalize_xyz: bool, use_xyz: bool, nsample: Optional[int] = None
+                  ) -> torch.Tensor:
+    """The plain version of K4/K5: -> (B, S, C3)."""
+    if idx is None:
+        idx = ball_query(radius, nsample, xyz, new_xyz)
+    grouped = group_inputs(xyz, features, new_xyz, idx, radius=radius,
+                           normalize_xyz=normalize_xyz, use_xyz=use_xyz)
+    for w, b in folded:
+        grouped = torch.relu(grouped @ w + b)
+    return grouped.amax(dim=2)
+
+
+def fused_sa_apply(xyz: torch.Tensor, features: Optional[torch.Tensor], new_xyz: torch.Tensor,
+                   idx: Optional[torch.Tensor], folded: Folded, *, radius: float,
+                   normalize_xyz: bool, use_xyz: bool, nsample: Optional[int] = None
+                   ) -> torch.Tensor:
+    """K4 (idx None, pass nsample) or K5 (idx (B, S, K) int32): xyz (B, N, 3),
+    features (B, N, C) or None, new_xyz (B, S, 3) centroids -> (B, S, C3)."""
+    if len(folded) != 3:
+        raise ValueError(f"the fused SA takes 3 folded layers, got {len(folded)}")
+    if idx is None and nsample is None:
+        raise ValueError("nsample is required when idx is None")
+    B, N, _ = xyz.shape
+    S = new_xyz.shape[1]
+    K = int(nsample) if idx is None else idx.shape[2]
+    if idx is not None and tuple(idx.shape[:2]) != (B, S):
+        raise ValueError(f"idx must be ({B}, {S}, K), got {tuple(idx.shape)}")
+    if not on_cuda(xyz):
+        return sa_eval_plain(xyz, features, new_xyz, idx, folded, radius=radius,
+                             normalize_xyz=normalize_xyz, use_xyz=use_xyz, nsample=nsample)
+    from open3dsot_tpu_torch.ops._build import load_library
+
+    dev = xyz.device
+    (w1, b1), (w2, b2), (w3, b3) = folded
+    C1, C2, C3 = w1.shape[1], w2.shape[1], w3.shape[1]
+    check("xyz", xyz, dev, (B, N, 3))
+    check("new_xyz", new_xyz, dev, (B, S, 3))
+    if features is not None and (features.device != dev or features.dtype != torch.float32):
+        raise TypeError(f"features must be float32 on {dev} (only a_form's matmul reads them)")
+    for name, t, shape in (("w2", w2, (C1, C2)), ("b2", b2, (C2,)), ("w3", w3, (C2, C3)),
+                           ("b3", b3, (C3,))):
+        check(name, t, dev, shape)
+    if idx is not None:
+        check("idx", idx, dev, (B, S, K), dtype=torch.int32)
+    inv_r = 1.0 / radius if normalize_xyz else 1.0
+    a, ct = a_form(xyz, features, new_xyz, w1, b1, inv_r=inv_r, use_xyz=use_xyz)
+    out = torch.empty(B, S, C3, device=dev)
+    rc = load_library("sa_fused").lib.sa_fused_k4(
+        xyz.data_ptr(), new_xyz.data_ptr(), None if idx is None else idx.data_ptr(),
+        a.data_ptr(), ct.data_ptr(), w2.data_ptr(), b2.data_ptr(), w3.data_ptr(),
+        b3.data_ptr(), out.data_ptr(), B, N, S, K, C1, C2, C3, radius_sq(radius),
+        stream_of(xyz))
+    if idx is None:
+        raise_on(rc, "K4 sa_fused_k4 (ball query)", _ERRORS)
+        fused_sa_apply.launches += 1
+    else:
+        raise_on(rc, "K5 sa_fused_k4 (idx given)", _ERRORS)
+        fused_sa_apply.idx_launches += 1
+    return out
+
+
+fused_sa_apply.launches = 0
+fused_sa_apply.idx_launches = 0
+
+
+def reset_launch_counts() -> None:
+    fused_sa_apply.launches = 0
+    fused_sa_apply.idx_launches = 0

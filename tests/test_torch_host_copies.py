@@ -38,7 +38,8 @@ def _boxes(seed, n=6):
 
 
 def test_config_copy():
-    for path in ("cfgs/M2_track_synthetic.yaml", "cfgs/M2_track_kitti.yaml"):
+    for path in ("cfgs/M2_track_synthetic.yaml", "cfgs/M2_track_kitti.yaml", "cfgs/BAT_Car.yaml",
+                 "cfgs/BAT_synthetic.yaml", "cfgs/P2B_synthetic.yaml"):
         over = {"seed": 3, "point_sample_size": 64}
         assert p_config.load_config(path, over).to_dict() == j_config.load_config(path, over).to_dict()
     assert p_config.DEFAULTS == j_config.DEFAULTS
@@ -104,6 +105,16 @@ def test_points_utils_copy():
             po, jo = p_pu.getOffsetBB(pb, off, **kw), j_pu.getOffsetBB(jb, off, **kw)
             np.testing.assert_array_equal(po.center, jo.center)
             np.testing.assert_array_equal(po.orientation.elements, jo.orientation.elements)
+        # the matching trackers' template: crop + centre one frame, or merge two
+        jcc, jcb = j_pu.cropAndCenterPC(JPC(pts.copy()), jb, offset=0.5, scale=1.25)
+        pcc, pcb = p_pu.cropAndCenterPC(PPC(pts.copy()), pb, offset=0.5, scale=1.25)
+        np.testing.assert_array_equal(pcc.points, jcc.points)
+        np.testing.assert_array_equal(pcb.center, jcb.center)
+        jb2, pb2 = _boxes(10 + k, n=1)[0]
+        jm, jmb = j_pu.getModel([JPC(pts.copy()), JPC(pts[:, ::-1].copy())], [jb, jb2], scale=2.0)
+        pm, pmb = p_pu.getModel([PPC(pts.copy()), PPC(pts[:, ::-1].copy())], [pb, pb2], scale=2.0)
+        np.testing.assert_array_equal(pm.points, jm.points)
+        np.testing.assert_array_equal(pmb.orientation.elements, jmb.orientation.elements)
 
 
 def test_iou_copy():
@@ -144,14 +155,17 @@ def test_synthetic_dataset_and_test_sampler_copy():
 
 
 def test_unported_datasets_and_models_are_refused():
+    """What the port does not run yet raises: the real datasets, the training
+    samplers, an unknown model."""
     from open3dsot_tpu_torch.models import get_model
 
-    cfg = p_config.make_config({"dataset": "kitti"})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p_get_dataset(cfg, "test", "test")
-    cfg = p_config.make_config({"dataset": "synthetic"})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p_get_dataset(cfg, "train_motion", "train")
-    for name in ("p2b", "bat"):
+    for name in ("kitti", "nuscenes", "waymo"):
+        cfg = p_config.make_config({"dataset": name})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model(name)
+            p_get_dataset(cfg, "test", "test")
+    cfg = p_config.make_config({"dataset": "synthetic"})
+    for kind in ("train_motion", "train_siamese"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            p_get_dataset(cfg, kind, "train")
+    with pytest.raises(ValueError, match="unknown model"):
+        get_model("votenet")

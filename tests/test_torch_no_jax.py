@@ -21,11 +21,21 @@ MODULES = [
     "open3dsot_tpu_torch.data.sampler",
     "open3dsot_tpu_torch.data.synthetic",
     "open3dsot_tpu_torch.ops._build",
+    "open3dsot_tpu_torch.ops._launch",
     "open3dsot_tpu_torch.ops.chain_fused",
+    "open3dsot_tpu_torch.ops.grouping",
+    "open3dsot_tpu_torch.ops.neighbors",
+    "open3dsot_tpu_torch.ops.sampling",
+    "open3dsot_tpu_torch.ops.sa_fused",
     "open3dsot_tpu_torch.models",
     "open3dsot_tpu_torch.models.layers",
     "open3dsot_tpu_torch.models.pointnet",
     "open3dsot_tpu_torch.models.m2track",
+    "open3dsot_tpu_torch.models.xcorr",
+    "open3dsot_tpu_torch.models.rpn",
+    "open3dsot_tpu_torch.models.matching_base",
+    "open3dsot_tpu_torch.models.bat",
+    "open3dsot_tpu_torch.models.p2b",
     "open3dsot_tpu_torch.weights",
     "open3dsot_tpu_torch.tracking.eval",
     "open3dsot_tpu_torch.main",
