@@ -28,7 +28,22 @@ Phases, one line or a few each; any failure exits non-zero:
   9. the BAT slice through its entry points: evaluate_dataset on the
      synthetic dataset at BAT_Car widths (both paths), a profiler window,
      and the CLI on cfgs/BAT_synthetic.yaml.
- 10. one JSON line of the kernels K1-K5, the card line, then the result line.
+ 10. printed last, after phase 13: one JSON line of the kernels K1-K6 (each
+     with its bound from this run's shapes), the card line, then the result
+     line.
+ 11. K6 (training-mode SA) forward and backward against their plain
+     versions at the four K6 calls of a BAT train step at BAT_Car widths, on
+     the inputs that step gives them (B = 16 and 50, and a ragged S); times
+     by events and by profiler device time.
+ 12. a BAT train step, kernel path vs plain path, both held against the plain
+     path in float64: losses, every gradient, the running statistics, and
+     the launches of one step (K3 = 2, K6 forward = 4, backward = 4); P2B
+     once (K3 = 0, K6 = 4 / 4).
+ 13. BAT training through its entry points: Trainer.fit at BAT_Car widths,
+     B = 50, on the synthetic dataset with validation on one tracklet
+     (steps/s, host sample building against the step, a profiler idle
+     share), then the training CLI on cfgs/BAT_synthetic.yaml in a
+     subprocess.
 
 Weights are random, made with numpy from a seed in the JAX tree's shape
 (open3dsot_tpu_torch.weights). Needs one card; no network.
@@ -59,6 +74,13 @@ ATOL_REL = 1e-4
 BOX_ATOL = 1e-3  # M2: two argmax gates and the rigid math; BAT/P2B: three SA layers,
                  # the xcorr and the vote SA before the proposal regression
 MATCHING_CFG = {"bat": "cfgs/BAT_Car.yaml", "p2b": "cfgs/P2B_Car.yaml"}
+TRAIN_B = 50  # batch_size of cfgs/BAT_Car.yaml
+# Published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): float32
+# outside the tensor cores, and HBM3. A kernel's bound is the larger of its
+# operations over the first and its bytes (each input read once, each output
+# written once) over the second.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def fail(msg: str) -> None:
@@ -144,6 +166,29 @@ def device_ms(fn, iters: int = 10):
     return None
 
 
+def bound_of(nbytes: float, flops: float):
+    """(least time in ms, "bytes" or "operations") for this much work."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_entry(name: str, source: str, replaces: str, launches: int, err: float,
+                 ms: float, plain_ms: float, work) -> dict:
+    """One entry of the kernels line; work = (bytes, operations) of the timed call."""
+    bound_ms, bound_by = bound_of(*work)
+    return {"name": name, "route": "cuda", "source": "open3dsot_tpu_torch/csrc/" + source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def chain_work(chain, B: int, N: int, c_in: int, out_elems: int):
+    """(bytes, operations) of a per-point Dense chain over B * N points."""
+    weights = sum(w.numel() + b.numel() for w, b in chain.layers)
+    flops = 2 * B * N * sum(w.shape[0] * w.shape[1] for w, _ in chain.layers)
+    return 4 * (B * N * c_in + weights + out_elems), flops
+
+
 def fmt_ms(t) -> str:
     return "not measured" if t is None else f"{t:.4f} ms"
 
@@ -171,10 +216,13 @@ def matching_cfg(name: str, **kw):
 
 
 def make_model(cfg, fused_eval: bool, variables=None):
+    """The model on the card; `fused_eval` False is the plain path (BAT/P2B:
+    no kernel in eval or in training)."""
     from open3dsot_tpu_torch.models import get_model
     from open3dsot_tpu_torch.weights import random_variables, state_dict_from_jax
 
-    model = get_model(cfg.net_model)(cfg, device="cuda", fused_eval=fused_eval)
+    kw = {} if cfg.net_model.lower() == "m2track" else {"fused_train": fused_eval}
+    model = get_model(cfg.net_model)(cfg, device="cuda", fused_eval=fused_eval, **kw)
     if variables is None:
         variables = random_variables(model.net, SEED)
     model.net.load_state_dict(state_dict_from_jax(variables), strict=True)
@@ -200,7 +248,7 @@ def main() -> None:
 
     # --- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    libs = load_libraries(["chain_fused", "fps", "sa_fused"])
+    libs = load_libraries(["chain_fused", "fps", "sa_fused", "sa_fused_train"])
     print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
     for lib in libs.values():
         print(f"  {lib.path.relative_to(ROOT)} in {lib.build_seconds:.1f} s "
@@ -328,19 +376,23 @@ def main() -> None:
     # --- 6.-9. the BAT/P2B matching path ----------------------------------
     matching_kernels = matching_phases(card)
 
+    # --- 11.-13. BAT/P2B training -----------------------------------------
+    training_kernels = training_phases(card)
+
     # --- 10. results ------------------------------------------------------
+    c_tap, c_pool = chain1.widths[2], chain1.widths[-1]
+    k2_first = chain2.weights[0].shape[1]
+    k2_work = (4 * (n * c_tap + c_pool + sum(w.numel() + b.numel() for w, b in chain2.layers)
+                    + n * chain2.widths[-1]),
+               2 * n * (c_tap * k2_first + sum(w.shape[0] * w.shape[1] for w in chain2.weights[1:]))
+               + 2 * c_pool * k2_first)
     kernels = [
-        {"name": "K1 fused_pointnet_encoder", "route": "cuda",
-         "source": "open3dsot_tpu_torch/csrc/chain_fused.cu",
-         "replaces": "open3dsot_tpu/ops/chain_fused.py:150", "launches": k1_launches,
-         "max_abs_err": errs["K1"], "ms": times[("K1 seg mlp1 tap", 1)][0],
-         "plain_ms": times[("K1 seg mlp1 tap", 1)][1]},
-        {"name": "K2 fused_seg_head", "route": "cuda",
-         "source": "open3dsot_tpu_torch/csrc/chain_fused.cu",
-         "replaces": "open3dsot_tpu/ops/chain_fused.py:217", "launches": k2_launches,
-         "max_abs_err": errs["K2"], "ms": times[("K2 seg head", 1)][0],
-         "plain_ms": times[("K2 seg head", 1)][1]},
-    ] + matching_kernels
+        kernel_entry("K1 fused_pointnet_encoder", "chain_fused.cu",
+                     "open3dsot_tpu/ops/chain_fused.py:150", k1_launches, errs["K1"],
+                     *times[("K1 seg mlp1 tap", 1)], chain_work(chain1, 1, n, 14, n * c_tap + c_pool)),
+        kernel_entry("K2 fused_seg_head", "chain_fused.cu", "open3dsot_tpu/ops/chain_fused.py:217",
+                     k2_launches, errs["K2"], *times[("K2 seg head", 1)], k2_work),
+    ] + matching_kernels + training_kernels
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -424,6 +476,7 @@ def check_k4_k5(calls, card: str):
     from open3dsot_tpu_torch.ops.neighbors import ball_query
 
     errs = {"K4": 0.0, "K5": 0.0}
+    work = {"K4": [0, 0], "K5": [0, 0]}  # (bytes, operations) of one forward's calls at B = 1
     sums = {1: [0.0, 0.0, 0.0], 16: [0.0, 0.0, 0.0]}  # K4, K5, plain over one forward's calls
     dev_sums = {1: [0.0, 0.0, 0.0], 16: [0.0, 0.0, 0.0]}  # the same in device time
     for label, mod, xyz16, feats16, new16 in calls:
@@ -434,6 +487,17 @@ def check_k4_k5(calls, card: str):
             feats = None if feats16 is None else feats16[:B].contiguous()
             shape = (f"{label} B={B} S={new.shape[1]} K={K} N={xyz.shape[1]} "
                      f"C={0 if feats is None else feats.shape[2]}->{folded[-1][0].shape[1]}")
+            if B == 1:
+                N, S, C = xyz.shape[1], new.shape[1], 0 if feats is None else feats.shape[2]
+                (w1, _), (w2, _), (w3, _) = folded
+                c1, c2, c3 = w1.shape[1], w2.shape[1], w3.shape[1]
+                nbytes = 4 * (N * (3 + C) + S * 3 + sum(w.numel() + b.numel() for w, b in folded)
+                              + S * c3)
+                flops = 2 * N * w1.shape[0] * c1 + 2 * S * K * (c1 * c2 + c2 * c3)
+                work["K4"][0] += nbytes
+                work["K4"][1] += flops + 8 * S * N  # the ball query's squared distances
+                work["K5"][0] += nbytes + 4 * S * K  # the indices
+                work["K5"][1] += flops
             k4 = saf.fused_sa_apply(xyz, feats, new, None, folded, nsample=K, **kw)
             want = saf.sa_eval_plain(xyz, feats, new, None, folded, nsample=K, **kw)
             idx = ball_query(mod.radius, K, xyz, new)
@@ -470,7 +534,7 @@ def check_k4_k5(calls, card: str):
               f"plain {t_p:.4f} ms; device time K4 {fmt_ms(d_4)} K5 {fmt_ms(d_5)} plain "
               f"{fmt_ms(d_p)} [{card}]", flush=True)
     print("phase 7 ok: K4 and K5 within tolerance at every SA call of the BAT path", flush=True)
-    return errs, sums
+    return errs, sums, work
 
 
 def reset_matching_counts() -> None:
@@ -532,7 +596,7 @@ def matching_phases(card: str) -> list:
     sampler = get_dataset(cfg, "test", "test")
     frames = matching_frames(model, sampler, 16)
     batch16 = {k: np.concatenate([f[k] for f in frames]) for k in frames[0]}
-    errs, sa_sums = check_k4_k5(sa_calls(plain_model, batch16), card)
+    errs, sa_sums, sa_work = check_k4_k5(sa_calls(plain_model, batch16), card)
 
     for B, batch in ((1, frames[0]), (16, batch16)):
         check_matching_forward(model, plain_model, batch, f"BAT B={B}", (2, 7, 0), card)
@@ -582,17 +646,443 @@ def matching_phases(card: str) -> list:
         fail(f"BAT CLI eval failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
     print("phase 9 ok", flush=True)
 
-    src = "open3dsot_tpu_torch/csrc/"
+    n, S = 1024, 512  # K3's timed call: B = 1, N 1024 -> 512
+    k3_work = (4 * (n * 3 + S), 9 * (S - 1) * n)  # per step and point: 3 sub, 3 mul, 2 add, min
     return [
-        {"name": "K3 furthest_point_sample", "route": "cuda", "source": src + "fps.cu",
-         "replaces": "open3dsot_tpu/ops/fps_pallas.py:69", "launches": launches[0],
-         "max_abs_err": 0.0, "ms": k3_times[(1, 1024)][0], "plain_ms": k3_times[(1, 1024)][1]},
-        {"name": "K4 fused_sa_apply (ball query)", "route": "cuda", "source": src + "sa_fused.cu",
-         "replaces": "open3dsot_tpu/ops/sa_fused.py:384", "launches": launches[1],
-         "max_abs_err": errs["K4"], "ms": sa_sums[1][0], "plain_ms": sa_sums[1][2]},
-        {"name": "K5 fused_sa_apply (idx given)", "route": "cuda", "source": src + "sa_fused.cu",
-         "replaces": "open3dsot_tpu/ops/sa_fused.py:415", "launches": launches[2],
-         "max_abs_err": errs["K5"], "ms": sa_sums[1][1], "plain_ms": sa_sums[1][2]},
+        kernel_entry("K3 furthest_point_sample", "fps.cu", "open3dsot_tpu/ops/fps_pallas.py:69",
+                     launches[0], 0.0, *k3_times[(1, 1024)], k3_work),
+        kernel_entry("K4 fused_sa_apply (ball query)", "sa_fused.cu",
+                     "open3dsot_tpu/ops/sa_fused.py:384", launches[1], errs["K4"], sa_sums[1][0],
+                     sa_sums[1][2], sa_work["K4"]),
+        kernel_entry("K5 fused_sa_apply (idx given)", "sa_fused.cu",
+                     "open3dsot_tpu/ops/sa_fused.py:415", launches[2], errs["K5"], sa_sums[1][1],
+                     sa_sums[1][2], sa_work["K5"]),
+    ]
+
+
+def train_batch(cfg, B: int, seed: int) -> dict:
+    """B samples of the siamese training sampler, collated (numpy)."""
+    import numpy as np
+
+    from open3dsot_tpu_torch.data import get_dataset
+    from open3dsot_tpu_torch.data.loader import collate
+
+    np.random.seed(seed)
+    sampler = get_dataset(cfg, "train_siamese", "train")
+    return collate([sampler[i] for i in range(B)])
+
+
+def training_counts():
+    from open3dsot_tpu_torch.ops import sa_fused, sa_fused_train, sampling
+
+    k6 = sa_fused_train.fused_sa_train_apply
+    return (sampling.furthest_point_sample.launches, k6.fwd_launches, k6.bwd_launches,
+            sa_fused.fused_sa_apply.launches)
+
+
+def reset_training_counts() -> None:
+    from open3dsot_tpu_torch.ops import sa_fused_train
+
+    reset_matching_counts()
+    sa_fused_train.reset_launch_counts()
+
+
+def k6_calls(plain_model, batch) -> list:
+    """(label, layer, xyz, features, new_xyz) of each K6 call of one training
+    forward: SA layers 2-3 of the backbone, template then search."""
+    import torch
+
+    backbone = plain_model.net.backbone
+    calls, hooks = [], []
+
+    def record(mod, args, out):
+        cloud = "template" if len(calls) < 2 else "search"
+        label = f"{cloud} SA{1 if mod is backbone.sa1 else 2}"
+        calls.append((label, mod, args[0].detach().contiguous(), args[1].detach().contiguous(),
+                      out[0].detach().contiguous()))
+
+    for mod in (backbone.sa1, backbone.sa2):
+        hooks.append(mod.register_forward_hook(record))
+    with torch.no_grad():
+        plain_model.apply_train(plain_model.device_batch(batch))
+    for h in hooks:
+        h.remove()
+    if len(calls) != 4:
+        fail(f"a BAT training forward made {len(calls)} K6-eligible SA calls, expected 4")
+    return calls
+
+
+def k6_work(B: int, N: int, S: int, K: int, c1: int, c2: int, c3: int):
+    """((bytes, operations) forward, (bytes, operations) backward) of one K6 call."""
+    R, cs = B * S * K, c1 + c2 + c3
+    params = c1 * c2 + c2 + c2 * c3 + c3 + 2 * cs
+    fwd = (4 * (B * N * c1 + B * S * c1 + B * S * K + params + B * S * c3 + 2 * cs),
+           2 * R * (c1 * c2 + c2 * c3) + 6 * R * cs + R * (c1 + c3))
+    # the backward reads the forward's pre-BN grids and statistics
+    bwd = (4 * (B * S * c3 + B * S * K + R * cs + 2 * cs + params
+                + B * N * c1 + B * S * c1 + c1 * c2 + c2 * c3 + 2 * cs),
+           4 * R * (c1 * c2 + c2 * c3) + 12 * R * cs)
+    return fwd, bwd
+
+
+def check_k6(calls, card: str):
+    """K6 forward and backward against their plain versions at each call's
+    inputs; the backward of both takes the plain forward's grids and
+    statistics, so both see the same maxima, ties and ReLU masks."""
+    import torch
+
+    from open3dsot_tpu_torch.ops import sa_fused_train as k6
+    from open3dsot_tpu_torch.ops.neighbors import ball_query
+    from open3dsot_tpu_torch.ops.sa_fused import a_form
+
+    gen = torch.Generator(device=calls[0][2].device).manual_seed(SEED)
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    sums = {B: [0.0] * 4 for B in (16, TRAIN_B)}  # events: fwd kernel, plain, bwd kernel, plain
+    dev = {B: [0.0] * 4 for B in (16, TRAIN_B)}  # the same in device time
+    work = {B: [[0, 0], [0, 0]] for B in (16, TRAIN_B)}
+
+    def one(label, mod, xyz, feats, new, B, timed=True):
+        layers = list(mod.mlp_shared.children())
+        w2, w3 = (l.dense.weight.detach().t().contiguous() for l in layers[1:])
+        b2, b3 = (l.dense.bias.detach() for l in layers[1:])
+        bn = [p.detach() for l in layers for p in (l.bn.weight, l.bn.bias)]
+        idx = ball_query(mod.radius, mod.nsample, xyz, new)
+        inv_r = 1.0 / mod.radius if mod.normalize_xyz else 1.0
+        a, ct = a_form(xyz, feats, new, layers[0].dense.weight.detach().t(),
+                       layers[0].dense.bias.detach(), inv_r=inv_r, use_xyz=mod.use_xyz)
+        N, S, K = xyz.shape[1], new.shape[1], idx.shape[2]
+        c1, c2, c3 = a.shape[2], w2.shape[1], w3.shape[1]
+        shape = f"{label} B={B} N={N} S={S} K={K} C={c1},{c2},{c3}"
+        out_k, st_k, _ = k6.sa_train_fwd_kernel(a, ct, idx, w2, b2, w3, b3, bn)
+        out_p, st_p, grids = k6.sa_train_fwd_plain(a, ct, idx, w2, b2, w3, b3, bn)
+        g = torch.randn(B, S, c3, device=a.device, generator=gen)
+        bwd_k = k6.sa_train_bwd_kernel(g, idx, grids, st_p, w2, w3, bn, N)
+        bwd_p = k6.sa_train_bwd_plain(g, idx, grids, st_p, w2, w3, bn, N)
+        torch.cuda.synchronize()
+        errs["fwd"] = max(errs["fwd"], compare(f"K6 fwd {shape} out", out_k, out_p))
+        for i, (x, y) in enumerate(zip(st_k, st_p)):
+            what = ("mean", "var")[i % 2]
+            errs["fwd"] = max(errs["fwd"], compare(f"K6 fwd {shape} {what}{i // 2 + 1}", x, y))
+        for name, x, y in (("da", bwd_k[0], bwd_p[0]), ("dct", bwd_k[1], bwd_p[1]),
+                           ("dW2", bwd_k[2], bwd_p[2]), ("dW3", bwd_k[3], bwd_p[3]),
+                           ("dgamma,dbeta", torch.cat(bwd_k[4]), torch.cat(bwd_p[4]))):
+            errs["bwd"] = max(errs["bwd"], compare(f"K6 bwd {shape} {name}", x, y))
+        if not timed:
+            return
+        fns = (lambda: k6.sa_train_fwd_kernel(a, ct, idx, w2, b2, w3, b3, bn),
+               lambda: k6.sa_train_fwd_plain(a, ct, idx, w2, b2, w3, b3, bn),
+               lambda: k6.sa_train_bwd_kernel(g, idx, grids, st_p, w2, w3, bn, N),
+               lambda: k6.sa_train_bwd_plain(g, idx, grids, st_p, w2, w3, bn, N))
+        t = [time_ms(f, iters=5, repeats=5) for f in fns]
+        t2 = [time_ms(f, iters=5, repeats=5) for f in reversed(fns)][::-1]
+        t = [min(x, y) for x, y in zip(t, t2)]
+        d = [device_ms(f, iters=3) for f in fns]
+        for i in range(4):
+            sums[B][i] += t[i]
+            dev[B][i] = None if d[i] is None or dev[B][i] is None else dev[B][i] + d[i]
+        for i, w in enumerate(k6_work(B, N, S, K, c1, c2, c3)):
+            work[B][i][0] += w[0]
+            work[B][i][1] += w[1]
+        print(f"  time {shape}: fwd kernel {t[0]:.4f} ms plain {t[1]:.4f} ms, bwd kernel "
+              f"{t[2]:.4f} ms plain {t[3]:.4f} ms; device time fwd {fmt_ms(d[0])} / "
+              f"{fmt_ms(d[1])}, bwd {fmt_ms(d[2])} / {fmt_ms(d[3])} [{card}]", flush=True)
+
+    with torch.no_grad():
+        for label, mod, xyz_all, feats_all, new_all in calls:
+            for B in (16, TRAIN_B):
+                one(label, mod, xyz_all[:B].contiguous(), feats_all[:B].contiguous(),
+                    new_all[:B].contiguous(), B)
+        # a ragged centroid count
+        label, mod, xyz, feats, new = calls[2]
+        one(f"{label} ragged", mod, xyz[:16].contiguous(), feats[:16].contiguous(),
+            new[:16, :new.shape[1] - 3].contiguous(), 16, timed=False)
+    for B in (16, TRAIN_B):
+        fb, fo = bound_of(*work[B][0])
+        bb, bo = bound_of(*work[B][1])
+        print(f"  K6 over one BAT train step's 4 calls, B={B}: fwd kernel {sums[B][0]:.4f} ms plain "
+              f"{sums[B][1]:.4f} ms (device {fmt_ms(dev[B][0])} / {fmt_ms(dev[B][1])}; bound "
+              f"{fb:.4f} ms by {fo}), bwd kernel {sums[B][2]:.4f} ms plain {sums[B][3]:.4f} ms "
+              f"(device {fmt_ms(dev[B][2])} / {fmt_ms(dev[B][3])}; bound {bb:.4f} ms by {bo}) "
+              f"[{card}]", flush=True)
+    print("phase 11 ok: K6 forward and backward within tolerance at every K6 call of a BAT "
+          "train step", flush=True)
+    return errs, sums, work
+
+
+def rel_err(x, want, floor: float = 0.0) -> float:
+    """|x - want| / max(|want|, floor, 1e-6 per element) over a whole tensor."""
+    import torch
+
+    floor = max(floor, 1e-6 * want.numel() ** 0.5)
+    return (torch.linalg.vector_norm(x - want) / max(torch.linalg.vector_norm(want).item(),
+                                                      floor)).item()
+
+
+def train_step_state(model, batch, state):
+    """Activations (the backbone's features, the xcorr's output), loss terms,
+    gradients and running statistics of one train step from `state`."""
+    import torch
+
+    model.net.load_state_dict(state)
+    model.net.zero_grad(set_to_none=True)
+    acts = {}
+
+    def keep(name):
+        def hook(mod, args, out):
+            out = out[1] if isinstance(out, tuple) else out
+            acts[f"act {name} {len(acts)}"] = out.detach().double()
+        return hook
+
+    hooks = [model.net.backbone.register_forward_hook(keep("backbone features")),
+             model.net.xcorr.register_forward_hook(keep("xcorr"))]
+    losses = model.loss(batch, model.apply_train(batch))
+    for h in hooks:
+        h.remove()
+    losses["loss_total"].backward()
+    torch.cuda.synchronize()
+    out = dict(acts)
+    out.update({f"loss {k}": v.detach().double().reshape(1) for k, v in losses.items()})
+    out.update({f"grad {k}": p.grad.detach().double() for k, p in model.net.named_parameters()})
+    out.update({f"stat {k}": b.detach().double() for k, b in model.net.named_buffers()
+                if "running" in k})
+    return out
+
+
+def backbone_grads(model, batch, state, weights):
+    """Gradients of the backbone's parameters for sum(features * w) over both
+    clouds, from `state`: a smooth objective through the four K6 calls."""
+    model.net.load_state_dict(state)
+    model.net.train()
+    model.net.zero_grad(set_to_none=True)
+    total = 0.0
+    for key, w in weights.items():
+        n = batch[key].shape[1]
+        _, feats, _ = model.net.backbone(batch[key], [n // 2, n // 4, n // 8])
+        total = total + (feats * w.to(feats.dtype)).sum()
+    total.backward()
+    return {f"backbone grad {k}": p.grad.detach().double()
+            for k, p in model.net.backbone.named_parameters()}
+
+
+def check_train_step(name: str, B: int, want_launches, card: str, timed: bool) -> None:
+    """One train step on the kernel path and on the plain path, both held
+    against the plain path in float64 (same weights and batch; FPS and the
+    ball queries take float32 distances on every path, so the same points).
+
+    The backbone's features, the xcorr's output, the loss terms and the
+    running statistics are continuous in the weights: each must stay within
+    4x the plain float32 path's relative error from float64, or 1e-3.
+
+    Gradients are far less well conditioned on this data: the synthetic
+    search crops hold about 180 distinct points, so regularize_pc repeats
+    most of the 1024 (seen: 836-844 repeats per cloud), and the SA maxima
+    and BatchNorms see masses of exact and near ties. The backbone's
+    gradients of a smooth objective (sum(features * w), through the four K6
+    calls) came out 8.6e-4 to 4.8e-3 from float64, all together, on the
+    float32 paths with and without the kernel (BAT and P2B at B = 16 on an
+    H100), and up to 1.1e-2 for one tensor; each must stay within 4x the
+    plain path's error or 2e-2, all together within 4x or 1e-2. The loss's gradients add
+    discontinuities: the vote layer's ball query on computed vote positions
+    and the max over the template (P2B: 64 points) resolve near-ties either
+    way, each flip sending a row's gradient elsewhere (seen: 6.5e-2 on one
+    path, 6.1e-3 on the other, every activation within 1e-5 of float64). So
+    the loss's whole gradient must stay within 4x the plain path's or 0.1.
+    """
+    import torch
+
+    cfg = matching_cfg(name)
+    kern, variables = make_model(cfg, fused_eval=True)
+    plain, _ = make_model(cfg, fused_eval=False, variables=variables)
+    state = {k: v.clone() for k, v in kern.net.state_dict().items()}
+    batch = kern.device_batch(train_batch(cfg, B, SEED))
+    n = batch["search_points"].shape[1]
+    repeats = [n - torch.unique(c, dim=0).shape[0] for c in batch["search_points"][:4]]
+    print(f"  {name.upper()} B={B}: repeated search points in the first clouds: {repeats} of {n}")
+    reset_training_counts()
+    got = train_step_state(kern, batch, state)
+    launches = training_counts()
+    print(f"  {name.upper()} B={B}: one train step launched K3 {launches[0]}, K6 forward "
+          f"{launches[1]}, backward {launches[2]}, K4 {launches[3]}", flush=True)
+    if launches != want_launches:
+        fail(f"{name} train step: launches {launches}, expected K3/K6 fwd/K6 bwd/K4 = "
+             f"{want_launches}")
+    ref = train_step_state(plain, batch, state)
+    plain.net.double()
+    truth = train_step_state(plain, {k: v.double() for k, v in batch.items()}, state)
+    plain.net.float()
+    dev = batch["search_points"].device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    weights = {k: torch.randn(B, batch[k].shape[1] // 8, 256, device=dev, generator=gen)
+               for k in ("template_points", "search_points")}
+    reset_training_counts()
+    got.update(backbone_grads(kern, batch, state, weights))
+    if training_counts()[1:3] != (4, 4):
+        fail(f"{name}: the backbone alone launched K6 {training_counts()[1:3]}, expected 4 / 4")
+    ref.update(backbone_grads(plain, batch, state, weights))
+    plain.net.double()
+    truth.update(backbone_grads(plain, {k: v.double() for k, v in batch.items()}, state, weights))
+    plain.net.float()
+    for k, v in got.items():
+        if not torch.isfinite(v).all():
+            fail(f"{name} train step: {k} not finite on the kernel path")
+    grads = [k for k in truth if k.startswith("grad ")]
+    e_k = rel_err(torch.cat([got[k].reshape(-1) for k in grads]),
+                  torch.cat([truth[k].reshape(-1) for k in grads]))
+    e_p = rel_err(torch.cat([ref[k].reshape(-1) for k in grads]),
+                  torch.cat([truth[k].reshape(-1) for k in grads]))
+    # a gradient is measured against at least 1e-3 of the largest one of its
+    # objective: the Dense biases that feed a BatchNorm have gradient 0 in
+    # exact arithmetic, and float32 leaves noise there on every path
+    def group(k):
+        return k.split(" ")[0] if k.startswith("grad ") else " ".join(k.split(" ")[:2])
+
+    floors = {}
+    for k in truth:
+        if "grad" in k:
+            floors[group(k)] = max(floors.get(group(k), 0.0),
+                                   1e-3 * torch.linalg.vector_norm(truth[k]).item())
+    rows = sorted(((rel_err(got[k], truth[k], floors.get(group(k), 0.0)),
+                    rel_err(ref[k], truth[k], floors.get(group(k), 0.0)), k) for k in truth),
+                  reverse=True)
+    def limit(k, ep):
+        return max(4 * ep, 2e-2 if k.startswith("backbone grad ") else 1e-3)
+
+    bad = [k for ek, ep, k in rows if not k.startswith("grad ") and ek > limit(k, ep)]
+    bb = [k for k in truth if k.startswith("backbone grad ")]
+    b_k, b_p = (rel_err(torch.cat([x[k].reshape(-1) for k in bb]),
+                        torch.cat([truth[k].reshape(-1) for k in bb])) for x in (got, ref))
+    for ek, ep, k in rows[:4]:
+        print(f"  {name.upper()} B={B} {k}: rel err vs float64 kernel path {ek:.3e} plain path "
+              f"{ep:.3e}")
+    for what in ("backbone grad", "act", "loss", "stat"):
+        ek, ep, k = next(r for r in rows if r[2].startswith(what))
+        print(f"  {name.upper()} B={B} worst {what}: {k} kernel path {ek:.3e} plain path {ep:.3e}")
+    print(f"  {name.upper()} B={B}: rel err vs float64 of all backbone gradients together: "
+          f"kernel path {b_k:.3e} plain path {b_p:.3e}; of the loss's gradients together: "
+          f"kernel path {e_k:.3e} plain path {e_p:.3e}; {len(rows)} tensors", flush=True)
+    if bad:
+        fail(f"{name} train step: {bad[:5]} further from float64 than their bounds")
+    if b_k > max(4 * b_p, 1e-2):
+        fail(f"{name} train step: the backbone gradient is {b_k:.3e} from float64 (plain path "
+             f"{b_p:.3e})")
+    if e_k > max(4 * e_p, 0.1):
+        fail(f"{name} train step: the gradient is {e_k:.3e} from float64 (plain path {e_p:.3e})")
+    if timed:
+        def step(model):
+            model.net.zero_grad(set_to_none=True)
+            model.loss(batch, model.apply_train(batch))["loss_total"].backward()
+
+        t_k = time_ms(lambda: step(kern), iters=3, repeats=3)
+        t_p = time_ms(lambda: step(plain), iters=2, repeats=2)
+        print(f"  time {name.upper()} B={B} forward+backward: kernel path {t_k:.4f} ms plain path "
+              f"{t_p:.4f} ms [{card}]", flush=True)
+
+
+def check_trainer(card: str) -> tuple:
+    """Trainer.fit at BAT_Car widths, B = 50, two epochs of four steps with
+    validation on one tracklet; returns the launches of the fit run."""
+    import numpy as np
+    import torch
+
+    from open3dsot_tpu_torch.data import get_dataset
+    from open3dsot_tpu_torch.train.optim import make_optimizer
+    from open3dsot_tpu_torch.train.trainer import Trainer, train_step
+
+    cfg = matching_cfg("bat", syn_num_tracklets=8, tensorboard=False)
+    model, _ = make_model(cfg, fused_eval=True)
+    sampler = get_dataset(cfg, "train_siamese", "train")
+    t0 = time.perf_counter()
+    host = train_batch(cfg, TRAIN_B, SEED)
+    host_s = time.perf_counter() - t0
+    batch = model.device_batch(host)
+    optimizer, scheduler = make_optimizer(cfg, model.net.parameters(), 100)
+    for _ in range(2):
+        train_step(model, optimizer, batch, scheduler)
+    torch.cuda.synchronize()
+    steps = 5
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        train_step(model, optimizer, batch, scheduler)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    rows = device_rows(lambda: [train_step(model, optimizer, batch, scheduler) for _ in range(3)])
+    busy_s = sum(dev_us(e) for e in rows) / 3 / 1e6
+    idle = f"{1 - busy_s / step_s:.3f}" if busy_s > 0 else "not measured"
+    print(f"train step B={TRAIN_B} at BAT_Car widths: {step_s * 1e3:.4f} ms per step "
+          f"({1 / step_s:.3f} steps/s, {TRAIN_B / step_s:.2f} samples/s) on a prebuilt batch; "
+          f"host sample building {host_s * 1e3:.4f} ms per batch of {TRAIN_B}; device busy "
+          f"{busy_s * 1e3:.4f} ms per step, idle share {idle} [{card}]", flush=True)
+    for e in sorted(rows, key=lambda e: -dev_us(e))[:8]:
+        print(f"  {dev_us(e) / 3:10.0f} us per step {e.count // 3:5d}x  {e.key[:80]}")
+
+    val = get_dataset(matching_cfg("bat", syn_num_tracklets=1), "test", "test")
+    work_dir = ROOT / "runs" / "chip_smoke_fit"
+    reset_training_counts()
+    history = Trainer(model, cfg, work_dir=str(work_dir)).fit(sampler, val, epochs=2,
+                                                               steps_per_epoch=4)
+    torch.cuda.synchronize()
+    launches = training_counts()
+    last = history[-1]
+    n2 = last["steps"] - history[0]["steps"]  # steps of epoch 2
+    print(f"fit: {last['steps']} steps of B={TRAIN_B}, losses {[h['loss'] for h in history]}; "
+          f"epoch 2: {n2 / last['time_s']:.3f} steps/s, {n2 * TRAIN_B / last['time_s']:.2f} "
+          f"samples/s, waiting for the loader {last['data_wait_s']:.4f} of {last['time_s']:.4f} s; "
+          f"validation success {last['success']:.4f} precision {last['precision']:.4f} [{card}]",
+          flush=True)
+    print(f"launches in the fit run: K3 {launches[0]} K6 forward {launches[1]} backward "
+          f"{launches[2]} K4 {launches[3]}", flush=True)
+    if not all(np.isfinite(h["loss"]) for h in history):
+        fail("fit: a loss is not finite")
+    for f in ("ckpt_best.pt", "ckpt_last.pt", "ckpt_meta.json", "history.jsonl"):
+        if not (work_dir / f).is_file():
+            fail(f"fit: {f} not written")
+    if launches[1] != 4 * 8 or launches[2] != 4 * 8 or launches[0] == 0 or launches[3] == 0:
+        fail("fit: expected K6 4 forward and 4 backward launches per step, and K3/K4 launches")
+    # the same epoch with the samples built by the loader's one background
+    # thread alone: does the thread pool slow the training loop?
+    serial = cfg.copy()
+    serial.workers = 0
+    t_one = Trainer(model, serial, work_dir=str(work_dir / "workers0")).fit(
+        sampler, None, epochs=1, steps_per_epoch=4)[-1]
+    print(f"fit with workers 0 (one loader thread): {t_one['steps'] / t_one['time_s']:.3f} steps/s, "
+          f"waiting for the loader {t_one['data_wait_s']:.4f} of {t_one['time_s']:.4f} s; with "
+          f"workers {cfg.workers}: {n2 / last['time_s']:.3f} steps/s [{card}]", flush=True)
+    if not np.isfinite(t_one["loss"]):
+        fail("fit with workers 0: the loss is not finite")
+    return launches
+
+
+def training_phases(card: str) -> list:
+    """Phases 11-13; returns the K6 entries of the kernels line."""
+    cfg = matching_cfg("bat")
+    _, variables = make_model(cfg, fused_eval=True)
+    plain, _ = make_model(cfg, fused_eval=False, variables=variables)
+    errs, sums, work = check_k6(k6_calls(plain, train_batch(cfg, TRAIN_B, SEED)), card)
+    del plain
+
+    check_train_step("bat", 16, (2, 4, 4, 0), card, timed=True)
+    check_train_step("p2b", 16, (0, 4, 4, 0), card, timed=False)
+    print("phase 12 ok: BAT/P2B train step kernel path within bounds of float64 beside the plain "
+          "path; BAT K3 x2, K6 x4 / x4 per step", flush=True)
+
+    launches = check_trainer(card)
+    cli = [sys.executable, "-m", "open3dsot_tpu_torch.main", "--cfg", "cfgs/BAT_synthetic.yaml",
+           "--epoch", "1", "--device", "cuda", "--log_dir", str(ROOT / "runs" / "chip_smoke_cli")]
+    proc = subprocess.run(cli, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    print(f"cli (BAT training): exit {proc.returncode}: {last}", flush=True)
+    if proc.returncode != 0 or not last.startswith("trained "):
+        fail(f"BAT CLI training failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    print("phase 13 ok", flush=True)
+
+    replaces = "open3dsot_tpu/ops/sa_fused_train.py:608-776"
+    return [
+        kernel_entry("K6 fused_sa_train_apply (forward)", "sa_fused_train.cu", replaces,
+                     launches[1], errs["fwd"], sums[TRAIN_B][0], sums[TRAIN_B][1],
+                     work[TRAIN_B][0]),
+        kernel_entry("K6 fused_sa_train_apply (backward)", "sa_fused_train.cu", replaces,
+                     launches[2], errs["bwd"], sums[TRAIN_B][2], sums[TRAIN_B][3],
+                     work[TRAIN_B][1]),
     ]
 
 

@@ -1,7 +1,8 @@
 """Dataset factory (port of `open3dsot_tpu/data/__init__.py`).
 
-Only the synthetic dataset with the eval (`test`) sampler is ported so far;
-every other dataset or sampler type raises NotImplementedError.
+Only the synthetic dataset is ported so far, with the eval (`test`) and the
+siamese training (`train_siamese`) samplers; every other dataset or sampler
+type raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -13,9 +14,10 @@ def get_dataset(config, type: str = "test", split: str = "test", **kwargs):
     name = getattr(config, "dataset", "kitti").lower()
     if name != "synthetic":
         raise NotImplementedError(f"dataset {name!r} is {_TODO}")
-    if type.lower() != "test":
-        raise NotImplementedError(f"dataset type {type!r} (training) is {_TODO}")
-    from open3dsot_tpu_torch.data.sampler import TestTrackingSampler
+    type_l = type.lower()
+    if type_l not in ("test", "train_siamese"):
+        raise NotImplementedError(f"dataset type {type!r} is {_TODO}")
+    from open3dsot_tpu_torch.data.sampler import PointTrackingSampler, TestTrackingSampler
     from open3dsot_tpu_torch.data.synthetic import SyntheticDataset
 
     data = SyntheticDataset(
@@ -25,4 +27,11 @@ def get_dataset(config, type: str = "test", split: str = "test", **kwargs):
         seed=getattr(config, "seed", 42),
         up_axis=getattr(config, "up_axis", (0, 0, 1)),
     )
+    if type_l == "train_siamese":
+        return PointTrackingSampler(
+            dataset=data,
+            random_sample=getattr(config, "random_sample", False),
+            sample_per_epoch=getattr(config, "sample_per_epoch", 10000),
+            config=config,
+        )
     return TestTrackingSampler(dataset=data, config=config)

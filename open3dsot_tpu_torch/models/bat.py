@@ -13,7 +13,13 @@ import torch
 import torch.nn as nn
 
 from open3dsot_tpu_torch.models.layers import MLP, resolve_device
-from open3dsot_tpu_torch.models.matching_base import MatchingEvalMixin
+from open3dsot_tpu_torch.models.losses import smooth_l1
+from open3dsot_tpu_torch.models.matching_base import (
+    MatchingEvalMixin,
+    matching_loss,
+    matching_total_loss,
+    refuse_bf16,
+)
 from open3dsot_tpu_torch.models.pointnet import PointnetBackbone
 from open3dsot_tpu_torch.models.rpn import P2BVoteNetRPN
 from open3dsot_tpu_torch.models.xcorr import BoxAwareXCorr
@@ -25,11 +31,13 @@ class BATNet(nn.Module):
                  out_channel: int = 256, vote_channel: int = 256, num_proposal: int = 64,
                  k: int = 4, bc_channel: int = 9, use_search_bc: bool = False,
                  use_search_feature: bool = False, use_fps: bool = True,
-                 normalize_xyz: bool = False, fused_eval: bool = True, device=None):
+                 normalize_xyz: bool = False, fused_eval: bool = True, fused_train: bool = True,
+                 device=None):
         super().__init__()
         f = feature_channel
         self.backbone = PointnetBackbone(use_fps=use_fps, normalize_xyz=normalize_xyz,
-                                         fused_eval=fused_eval, device=device)
+                                         fused_eval=fused_eval, fused_train=fused_train,
+                                         device=device)
         self.conv_final = nn.Linear(PointnetBackbone.OUT_CHANNELS, f, device=device)
         self.mlp_bc = MLP(3 + f, [f, f, bc_channel], final_plain=True, device=device)
         self.xcorr = BoxAwareXCorr(f, hidden_channel, out_channel, k=k, bc_channel=bc_channel,
@@ -65,13 +73,16 @@ class BATNet(nn.Module):
 
 
 class BATModel(MatchingEvalMixin):
-    """The net on `device` (eval mode) and the matching eval input building,
-    with the template BoxCloud channel (reference bat.py:41-55)."""
+    """The net on `device` (the card unless the caller asks for the CPU) and
+    the matching input building, with the template BoxCloud channel
+    (reference bat.py:41-55). `fused_eval`: K3/K4 in eval; `fused_train`:
+    K6 in training (FPS stays K3 with `fused_eval`)."""
 
     name = "bat"
     input_keys = ("template_points", "search_points", "points2cc_dist_t")
 
-    def __init__(self, config, device="cpu", fused_eval: bool = True):
+    def __init__(self, config, device="cuda", fused_eval: bool = True, fused_train: bool = True):
+        refuse_bf16(config)
         self.config = config
         self.device = resolve_device(device)
         self.net = BATNet(
@@ -87,15 +98,29 @@ class BATModel(MatchingEvalMixin):
             use_fps=getattr(config, "use_fps", True),
             normalize_xyz=getattr(config, "normalize_xyz", False),
             fused_eval=fused_eval,
+            fused_train=fused_train,
             device=self.device,
         ).eval()
 
     def dummy_batch(self, batch_size: int = 2) -> dict:
         batch = super().dummy_batch(batch_size)
         bc = getattr(self.config, "bc_channel", 9)
-        batch["points2cc_dist_t"] = np.zeros((batch_size, self.config.template_size, bc),
-                                             np.float32)
+        for key, n in (("points2cc_dist_t", self.config.template_size),
+                       ("points2cc_dist_s", self.config.search_size)):
+            batch[key] = np.zeros((batch_size, n, bc), np.float32)
         return batch
+
+    def loss(self, batch: dict, output: dict) -> dict:
+        """Loss terms and `loss_total` of a `device_batch` and its training
+        forward: seg labels and the search BoxCloud gathered through the
+        backbone's sample indices (bat.py:130-136)."""
+        idx = output["sample_idxs"][:, :output["estimation_cla"].shape[1]].long()
+        seg_label = torch.gather(batch["seg_label"], 1, idx)
+        loss_dict = matching_loss(self.config, dict(batch, seg_label=seg_label), output)
+        loss_bc = smooth_l1(output["pred_search_bc"], gather_points(batch["points2cc_dist_s"], idx))
+        loss_dict["loss_bc"] = (loss_bc.mean(dim=2) * seg_label).sum() / (seg_label.sum() + 1e-6)
+        loss_dict["loss_total"] = matching_total_loss(self.config, loss_dict)
+        return loss_dict
 
     def prepare_input(self, template_pc, search_pc, template_box):
         from open3dsot_tpu_torch.geometry import points_utils

@@ -103,12 +103,13 @@ class M2TrackNet(nn.Module):
 
 
 class M2TrackModel:
-    """Orchestration wrapper: the net on `device` (eval mode) plus the host
-    input building of the eval loop (reference base_model.py:255-303)."""
+    """Orchestration wrapper: the net on `device` (eval mode; the card unless
+    the caller asks for the CPU) plus the host input building of the eval
+    loop (reference base_model.py:255-303)."""
 
     name = "m2track"
 
-    def __init__(self, config, device="cpu", fused_eval: bool = True):
+    def __init__(self, config, device="cuda", fused_eval: bool = True):
         self.config = config
         self.device = resolve_device(device)
         self.net = M2TrackNet(

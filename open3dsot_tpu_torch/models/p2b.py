@@ -1,8 +1,8 @@
-"""P2B eval forward, port of `open3dsot_tpu/models/p2b.py` (reference
-models/p2b.py): a shared PointNet++ backbone over the template (M points)
-and the search area (N points) with npoint [X/2, X/4, X/8], a final Dense
-projection, dense cosine xcorr, and the VoteNet proposal head. The loss
-comes with training.
+"""P2B, port of `open3dsot_tpu/models/p2b.py` (reference models/p2b.py): a
+shared PointNet++ backbone over the template (M points) and the search area
+(N points) with npoint [X/2, X/4, X/8], a final Dense projection, dense
+cosine xcorr, and the VoteNet proposal head; the matching loss with the seg
+labels gathered through the backbone's sample indices (p2b.py:75-78).
 """
 
 from __future__ import annotations
@@ -11,7 +11,12 @@ import torch
 import torch.nn as nn
 
 from open3dsot_tpu_torch.models.layers import resolve_device
-from open3dsot_tpu_torch.models.matching_base import MatchingEvalMixin
+from open3dsot_tpu_torch.models.matching_base import (
+    MatchingEvalMixin,
+    matching_loss,
+    matching_total_loss,
+    refuse_bf16,
+)
 from open3dsot_tpu_torch.models.pointnet import PointnetBackbone
 from open3dsot_tpu_torch.models.rpn import P2BVoteNetRPN
 from open3dsot_tpu_torch.models.xcorr import P2BXCorr
@@ -21,10 +26,11 @@ class P2BNet(nn.Module):
     def __init__(self, feature_channel: int = 256, hidden_channel: int = 256,
                  out_channel: int = 256, vote_channel: int = 256, num_proposal: int = 64,
                  use_fps: bool = False, normalize_xyz: bool = False, fused_eval: bool = True,
-                 device=None):
+                 fused_train: bool = True, device=None):
         super().__init__()
         self.backbone = PointnetBackbone(use_fps=use_fps, normalize_xyz=normalize_xyz,
-                                         fused_eval=fused_eval, device=device)
+                                         fused_eval=fused_eval, fused_train=fused_train,
+                                         device=device)
         self.conv_final = nn.Linear(PointnetBackbone.OUT_CHANNELS, feature_channel, device=device)
         self.xcorr = P2BXCorr(feature_channel, hidden_channel, out_channel, device=device)
         self.rpn = P2BVoteNetRPN(out_channel, vote_channel, num_proposal,
@@ -51,11 +57,13 @@ class P2BNet(nn.Module):
 
 
 class P2BModel(MatchingEvalMixin):
-    """The net on `device` (eval mode) and the matching eval input building."""
+    """The net on `device` (the card unless the caller asks for the CPU) and
+    the matching input building; `fused_eval` and `fused_train` as BATModel's."""
 
     name = "p2b"
 
-    def __init__(self, config, device="cpu", fused_eval: bool = True):
+    def __init__(self, config, device="cuda", fused_eval: bool = True, fused_train: bool = True):
+        refuse_bf16(config)
         self.config = config
         self.device = resolve_device(device)
         self.net = P2BNet(
@@ -67,5 +75,14 @@ class P2BModel(MatchingEvalMixin):
             use_fps=getattr(config, "use_fps", False),
             normalize_xyz=getattr(config, "normalize_xyz", False),
             fused_eval=fused_eval,
+            fused_train=fused_train,
             device=self.device,
         ).eval()
+
+    def loss(self, batch: dict, output: dict) -> dict:
+        """Loss terms and `loss_total` of a `device_batch` and its training forward."""
+        idx = output["sample_idxs"][:, :output["estimation_cla"].shape[1]].long()
+        seg_label = torch.gather(batch["seg_label"], 1, idx)
+        loss_dict = matching_loss(self.config, dict(batch, seg_label=seg_label), output)
+        loss_dict["loss_total"] = matching_total_loss(self.config, loss_dict)
+        return loss_dict

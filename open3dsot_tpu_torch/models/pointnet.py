@@ -9,8 +9,17 @@ K4 (ops/sa_fused.py) for the SA layers. `fused_eval=False` is the plain
 PyTorch forward that the kernels are held against: the layer stack with
 BatchNorm unfolded, and for SA the plain FPS, ball query and grouping. The
 folded weights are cached and folded again whenever a parameter or buffer
-changes: a load_state_dict (in-place copy, bumping the tensor version) or a
-.to() (new storage).
+changes: a load_state_dict (in-place copy, bumping the tensor version), a
+.to() (new storage) or a training step (optimizer and running-statistics
+updates are in place).
+
+In training mode (`.train()`) an SA layer takes K6 (ops/sa_fused_train.py)
+when `fused_train` is set, it has point features and a 3-layer MLP, as the
+JAX package selects it (pointnet.py:192-216); every other SA layer (the
+featureless first one, the RPN's vote layer) runs the plain grid MLP with
+training BatchNorm under autograd, and `amax` over the K neighbours, whose
+gradient is split over ties as JAX's. FPS stays K3 when `fused_eval` is
+set; the M2 encoders have no training form here yet.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from open3dsot_tpu_torch.ops.chain_fused import (
 from open3dsot_tpu_torch.ops.grouping import gather_points
 from open3dsot_tpu_torch.ops.neighbors import ball_query
 from open3dsot_tpu_torch.ops.sa_fused import fused_sa_apply, group_inputs
+from open3dsot_tpu_torch.ops.sa_fused_train import fused_sa_train_apply
 from open3dsot_tpu_torch.ops.sampling import furthest_point_sample, furthest_point_sample_plain
 
 
@@ -132,13 +142,13 @@ class SetAbstraction(_FoldCache):
 
     def __init__(self, in_features: int, mlp: Sequence[int], radius: float, nsample: int,
                  use_xyz: bool = True, use_fps: bool = False, normalize_xyz: bool = False,
-                 fused_eval: bool = True, device=None):
+                 fused_eval: bool = True, fused_train: bool = False, device=None):
         super().__init__()
         c_in = in_features + 3 if (use_xyz or in_features == 0) else in_features
         self.mlp_shared = MLP(c_in, mlp, device=device)
         self.radius, self.nsample = radius, nsample
         self.use_xyz, self.use_fps, self.normalize_xyz = use_xyz, use_fps, normalize_xyz
-        self.fused_eval = fused_eval
+        self.fused_eval, self.fused_train = fused_eval, fused_train
 
     def _fold(self):
         return self.mlp_shared.folded()
@@ -156,6 +166,16 @@ class SetAbstraction(_FoldCache):
                                        device=xyz.device)[None].expand(B, npoint)
         new_xyz = gather_points(xyz, sample_idxs)
         kw = dict(radius=self.radius, normalize_xyz=self.normalize_xyz, use_xyz=self.use_xyz)
+        if self.training:
+            idx = ball_query(self.radius, self.nsample, xyz.detach(), new_xyz.detach())
+            if (self.fused_train and features is not None
+                    and len(list(self.mlp_shared.children())) == 3):
+                out, stats = fused_sa_train_apply(xyz, features, new_xyz, idx, self.mlp_shared,
+                                                  **kw)
+                self.mlp_shared.update_batch_stats(stats)
+                return new_xyz, out, sample_idxs
+            grouped = group_inputs(xyz, features, new_xyz, idx, **kw)
+            return new_xyz, self.mlp_shared(grouped).amax(dim=2), sample_idxs
         if self.fused_eval:
             out = fused_sa_apply(xyz, features, new_xyz, None, self.folded_chains(),
                                  nsample=self.nsample, **kw)
@@ -173,13 +193,15 @@ class PointnetBackbone(nn.Module):
     OUT_CHANNELS = SPECS[-1][0][-1]
 
     def __init__(self, use_fps: bool = False, normalize_xyz: bool = False,
-                 input_channels: int = 0, fused_eval: bool = True, device=None):
+                 input_channels: int = 0, fused_eval: bool = True, fused_train: bool = False,
+                 device=None):
         super().__init__()
         c = input_channels
         for i, (mlp, radius) in enumerate(self.SPECS):
             self.add_module(f"sa{i}", SetAbstraction(
                 c, mlp, radius, 32, use_xyz=True, use_fps=use_fps and i == 0,
-                normalize_xyz=normalize_xyz, fused_eval=fused_eval, device=device))
+                normalize_xyz=normalize_xyz, fused_eval=fused_eval, fused_train=fused_train,
+                device=device))
             c = mlp[-1]
 
     def forward(self, pointcloud: torch.Tensor, numpoints: Sequence[int]):

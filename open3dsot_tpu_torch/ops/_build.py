@@ -34,7 +34,8 @@ _PI = ctypes.POINTER(ctypes.c_int)
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 
-# C signatures of each library's entries (argtypes, restype int).
+# C signatures of each library's entries: argtypes, restype int unless
+# given as (argtypes, restype).
 SIGNATURES = {
     "chain_fused": {
         "chain_fused_k1": [_P, _P, _LL, _PI, _I, _I, _I, _I, _P, _P, _P],
@@ -46,6 +47,11 @@ SIGNATURES = {
     "sa_fused": {
         "sa_fused_k4": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    },
+    "sa_fused_train": {
+        "sa_train_workspace": ([_I] * 8, _LL),
+        "sa_train_fwd": [_P] * 14 + [_I] * 7 + [_P],
+        "sa_train_bwd": [_P] * 15 + [_I] * 7 + [_P],
     },
 }
 
@@ -59,10 +65,11 @@ class KernelLibrary:
         self.build_seconds = build_seconds  # 0.0 when an earlier build was reused
         self.build_log = build_log  # nvcc's output, with -Xptxas -v register/spill lines
         self.lib = ctypes.CDLL(str(path))
-        for fn, argtypes in SIGNATURES[name].items():
+        for fn, sig in SIGNATURES[name].items():
+            argtypes, restype = sig if isinstance(sig, tuple) else (sig, ctypes.c_int)
             f = getattr(self.lib, fn)
             f.argtypes = argtypes
-            f.restype = ctypes.c_int
+            f.restype = restype
 
 
 def _nvcc() -> str:

@@ -32,7 +32,7 @@ OVERRIDES = dict(point_sample_size=64, syn_num_tracklets=3, syn_tracklet_len=6, 
 def pair():
     jcfg = load_config(CFG, OVERRIDES)
     pcfg = port_load_config(CFG, OVERRIDES)
-    port = get_model("m2track")(pcfg)
+    port = get_model("m2track")(pcfg, device="cpu")
     variables = random_variables(port.net, seed=11)
     port.net.load_state_dict(state_dict_from_jax(variables), strict=True)
     jm = jax_get_model("m2track")(jcfg)
@@ -72,7 +72,7 @@ BAT_OVERRIDES = dict(syn_num_tracklets=3, syn_tracklet_len=6, seed=5)
 def bat_pair():
     jcfg = load_config(BAT_CFG, BAT_OVERRIDES)
     pcfg = port_load_config(BAT_CFG, BAT_OVERRIDES)
-    port = get_model("bat")(pcfg)
+    port = get_model("bat")(pcfg, device="cpu")
     variables = random_variables(port.net, seed=12)
     port.net.load_state_dict(state_dict_from_jax(variables), strict=True)
     return (jax_get_model("bat")(jcfg), variables, jcfg), (port, pcfg)
@@ -117,7 +117,7 @@ def test_cli_eval_with_checkpoint(tmp_path, capsys):
     from open3dsot_tpu_torch import main as port_main
 
     cfg = port_load_config(CFG)
-    port = get_model("m2track")(cfg)
+    port = get_model("m2track")(cfg, device="cpu")
     port.net.load_state_dict(state_dict_from_jax(random_variables(port.net, seed=2)))
     ckpt = tmp_path / "port.pt"
     torch.save(port.net.state_dict(), ckpt)
@@ -134,7 +134,7 @@ def test_cli_eval_matching(cfg_path, capsys):
 
     port_main.main(["--cfg", cfg_path, "--test", "--max_tracklets", "1", "--device", "cpu"])
     cfg = port_load_config(cfg_path)
-    port = get_model(cfg.net_model)(cfg)
+    port = get_model(cfg.net_model)(cfg, device="cpu")
     port.net.load_state_dict(state_dict_from_jax(random_variables(port.net, cfg.seed)))
     want = port_eval.evaluate_dataset(port, get_dataset(cfg, "test", "test"), cfg, max_tracklets=1)
     assert np.isfinite(want).all()

@@ -1,6 +1,7 @@
 """Each numpy host module that the port carries as a copy gives the
 original's output on seeded inputs (config, quaternion, data_classes,
-points_utils, iou, metrics, synthetic data, the test sampler)."""
+points_utils, iou, metrics, synthetic data, the test and siamese training
+samplers, the Kalman search space, the batch loader, the scalar logger)."""
 
 from __future__ import annotations
 
@@ -155,8 +156,8 @@ def test_synthetic_dataset_and_test_sampler_copy():
 
 
 def test_unported_datasets_and_models_are_refused():
-    """What the port does not run yet raises: the real datasets, the training
-    samplers, an unknown model."""
+    """What the port does not run yet raises: the real datasets, the motion
+    training sampler, an unknown model. The siamese training sampler runs."""
     from open3dsot_tpu_torch.models import get_model
 
     for name in ("kitti", "nuscenes", "waymo"):
@@ -164,8 +165,77 @@ def test_unported_datasets_and_models_are_refused():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             p_get_dataset(cfg, "test", "test")
     cfg = p_config.make_config({"dataset": "synthetic"})
-    for kind in ("train_motion", "train_siamese"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            p_get_dataset(cfg, kind, "train")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        p_get_dataset(cfg, "train_motion", "train")
+    assert len(p_get_dataset(cfg, "train_siamese", "train")) > 0
     with pytest.raises(ValueError, match="unknown model"):
         get_model("votenet")
+
+
+def test_kalman_search_space_copy():
+    from open3dsot_tpu.data.searchspace import KalmanFiltering as JK
+    from open3dsot_tpu_torch.data.searchspace import KalmanFiltering as PK
+
+    jk, pk = JK(bnd=[1, 1, 5]), PK(bnd=[1, 1, 5])
+    rng = np.random.default_rng(6)
+    data, score = rng.standard_normal((12, 3)), rng.uniform(0, 1, 12)
+    jk.addData(data, score)
+    pk.addData(data, score)
+    np.random.seed(2)
+    want = jk.sample(7)
+    np.random.seed(2)
+    np.testing.assert_array_equal(pk.sample(7), want)
+
+
+@pytest.mark.parametrize("cfg_path", ["cfgs/BAT_synthetic.yaml", "cfgs/P2B_synthetic.yaml"])
+def test_siamese_sampler_copy(cfg_path, monkeypatch):
+    """Same numpy seed, same training pairs (offsets, crops, labels,
+    BoxClouds). The original crops with its native library when it is
+    built; the port copies the numpy path, so the original takes it too."""
+    monkeypatch.setenv("OPEN3DSOT_TPU_NATIVE", "0")
+    over = dict(syn_num_tracklets=2, syn_tracklet_len=4, seed=8)
+    js = j_get_dataset(j_config.load_config(cfg_path, over), "train_siamese", "train")
+    ps = p_get_dataset(p_config.load_config(cfg_path, over), "train_siamese", "train")
+    assert len(js) == len(ps) == 16
+    for i in (0, 1, 5, 14):
+        np.random.seed(100 + i)
+        want = js[i]
+        np.random.seed(100 + i)
+        got = ps[i]
+        assert set(got) == set(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_batch_loader_copy():
+    from open3dsot_tpu.data.loader import BatchLoader as JLoader
+    from open3dsot_tpu_torch.data.loader import BatchLoader as PLoader
+
+    rng = np.random.default_rng(7)
+    samples = [{"x": rng.standard_normal((5, 3)), "y": np.float32(i)} for i in range(11)]
+    for kw in (dict(prefetch=2, workers=0), dict(prefetch=0, workers=2)):
+        jl, pl = JLoader(samples, 3, seed=4, **kw), PLoader(samples, 3, seed=4, **kw)
+        assert len(pl) == len(jl) == 3
+        for epoch in (0, 1):
+            jl.set_epoch(epoch)
+            pl.set_epoch(epoch)
+            for jb, pb in zip(jl, pl, strict=True):
+                for k in jb:
+                    np.testing.assert_array_equal(pb[k], jb[k])
+
+
+def test_scalar_logger_copy(tmp_path):
+    import json
+
+    from open3dsot_tpu.utils.logging import ScalarLogger as JLogger
+    from open3dsot_tpu_torch.utils.logging import ScalarLogger as PLogger
+
+    for cls, d in ((JLogger, tmp_path / "j"), (PLogger, tmp_path / "p")):
+        log = cls(str(d), enable_tensorboard=False)
+        log.log_scalars({"a": 1.5, "b": np.float32(2.0)}, step=3, prefix="loss/")
+        log.log_scalars({"c": 4}, step=4)
+        log.close()
+    records = [[{k: v for k, v in json.loads(line).items() if k != "time"}
+                for line in (d / "scalars.jsonl").read_text().splitlines()]
+               for d in (tmp_path / "j", tmp_path / "p")]
+    assert records[0] == records[1] and len(records[0]) == 2

@@ -32,7 +32,8 @@ def _cfg(pss, **kw):
 def _compare(pss, batch_size, jax_fused, seed, port_fused=True, **kw):
     rng = np.random.default_rng(seed)
     jm = jax_get_model("m2track")(make_config(_cfg(pss, fused_chain=jax_fused, **kw)))
-    port = get_model("m2track")(port_make_config(_cfg(pss, **kw)), fused_eval=port_fused)
+    port = get_model("m2track")(port_make_config(_cfg(pss, **kw)), device="cpu",
+                                fused_eval=port_fused)
     variables = random_variables(port.net, seed)
     port.net.load_state_dict(state_dict_from_jax(variables), strict=True)
     batch = {
@@ -72,7 +73,7 @@ def test_m2_forward_full_width_b1():
 
 
 def test_dummy_batch_runs():
-    port = get_model("m2track")(port_make_config(_cfg(16)))
+    port = get_model("m2track")(port_make_config(_cfg(16)), device="cpu")
     out = port.apply(port.dummy_batch(3))
     assert out["estimation_boxes"].shape == (3, 4)
     assert out["seg_logits"].shape == (3, 32, 2)

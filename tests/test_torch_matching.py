@@ -44,7 +44,7 @@ def _compare(name, cfg_path, batch_size, jax_fused, seed, port_fused=True, **ove
     over = dict(over, dataset="synthetic")
     pcfg = port_load_config(cfg_path, over)
     jm = jax_get_model(name)(load_config(cfg_path, dict(over, fused_sa=jax_fused)))
-    port = get_model(name)(pcfg, fused_eval=port_fused)
+    port = get_model(name)(pcfg, device="cpu", fused_eval=port_fused)
     variables = random_variables(port.net, seed)
     port.net.load_state_dict(state_dict_from_jax(variables), strict=True)
     batch = _batch(name, pcfg, batch_size, seed)
@@ -100,7 +100,7 @@ def test_state_dict_keys_match_the_flax_tree(name):
     shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jm.dummy_batch(1))
     fake = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes)
     want = state_dict_from_jax(fake)
-    port = get_model(name)(port_load_config(SYNTHETIC[name], cfg))
+    port = get_model(name)(port_load_config(SYNTHETIC[name], cfg), device="cpu")
     got = port.net.state_dict()
     assert set(got) == set(want)
     for k in want:
@@ -109,7 +109,8 @@ def test_state_dict_keys_match_the_flax_tree(name):
 
 @pytest.mark.parametrize("name", ["bat", "p2b"])
 def test_dummy_batch_runs(name):
-    port = get_model(name)(port_load_config(SYNTHETIC[name], dict(dataset="synthetic")))
+    port = get_model(name)(port_load_config(SYNTHETIC[name], dict(dataset="synthetic")),
+                           device="cpu")
     out = port.apply(port.dummy_batch(2))
     cfg = port.config
     assert out["estimation_boxes"].shape == (2, cfg.num_proposal, 5)

@@ -133,6 +133,6 @@ def test_wrapper_checks_and_counts():
     with pytest.raises(ValueError):
         sa_fused.fused_sa_apply(t(xyz).to("meta"), None, t(xyz[:, :S]).to("meta"), None,
                                 folded, nsample=K, **kw)
-    port.train()
+    port.train()  # the folded weights are eval-only; training takes the batch statistics
     with pytest.raises(NotImplementedError):
-        port(t(xyz), t(feats), S)
+        port.folded_chains()

@@ -23,7 +23,7 @@ def _pair(**kw):
     cfg = dict(_CFG, **kw)
     jm = jax_get_model("m2track")(make_config(cfg))
     variables = to_numpy(jm.init(jax.random.PRNGKey(0), jm.dummy_batch(2)))
-    port = get_model("m2track")(port_make_config(cfg))
+    port = get_model("m2track")(port_make_config(cfg), device="cpu")
     return variables, port
 
 
