@@ -12,13 +12,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from open3dsot_tpu_torch.models.layers import MLP, resolve_device
+from open3dsot_tpu_torch.models.layers import MLP, refuse_bf16, resolve_device
 from open3dsot_tpu_torch.models.losses import smooth_l1
 from open3dsot_tpu_torch.models.matching_base import (
     MatchingEvalMixin,
     matching_loss,
     matching_total_loss,
-    refuse_bf16,
 )
 from open3dsot_tpu_torch.models.pointnet import PointnetBackbone
 from open3dsot_tpu_torch.models.rpn import P2BVoteNetRPN

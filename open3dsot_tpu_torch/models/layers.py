@@ -34,6 +34,15 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def refuse_bf16(config) -> None:
+    """Every model runs in float32: the JAX package's bf16 compute (`bf16: true`)
+    has no counterpart in the port yet, so a config asking for it is refused."""
+    if getattr(config, "bf16", False):
+        raise NotImplementedError("bf16 compute is not ported yet (ROADMAP.md, section 1 item 4: "
+                                  "the bf16 paths of the kernels K1/K2 and K6 and of the "
+                                  "layers around them); run in float32")
+
+
 BN_MOMENTUM = 0.9  # flax's: ra <- m * ra + (1 - m) * batch
 
 

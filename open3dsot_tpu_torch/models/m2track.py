@@ -18,7 +18,7 @@ import torch
 import torch.nn as nn
 
 from open3dsot_tpu_torch.geometry import rigid
-from open3dsot_tpu_torch.models.layers import MLP, resolve_device
+from open3dsot_tpu_torch.models.layers import MLP, refuse_bf16, resolve_device
 from open3dsot_tpu_torch.models.pointnet import MiniPointNet, SegPointNet
 
 
@@ -110,6 +110,7 @@ class M2TrackModel:
     name = "m2track"
 
     def __init__(self, config, device="cuda", fused_eval: bool = True):
+        refuse_bf16(config)  # the JAX model would compute in bf16 (m2track.py:266)
         self.config = config
         self.device = resolve_device(device)
         self.net = M2TrackNet(

@@ -15,12 +15,6 @@ import torch
 from open3dsot_tpu_torch.models.losses import bce_with_logits, smooth_l1
 
 
-def refuse_bf16(config) -> None:
-    if getattr(config, "bf16", False):
-        raise NotImplementedError("bf16 compute is not ported yet (ROADMAP.md, section 1 item 4: "
-                                  "the bf16 path of K6); run in float32")
-
-
 def matching_loss(config, batch: dict, output: dict) -> dict:
     """Reference base_model.py:122-164; `batch["seg_label"]` already gathered
     through the backbone's sample indices (the model's `loss` does it)."""

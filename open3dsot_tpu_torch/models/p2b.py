@@ -10,12 +10,11 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from open3dsot_tpu_torch.models.layers import resolve_device
+from open3dsot_tpu_torch.models.layers import refuse_bf16, resolve_device
 from open3dsot_tpu_torch.models.matching_base import (
     MatchingEvalMixin,
     matching_loss,
     matching_total_loss,
-    refuse_bf16,
 )
 from open3dsot_tpu_torch.models.pointnet import PointnetBackbone
 from open3dsot_tpu_torch.models.rpn import P2BVoteNetRPN

@@ -38,8 +38,9 @@ _F = ctypes.c_float
 # given as (argtypes, restype).
 SIGNATURES = {
     "chain_fused": {
-        "chain_fused_k1": [_P, _P, _LL, _PI, _I, _I, _I, _I, _P, _P, _P],
-        "chain_fused_k2": [_P, _P, _P, _P, _LL, _PI, _I, _I, _I, _I, _P, _P, _P],
+        "chain_fused_workspace": ([_PI, _I, _I, _I], _LL),
+        "chain_fused_k1": [_P, _P, _LL, _PI, _I, _I, _I, _I, _P, _P, _P, _LL, _P],
+        "chain_fused_k2": [_P, _P, _P, _P, _LL, _PI, _I, _I, _I, _I, _P, _P, _P, _LL, _P],
     },
     "fps": {
         "fps_k3": [_P, _I, _I, _I, _P, _P],

@@ -132,20 +132,170 @@ def test_fold_cache_follows_load_state_dict_and_to():
         np.testing.assert_allclose(port(t(x)).numpy(), after.numpy(), atol=0)
 
 
+def _r8(k):
+    return -(-k // 8) * 8
+
+
+def _unpack(chain):
+    """[(W^T hi, W^T lo, b)] per layer from the packed buffer, by the layout
+    rule of csrc/chain_fused.cu::make_layout: whole chunks of CHUNK_OUT x
+    CHUNK_IN channels, output-chunk major, hi then lo, each in core matrices
+    of 8 x 4; W^T parts returned whole ((out chunks, in chunks) x chunk, with
+    their zero padding), b as (Cp,)."""
+    co, ci = cf.CHUNK_OUT, cf.CHUNK_IN
+    w, off, out = chain.packed_widths, 0, []
+    for k, c in zip(w[:-1], w[1:]):
+        nc, nk = -(-_r8(c) // co), -(-_r8(k) // ci)
+        size = nc * nk * 2 * co * ci
+        parts = (chain.packed[off: off + size]
+                 .reshape(nc, nk, 2, co // 8, ci // 4, 8, 4)
+                 .permute(2, 0, 3, 5, 1, 4, 6).reshape(2, nc * co, nk * ci))
+        out.append((parts[0], parts[1], chain.packed[off + size: off + size + _r8(c)]))
+        off += size + _r8(c)
+    assert off == chain.packed.numel()
+    return out
+
+
+def _rna_tf32_np(a):
+    """numpy's own TF32 rounding (to nearest, ties away from zero) on the bits."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    return (((u + 0x1000) & 0xFFFFE000) & 0xFFFFFFFF).astype(np.uint32).view(np.float32)
+
+
 def test_packed_layout_and_split():
     _, _, _, port = _seg(64, seed=8)
     chain1, chain2 = port.folded_chains()
-    r4 = lambda k: -(-k // 4) * 4  # noqa: E731
+    co, ci = cf.CHUNK_OUT, cf.CHUNK_IN
     for chain in (chain1, chain2):
         w = chain.packed_widths
-        size = sum(r4(w[i] * w[i + 1]) + r4(w[i + 1]) for i in range(len(w) - 1))
+        size = sum(2 * -(-_r8(w[i + 1]) // co) * co * -(-_r8(w[i]) // ci) * ci + _r8(w[i + 1])
+                   for i in range(len(w) - 1))
         assert chain.packed.numel() == size
     assert chain1.packed_widths == [14] + MLP1
     assert chain2.packed_widths == [MLP1[1]] + MLP2 + [11]
     assert chain2.w_pool.shape == (MLP1[-1], MLP2[0])
-    # first packed segment of K2 is W_tap, the first C_tap rows of W0
-    w_tap = chain2.packed[: MLP1[1] * MLP2[0]].reshape(MLP1[1], MLP2[0])
-    torch.testing.assert_close(torch.cat([w_tap, chain2.w_pool]), chain2.weights[0], atol=0, rtol=0)
+    # K2's first packed layer is W_tap, the first C_tap rows of W0, transposed
+    hi, lo, _ = _unpack(chain2)[0]
+    w_tap = (hi.double() + lo.double()).t()[: MLP1[1], : MLP2[0]]
+    torch.testing.assert_close(torch.cat([w_tap, chain2.w_pool.double()]),
+                               chain2.weights[0].double(), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("which", ["seg mlp1", "seg head", "mini"])
+def test_packing_unpacks_to_the_folded_weights(which):
+    """Transposed (K-major), zero-padded to whole chunks, hi = tf32(W),
+    lo = tf32(W - hi) bit for bit, every hi/lo word with its 13 low mantissa
+    bits zero, hi + lo within 2^-22 of W, and the biases exact."""
+    if which == "mini":
+        _, _, _, port = _mini(48, seed=12)
+        chain = port.folded_chains()
+    else:
+        _, _, _, port = _seg(64, seed=13)
+        chain = port.folded_chains()[which == "seg head"]
+    first = chain.weights[0][: chain.split] if chain.split else chain.weights[0]
+    for (hi, lo, b), w, bias in zip(_unpack(chain), [first] + chain.weights[1:], chain.biases):
+        k, c = w.shape
+        assert hi.shape == lo.shape == (-(-c // cf.CHUNK_OUT) * cf.CHUNK_OUT,
+                                        -(-k // cf.CHUNK_IN) * cf.CHUNK_IN)
+        for part in (hi, lo):
+            assert not (part.numpy().view(np.uint32) & 0x1FFF).any()
+            assert not part[c:].any() and not part[:, k:].any()
+        wt = w.t().contiguous().numpy()
+        want_hi = _rna_tf32_np(wt)
+        np.testing.assert_array_equal(hi[:c, :k].numpy().view(np.uint32), want_hi.view(np.uint32))
+        want_lo = _rna_tf32_np(wt - want_hi)
+        np.testing.assert_array_equal(lo[:c, :k].numpy().view(np.uint32), want_lo.view(np.uint32))
+        err = np.abs(wt.astype(np.float64) - hi[:c, :k].double().numpy() - lo[:c, :k].double().numpy())
+        assert (err <= 2.0 ** -22 * np.abs(wt)).all()
+        np.testing.assert_array_equal(b[:c].numpy(), bias.numpy())
+        assert not b[c:].any()
+
+
+def test_tf32_rounding_is_rna():
+    """cvt.rna.tf32.f32: to nearest, ties away from zero, on the 13 dropped bits."""
+    one_ulp = 2.0 ** -10
+    x = torch.tensor([1.0 + one_ulp / 2, -(1.0 + one_ulp / 2), 1.0 + one_ulp / 2 - 2.0 ** -23,
+                      1.0 + 1.5 * one_ulp, 0.0, -3.0])
+    want = torch.tensor([1.0 + one_ulp, -(1.0 + one_ulp), 1.0, 1.0 + 2 * one_ulp, 0.0, -3.0])
+    torch.testing.assert_close(cf.tf32_rna(x), want, atol=0, rtol=0)
+    hi, lo = cf.split_tf32(x)
+    assert ((hi.double() + lo.double() - x.double()).abs() <= 2.0 ** -22 * x.double().abs()).all()
+
+
+def _layers_3xtf32(chain):
+    """(W hi, W lo, b) per layer, (Kp, Cp) and (Cp,), from the packed buffer as
+    the kernel reads it."""
+    return [(hi[: b.numel(), : _r8(k)].t(), lo[: b.numel(), : _r8(k)].t(), b)
+            for (hi, lo, b), k in zip(_unpack(chain), chain.packed_widths)]
+
+
+def _dense(h, hi, lo, b, three: bool):
+    """One Dense as the kernel computes it: inputs zero-padded to Kp, the
+    activations split in hi/lo, f32 products; `three` False is TF32 alone."""
+    h = torch.nn.functional.pad(h, (0, hi.shape[0] - h.shape[-1]))
+    h_hi, h_lo = cf.split_tf32(h)
+    if not three:
+        return b + h_hi @ hi
+    return (b + h_hi @ hi) + (h_lo @ hi + h_hi @ lo)
+
+
+def _k1_emulated(x, chain, tap_at, three=True):
+    h, tap, layers = x, None, _layers_3xtf32(chain)
+    for i, (hi, lo, b) in enumerate(layers):
+        h = torch.relu(_dense(h, hi, lo, b, three))
+        if i == tap_at:
+            tap = h[..., : chain.widths[i + 1]]
+    return tap, h[..., : chain.widths[-1]].amax(dim=1)
+
+
+def _k2_emulated(tap, pooled, chain, three=True):
+    layers = _layers_3xtf32(chain)
+    g = pooled @ chain.w_pool + layers[0][2]  # pool_bias_kernel: f32 on CUDA cores
+    h = tap
+    for i, (hi, lo, b) in enumerate(layers):
+        h = _dense(h, hi, lo, g[:, None, :] if i == 0 else b, three)
+        if i < len(layers) - 1:
+            h = torch.relu(h)
+    return h[..., : chain.widths[-1]]
+
+
+def _within(got, want, tol):
+    """The kernels' tolerance form: |got - want| <= tol * max|want| + tol * |want|."""
+    err = (got.double() - want).abs()
+    return bool((err <= tol * want.abs().max() + tol * want.abs()).all()), err.max().item()
+
+
+def test_3xtf32_emulation_within_bound_of_float64():
+    """The kernels' arithmetic (3xTF32 products, rna rounding, f32 sums) on a
+    K1 chain with its tap and the K2 chain, held to a float64 chain within
+    TOL_3XTF32, the bound chip_smoke.py holds the kernels to on the card; TF32
+    alone is far from it."""
+    x, _, _, port = _seg(50, seed=14)
+    chain1, chain2 = port.folded_chains()
+    xt = t(x)
+    w64 = lambda c: [(w.double(), b.double()) for w, b in c.layers]  # noqa: E731
+    h, tap64 = xt.double(), None
+    for i, (w, b) in enumerate(w64(chain1)):
+        h = torch.relu(h @ w + b)
+        if i == 1:
+            tap64 = h
+    pool64 = h.amax(dim=1)
+    h = torch.cat([tap64, pool64[:, None, :].expand(-1, tap64.shape[1], -1)], dim=-1)
+    layers2 = w64(chain2)
+    for w, b in layers2[:-1]:
+        h = torch.relu(h @ w + b)
+    out64 = h @ layers2[-1][0] + layers2[-1][1]
+
+    tap, pooled = _k1_emulated(xt, chain1, 1)
+    out = _k2_emulated(tap, pooled, chain2)
+    errs = {}
+    for name, got, want in (("tap", tap, tap64), ("pooled", pooled, pool64), ("logits", out, out64)):
+        ok, errs[name] = _within(got, want, cf.TOL_3XTF32)
+        assert ok, f"{name}: {errs[name]}"
+    tap1, pooled1 = _k1_emulated(xt, chain1, 1, three=False)
+    out1 = _k2_emulated(tap1, pooled1, chain2, three=False)
+    err1 = (out1.double() - out64).abs().max().item()
+    assert err1 > 100 * errs["logits"], (err1, errs)
 
 
 def test_wrappers_check_their_inputs():

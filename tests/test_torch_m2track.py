@@ -78,3 +78,10 @@ def test_dummy_batch_runs():
     assert out["estimation_boxes"].shape == (3, 4)
     assert out["seg_logits"].shape == (3, 32, 2)
     assert all(torch.isfinite(v).all() for v in out.values())
+
+
+def test_bf16_is_refused():
+    """The JAX model computes in bf16 under `bf16: true` (m2track.py:266); the
+    port has no bf16 path, so it refuses the config instead of running f32."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_model("m2track")(port_make_config(_cfg(16, bf16=True)), device="cpu")
