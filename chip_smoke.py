@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --chain-times   # phases 1-3 only (K1/K2), no result line
+    python3 chip_smoke.py --k6-times      # phases 1, 2 and 11 only (K6), no result line
 
 Phases, one line or a few each; any failure exits non-zero:
   1. environment: torch / CUDA versions, the card's name and power limit;
      fails without a CUDA device.
   2. build: the kernels of csrc/ with nvcc, one process per source, side by
-     side (seconds, registers, spills).
+     side (seconds, registers, spills, ptxas's notes on wgmma).
   3. kernels K1/K2 (3xTF32 on the tensor cores) against their plain f32
      PyTorch versions at the M2 path's four calls (seg mlp1 with its tap,
      mini, mini2, seg head) at B = 1 and 16, N = 2048, and at B = 3, a
@@ -38,10 +39,13 @@ Phases, one line or a few each; any failure exits non-zero:
  10. printed last, after phase 13: one JSON line of the kernels K1-K6 (each
      with its bound from this run's shapes), the card line, then the result
      line.
- 11. K6 (training-mode SA) forward and backward against their plain
-     versions at the four K6 calls of a BAT train step at BAT_Car widths, on
-     the inputs that step gives them (B = 16 and 50, and a ragged S); times
-     by events and by profiler device time.
+ 11. K6 (training-mode SA, 3xTF32 on the tensor cores) forward and backward
+     against their plain versions at the four K6 calls of a BAT train step at
+     BAT_Car widths, on the inputs that step gives them (B = 16 and 50, and a
+     ragged S); times by events and by profiler device time, both bounds (f32
+     CUDA cores, 3xTF32 tensor cores) and the share; device time by kernel
+     name over the four calls at B = 50, forward and backward apart; the
+     HMMA/HGMMA count of K6's product kernels (fails if one has none).
  12. a BAT train step, kernel path vs plain path, both held against the plain
      path in float64: losses, every gradient, the running statistics, and
      the launches of one step (K3 = 2, K6 forward = 4, backward = 4); P2B
@@ -90,6 +94,7 @@ BOX_ATOL = 1e-3  # M2: two argmax gates and the rigid math; BAT/P2B: three SA la
                  # prints all three distances)
 MATCHING_CFG = {"bat": "cfgs/BAT_Car.yaml", "p2b": "cfgs/P2B_Car.yaml"}
 TRAIN_B = 50  # batch_size of cfgs/BAT_Car.yaml
+K6_BATCHES = (16, TRAIN_B)  # phase 11's batch sizes; the last one is TRAIN_B
 # Published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): float32
 # outside the tensor cores, and HBM3. A kernel's bound is the larger of its
 # operations over the first and its bytes (each input read once, each output
@@ -232,6 +237,23 @@ def k2_work(chain, B: int, N: int):
     return nbytes, flops
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's name with its integer template arguments, from its mangled
+    name (`_ZN12_GLOBAL__N_112rowmm_kernelILi0ELi0EEEv...` -> rowmm_kernel<0,0>):
+    the first length-prefixed identifier that ends in `_kernel`."""
+    import re
+
+    for m in re.finditer(r"\d+", mangled):
+        digits = m.group()
+        for i in range(len(digits)):  # a namespace tag's digits may run into the length
+            name = mangled[m.end():m.end() + int(digits[i:])]
+            if name.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*", name):
+                t = re.match(r"I((?:Li-?\d+E)+)E", mangled[m.end() + len(name):])
+                args = re.findall(r"Li(-?\d+)E", t.group(1)) if t else []
+                return name + (f"<{','.join(args)}>" if args else "")
+    return mangled
+
+
 def sass_tensor_ops(lib_path) -> dict:
     """Tensor-core instructions (HMMA, HGMMA) per kernel in a library's SASS."""
     import re
@@ -245,8 +267,7 @@ def sass_tensor_ops(lib_path) -> dict:
     for line in out.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            t = re.search(r"(chain_tc_kernel|chain_kernel)ILi(\d+)E", m.group(1))
-            fn = f"{t.group(1)}<{t.group(2)}>" if t else m.group(1)
+            fn = kernel_name(m.group(1))
             counts[fn] = 0
         elif fn is not None and re.search(r"\bHG?MMA\b", line):
             counts[fn] += 1
@@ -401,7 +422,8 @@ def main(argv=None) -> None:
     import numpy as np
     import torch
 
-    chain_only = "--chain-times" in (sys.argv[1:] if argv is None else argv)
+    args = sys.argv[1:] if argv is None else argv
+    chain_only, k6_only = "--chain-times" in args, "--k6-times" in args
     # --- 1. environment ---------------------------------------------------
     print(f"env: python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
@@ -417,15 +439,21 @@ def main(argv=None) -> None:
 
     # --- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    libs = load_libraries(["chain_fused"] if chain_only else
+    libs = load_libraries(["chain_fused"] if chain_only else ["sa_fused_train"] if k6_only else
                           ["chain_fused", "fps", "sa_fused", "sa_fused_train"])
     print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
     for lib in libs.values():
         print(f"  {lib.path.relative_to(ROOT)} in {lib.build_seconds:.1f} s "
               f"({'reused' if lib.build_seconds == 0 else 'nvcc sm_90a'})", flush=True)
         for line in lib.build_log.splitlines():
-            if any(w in line for w in ("registers", "spill", "Compiling entry", "Performance Loss")):
+            if any(w in line for w in ("registers", "spill", "Compiling entry", "Performance Loss",
+                                       "(C75")):
                 print(f"  ptxas: {line.strip()}")
+
+    if k6_only:
+        training_phases(card, libs["sa_fused_train"], k6_only=True)
+        print("k6 times done: phases 1, 2 and 11 only", flush=True)
+        return
 
     # --- 3. kernels vs plain at the main path's shapes --------------------
     cfg = bench_cfg()
@@ -521,7 +549,7 @@ def main(argv=None) -> None:
     matching_kernels = matching_phases(card)
 
     # --- 11.-13. BAT/P2B training -----------------------------------------
-    training_kernels = training_phases(card)
+    training_kernels = training_phases(card, libs["sa_fused_train"])
 
     # --- 10. results ------------------------------------------------------
     kernels = [
@@ -851,40 +879,63 @@ def k6_calls(plain_model, batch) -> list:
 
 
 def k6_work(B: int, N: int, S: int, K: int, c1: int, c2: int, c3: int):
-    """((bytes, operations) forward, (bytes, operations) backward) of one K6 call."""
+    """((bytes, operations) forward, (bytes, operations) backward) of one K6
+    call. The forward writes the pre-BN grids y2, y3 that the backward reads;
+    both read a, ct and idx (y1 = a[idx] + ct is gathered where it is read)."""
     R, cs = B * S * K, c1 + c2 + c3
     params = c1 * c2 + c2 + c2 * c3 + c3 + 2 * cs
-    fwd = (4 * (B * N * c1 + B * S * c1 + B * S * K + params + B * S * c3 + 2 * cs),
+    inputs = B * N * c1 + B * S * c1 + B * S * K  # a, ct, idx
+    fwd = (4 * (inputs + params + B * S * c3 + 2 * cs + R * (c2 + c3)),
            2 * R * (c1 * c2 + c2 * c3) + 6 * R * cs + R * (c1 + c3))
-    # the backward reads the forward's pre-BN grids and statistics
-    bwd = (4 * (B * S * c3 + B * S * K + R * cs + 2 * cs + params
+    bwd = (4 * (B * S * c3 + inputs + R * (c2 + c3) + 2 * cs + params
                 + B * N * c1 + B * S * c1 + c1 * c2 + c2 * c3 + 2 * cs),
            4 * R * (c1 * c2 + c2 * c3) + 12 * R * cs)
     return fwd, bwd
 
 
-def check_k6(calls, card: str):
+def k6_bwd_args(g, a, ct, idx, grids, stats, w2, w3, bn):
+    """The backward's arguments. A K6 whose forward keeps y1 among its grids
+    (the f32 CUDA-core version, timed by --k6-times on an older tree) takes the
+    grids and the point count in place of a and ct."""
+    if len(grids) == 3:
+        return g, idx, grids, stats, w2, w3, bn, a.shape[1]
+    return g, a, ct, idx, grids, stats, w2, w3, bn
+
+
+def check_k6(calls, card: str, lib, strict: bool = True):
     """K6 forward and backward against their plain versions at each call's
     inputs; the backward of both takes the plain forward's grids and
-    statistics, so both see the same maxima, ties and ReLU masks."""
+    statistics, so both see the same maxima, ties and ReLU masks. Then device
+    time by kernel over the four calls at B = TRAIN_B, and the tensor-core
+    instructions of K6's product kernels."""
     import torch
 
     from open3dsot_tpu_torch.ops import sa_fused_train as k6
     from open3dsot_tpu_torch.ops.neighbors import ball_query
     from open3dsot_tpu_torch.ops.sa_fused import a_form
 
+    counts = sass_tensor_ops(lib.path)
+    for fn, c in counts.items():
+        print(f"  sass: {fn}: {c} HMMA/HGMMA", flush=True)
+    products = [fn for fn in counts if fn.startswith(("rowmm_kernel", "dw_kernel"))]
+    if strict and (len(products) < 6 or not all(counts[fn] for fn in products)):
+        fail(f"K6's product kernels hold no tensor-core instruction: {counts}")
+
     gen = torch.Generator(device=calls[0][2].device).manual_seed(SEED)
     errs = {"fwd": 0.0, "bwd": 0.0}
-    sums = {B: [0.0] * 4 for B in (16, TRAIN_B)}  # events: fwd kernel, plain, bwd kernel, plain
-    dev = {B: [0.0] * 4 for B in (16, TRAIN_B)}  # the same in device time
-    work = {B: [[0, 0], [0, 0]] for B in (16, TRAIN_B)}
+    sums = {B: [0.0] * 4 for B in K6_BATCHES}  # events: fwd kernel, plain, bwd kernel, plain
+    dev = {B: [0.0] * 4 for B in K6_BATCHES}  # the same in device time
+    work = {B: [[0, 0], [0, 0]] for B in K6_BATCHES}
+    per_pass = {"forward": [], "backward": []}  # the kernel calls at B = TRAIN_B
 
-    def one(label, mod, xyz, feats, new, B, timed=True):
+    def one(label, mod, xyz, feats, new, B, timed=True, k_cut=None):
         layers = list(mod.mlp_shared.children())
         w2, w3 = (l.dense.weight.detach().t().contiguous() for l in layers[1:])
         b2, b3 = (l.dense.bias.detach() for l in layers[1:])
         bn = [p.detach() for l in layers for p in (l.bn.weight, l.bn.bias)]
         idx = ball_query(mod.radius, mod.nsample, xyz, new)
+        if k_cut:  # fewer neighbours: R = B * S * K not a multiple of 32
+            idx = idx[..., :k_cut].contiguous()
         inv_r = 1.0 / mod.radius if mod.normalize_xyz else 1.0
         a, ct = a_form(xyz, feats, new, layers[0].dense.weight.detach().t(),
                        layers[0].dense.bias.detach(), inv_r=inv_r, use_xyz=mod.use_xyz)
@@ -894,8 +945,9 @@ def check_k6(calls, card: str):
         out_k, st_k, _ = k6.sa_train_fwd_kernel(a, ct, idx, w2, b2, w3, b3, bn)
         out_p, st_p, grids = k6.sa_train_fwd_plain(a, ct, idx, w2, b2, w3, b3, bn)
         g = torch.randn(B, S, c3, device=a.device, generator=gen)
-        bwd_k = k6.sa_train_bwd_kernel(g, idx, grids, st_p, w2, w3, bn, N)
-        bwd_p = k6.sa_train_bwd_plain(g, idx, grids, st_p, w2, w3, bn, N)
+        bargs = k6_bwd_args(g, a, ct, idx, grids, st_p, w2, w3, bn)
+        bwd_k = k6.sa_train_bwd_kernel(*bargs)
+        bwd_p = k6.sa_train_bwd_plain(*bargs)
         torch.cuda.synchronize()
         errs["fwd"] = max(errs["fwd"], compare(f"K6 fwd {shape} out", out_k, out_p))
         for i, (x, y) in enumerate(zip(st_k, st_p)):
@@ -909,8 +961,11 @@ def check_k6(calls, card: str):
             return
         fns = (lambda: k6.sa_train_fwd_kernel(a, ct, idx, w2, b2, w3, b3, bn),
                lambda: k6.sa_train_fwd_plain(a, ct, idx, w2, b2, w3, b3, bn),
-               lambda: k6.sa_train_bwd_kernel(g, idx, grids, st_p, w2, w3, bn, N),
-               lambda: k6.sa_train_bwd_plain(g, idx, grids, st_p, w2, w3, bn, N))
+               lambda: k6.sa_train_bwd_kernel(*bargs),
+               lambda: k6.sa_train_bwd_plain(*bargs))
+        if B == TRAIN_B:
+            per_pass["forward"].append(fns[0])
+            per_pass["backward"].append(fns[2])
         t = [time_ms(f, iters=5, repeats=5) for f in fns]
         t2 = [time_ms(f, iters=5, repeats=5) for f in reversed(fns)][::-1]
         t = [min(x, y) for x, y in zip(t, t2)]
@@ -927,21 +982,38 @@ def check_k6(calls, card: str):
 
     with torch.no_grad():
         for label, mod, xyz_all, feats_all, new_all in calls:
-            for B in (16, TRAIN_B):
+            for B in K6_BATCHES:
                 one(label, mod, xyz_all[:B].contiguous(), feats_all[:B].contiguous(),
                     new_all[:B].contiguous(), B)
-        # a ragged centroid count
+        # a ragged centroid count; B = 1 with an odd one (R not a multiple of 64),
+        # and with 20 neighbours (R not a multiple of 32)
         label, mod, xyz, feats, new = calls[2]
-        one(f"{label} ragged", mod, xyz[:16].contiguous(), feats[:16].contiguous(),
-            new[:16, :new.shape[1] - 3].contiguous(), 16, timed=False)
-    for B in (16, TRAIN_B):
-        fb, fo = bound_of(*work[B][0])
-        bb, bo = bound_of(*work[B][1])
-        print(f"  K6 over one BAT train step's 4 calls, B={B}: fwd kernel {sums[B][0]:.4f} ms plain "
-              f"{sums[B][1]:.4f} ms (device {fmt_ms(dev[B][0])} / {fmt_ms(dev[B][1])}; bound "
-              f"{fb:.4f} ms by {fo}), bwd kernel {sums[B][2]:.4f} ms plain {sums[B][3]:.4f} ms "
-              f"(device {fmt_ms(dev[B][2])} / {fmt_ms(dev[B][3])}; bound {bb:.4f} ms by {bo}) "
-              f"[{card}]", flush=True)
+        B = K6_BATCHES[0]
+        one(f"{label} ragged", mod, xyz[:B].contiguous(), feats[:B].contiguous(),
+            new[:B, :new.shape[1] - 3].contiguous(), B, timed=False)
+        for k_cut in (None, 20):
+            one(f"{label} ragged", mod, xyz[:1].contiguous(), feats[:1].contiguous(),
+                new[:1, :new.shape[1] - 5].contiguous(), 1, timed=False, k_cut=k_cut)
+        for what, fns in per_pass.items():
+            rows = device_rows(lambda: [f() for f in fns])
+            total = sum(dev_us(e) for e in rows)
+            print(f"  K6 {what}, the four calls at B={TRAIN_B}, device time by kernel: "
+                  f"{total / 1e3:.4f} ms in all [{card}]", flush=True)
+            for e in sorted(rows, key=lambda e: -dev_us(e)):
+                name = e.key.replace("(anonymous namespace)::", "")
+                print(f"    {dev_us(e) / 1e3:9.4f} ms {e.count:4d}x  {name[:100]}")
+    for B in K6_BATCHES:
+        line = []
+        for i, what in ((0, "fwd"), (2, "bwd")):
+            b32, by = bound_of(*work[B][i // 2])
+            btc, _ = tc_bound_of(*work[B][i // 2])
+            d = dev[B][i]
+            share = "not measured" if d is None else f"{btc / d:.1%}"
+            line.append(f"{what} kernel {sums[B][i]:.4f} ms plain {sums[B][i + 1]:.4f} ms (device "
+                        f"{fmt_ms(d)} / {fmt_ms(dev[B][i + 1])}; bound f32 {b32:.4f} ms by {by}, "
+                        f"3xTF32 {btc:.4f} ms, device at {share} of it)")
+        print(f"  K6 over one BAT train step's 4 calls, B={B}: {'; '.join(line)} [{card}]",
+              flush=True)
     print("phase 11 ok: K6 forward and backward within tolerance at every K6 call of a BAT "
           "train step", flush=True)
     return errs, sums, work
@@ -1190,13 +1262,17 @@ def check_trainer(card: str) -> tuple:
     return launches
 
 
-def training_phases(card: str) -> list:
-    """Phases 11-13; returns the K6 entries of the kernels line."""
+def training_phases(card: str, lib, k6_only: bool = False) -> list:
+    """Phases 11-13 (11 alone with k6_only); returns the K6 entries of the
+    kernels line."""
     cfg = matching_cfg("bat")
     _, variables = make_model(cfg, fused_eval=True)
     plain, _ = make_model(cfg, fused_eval=False, variables=variables)
-    errs, sums, work = check_k6(k6_calls(plain, train_batch(cfg, TRAIN_B, SEED)), card)
+    errs, sums, work = check_k6(k6_calls(plain, train_batch(cfg, TRAIN_B, SEED)), card, lib,
+                                strict=not k6_only)
     del plain
+    if k6_only:
+        return []
 
     check_train_step("bat", 16, (2, 4, 4, 0), card, timed=True)
     check_train_step("p2b", 16, (0, 4, 4, 0), card, timed=False)
@@ -1217,10 +1293,10 @@ def training_phases(card: str) -> list:
     return [
         kernel_entry("K6 fused_sa_train_apply (forward)", "sa_fused_train.cu", replaces,
                      launches[1], errs["fwd"], sums[TRAIN_B][0], sums[TRAIN_B][1],
-                     work[TRAIN_B][0]),
+                     work[TRAIN_B][0], tensor_core=True),
         kernel_entry("K6 fused_sa_train_apply (backward)", "sa_fused_train.cu", replaces,
                      launches[2], errs["bwd"], sums[TRAIN_B][2], sums[TRAIN_B][3],
-                     work[TRAIN_B][1]),
+                     work[TRAIN_B][1], tensor_core=True),
     ]
 
 

@@ -83,16 +83,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32_tc.cuh"  // kCC x kKC weight chunks, the TF32 split, mma.sync, wgmma, TMA
+
 namespace {
 
 constexpr int kMaxLayers = 8;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kCC = 128;                  // output channels per weight chunk
-constexpr int kKC = 32;                   // input channels per weight chunk
 constexpr int kStages = 2;                // weight chunks in shared memory: one loads ahead
-constexpr int kWPart = kCC * kKC;         // floats of one part (hi or lo) of a chunk
-constexpr int kWStage = 2 * kWPart;       // floats of one stage: hi then lo
 constexpr int kAhead = kStages - 1;       // chunks loading while one multiplies
 constexpr int kSmemMax = 232448;          // 227 KB, the most a block may take
 constexpr long long kWideMacs = 128 * 256;  // a layer above this is "wide" (own launch at small B)
@@ -130,7 +128,7 @@ inline int round8(int n) { return (n + 7) & ~7; }
 // Offsets of each layer's weight chunks and b in the packed buffer. A layer
 // is ceil(cp / kCC) x nk chunks, output chunk major; a chunk is kWStage
 // contiguous floats, W^T hi then W^T lo of kCC output x kKC input channels,
-// zero-padded, each in the order of wofs() below: one bulk copy brings a
+// zero-padded, each in the order of wofs() (tf32_tc.cuh): one bulk copy brings a
 // chunk into shared memory as the tensor cores read it. The Python side
 // (open3dsot_tpu_torch/ops/chain_fused.py::pack_layer) packs by the same rule.
 // n_params < 0 skips the size check.
@@ -154,62 +152,6 @@ int make_layout(const int* widths, int n_layers, long long n_params, Chain* ch) 
   return n_params < 0 || off == n_params ? 0 : kErrLayout;
 }
 
-// --- device helpers ----------------------------------------------------------
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// d += a (16 x 8, row) * b (8 x 8, col), TF32 in, f32 accumulate
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// --- mbarriers and the bulk copy (TMA) of a weight chunk
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// One thread: a chunk of kWStage floats from device memory into a stage, the
-// stage's mbarrier completing when the bytes have landed.
-__device__ __forceinline__ void bulk_load(float* dst, const float* src, uint64_t* bar) {
-  constexpr uint32_t bytes = kWStage * sizeof(float);
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // after generic reads of dst
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
-}
-
 // Output-channel chunks [c0, c1) of layer l that this block computes.
 __device__ __forceinline__ void chunk_range(const StageArgs& a, int l, int& c0, int& c1) {
   const int n = (a.ch.cp[l] + kCC - 1) / kCC;
@@ -220,16 +162,6 @@ __device__ __forceinline__ void chunk_range(const StageArgs& a, int l, int& c0, 
     c0 = 0;
     c1 = n;
   }
-}
-
-// Float offset of (output channel n, input channel k) in one part of a weight
-// chunk: "core matrices" of 8 channels x 4 inputs (128 contiguous bytes),
-// K-major, as wgmma's no-swizzle layout takes B: 128 bytes between core
-// matrices along k (LBO), 8 * kKC * 4 bytes between groups of 8 channels (SBO).
-// An mma.sync B fragment (channel n0 + g, input k0 + q) reads 32 consecutive
-// words: no bank conflict either.
-__device__ __forceinline__ int wofs(int n, int k) {
-  return (n >> 3) * (8 * kKC) + (k >> 2) * 32 + (n & 7) * 4 + (k & 3);
 }
 
 // Weight chunk (layer l, output chunk cb, input chunk kb) in device memory.
@@ -247,49 +179,6 @@ __device__ __forceinline__ bool next_chunk(const StageArgs& a, int& l, int& cb, 
   if (++l >= a.l1) return false;
   chunk_range(a, l, cb, c1);
   return true;
-}
-
-// --- wgmma: D (64 x 64, f32) += A (64 x 8, TF32, registers) * B (8 x 64, TF32, smem)
-
-__device__ __forceinline__ uint64_t smem_desc(const float* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(128 >> 4) << 16) |            // LBO: next core matrix along k
-         (static_cast<uint64_t>((8 * kKC * 4) >> 4) << 32);   // SBO: next 8 channels
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// kAdd 1: d += a * b; 0: d = a * b
-template <int kAdd>
-__device__ __forceinline__ void wgmma_m64n64k8(float (&d)[8][4], const uint32_t (&a)[4],
-                                               uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, %37, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(kAdd)
-      : "memory");
 }
 
 // TP = 64: two warpgroups, each wgmma m64n64 on half of a 128-channel chunk

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 The sources under `open3dsot_tpu_torch/csrc/` have a plain C interface, so
-they build in seconds without PyTorch's headers. The shared library goes
+they build in seconds without PyTorch's headers; `*.cuh` there are headers
+that several sources include. The shared library goes
 into `open3dsot_tpu_torch/_build/` (git-ignored), named by a hash of the
 source and flags, at first use; later calls and processes reuse it. Nothing
 here runs at import: the CPU tests import every module, and this machine
@@ -51,8 +52,9 @@ SIGNATURES = {
     },
     "sa_fused_train": {
         "sa_train_workspace": ([_I] * 8, _LL),
-        "sa_train_fwd": [_P] * 14 + [_I] * 7 + [_P],
-        "sa_train_bwd": [_P] * 15 + [_I] * 7 + [_P],
+        "sa_train_packed_floats": ([_I, _I], _LL),
+        "sa_train_fwd": [_P] * 4 + [_LL, _P, _P, _LL] + [_P] * 7 + [_I] * 7 + [_P],
+        "sa_train_bwd": [_P] * 8 + [_LL, _P, _LL] + [_P] * 7 + [_I] * 7 + [_P],
     },
 }
 
@@ -92,7 +94,9 @@ def load_libraries(names) -> Dict[str, KernelLibrary]:
 def load_library(name: str) -> KernelLibrary:
     """Build `csrc/<name>.cu` if no build of this source exists, then load it."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # the headers the sources share (csrc/*.cuh) are part of every build's identity
+    text = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if out.is_file():
         return KernelLibrary(name, out, 0.0, "")

@@ -79,17 +79,17 @@ def split_tf32(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, tf32_rna(t.float() - hi)
 
 
-# The kernels' weight chunk: output x input channels (csrc/chain_fused.cu kCC, kKC)
+# The tensor cores' weight chunk: output x input channels (csrc/tf32_tc.cuh kCC, kKC)
 CHUNK_OUT, CHUNK_IN = 128, 32
 
 
-def pack_layer(w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """One layer as the kernels read it. W^T (out, in) is zero-padded to
-    whole chunks of CHUNK_OUT x CHUNK_IN channels; the chunks follow each
-    other output-chunk major, each W^T hi then W^T lo, each part in "core
-    matrices" of 8 outputs x 4 inputs (128 bytes), input-major within the
-    chunk, as the tensor cores read B from shared memory. Then b, zero-padded
-    to a multiple of 8."""
+def pack_chunks(w: torch.Tensor) -> torch.Tensor:
+    """A weight w (in, out) as the tensor cores read it (csrc/tf32_tc.cuh).
+    W^T (out, in) is zero-padded to whole chunks of CHUNK_OUT x CHUNK_IN
+    channels; the chunks follow each other output-chunk major, each W^T hi
+    then W^T lo, each part in "core matrices" of 8 outputs x 4 inputs (128
+    bytes), input-major within the chunk, as the tensor cores read B from
+    shared memory."""
     k, c = w.shape
     nc, nk = -(-round8(c) // CHUNK_OUT), -(-round8(k) // CHUNK_IN)
     wt = w.new_zeros(nc * CHUNK_OUT, nk * CHUNK_IN)
@@ -97,7 +97,14 @@ def pack_layer(w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     parts = [p.reshape(nc, CHUNK_OUT // 8, 8, nk, CHUNK_IN // 4, 4).permute(0, 3, 1, 4, 2, 5)
              for p in split_tf32(wt)]
     chunks = torch.stack(parts, dim=2)  # (out chunk, in chunk, hi/lo, 8s of out, 4s of in, 8, 4)
-    return torch.cat([chunks.reshape(-1), F.pad(b.float(), (0, round8(c) - c))])
+    return chunks.reshape(-1)
+
+
+def pack_layer(w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One layer as K1/K2 read it: `pack_chunks(w)`, then b zero-padded to a
+    multiple of 8."""
+    c = w.shape[1]
+    return torch.cat([pack_chunks(w), F.pad(b.float(), (0, round8(c) - c))])
 
 
 class FoldedChain:

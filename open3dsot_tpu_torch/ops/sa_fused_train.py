@@ -23,13 +23,16 @@ the whole-grid form of the JAX package's `_ref_fwd` and `_manual_vjp_math`.
 launches the kernel (csrc/sa_fused_train.cu, entries `sa_train_fwd` and
 `sa_train_bwd`; the design note is there) for CUDA tensors, or raises.
 Launches are counted in `fused_sa_train_apply.fwd_launches` and
-`.bwd_launches`.
+`.bwd_launches`. The kernel computes its grid products in 3xTF32 on the
+tensor cores; the wrapper packs W2, W3 (forward) and W2^T, W3^T (backward)
+for them with `ops/chain_fused.py::pack_chunks`.
 
-The forward keeps the pre-BN grids y1, y2, y3 (B, S, K, C) for the
-backward. The plain version computes the folds and masks with the
-kernel's rounding (relu(y * s + t) as two rounded ops, 1 / sqrt(var +
-eps), g / cnt), so on the same grids both select the same maxima, ties and
-ReLU masks.
+The forward keeps the pre-BN grids y2, y3 (B, S, K, C) for the backward;
+y1 = a[idx] + ct is gathered again from the inputs a, ct and idx, which
+the backward takes in its place (one f32 add: the same values). The plain
+version computes the folds and masks with the kernel's rounding (relu(y *
+s + t) as two rounded ops, 1 / sqrt(var + eps), g / cnt), so on the same
+grids both select the same maxima, ties and ReLU masks.
 """
 
 from __future__ import annotations
@@ -40,12 +43,15 @@ import torch
 import torch.nn as nn
 
 from open3dsot_tpu_torch.ops._launch import check, on_cuda, raise_on, stream_of
+from open3dsot_tpu_torch.ops.chain_fused import pack_chunks
 from open3dsot_tpu_torch.ops.grouping import group_points
 from open3dsot_tpu_torch.ops.sa_fused import a_form
 
 BN_EPS = 1e-5
 _ERRORS = {-1: "B, N, S, K not accepted (B * S * K <= 33,553,920 rows)",
-           -2: "a width C1, C2 or C3 is not a multiple of 4"}
+           -2: "a width C1, C2 or C3 is not a multiple of 4",
+           -3: "a packed weight has the wrong size",
+           -4: "a width too large for the tensor-core products' shared memory"}
 
 Stats = Tuple[torch.Tensor, ...]  # (mean1, var1, mean2, var2, mean3, var3)
 
@@ -68,11 +74,16 @@ def _relu_fold(y, s, t):
     return torch.relu(y * s + t)
 
 
+def _y1(a, ct, idx):
+    """y1 = a[idx] + ct, the (B, S, K, C1) grid of layer 1."""
+    return group_points(a, idx) + ct[:, :, None, :]
+
+
 def sa_train_fwd_plain(a, ct, idx, w2, b2, w3, b3, bn: Sequence[torch.Tensor]):
     """The plain forward: a (B, N, C1), ct (B, S, C1), idx (B, S, K), w2 (C1,
     C2), w3 (C2, C3), bn = (g1, bt1, g2, bt2, g3, bt3) -> (out (B, S, C3),
-    stats, grids (y1, y2, y3))."""
-    y1 = group_points(a, idx) + ct[:, :, None, :]
+    stats, grids (y2, y3))."""
+    y1 = _y1(a, ct, idx)
     m1, v1 = _stats(y1)
     s1, t1, _ = _fold(m1, v1, bn[0], bn[1])
     y2 = _relu_fold(y1, s1, t1) @ w2 + b2
@@ -82,7 +93,7 @@ def sa_train_fwd_plain(a, ct, idx, w2, b2, w3, b3, bn: Sequence[torch.Tensor]):
     m3, v3 = _stats(y3)
     s3, t3, _ = _fold(m3, v3, bn[4], bn[5])
     out = _relu_fold(y3, s3, t3).amax(dim=2)
-    return out, (m1, v1, m2, v2, m3, v3), (y1, y2, y3)
+    return out, (m1, v1, m2, v2, m3, v3), (y2, y3)
 
 
 def _bn_bwd(dz, yh, s, M: float):
@@ -92,13 +103,14 @@ def _bn_bwd(dz, yh, s, M: float):
     return s * (dz - dbeta / M - yh * (dgamma / M)), dgamma, dbeta
 
 
-def sa_train_bwd_plain(g_out, idx, grids, stats: Stats, w2, w3, bn: Sequence[torch.Tensor],
-                       n_points: int):
-    """The plain backward from the forward's grids and statistics and the
-    cotangent g_out (B, S, C3) -> (da (B, N, C1), dct (B, S, C1), dw2, dw3,
-    (dg1, dbt1, dg2, dbt2, dg3, dbt3))."""
-    y1, y2, y3 = grids
-    B, S, K, C1 = y1.shape
+def sa_train_bwd_plain(g_out, a, ct, idx, grids, stats: Stats, w2, w3,
+                       bn: Sequence[torch.Tensor]):
+    """The plain backward from the forward's inputs a, ct, idx, its grids
+    (y2, y3) and statistics, and the cotangent g_out (B, S, C3) -> (da (B, N,
+    C1), dct (B, S, C1), dw2, dw3, (dg1, dbt1, dg2, dbt2, dg3, dbt3))."""
+    grids = (_y1(a, ct, idx), *grids)
+    B, S, K, C1 = grids[0].shape
+    n_points = a.shape[1]
     M = float(B * S * K)
     folds = [_fold(stats[2 * i], stats[2 * i + 1], bn[2 * i], bn[2 * i + 1]) for i in range(3)]
     h1, h2, h3 = (_relu_fold(y, s, t) for y, (s, t, _) in zip(grids, folds))
@@ -138,6 +150,15 @@ def _workspace(dims, backward: bool, device) -> torch.Tensor:
     return torch.empty(nbytes, dtype=torch.uint8, device=device)
 
 
+def _packed(name: str, w: torch.Tensor) -> torch.Tensor:
+    """w (in, out) packed for the tensor cores; its size checked against the C side's rule."""
+    p = pack_chunks(w)
+    n = _library().sa_train_packed_floats(w.shape[0], w.shape[1])
+    if p.numel() != n:
+        raise RuntimeError(f"K6: {name} packed to {p.numel()} floats, the kernel reads {n}")
+    return p
+
+
 def sa_train_fwd_kernel(a, ct, idx, w2, b2, w3, b3, bn: Sequence[torch.Tensor]):
     """K6 forward on the card: the same function as `sa_train_fwd_plain`."""
     B, N, C1 = a.shape
@@ -153,50 +174,55 @@ def sa_train_fwd_kernel(a, ct, idx, w2, b2, w3, b3, bn: Sequence[torch.Tensor]):
     bn_flat = torch.cat([p.reshape(-1) for p in bn])
     check("bn", bn_flat, dev, (2 * (C1 + C2 + C3),))
     dims = _dims(idx, N, C1, C2, C3)
-    grids = tuple(torch.empty(B, S, K, c, device=dev) for c in (C1, C2, C3))
+    w2p, w3p = _packed("W2", w2), _packed("W3", w3)
+    grids = tuple(torch.empty(B, S, K, c, device=dev) for c in (C2, C3))
     out = torch.empty(B, S, C3, device=dev)
     stats = torch.empty(2 * (C1 + C2 + C3), device=dev)
     ws = _workspace(dims, False, dev)
     rc = _library().sa_train_fwd(
-        a.data_ptr(), ct.data_ptr(), idx.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        w3.data_ptr(), b3.data_ptr(), bn_flat.data_ptr(), grids[0].data_ptr(),
-        grids[1].data_ptr(), grids[2].data_ptr(), out.data_ptr(), stats.data_ptr(),
+        a.data_ptr(), ct.data_ptr(), idx.data_ptr(), w2p.data_ptr(), w2p.numel(),
+        b2.data_ptr(), w3p.data_ptr(), w3p.numel(), b3.data_ptr(), bn_flat.data_ptr(),
+        grids[0].data_ptr(), grids[1].data_ptr(), out.data_ptr(), stats.data_ptr(),
         ws.data_ptr(), *dims, stream_of(a))
     raise_on(rc, "K6 sa_train_fwd", _ERRORS)
     fused_sa_train_apply.fwd_launches += 1
     return out, tuple(torch.split(stats, [C1, C1, C2, C2, C3, C3])), grids
 
 
-def sa_train_bwd_kernel(g_out, idx, grids, stats: Stats, w2, w3, bn: Sequence[torch.Tensor],
-                        n_points: int):
+def sa_train_bwd_kernel(g_out, a, ct, idx, grids, stats: Stats, w2, w3,
+                        bn: Sequence[torch.Tensor]):
     """K6 backward on the card: the same function as `sa_train_bwd_plain`."""
-    y1, y2, y3 = grids
-    B, S, K, C1 = y1.shape
+    y2, y3 = grids
+    B, N, C1 = a.shape
+    S, K = idx.shape[1], idx.shape[2]
     C2, C3 = y2.shape[3], y3.shape[3]
-    dev = y1.device
+    dev = a.device
     check("g_out", g_out, dev, (B, S, C3))
+    check("a", a, dev, (B, N, C1))
+    check("ct", ct, dev, (B, S, C1))
     check("idx", idx, dev, (B, S, K), dtype=torch.int32)
-    for name, t, c in (("y1", y1, C1), ("y2", y2, C2), ("y3", y3, C3)):
+    for name, t, c in (("y2", y2, C2), ("y3", y3, C3)):
         check(name, t, dev, (B, S, K, c))
-    w2t, w3t = w2.t().contiguous(), w3.t().contiguous()
-    check("w2t", w2t, dev, (C2, C1))
-    check("w3t", w3t, dev, (C3, C2))
+    if tuple(w2.shape) != (C1, C2) or tuple(w3.shape) != (C2, C3):
+        raise ValueError(f"w2, w3 must be ({C1}, {C2}), ({C2}, {C3}), got "
+                         f"{tuple(w2.shape)}, {tuple(w3.shape)}")
     stats_flat = torch.cat([s.reshape(-1) for s in stats])
     bn_flat = torch.cat([p.reshape(-1) for p in bn])
     check("stats", stats_flat, dev, (2 * (C1 + C2 + C3),))
     check("bn", bn_flat, dev, (2 * (C1 + C2 + C3),))
-    dims = _dims(idx, n_points, C1, C2, C3)
-    da = torch.empty(B, n_points, C1, device=dev)
+    dims = _dims(idx, N, C1, C2, C3)
+    w2tp, w3tp = _packed("W2^T", w2.t()), _packed("W3^T", w3.t())
+    da = torch.empty(B, N, C1, device=dev)
     dct = torch.empty(B, S, C1, device=dev)
     dw2 = torch.empty(C1, C2, device=dev)
     dw3 = torch.empty(C2, C3, device=dev)
     dbn = torch.empty(2 * (C1 + C2 + C3), device=dev)
     ws = _workspace(dims, True, dev)
     rc = _library().sa_train_bwd(
-        g_out.data_ptr(), idx.data_ptr(), y1.data_ptr(), y2.data_ptr(), y3.data_ptr(),
-        stats_flat.data_ptr(), w2t.data_ptr(), w3t.data_ptr(), bn_flat.data_ptr(),
-        da.data_ptr(), dct.data_ptr(), dw2.data_ptr(), dw3.data_ptr(), dbn.data_ptr(),
-        ws.data_ptr(), *dims, stream_of(g_out))
+        g_out.data_ptr(), a.data_ptr(), ct.data_ptr(), idx.data_ptr(), y2.data_ptr(),
+        y3.data_ptr(), stats_flat.data_ptr(), w2tp.data_ptr(), w2tp.numel(), w3tp.data_ptr(),
+        w3tp.numel(), bn_flat.data_ptr(), da.data_ptr(), dct.data_ptr(), dw2.data_ptr(),
+        dw3.data_ptr(), dbn.data_ptr(), ws.data_ptr(), *dims, stream_of(g_out))
     raise_on(rc, "K6 sa_train_bwd", _ERRORS)
     fused_sa_train_apply.bwd_launches += 1
     return da, dct, dw2, dw3, tuple(torch.split(dbn, [C1, C1, C2, C2, C3, C3]))
@@ -214,17 +240,17 @@ class _SATrainFunction(torch.autograd.Function):
                                                     w3.contiguous(), b3, bn)
         else:
             out, stats, grids = sa_train_fwd_plain(a, ct, idx, w2, b2, w3, b3, bn)
-        ctx.save_for_backward(idx, w2, w3, *bn)
-        ctx.grids, ctx.stats, ctx.n_points = grids, stats, a.shape[1]
+        ctx.save_for_backward(a, ct, idx, w2, w3, *bn)
+        ctx.grids, ctx.stats = grids, stats
         ctx.mark_non_differentiable(*stats)
         return (out, *stats)
 
     @staticmethod
     def backward(ctx, g_out, *_):
-        idx, w2, w3, *bn = ctx.saved_tensors
+        a, ct, idx, w2, w3, *bn = ctx.saved_tensors
         bwd = sa_train_bwd_kernel if on_cuda(g_out) else sa_train_bwd_plain
-        da, dct, dw2, dw3, dbn = bwd(g_out.contiguous(), idx, ctx.grids, ctx.stats, w2, w3, bn,
-                                     ctx.n_points)
+        da, dct, dw2, dw3, dbn = bwd(g_out.contiguous(), a, ct, idx, ctx.grids, ctx.stats, w2,
+                                     w3, bn)
         # the Dense biases feeding a BatchNorm: exactly 0
         db2, db3 = w2.new_zeros(w2.shape[1]), w3.new_zeros(w3.shape[1])
         return (da, dct, dw2, db2, dw3, db3, *dbn, None)
