@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --chain-times   # phases 1-3 only (K1/K2), no result line
     python3 chip_smoke.py --k6-times      # phases 1, 2 and 11 only (K6), no result line
+    python3 chip_smoke.py --k4-times      # phases 1, 2 and 7 only (K4/K5), no result line
 
 Phases, one line or a few each; any failure exits non-zero:
   1. environment: torch / CUDA versions, the card's name and power limit;
@@ -26,19 +27,26 @@ Phases, one line or a few each; any failure exits non-zero:
      profiler window.
   6. K3 (FPS) against its plain version at the BAT path's shapes (B = 1
      and 16, N 1024 -> 512 and 512 -> 256), index for index, on a
-     continuous cloud and on one with duplicated points (ties); times.
-  7. K4 against sa_eval_plain at each of the seven SA calls of a BAT
-     forward at cfgs/BAT_Car.yaml widths, on the inputs that forward gives
-     them (B = 1 and 16); K5 (indices from the plain ball query) against
-     K4; two ragged centroid counts; times.
+     continuous cloud and on one with duplicated points (ties); times, and
+     at B = 1 its latency-aware bound: the serial skeleton of its npoint - 1
+     steps alone on its block (csrc/fps.cu::fps_chain_floor).
+  7. K4 (3xTF32 on the tensor cores) against sa_eval_plain at each of the
+     seven SA calls of a BAT forward at cfgs/BAT_Car.yaml widths, on the
+     inputs that forward gives them (B = 1 and 16); K5 (indices from the
+     plain ball query) against K4; two ragged centroid counts; K5 with an
+     index out of range (its centroid's output NaN, the others unchanged);
+     times by events and by profiler device time over one forward's seven
+     calls, device time by kernel name, both bounds (f32 CUDA cores, 3xTF32
+     tensor cores) and the share; the HMMA/HGMMA count of K4's product
+     kernel (fails if it has none).
   8. the BAT forward, kernel path vs plain path (B = 1 and 16), with the
      launches of one forward (K3 = 2, K4 = 7); P2B once (K4 = 7).
   9. the BAT slice through its entry points: evaluate_dataset on the
      synthetic dataset at BAT_Car widths (both paths), a profiler window,
      and the CLI on cfgs/BAT_synthetic.yaml.
- 10. printed last, after phase 13: one JSON line of the kernels K1-K6 (each
-     with its bound from this run's shapes), the card line, then the result
-     line.
+ 10. printed last, after phase 14: one JSON line of the kernels K1-K6 and
+     the probes P1/P2 (each with its bound from this run's shapes), the card
+     line, then the result line.
  11. K6 (training-mode SA, 3xTF32 on the tensor cores) forward and backward
      against their plain versions at the four K6 calls of a BAT train step at
      BAT_Car widths, on the inputs that step gives them (B = 16 and 50, and a
@@ -55,6 +63,13 @@ Phases, one line or a few each; any failure exits non-zero:
      (steps/s, host sample building against the step, a profiler idle
      share), then the training CLI on cfgs/BAT_synthetic.yaml in a
      subprocess.
+ 14. the probes P1 and P2 through their entry points (probes/gather.py,
+     probes/gather_bf16.py): every gather form against its plain version
+     (exact, the one-hot form by allclose), the per-element gather, the
+     one-hot's row sums and the bf16 gather (max |diff| 0), at P1's and P2's
+     own shapes and at K4's gather shapes (B = 1 and 16), with times by
+     events (host included) and by events behind a queued sleep (device
+     only), beside the plain versions and torch.gather.
 
 Weights are random, made with numpy from a seed in the JAX tree's shape
 (open3dsot_tpu_torch.weights). Needs one card; no network.
@@ -190,6 +205,30 @@ def device_ms(fn, iters: int = 10):
     return None
 
 
+def queued_ms(fn, iters: int = 20, repeats: int = 5) -> float:
+    """Device time per call by CUDA events, without the host's time: a queued
+    sleep of about a millisecond keeps the device busy while the host
+    enqueues `iters` calls, which then run back to back. For kernels of a
+    few microseconds, where a profiler trace of a quick burst of launches has
+    come back short of records; median over `repeats`."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
 def bound_of(nbytes: float, flops: float, peak: float = PEAK_F32_FLOPS):
     """(least time in ms, "bytes" or "operations") for this much work at a
     peak rate of `peak` operations per second."""
@@ -204,9 +243,10 @@ def tc_bound_of(nbytes: float, flops: float):
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int, err: float,
                  ms: float, plain_ms: float, work, library_ms=None, tensor_core: bool = False,
-                 **_) -> dict:
-    """One entry of the kernels line; work = (bytes, operations) of the timed call."""
-    bound_ms, bound_by = (tc_bound_of if tensor_core else bound_of)(*work)
+                 peak: float = PEAK_F32_FLOPS, **_) -> dict:
+    """One entry of the kernels line; work = (bytes, operations) of the timed
+    call; its operations at `peak`, or in 3xTF32 with tensor_core."""
+    bound_ms, bound_by = tc_bound_of(*work) if tensor_core else bound_of(*work, peak)
     return {"name": name, "route": "cuda", "source": "open3dsot_tpu_torch/csrc/" + source,
             "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -424,6 +464,7 @@ def main(argv=None) -> None:
 
     args = sys.argv[1:] if argv is None else argv
     chain_only, k6_only = "--chain-times" in args, "--k6-times" in args
+    k4_only = "--k4-times" in args
     # --- 1. environment ---------------------------------------------------
     print(f"env: python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
@@ -440,7 +481,8 @@ def main(argv=None) -> None:
     # --- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     libs = load_libraries(["chain_fused"] if chain_only else ["sa_fused_train"] if k6_only else
-                          ["chain_fused", "fps", "sa_fused", "sa_fused_train"])
+                          ["sa_fused"] if k4_only else
+                          ["chain_fused", "fps", "sa_fused", "sa_fused_train", "gather_probe"])
     print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
     for lib in libs.values():
         print(f"  {lib.path.relative_to(ROOT)} in {lib.build_seconds:.1f} s "
@@ -453,6 +495,10 @@ def main(argv=None) -> None:
     if k6_only:
         training_phases(card, libs["sa_fused_train"], k6_only=True)
         print("k6 times done: phases 1, 2 and 11 only", flush=True)
+        return
+    if k4_only:
+        matching_phases(card, libs["sa_fused"], k4_only=True)
+        print("k4 times done: phases 1, 2 and 7 only", flush=True)
         return
 
     # --- 3. kernels vs plain at the main path's shapes --------------------
@@ -546,10 +592,13 @@ def main(argv=None) -> None:
     print("phase 5 ok", flush=True)
 
     # --- 6.-9. the BAT/P2B matching path ----------------------------------
-    matching_kernels = matching_phases(card)
+    matching_kernels = matching_phases(card, libs["sa_fused"])
 
     # --- 11.-13. BAT/P2B training -----------------------------------------
     training_kernels = training_phases(card, libs["sa_fused_train"])
+
+    # --- 14. the probes P1/P2 -----------------------------------------------
+    probe_kernels = probe_phase(card)
 
     # --- 10. results ------------------------------------------------------
     kernels = [
@@ -558,7 +607,7 @@ def main(argv=None) -> None:
                      **chains["rows"][("K1 seg mlp1 tap", 1)]),
         kernel_entry("K2 fused_seg_head", "chain_fused.cu", "open3dsot_tpu/ops/chain_fused.py:217",
                      k2_launches, chains["errs"]["K2"], **chains["rows"][("K2 seg head", 1)]),
-    ] + matching_kernels + training_kernels
+    ] + matching_kernels + training_kernels + probe_kernels
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -584,6 +633,8 @@ def check_k3(card: str) -> dict:
     import torch
 
     from open3dsot_tpu_torch.ops import sampling as smp
+    from open3dsot_tpu_torch.ops._build import load_library
+    from open3dsot_tpu_torch.ops._launch import raise_on, stream_of
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     times = {}
@@ -608,6 +659,23 @@ def check_k3(card: str) -> dict:
             d_p = device_ms(lambda: smp.furthest_point_sample_plain(x, S), iters=2)
             print(f"  time K3 B={B} N={N}->{S}: kernel {t_k:.4f} ms plain {min(t_p, t_p2):.4f} ms; "
                   f"device time kernel {fmt_ms(d_k)} plain {fmt_ms(d_p)} [{card}]", flush=True)
+            if B == 1:
+                # the latency-aware bound: S - 1 serial steps of the step's skeleton alone
+                # (csrc/fps.cu::fps_chain_floor) on K3's block at this N
+                lib = load_library("fps").lib
+                sink = torch.empty(1, device="cuda")
+                threads = min(1024, (N + 31) // 32 * 32)
+
+                def chain():
+                    raise_on(lib.fps_chain_floor(S - 1, threads, sink.data_ptr(), stream_of(sink)),
+                             "fps_chain_floor")
+
+                floor = time_ms(chain)
+                share = "not measured" if d_k is None else f"{floor / d_k:.1%}"
+                print(f"  K3 B=1 N={N}->{S} latency-aware bound: {S - 1} serial steps x "
+                      f"{floor / (S - 1) * 1e3:.4f} us = {floor:.4f} ms (one warp reduction, one "
+                      f"barrier, a second reduction a step); kernel device time at {share} of it "
+                      f"[{card}]", flush=True)
     print("phase 6 ok: K3 indices equal to the plain version's", flush=True)
     return times
 
@@ -634,51 +702,89 @@ def sa_calls(plain_model, batch) -> list:
     return calls
 
 
-def check_k4_k5(calls, card: str):
-    """K4 against sa_eval_plain and K5 against K4 at each SA call's inputs."""
+def bq_walked(xyz, new, radius: float, K: int) -> int:
+    """Points K4's ball query tests on these inputs: each centroid's warp walks
+    the points 32 at a time until K lie in the ball, or to the end
+    (csrc/sa_fused.cu::bq_kernel)."""
+    import torch
+
+    from open3dsot_tpu_torch.ops.neighbors import radius_sq
+
+    N = xyz.shape[1]
+    d = new[:, :, None, :] - xyz[:, None, :, :]
+    d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+    count = (d2 < radius_sq(radius)).int().cumsum(-1)  # (B, S, N)
+    kth = torch.argmax((count >= K).int(), dim=-1)  # where the K-th point is found
+    walked = torch.where(count[..., -1] >= K, torch.clamp((kth // 32 + 1) * 32, max=N),
+                         torch.full_like(kth, N))
+    return int(walked.sum())
+
+
+def sa_work(xyz, feats, new, folded, K: int, walked: int):
+    """(bytes, operations) of one K4 call: xyz, features and centroids read,
+    the weights read, (B, S, C3) written; layer 1's A-form matmul over the
+    points, layers 2-3 over the (B, S, K) grid, 8 operations per point the
+    ball query tests (walked)."""
+    B, N, S = xyz.shape[0], xyz.shape[1], new.shape[1]
+    C = 0 if feats is None else feats.shape[2]
+    (w1, _), (w2, _), (w3, _) = folded
+    c1, c2, c3 = w1.shape[1], w2.shape[1], w3.shape[1]
+    nbytes = 4 * (B * (N * (3 + C) + S * 3 + S * c3) + sum(w.numel() + b.numel() for w, b in folded))
+    flops = 2 * B * N * w1.shape[0] * c1 + 2 * B * S * K * (c1 * c2 + c2 * c3)
+    return nbytes, flops + 8 * walked
+
+
+def check_k4_k5(calls, card: str, lib, strict: bool = True):
+    """Phase 7: K4 against sa_eval_plain and K5 against K4 at each SA call's
+    inputs; times by call and over one forward's seven calls, device time by
+    kernel name, both bounds; the tensor-core instructions of K4's products."""
     import torch
 
     from open3dsot_tpu_torch.ops import sa_fused as saf
     from open3dsot_tpu_torch.ops.neighbors import ball_query
 
+    counts = sass_tensor_ops(lib.path)
+    for fn, c in counts.items():
+        print(f"  sass: {fn}: {c} HMMA/HGMMA", flush=True)
+    products = [fn for fn in counts if fn.startswith("sa_tc_kernel")]
+    if strict and (not products or not all(counts[fn] for fn in products)):
+        fail(f"K4's product kernel holds no tensor-core instruction: {counts}")
     errs = {"K4": 0.0, "K5": 0.0}
-    work = {"K4": [0, 0], "K5": [0, 0]}  # (bytes, operations) of one forward's calls at B = 1
-    sums = {1: [0.0, 0.0, 0.0], 16: [0.0, 0.0, 0.0]}  # K4, K5, plain over one forward's calls
-    dev_sums = {1: [0.0, 0.0, 0.0], 16: [0.0, 0.0, 0.0]}  # the same in device time
+    batches = (1, 16)
+    work = {B: {"K4": [0, 0], "K5": [0, 0]} for B in batches}  # over one forward's calls
+    sums = {B: [0.0, 0.0, 0.0] for B in batches}  # K4, K5, plain over one forward's calls
+    dev_sums = {B: [0.0, 0.0, 0.0] for B in batches}  # the same in device time
+    forward = {B: [] for B in batches}  # one forward's K4 calls
     for label, mod, xyz16, feats16, new16 in calls:
         kw = dict(radius=mod.radius, normalize_xyz=mod.normalize_xyz, use_xyz=mod.use_xyz)
         K, folded = mod.nsample, mod.folded_chains()
-        for B in (1, 16):
+        for B in batches:
             xyz, new = xyz16[:B].contiguous(), new16[:B].contiguous()
             feats = None if feats16 is None else feats16[:B].contiguous()
             shape = (f"{label} B={B} S={new.shape[1]} K={K} N={xyz.shape[1]} "
                      f"C={0 if feats is None else feats.shape[2]}->{folded[-1][0].shape[1]}")
-            if B == 1:
-                N, S, C = xyz.shape[1], new.shape[1], 0 if feats is None else feats.shape[2]
-                (w1, _), (w2, _), (w3, _) = folded
-                c1, c2, c3 = w1.shape[1], w2.shape[1], w3.shape[1]
-                nbytes = 4 * (N * (3 + C) + S * 3 + sum(w.numel() + b.numel() for w, b in folded)
-                              + S * c3)
-                flops = 2 * N * w1.shape[0] * c1 + 2 * S * K * (c1 * c2 + c2 * c3)
-                work["K4"][0] += nbytes
-                work["K4"][1] += flops + 8 * S * N  # the ball query's squared distances
-                work["K5"][0] += nbytes + 4 * S * K  # the indices
-                work["K5"][1] += flops
-            k4 = saf.fused_sa_apply(xyz, feats, new, None, folded, nsample=K, **kw)
-            want = saf.sa_eval_plain(xyz, feats, new, None, folded, nsample=K, **kw)
+            nbytes, flops = sa_work(xyz, feats, new, folded, K, 0)
+            work[B]["K4"][0] += nbytes
+            work[B]["K4"][1] += flops + 8 * bq_walked(xyz, new, mod.radius, K)
+            work[B]["K5"][0] += nbytes + 4 * B * new.shape[1] * K  # the indices
+            work[B]["K5"][1] += flops
+
+            def k4(xyz=xyz, feats=feats, new=new, folded=folded, K=K, kw=kw):
+                return saf.fused_sa_apply(xyz, feats, new, None, folded, nsample=K, **kw)
+
+            def plain(xyz=xyz, feats=feats, new=new, folded=folded, K=K, kw=kw):
+                return saf.sa_eval_plain(xyz, feats, new, None, folded, nsample=K, **kw)
+
+            forward[B].append(k4)
             idx = ball_query(mod.radius, K, xyz, new)
-            k5 = saf.fused_sa_apply(xyz, feats, new, idx, folded, **kw)
+            k5 = lambda: saf.fused_sa_apply(xyz, feats, new, idx, folded, **kw)  # noqa: E731
+            got4, want, got5 = k4(), plain(), k5()
             torch.cuda.synchronize()
-            errs["K4"] = max(errs["K4"], compare(f"K4 {shape}", k4, want))
-            errs["K5"] = max(errs["K5"], compare(f"K5 {shape}", k5, want))
-            compare(f"K5 vs K4 {shape}", k5, k4)
-            t_p = time_ms(lambda: saf.sa_eval_plain(xyz, feats, new, None, folded, nsample=K, **kw))
-            t_4 = time_ms(lambda: saf.fused_sa_apply(xyz, feats, new, None, folded, nsample=K, **kw))
-            t_5 = time_ms(lambda: saf.fused_sa_apply(xyz, feats, new, idx, folded, **kw))
-            t_p2 = time_ms(lambda: saf.sa_eval_plain(xyz, feats, new, None, folded, nsample=K, **kw))
-            d = (device_ms(lambda: saf.fused_sa_apply(xyz, feats, new, None, folded, nsample=K, **kw)),
-                 device_ms(lambda: saf.fused_sa_apply(xyz, feats, new, idx, folded, **kw)),
-                 device_ms(lambda: saf.sa_eval_plain(xyz, feats, new, None, folded, nsample=K, **kw)))
+            errs["K4"] = max(errs["K4"], compare(f"K4 {shape}", got4, want))
+            errs["K5"] = max(errs["K5"], compare(f"K5 {shape}", got5, want))
+            compare(f"K5 vs K4 {shape}", got5, got4)
+            t_p, t_4, t_5, t_p2 = time_ms(plain), time_ms(k4), time_ms(k5), time_ms(plain)
+            d = (device_ms(k4), device_ms(k5), device_ms(plain))
             for i, v in enumerate((t_4, t_5, min(t_p, t_p2))):
                 sums[B][i] += v
             for i, v in enumerate(d):
@@ -694,13 +800,42 @@ def check_k4_k5(calls, card: str):
         k4 = saf.fused_sa_apply(xyz, feats, new[:, :S].contiguous(), None, mod.folded_chains(), **kw)
         want = saf.sa_eval_plain(xyz, feats, new[:, :S].contiguous(), None, mod.folded_chains(), **kw)
         errs["K4"] = max(errs["K4"], compare(f"K4 {label} B=16 ragged S={S}", k4, want))
-    for B, (t_4, t_5, t_p) in sums.items():
+    for B in batches:
+        t_4, t_5, t_p = sums[B]
         d_4, d_5, d_p = dev_sums[B]
         print(f"  time of one BAT forward's 7 SA calls, B={B}: K4 {t_4:.4f} ms K5 {t_5:.4f} ms "
               f"plain {t_p:.4f} ms; device time K4 {fmt_ms(d_4)} K5 {fmt_ms(d_5)} plain "
               f"{fmt_ms(d_p)} [{card}]", flush=True)
+        run = lambda: [f() for f in forward[B]]  # noqa: E731
+        t_ev = time_ms(run, iters=10, repeats=5)
+        by_name = {}
+        for e in device_rows(lambda: [run() for _ in range(10)]):
+            by_name[e.key] = by_name.get(e.key, 0.0) + dev_us(e) / 10 / 1e3
+        total = sum(by_name.values())
+        b32, btc = bound_of(*work[B]["K4"])[0], tc_bound_of(*work[B]["K4"])[0]
+        share = f"{btc / total:.1%}" if total > 0 else "not measured"
+        print(f"  one BAT forward's 7 K4 calls back to back, B={B}: ev {t_ev:.4f} ms, device "
+              f"{fmt_ms(total if total > 0 else None)}; bound f32 {b32:.5f} ms, 3xTF32 "
+              f"{btc:.5f} ms (device time at {share} of the 3xTF32 bound) [{card}]", flush=True)
+        for key, v in sorted(by_name.items(), key=lambda kv: -kv[1]):
+            print(f"    {v:.4f} ms  {key[:100]}")
+    # an index outside [0, N) in K5's idx: its centroid's output is NaN, the rest as before
+    label, mod, xyz, feats, new = calls[3]
+    kw = dict(radius=mod.radius, normalize_xyz=mod.normalize_xyz, use_xyz=mod.use_xyz)
+    idx = ball_query(mod.radius, mod.nsample, xyz, new)
+    good = saf.fused_sa_apply(xyz, feats, new, idx, mod.folded_chains(), **kw)
+    idx[1, 5, 7] = xyz.shape[1]
+    bad = saf.fused_sa_apply(xyz, feats, new, idx, mod.folded_chains(), **kw)
+    keep = torch.ones(bad.shape[:2], dtype=torch.bool, device=bad.device)
+    keep[1, 5] = False
+    nan_ok = bool(torch.isnan(bad[1, 5]).all()) and torch.equal(bad[keep], good[keep])
+    print(f"  K5 {label} B=16, index {xyz.shape[1]} at centroid 5 of cloud 1: its output "
+          f"{'NaN' if torch.isnan(bad[1, 5]).all() else 'not NaN'}, the others "
+          f"{'unchanged' if torch.equal(bad[keep], good[keep]) else 'changed'}", flush=True)
+    if strict and not nan_ok:
+        fail("K5: an index outside [0, N) did not give its centroid NaN alone")
     print("phase 7 ok: K4 and K5 within tolerance at every SA call of the BAT path", flush=True)
-    return errs, sums, work
+    return errs, sums, work[1]
 
 
 def reset_matching_counts() -> None:
@@ -746,15 +881,16 @@ def check_matching_forward(model, plain_model, batch, what: str, want_launches, 
               flush=True)
 
 
-def matching_phases(card: str) -> list:
-    """Phases 6-9; returns the K3-K5 entries of the kernels line."""
+def matching_phases(card: str, lib, k4_only: bool = False) -> list:
+    """Phases 6-9 (7 alone with k4_only); returns the K3-K5 entries of the
+    kernels line."""
     import numpy as np
     import torch
 
     from open3dsot_tpu_torch.data import get_dataset
     from open3dsot_tpu_torch.tracking.eval import evaluate_dataset
 
-    k3_times = check_k3(card)
+    k3_times = None if k4_only else check_k3(card)
 
     cfg = matching_cfg("bat")
     model, variables = make_model(cfg, fused_eval=True)
@@ -762,7 +898,10 @@ def matching_phases(card: str) -> list:
     sampler = get_dataset(cfg, "test", "test")
     frames = matching_frames(model, sampler, 16)
     batch16 = {k: np.concatenate([f[k] for f in frames]) for k in frames[0]}
-    errs, sa_sums, sa_work = check_k4_k5(sa_calls(plain_model, batch16), card)
+    errs, sa_sums, sa_work = check_k4_k5(sa_calls(plain_model, batch16), card, lib,
+                                         strict=not k4_only)
+    if k4_only:
+        return []
 
     for B, batch in ((1, frames[0]), (16, batch16)):
         check_matching_forward(model, plain_model, batch, f"BAT B={B}", (2, 7, 0), card)
@@ -819,10 +958,10 @@ def matching_phases(card: str) -> list:
                      launches[0], 0.0, *k3_times[(1, 1024)], k3_work),
         kernel_entry("K4 fused_sa_apply (ball query)", "sa_fused.cu",
                      "open3dsot_tpu/ops/sa_fused.py:384", launches[1], errs["K4"], sa_sums[1][0],
-                     sa_sums[1][2], sa_work["K4"]),
+                     sa_sums[1][2], sa_work["K4"], tensor_core=True),
         kernel_entry("K5 fused_sa_apply (idx given)", "sa_fused.cu",
                      "open3dsot_tpu/ops/sa_fused.py:415", launches[2], errs["K5"], sa_sums[1][1],
-                     sa_sums[1][2], sa_work["K5"]),
+                     sa_sums[1][2], sa_work["K5"], tensor_core=True),
     ]
 
 
@@ -1298,6 +1437,50 @@ def training_phases(card: str, lib, k6_only: bool = False) -> list:
                      launches[2], errs["bwd"], sums[TRAIN_B][2], sums[TRAIN_B][3],
                      work[TRAIN_B][1], tensor_core=True),
     ]
+
+
+def probe_phase(card: str) -> list:
+    """Phase 14: P1 and P2 through the probes' own run (probes/gather.py,
+    probes/gather_bf16.py); returns their entries of the kernels line, timed
+    at K4's largest gather (search SA0, B = 16) and, for the per-element
+    gather and the one-hot's row sums, at P1's own shape."""
+    from open3dsot_tpu_torch.probes import gather as pg
+    from open3dsot_tpu_torch.probes import gather_bf16 as pb
+
+    pg.reset_launch_counts()
+    pb.reset_launch_counts()
+    rows = (pg.run(time_fn=time_ms, device_fn=queued_ms)
+            + pb.run(time_fn=time_ms, device_fn=queued_ms))
+    launches = {**pg.launch_counts(), "gather_bf16_rows": pb.gather_bf16_rows.launches}
+    for r in rows:
+        print(f"  {pg.line(r)} [{card}]", flush=True)
+    print(f"  probe launches: {launches}", flush=True)
+    for B in (1, 16):
+        tot = pg.fastest_exact(rows, B)
+        print(f"  K4's seven gathers at B={B}, device time: "
+              + ", ".join(f"{f} {t:.4f} ms" for f, t in tot.items())
+              + f"; fastest exact form: {min(tot, key=tot.get)} [{card}]", flush=True)
+    bad = [f"{r['what']} {r['label']} B={r['B']}" for r in rows if not r["ok"]]
+    if bad:
+        fail(f"probes differ from their plain versions: {bad}")
+    if not all(launches.values()):
+        fail(f"a probe kernel was not launched: {launches}")
+    print("phase 14 ok: P1's forms and P2 equal to their plain versions (P1's one-hot by allclose)",
+          flush=True)
+
+    def entry(what, label, B, source_line, key):
+        r = next(r for r in rows if r["what"] == what and r["label"] == label and r["B"] == B)
+        return kernel_entry(f"{source_line[0]} {what} ({label}, B={B})", "gather_probe.cu",
+                            source_line[1], launches[key], r["err"], r["ms"], r["plain_ms"],
+                            (r["nbytes"], r["ops"]), library_ms=r["library_ms"],
+                            peak=PEAK_TF32_FLOPS)
+
+    p1, p2 = ("P1", "scripts/probe_gather.py:24"), ("P2", "scripts/probe_pallas_int8.py:51")
+    return ([entry(f"gather_rows {f}", "search SA0", 16, p1, f"gather_rows {f}")
+             for f in pg.FORMS]
+            + [entry("gather_elems", "P1", 1, p1, "gather_elems"),
+               entry("onehot_rowsums", "P1", 1, p1, "onehot_rowsums"),
+               entry("gather_bf16_rows", "search SA0", 16, p2, "gather_bf16_rows")])
 
 
 def profile_window(model, sampler, cfg, card: str, wall_us_per_frame: float) -> None:

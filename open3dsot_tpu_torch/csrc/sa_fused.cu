@@ -1,97 +1,136 @@
-// Fused eval-mode set abstraction for Hopper (sm_90a), f32 on CUDA cores.
+// Fused eval-mode set abstraction for Hopper (sm_90a), layers 2-3 on the tensor
+// cores in 3xTF32 (tf32_tc.cuh).
 //
 // K4  sa_fused_k4 with idx == nullptr replaces open3dsot_tpu/ops/sa_fused.py::
-//     fused_sa_apply with idx=None (Pallas kernel _sa_bq_kernel): ball query in
-//     the kernel, gather of the layer-1 A-form rows, + ct, ReLU, two folded
+//     fused_sa_apply with idx=None (Pallas kernel _sa_bq_kernel, call :384):
+//     ball query, gather of the layer-1 A-form rows, + ct, ReLU, two folded
 //     Dense+ReLU layers, max over the K neighbors -> (B, S, C3).
 // K5  the same entry with idx (B, S, K) given replaces fused_sa_apply with idx
-//     (Pallas kernel _sa_kernel): the ball query is skipped, the rest is K4.
+//     (Pallas kernel _sa_kernel, call :415): the ball query is skipped.
 //
-// The A-form (open3dsot_tpu/ops/sa_fused.py::a_form) is computed outside, by
-// torch.matmul, as JAX computes it in XLA outside the pallas_call:
+// Layer 1 in A-form (open3dsot_tpu/ops/sa_fused.py::a_form):
 //   layer1(concat((x_j - c_s) / r, f_j)) = A[j] + ct[s],
-//   A = (x / r) W1_xyz + f W1_feat over all N points (B, N, C1),
-//   ct = b1 - (c / r) W1_xyz per centroid (B, S, C1).
+//   A = (x / r) W1_xyz + f W1_feat over all N points (B, N, C1): torch.matmul
+//   outside, as JAX computes it in XLA outside the pallas_call;
+//   ct = b1 - (c / r) W1_xyz per centroid: here, three FMAs a channel.
 //
-// What bounds it on this card. At BAT/P2B widths a centroid's K x C1 -> C2 ->
-// C3 chain is 32 x (64x64 + 64x128) up to 32 x (256x256 x 2) multiply-adds,
-// against 3 + C3 floats in and out per centroid: arithmetic, not device
-// memory, once the (B, S, K, C) activations stay on chip. The folded weights
-// (up to 256 KB each) do not fit beside the activations in one block's
-// shared memory, so they stream through L1/L2 (all of them fit in the 50 MB
-// L2), as in chain_fused.cu.
+// What bounds it on this card. At BAT/P2B widths a centroid's K x (C1 C2 +
+// C2 C3) multiply-adds (32 x 12288 up to 32 x 131072) dwarf its bytes, so the
+// products bound it: 67 TFLOP/s in f32 on the CUDA cores, or 3 x FLOP at 494.7
+// TFLOP/s in 3xTF32 on the tensor cores (2.5x less time, f32 accuracy:
+//   a * w ~ a_lo * w_hi + a_hi * w_lo + a_hi * w_hi,  hi = rna_tf32, lo = rna_tf32(x - hi)).
+// Nearer on the chip: a 64-row tile is 786K multiply-adds of 3xTF32 a
+// weight chunk, and the same warps that run them first load and split that
+// chunk's A fragments and then wait for the products; the narrow first
+// layers (64 -> 64 -> 128: four chunks a tile) pay a tile's fixed costs
+// (indices, ct, the gather, the max) for little product.
 //
 // What the design does about it.
-//  - A block owns a tile of ts = ROWS / K centroids and all of their K rows,
-//    so the max over K is a reduction inside the block: no atomics, no second
-//    pass. Blocks run in any order (the TPU grid ran in order; nothing here
-//    needs that).
-//  - Ball query: one warp per centroid walks the points in chunks of 32; each
-//    lane tests one point (strict d^2 < r^2, d^2 = ((dx*dx) + (dy*dy)) +
-//    (dz*dz) with __fmul_rn/__fadd_rn, the rounding of the plain version), and
-//    a ballot plus popc give each in-ball point its slot in ascending index
-//    order. The walk stops once K points are found. Slots past the count
-//    repeat slot 0; a centroid with no point in the ball gets index 0 (the
-//    CUDA op's convention; unreachable where the centroids are points of the
-//    cloud). This replaces the TPU's triangular-matmul prefix count. r^2 comes
-//    from the host, rounded once from double to f32 as JAX's weak-typed float.
-//  - Gather: indexed float4 loads of A rows (B, N, C1) from L2. The TPU's
-//    one-hot MXU gather and int8 bit-plane trick existed only because Mosaic
-//    has no row gather; they have no counterpart here. An index outside
-//    [0, N) in K5's idx gives NaN rows instead of a read out of bounds.
-//  - Layers 2 and 3: each thread computes a 4-row x 4-channel register tile;
-//    per input channel it loads one float4 of weights and four smem
-//    activations, then issues 16 FMAs. Activations live in two smem buffers
-//    (h1: ROWS x C1, h2: ROWS x C2), rows padded by 4 floats so that the row
-//    groups of one warp read different banks. Layer 3 is never stored whole:
-//    each chunk of output channels goes to h1 (free by then) and is reduced
-//    over K at once.
-//  - Tile size: ROWS in {128, 64, 32, 16}, the largest whose buffers leave
-//    room for two blocks on an SM and whose grid gives every SM two blocks;
-//    else the smallest ROWS >= K, for the most blocks. At C = 256 and K = 32
-//    a 256-row tile would need 256 KB, more than a block's 227 KB; the rule
-//    never picks it. At B = 1 the grid is S / ts blocks, 32 to 512 on the
-//    BAT path: the template's last layer and the vote layer fill a quarter
-//    of the card.
-//  - A ragged last tile (S not a multiple of ts) is masked: its rows past S
-//    are neither gathered, reduced nor written.
+//  - Tiles. A block owns 64 rows of the (B, S, K) grid: ts = 64 / K whole
+//    centroids (2 at K = 32, 4 at the vote layer's K = 16), so the max over
+//    K is the block's own; no atomics, no second pass. Two warpgroups each run
+//    wgmma m64n64k8 (TF32, f32 accumulate) on half of a 128-channel weight
+//    chunk, A from registers, split hi/lo as each fragment is loaded from a
+//    padded row-major tile (row stride width + 4 floats: the fragment loads
+//    hit 32 banks), B (W^T) from shared memory. No branch around wgmma
+//    (ptxas would serialise it): widths are zero-padded chunks.
+//  - Sums. The tensor cores do not round their f32 sums to nearest, so only
+//    one chunk's 12 products (32 inputs, lo * hi, hi * lo, hi * hi) are
+//    summed there, queued back to back; each chunk's sum is added to the
+//    accumulators on the CUDA cores (as K6 does). Summing each 8-input hi *
+//    hi product apart as well (K1/K2's order) needs about 190 registers a
+//    thread, more than the 168 that 288 threads leave, and spilled: the
+//    products took 1.38 ms over the seven BAT calls at B = 16 against 1.22
+//    (H100 80GB HBM3, 700 W).
+//  - Weights. Packed once on the host (ops/chain_fused.py::pack_chunks) in
+//    whole chunks of 128 output x 32 input channels, W^T hi then W^T lo in the
+//    tensor cores' layout; one bulk copy (TMA) a chunk, on an mbarrier, into a
+//    ring of as many stages as shared memory holds (2 at C = 256, 4 below).
+//    A producer warp streams them: it refills a stage as soon as the eight
+//    product warps have released it (empty mbarriers), so no block barrier
+//    stands between chunks and the warpgroups need not run in step; the
+//    first chunks load while the block gathers its rows.
+//  - Gather. Layer 1 is never formed: the block copies its rows' A-form rows
+//    raw into shared memory with 16-byte cp.async (by the P1 probe,
+//    probes/gather.py, the fastest exact form over K4's seven gathers at
+//    B = 16; at B = 1, where each takes a few microseconds, 16-byte loads
+//    through registers are a little faster), and relu(A + ct) is applied as
+//    layer 2 loads its A fragments; ct is computed per tile.
+//  - Layer 3 and the max. Each 128-channel chunk of layer 3 is ReLU'd into
+//    shared memory (the gathered rows' space, free by then) and reduced over
+//    each centroid's K rows by one thread a channel; the max starts at 0
+//    (every value is a ReLU output), and only the tile's real rows enter it:
+//    a zero row would give relu(b), not 0.
+//  - Filling the card (the host's plan). At B = 1 the tiles alone fill at
+//    most a card's width (16 at the vote layer, 32-256 elsewhere), so the
+//    grid may also split layer 3's output chunks over blocks, each block then
+//    computing layer 2 again: the plan picks the split with the fewest
+//    chunk-steps on the slowest SM (waves x chunks a block). At BAT's widths
+//    that splits template SA1/SA2, search SA2 and the vote layer in two at
+//    B = 1 (layer 2 computed twice: a third to a half more products) and
+//    nothing at B = 16.
+//  - Ball query (K4): a kernel of its own before the products, one warp per
+//    centroid walking the points in chunks of 32 (strict d^2 < r^2, d^2 =
+//    ((dx*dx) + (dy*dy)) + (dz*dz) with __fmul_rn/__fadd_rn, the rounding of
+//    the plain version); a ballot and popc give each in-ball point its slot
+//    in ascending index order; the walk stops once K are found; slots past
+//    the count repeat the first; a centroid with no point in the ball gets
+//    index 0 (the CUDA op's convention). r^2 comes from the host, rounded
+//    once from double to f32 as JAX's weak-typed float. The indices go to a
+//    (B, S, K) buffer the wrapper allocates, and the product kernel reads
+//    them as K5 reads the caller's.
+//  - Ragged tiles. A last tile with fewer centroids gathers zero rows past
+//    them, and they stay out of the max and the output. An index outside
+//    [0, N) in K5's idx reads nothing; its centroid's output is NaN.
 //
 // Interface: plain C, loaded with ctypes; pointers are device pointers and the
 // stream is PyTorch's current stream. Returns 0, a CUDA error code, or a
-// negative code for arguments the kernel does not take.
+// negative code for arguments the kernels do not take.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tf32_tc.cuh"  // kCC x kKC weight chunks, the TF32 split, wgmma, TMA
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRP = 4;  // rows per thread
-constexpr int kRC = 4;  // output channels per thread (one float4)
-constexpr int kPad = 4;  // floats of padding per smem row
-constexpr size_t kSmemBudget = 220 * 1024;     // one block per SM (of 227 KB)
-constexpr size_t kSmemTwoBlocks = 110 * 1024;  // two blocks per SM
+constexpr int kTile = 64;            // rows of a tile: wgmma's M
+constexpr int kConsumers = 256;      // two warpgroups of products
+constexpr int kThreads = kConsumers + 32;  // and a producer warp that streams the weights
+constexpr int kMaxStages = 4;        // weight chunks in shared memory
+constexpr int kRedStride = kCC + 8;  // floats between rows of layer 3's staged chunk
+constexpr int kSmemMax = 232448;     // 227 KB, the most a block may take
+constexpr int kBqThreads = 256;      // ball query: a warp per centroid
 
-constexpr int kErrArgs = -1;   // B, N, S, K or widths not accepted
-constexpr int kErrWidth = -2;  // a width is not a multiple of 4
-constexpr int kErrSmem = -3;   // the smallest tile does not fit in shared memory
+constexpr int kErrArgs = -1;    // B, N, S, K or widths not accepted
+constexpr int kErrWidth = -2;   // a width is not a multiple of 4
+constexpr int kErrSmem = -3;    // two weight stages do not fit beside the tile
+constexpr int kErrPacked = -4;  // a packed weight has the wrong size
 
 struct SAArgs {
-  const float* xyz;      // (B, N, 3): K4
-  const float* centers;  // (B, S, 3): K4
-  const int* idx;        // (B, S, K): K5; nullptr for K4
+  const float* centers;  // (B, S, 3)
+  const int* idx;        // (B, S, K)
   const float* a;        // (B, N, C1) A-form rows
-  const float* ct;       // (B, S, C1)
-  const float* w2;       // (C1, C2)
+  const float* w1x;      // (3, C1): layer 1's rows for xyz, or nullptr (ct = b1)
+  const float* b1;       // (C1)
+  const float* w2;       // packed (ops/chain_fused.py::pack_chunks)
   const float* b2;       // (C2)
-  const float* w3;       // (C2, C3)
+  const float* w3;       // packed
   const float* b3;       // (C3)
   float* out;            // (B, S, C3)
   int B, N, S, K, C1, C2, C3;
-  float r2;
-  int ts;         // centroids per block
-  int h1_floats;  // size of the h1 buffer
+  float inv_r;
+  int ts;                // centroids per tile: kTile / K
+  int nk2, nk3;          // input chunks of layers 2 and 3
+  int nc2, nc3;          // output chunks of layers 2 and 3
+  int cz;                // layer-3 output chunks per block: blockIdx.z takes [z cz, z cz + cz)
+  int nst;               // weight stages
+  int s1, s2;            // row strides (floats) of the gathered rows and of layer 2
+  int o_h2, o_ct, o_idx, o_w, o_bar;  // shared-memory offsets in floats
 };
+
+__host__ __device__ constexpr int round8(int n) { return (n + 7) & ~7; }
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 __device__ __forceinline__ float sqdist(float ax, float ay, float az, float bx, float by,
                                         float bz) {
@@ -99,231 +138,363 @@ __device__ __forceinline__ float sqdist(float ax, float ay, float az, float bx, 
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
 }
 
-// hout[r][c] = relu(hin[r] . W[:, c] + bias[c]) for the ROWS rows of the tile and
-// the 4 channels [c, c + 4) of this thread; acc holds the result.
-template <int ROWS>
-__device__ __forceinline__ void dense_relu_tile(const float* hin, int ld_in, int K_in,
-                                                const float* __restrict__ W,
-                                                const float* __restrict__ bias, int C, int c,
-                                                int tp, float (&acc)[kRP][kRC]) {
-  const float4 bv = __ldg(reinterpret_cast<const float4*>(bias + c));
-#pragma unroll
-  for (int i = 0; i < kRP; ++i) {
-    acc[i][0] = bv.x;
-    acc[i][1] = bv.y;
-    acc[i][2] = bv.z;
-    acc[i][3] = bv.w;
+// K4's ball query: warp w of block x takes centroid x * 8 + w of batch element y.
+__global__ void __launch_bounds__(kBqThreads) bq_kernel(const float* __restrict__ xyz,
+                                                        const float* __restrict__ centers,
+                                                        int* __restrict__ idx, int N, int S, int K,
+                                                        float r2) {
+  const int b = blockIdx.y, lane = threadIdx.x & 31;
+  const int s = blockIdx.x * (kBqThreads / 32) + (threadIdx.x >> 5);
+  if (s >= S) return;  // the whole warp
+  const float* c = centers + (static_cast<long long>(b) * S + s) * 3;
+  const float cx = c[0], cy = c[1], cz = c[2];
+  const float* x = xyz + static_cast<long long>(b) * N * 3;
+  int* slots = idx + (static_cast<long long>(b) * S + s) * K;
+  int count = 0, first = 0;
+  for (int base = 0; base < N && count < K; base += 32) {
+    const int j = base + lane;
+    bool in_ball = false;
+    if (j < N) in_ball = sqdist(cx, cy, cz, x[3 * j], x[3 * j + 1], x[3 * j + 2]) < r2;
+    const unsigned m = __ballot_sync(0xffffffffu, in_ball);
+    if (count == 0 && m) first = base + __ffs(m) - 1;
+    const int pos = count + __popc(m & ((1u << lane) - 1u));
+    if (in_ball && pos < K) slots[pos] = j;
+    count += __popc(m);
   }
-  const float* h = hin + tp * kRP * ld_in;
-#pragma unroll 4
-  for (int k = 0; k < K_in; ++k) {
-    const float4 w = __ldg(reinterpret_cast<const float4*>(W + static_cast<size_t>(k) * C + c));
-#pragma unroll
-    for (int i = 0; i < kRP; ++i) {
-      const float hv = h[i * ld_in + k];
-      acc[i][0] = fmaf(hv, w.x, acc[i][0]);
-      acc[i][1] = fmaf(hv, w.y, acc[i][1]);
-      acc[i][2] = fmaf(hv, w.z, acc[i][2]);
-      acc[i][3] = fmaf(hv, w.w, acc[i][3]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kRP; ++i)
-#pragma unroll
-    for (int j = 0; j < kRC; ++j) acc[i][j] = fmaxf(acc[i][j], 0.f);
+  for (int k = min(count, K) + lane; k < K; k += 32) slots[k] = first;
 }
 
-template <int ROWS>
-__global__ void __launch_bounds__(kThreads) sa_kernel(const SAArgs a) {
-  constexpr int PG = ROWS / kRP;    // row groups
-  constexpr int CG = kThreads / PG;  // channel groups
-  constexpr int CHUNK = CG * kRC;    // output channels per pass
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+// Weight chunk u of this block: layer 2's chunks in order, then layer 3's
+// output chunks [c30, ...) with their input chunks.
+__device__ __forceinline__ const float* chunk_src(const SAArgs& p, int u, int c30) {
+  const int u2 = p.nc2 * p.nk2;
+  return u < u2 ? p.w2 + static_cast<long long>(u) * kWStage
+                : p.w3 + (static_cast<long long>(c30) * p.nk3 + (u - u2)) * kWStage;
+}
+
+// The consumer warps' barrier (named barrier 1; the producer warp goes on).
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// One weight chunk's 3xTF32 products into acc: chunk t (stage t % nst) times
+// the 32 input channels [kb * kKC, +32) of the row tile hin (stride sin).
+// kCt: the rows are raw A-form rows, so each value is relu(v + ct) of its
+// row's centroid (ct0, ct1 for the thread's rows g and g + 8). full[s]: stage
+// s holds its chunk; empty[s]: the eight consumer warps are done with it.
+template <bool kCt>
+__device__ __forceinline__ void chunk_products(const SAArgs& p, float (&acc)[8][4], int t,
+                                               float* wsm, uint64_t* full, uint64_t* empty,
+                                               const float* hin, int sin, int kb, const float* ct0,
+                                               const float* ct1) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
+  const int rbase = (warp & 3) * 16, cbase = (warp >> 2) * 64;
+  const int st = t % p.nst;
+  mbar_wait(&full[st], (t / p.nst) & 1);  // chunk t has landed
+  const float* wh = wsm + st * kWStage;
+  const float* wl = wh + kWPart;
+  uint32_t ah[kKC / 8][4], al[kKC / 8][4];
+#pragma unroll
+  for (int ks = 0; ks < kKC / 8; ++ks) {
+    const int k = kb * kKC + ks * 8 + q;
+    const float* pa = hin + (rbase + g) * sin + k;
+    float v[4] = {pa[0], pa[8 * sin], pa[4], pa[8 * sin + 4]};
+    if constexpr (kCt) {
+      v[0] = fmaxf(v[0] + ct0[k], 0.f);
+      v[1] = fmaxf(v[1] + ct1[k], 0.f);
+      v[2] = fmaxf(v[2] + ct0[k + 4], 0.f);
+      v[3] = fmaxf(v[3] + ct1[k + 4], 0.f);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(v[i], ah[ks][i], al[ks][i]);
+  }
+  // the chunk's 12 products queue on the tensor cores back to back, summed
+  // there (32 inputs), and the chunk's sum is added to acc on the CUDA cores
+  float part[8][4];
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < kKC / 8; ++ks) {
+    const uint64_t dh = smem_desc(wh + wofs(cbase, ks * 8));
+    const uint64_t dl = smem_desc(wl + wofs(cbase, ks * 8));
+    if (ks == 0) wgmma_m64n64k8<0>(part, al[ks], dh);
+    else wgmma_m64n64k8<1>(part, al[ks], dh);
+    wgmma_m64n64k8<1>(part, ah[ks], dl);
+    wgmma_m64n64k8<1>(part, ah[ks], dh);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();  // all of the chunk's products are in before its stage is refilled
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&empty[st]);
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      fence_operand(part[nt][i]);
+      acc[nt][i] += part[nt][i];
+    }
+}
+
+// acc = the bias of output chunk cb at this thread's columns (0 past C)
+__device__ __forceinline__ void init_bias(float (&acc)[8][4], const float* bias, int C, int cb) {
+  const int tid = threadIdx.x, q = tid & 3, cbase = ((tid >> 5) >> 2) * 64;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int n = cb * kCC + cbase + nt * 8 + 2 * q;
+    const float b0 = n < C ? __ldg(bias + n) : 0.f, b1 = n + 1 < C ? __ldg(bias + n + 1) : 0.f;
+    acc[nt][0] = acc[nt][2] = b0;
+    acc[nt][1] = acc[nt][3] = b1;
+  }
+}
+
+// Block (x, y, z): tile x of batch element y (centroids [x ts, x ts + ts)),
+// layer 3's output chunks [z cz, z cz + cz).
+__global__ void __launch_bounds__(kThreads, 1) sa_tc_kernel(const SAArgs p) {
   extern __shared__ float4 smem4[];
-  const int ld1 = a.C1 + kPad, ld2 = a.C2 + kPad;
-  float* h1 = reinterpret_cast<float*>(smem4);
-  float* h2 = h1 + a.h1_floats;
-  int* sidx = reinterpret_cast<int*>(h2 + ROWS * ld2);
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* h1 = sm;   // the gathered rows (kTile x s1); then layer 3's chunk (kTile x kRedStride)
+  float* y3 = sm;
+  float* h2 = sm + p.o_h2;  // kTile x s2
+  float* cts = sm + p.o_ct;  // ts x (nk2 * kKC)
+  int* sidx = reinterpret_cast<int*>(sm + p.o_idx);  // kTile
+  int* bad = sidx + kTile;   // ts: the centroid has an index outside [0, N)
+  float* wsm = sm + p.o_w;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + p.o_bar);
+  uint64_t* empty = full + p.nst;
 
-  const int b = blockIdx.y;
-  const int s0 = blockIdx.x * a.ts;
-  const int ns = min(a.ts, a.S - s0);  // centroids of this tile
-  const int K = a.K;
-  const int n_rows = ns * K;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tp = tid / CG, tc = tid % CG;
+  const int b = blockIdx.y, s0 = blockIdx.x * p.ts, K = p.K;
+  const int ns = min(p.ts, p.S - s0), nrows = ns * K;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
+  const int rbase = (warp & 3) * 16, cbase = (warp >> 2) * 64;
+  const int c30 = blockIdx.z * p.cz, c31 = min(p.nc3, c30 + p.cz);
+  const int U = p.nc2 * p.nk2 + (c31 - c30) * p.nk3;  // this block's weight chunks
+  const int w1 = p.nk2 * kKC, w2 = p.nk3 * kKC;       // padded widths of layers 1 and 2
 
-  // 1. neighbor indices of the tile's rows
-  if (a.idx) {
-    const int* src = a.idx + (static_cast<size_t>(b) * a.S + s0) * K;
-    for (int r = tid; r < n_rows; r += kThreads) sidx[r] = src[r];
-  } else {
-    const float* xyz = a.xyz + static_cast<size_t>(b) * a.N * 3;
-    for (int t = warp; t < ns; t += kWarps) {
-      const float* c = a.centers + (static_cast<size_t>(b) * a.S + s0 + t) * 3;
-      const float cx = c[0], cy = c[1], cz = c[2];
-      int* slots = sidx + t * K;
-      int count = 0;
-      for (int base = 0; base < a.N && count < K; base += 32) {
-        const int j = base + lane;
-        bool in_ball = false;
-        if (j < a.N) in_ball = sqdist(cx, cy, cz, xyz[3 * j], xyz[3 * j + 1], xyz[3 * j + 2]) < a.r2;
-        const unsigned m = __ballot_sync(0xffffffffu, in_ball);
-        const int pos = count + __popc(m & ((1u << lane) - 1u));
-        if (in_ball && pos < K) slots[pos] = j;
-        count += __popc(m);
-      }
-      __syncwarp();
-      const int filled = min(count, K);
-      const int first = filled > 0 ? slots[0] : 0;
-      __syncwarp();
-      for (int k = filled + lane; k < K; k += 32) slots[k] = first;
+  if (tid == kConsumers) {  // the producer: the first chunks load while the rows are gathered
+    for (int i = 0; i < p.nst; ++i) {
+      mbar_init(&full[i]);
+      mbar_init(&empty[i], kConsumers / 32);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int u = 0; u < p.nst && u < U; ++u) bulk_load(wsm + u * kWStage, chunk_src(p, u, c30), &full[u]);
   }
-  __syncthreads();
-
-  // 2. layer 1: h1[r] = relu(A[idx[r]] + ct[centroid of r]); rows past the tile are 0
-  {
-    const int c1v = a.C1 / 4;
-    const float* A = a.a + static_cast<size_t>(b) * a.N * a.C1;
-    const float* ct = a.ct + (static_cast<size_t>(b) * a.S + s0) * a.C1;
-    for (int e = tid; e < ROWS * c1v; e += kThreads) {
-      const int r = e / c1v, c = (e - r * c1v) * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r < n_rows) {
-        const int j = sidx[r];
-        if (j >= 0 && j < a.N) {
-          const float4 av = __ldg(reinterpret_cast<const float4*>(A + static_cast<size_t>(j) * a.C1 + c));
-          const float4 cv = __ldg(reinterpret_cast<const float4*>(ct + (r / K) * a.C1 + c));
-          v = make_float4(fmaxf(av.x + cv.x, 0.f), fmaxf(av.y + cv.y, 0.f),
-                          fmaxf(av.z + cv.z, 0.f), fmaxf(av.w + cv.w, 0.f));
-        } else {
-          const float nan = __int_as_float(0x7fc00000);
-          v = make_float4(nan, nan, nan, nan);
-        }
+  // the tile's indices (-1 past its rows), flags and ct = b1 - (c * inv_r) W1_xyz
+  for (int r = tid; r < kTile; r += kThreads)
+    sidx[r] = r < nrows ? __ldg(p.idx + (static_cast<long long>(b) * p.S + s0) * K + r) : -1;
+  for (int t = tid; t < p.ts; t += kThreads) bad[t] = 0;
+  for (int e = tid; e < p.ts * w1; e += kThreads) {
+    const int t = e / w1, c = e - t * w1;
+    float v = 0.f;
+    if (t < ns && c < p.C1) {
+      v = __ldg(p.b1 + c);
+      if (p.w1x) {
+        const float* cp = p.centers + (static_cast<long long>(b) * p.S + s0 + t) * 3;
+        const float x = __fmul_rn(cp[0], p.inv_r), y = __fmul_rn(cp[1], p.inv_r),
+                    z = __fmul_rn(cp[2], p.inv_r);
+        const float d = __fmaf_rn(z, __ldg(p.w1x + 2 * p.C1 + c),
+                                  __fmaf_rn(y, __ldg(p.w1x + p.C1 + c), __fmul_rn(x, __ldg(p.w1x + c))));
+        v = __fsub_rn(v, d);
       }
-      *reinterpret_cast<float4*>(h1 + r * ld1 + c) = v;
     }
+    cts[e] = v;
   }
-  __syncthreads();
+  __syncthreads();  // the barriers, indices and flags are in place
 
-  // 3. layer 2: h2 = relu(h1 W2 + b2)
-  for (int cb = 0; cb < a.C2; cb += CHUNK) {
-    const int c = cb + tc * kRC;
-    if (c < a.C2) {
-      float acc[kRP][kRC];
-      dense_relu_tile<ROWS>(h1, ld1, a.C1, a.w2, a.b2, a.C2, c, tp, acc);
+  {  // gather the tile's A-form rows raw; zeros past C1, for rows past the tile and bad indices
+    const int c4 = w1 / 4;
+    const float* ab = p.a + static_cast<long long>(b) * p.N * p.C1;
+    for (int e = tid; e < kTile * c4; e += kThreads) {
+      const int r = e / c4, c = (e - r * c4) * 4;
+      const int j = sidx[r];
+      float* dst = h1 + r * p.s1 + c;
+      const bool ok = j >= 0 && j < p.N;
+      if (ok && c < p.C1) {
+        cp_async16(dst, ab + static_cast<long long>(j) * p.C1 + c);
+      } else {
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (r < nrows && !ok) bad[r / K] = 1;
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  }
+  __syncthreads();  // every thread's copies are seen
+
+  if (warp == kConsumers / 32) {  // the producer warp: chunk u into its stage once all are done with it
+    if (lane == 0)
+      for (int u = p.nst; u < U; ++u) {
+        mbar_wait(&empty[u % p.nst], ((u - p.nst) / p.nst) & 1);
+        bulk_load(wsm + (u % p.nst) * kWStage, chunk_src(p, u, c30), &full[u % p.nst]);
+      }
+    return;
+  }
+
+  // the centroids of this thread's rows g and g + 8 (0 past the tile's)
+  const int t0 = (rbase + g) / K, t1 = (rbase + g + 8) / K;
+  const float* ct0 = cts + (t0 < p.ts ? t0 : 0) * w1;
+  const float* ct1 = cts + (t1 < p.ts ? t1 : 0) * w1;
+
+  int t = 0;  // weight chunks consumed
+  float acc[8][4];
+  // layer 2: h2 = relu(relu(A + ct) W2 + b2), every row, columns up to w2
+  for (int cb = 0; cb < p.nc2; ++cb) {
+    init_bias(acc, p.b2, p.C2, cb);
+    for (int kb = 0; kb < p.nk2; ++kb, ++t)
+      chunk_products<true>(p, acc, t, wsm, full, empty, h1, p.s1, kb, ct0, ct1);
 #pragma unroll
-      for (int i = 0; i < kRP; ++i)
-        *reinterpret_cast<float4*>(h2 + (tp * kRP + i) * ld2 + c) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    for (int nt = 0; nt < 8; ++nt) {
+      const int n = cb * kCC + cbase + nt * 8 + 2 * q;
+      if (n >= w2) continue;
+      *reinterpret_cast<float2*>(h2 + (rbase + g) * p.s2 + n) =
+          make_float2(fmaxf(acc[nt][0], 0.f), fmaxf(acc[nt][1], 0.f));
+      *reinterpret_cast<float2*>(h2 + (rbase + g + 8) * p.s2 + n) =
+          make_float2(fmaxf(acc[nt][2], 0.f), fmaxf(acc[nt][3], 0.f));
     }
   }
-  __syncthreads();
-
-  // 4. layer 3 chunk by chunk into h1 (ROWS x CHUNK), then the max over each centroid's K rows
-  float* red = h1;
-  for (int cb = 0; cb < a.C3; cb += CHUNK) {
-    const int c = cb + tc * kRC;
-    if (c < a.C3) {
-      float acc[kRP][kRC];
-      dense_relu_tile<ROWS>(h2, ld2, a.C2, a.w3, a.b3, a.C3, c, tp, acc);
+  consumer_sync();  // h2 is whole, and no warp reads h1 again
+  // layer 3, chunk by chunk: relu(h2 W3 + b3) into y3, then the max over each
+  // centroid's K rows
+  for (int cb = c30; cb < c31; ++cb) {
+    init_bias(acc, p.b3, p.C3, cb);
+    for (int kb = 0; kb < p.nk3; ++kb, ++t)
+      chunk_products<false>(p, acc, t, wsm, full, empty, h2, p.s2, kb, nullptr, nullptr);
 #pragma unroll
-      for (int i = 0; i < kRP; ++i)
-        *reinterpret_cast<float4*>(red + (tp * kRP + i) * CHUNK + tc * kRC) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    for (int nt = 0; nt < 8; ++nt) {
+      const int c = cbase + nt * 8 + 2 * q;
+      *reinterpret_cast<float2*>(y3 + (rbase + g) * kRedStride + c) =
+          make_float2(fmaxf(acc[nt][0], 0.f), fmaxf(acc[nt][1], 0.f));
+      *reinterpret_cast<float2*>(y3 + (rbase + g + 8) * kRedStride + c) =
+          make_float2(fmaxf(acc[nt][2], 0.f), fmaxf(acc[nt][3], 0.f));
     }
-    __syncthreads();
-    for (int e = tid; e < ns * CHUNK; e += kThreads) {
-      const int t = e / CHUNK, j = e - t * CHUNK;
-      if (cb + j < a.C3) {
-        float m = 0.f;  // every value is a ReLU output, so >= 0
-        for (int k = 0; k < K; ++k) m = fmaxf(m, red[(t * K + k) * CHUNK + j]);
-        a.out[(static_cast<size_t>(b) * a.S + s0 + t) * a.C3 + cb + j] = m;
-      }
+    consumer_sync();
+    for (int e = tid; e < ns * kCC; e += kConsumers) {
+      const int tc = e / kCC, c = e - tc * kCC, n = cb * kCC + c;
+      if (n >= p.C3) continue;
+      float m = 0.f;  // every value is a ReLU output, so >= 0
+      const float* col = y3 + tc * K * kRedStride + c;
+      for (int k = 0; k < K; ++k) m = fmaxf(m, col[k * kRedStride]);
+      p.out[(static_cast<long long>(b) * p.S + s0 + tc) * p.C3 + n] =
+          bad[tc] ? __int_as_float(0x7fc00000) : m;
     }
-    __syncthreads();
+    consumer_sync();  // y3 is read before the next chunk writes it
   }
 }
 
-template <int ROWS>
-size_t smem_bytes(const SAArgs& a, int* h1_floats) {
-  constexpr int CHUNK = kThreads / (ROWS / kRP) * kRC;
-  const int h1 = ROWS * (a.C1 + kPad);
-  *h1_floats = h1 > ROWS * CHUNK ? h1 : ROWS * CHUNK;  // h1 also holds layer 3's chunk
-  return (static_cast<size_t>(*h1_floats) + static_cast<size_t>(ROWS) * (a.C2 + kPad)) *
-             sizeof(float) +
-         ROWS * sizeof(int);
+// --- host: the plan and the launches ----------------------------------------------
+
+struct DeviceInfo {
+  int sms;
+  int err;
+};
+
+const DeviceInfo& device_info() {
+  static const DeviceInfo info = [] {
+    DeviceInfo d{132, 0};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(sa_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    d.err = static_cast<int>(e);
+    return d;
+  }();
+  return info;
 }
 
-template <int ROWS>
-int launch(SAArgs a, cudaStream_t stream) {
-  const size_t smem = smem_bytes<ROWS>(a, &a.h1_floats);
-  if (smem > kSmemBudget) return kErrSmem;
-  cudaError_t e = cudaFuncSetAttribute(sa_kernel<ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  a.ts = ROWS / a.K;
-  const dim3 grid((a.S + a.ts - 1) / a.ts, a.B);
-  sa_kernel<ROWS><<<grid, kThreads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+long long packed_floats(int k, int c) {
+  return static_cast<long long>(cdiv(round8(c), kCC)) * cdiv(round8(k), kKC) * kWStage;
 }
 
-template <int ROWS>
-bool fits_two_blocks_and_fills(const SAArgs& a, long long want) {
-  if (ROWS < a.K) return false;
-  int scratch;
-  const long long ts = ROWS / a.K;
-  const long long blocks = (a.S + ts - 1) / ts * a.B;
-  return smem_bytes<ROWS>(a, &scratch) <= kSmemTwoBlocks && blocks >= want;
-}
-
-int run(const SAArgs& a, cudaStream_t stream) {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long want = 2LL * sms;
-  if (fits_two_blocks_and_fills<128>(a, want)) return launch<128>(a, stream);
-  if (fits_two_blocks_and_fills<64>(a, want)) return launch<64>(a, stream);
-  if (fits_two_blocks_and_fills<32>(a, want)) return launch<32>(a, stream);
-  if (fits_two_blocks_and_fills<16>(a, want)) return launch<16>(a, stream);
-  // a small grid: the smallest tile that holds K rows, for the most blocks
-  if (a.K <= 16) return launch<16>(a, stream);
-  if (a.K <= 32) return launch<32>(a, stream);
-  if (a.K <= 64) return launch<64>(a, stream);
-  return launch<128>(a, stream);
+// Widths, shared-memory layout, weight stages and the grid (tiles, B, nz).
+int make_plan(SAArgs* p, int sms, dim3* grid, size_t* smem) {
+  p->ts = kTile / p->K;
+  p->nk2 = cdiv(round8(p->C1), kKC);
+  p->nk3 = cdiv(round8(p->C2), kKC);
+  p->nc2 = cdiv(round8(p->C2), kCC);
+  p->nc3 = cdiv(round8(p->C3), kCC);
+  p->s1 = p->nk2 * kKC + 4;
+  p->s2 = p->nk3 * kKC + 4;
+  const int r1 = kTile * (p->s1 > kRedStride ? p->s1 : kRedStride);
+  p->o_h2 = r1;
+  p->o_ct = p->o_h2 + kTile * p->s2;
+  p->o_idx = p->o_ct + p->ts * p->nk2 * kKC;
+  p->o_w = (p->o_idx + kTile + p->ts + 31) & ~31;  // 128-byte aligned stages
+  for (p->nst = kMaxStages; p->nst >= 2; --p->nst) {
+    p->o_bar = p->o_w + p->nst * kWStage;
+    *smem = static_cast<size_t>(p->o_bar + 4 * p->nst) * sizeof(float);  // full and empty
+    if (*smem <= static_cast<size_t>(kSmemMax)) break;
+  }
+  if (p->nst < 2) return kErrSmem;
+  // split layer 3's output chunks over nz blocks where that shortens the
+  // slowest SM's run of chunks (one block per SM: waves x chunks per block)
+  const int tiles = cdiv(p->S, p->ts);
+  const long long blocks = static_cast<long long>(tiles) * p->B;
+  long long best = -1;
+  for (int nz = 1; nz <= p->nc3; ++nz) {
+    const int cz = cdiv(p->nc3, nz), nzr = cdiv(p->nc3, cz);
+    const long long waves = (blocks * nzr + sms - 1) / sms;
+    const long long cost = waves * (p->nc2 * p->nk2 + cz * p->nk3);
+    if (best < 0 || cost < best) {
+      best = cost;
+      p->cz = cz;
+      *grid = dim3(tiles, p->B, nzr);
+    }
+  }
+  return 0;
 }
 
 }  // namespace
 
-// idx == nullptr: K4 (ball query in the kernel, xyz and centers used);
-// otherwise K5 (xyz and centers unused). r2 is the squared radius in f32.
-extern "C" int sa_fused_k4(const float* xyz, const float* centers, const int* idx,
-                           const float* a_rows, const float* ct, const float* w2,
-                           const float* b2, const float* w3, const float* b3, float* out,
-                           int B, int N, int S, int K, int C1, int C2, int C3, float r2,
-                           void* stream) {
-  if (B < 1 || N < 1 || S < 1 || K < 1 || K > 128 || C1 < 1 || C2 < 1 || C3 < 1)
+// idx == nullptr: K4 (ball query into idx_ws (B, S, K), xyz used); otherwise
+// K5 (xyz and idx_ws unused). centers are read by both (ct). w1x: layer 1's
+// three xyz rows (3, C1), or nullptr when layer 1 reads no xyz. r2 is the
+// squared radius in f32, inv_r 1 / r or 1.
+extern "C" int sa_fused_k4(const float* xyz, const float* centers, const int* idx, int* idx_ws,
+                           const float* a_rows, const float* w1x, const float* b1,
+                           const float* w2, long long n_w2, const float* b2, const float* w3,
+                           long long n_w3, const float* b3, float* out, int B, int N, int S,
+                           int K, int C1, int C2, int C3, float r2, float inv_r, void* stream) {
+  if (B < 1 || B > 65535 || N < 1 || S < 1 || K < 1 || K > kTile || C1 < 1 || C2 < 1 || C3 < 1)
     return kErrArgs;
-  if (!idx && (!xyz || !centers)) return kErrArgs;
+  if (!centers || (!idx && (!xyz || !idx_ws))) return kErrArgs;
   if (C1 % 4 || C2 % 4 || C3 % 4) return kErrWidth;
-  SAArgs a{};
-  a.xyz = xyz;
-  a.centers = centers;
-  a.idx = idx;
-  a.a = a_rows;
-  a.ct = ct;
-  a.w2 = w2;
-  a.b2 = b2;
-  a.w3 = w3;
-  a.b3 = b3;
-  a.out = out;
-  a.B = B;
-  a.N = N;
-  a.S = S;
-  a.K = K;
-  a.C1 = C1;
-  a.C2 = C2;
-  a.C3 = C3;
-  a.r2 = r2;
-  return run(a, static_cast<cudaStream_t>(stream));
+  if (n_w2 != packed_floats(C1, C2) || n_w3 != packed_floats(C2, C3)) return kErrPacked;
+  const DeviceInfo& dev = device_info();
+  if (dev.err) return dev.err;
+  SAArgs p{};
+  p.centers = centers;
+  p.idx = idx ? idx : idx_ws;
+  p.a = a_rows;
+  p.w1x = w1x;
+  p.b1 = b1;
+  p.w2 = w2;
+  p.b2 = b2;
+  p.w3 = w3;
+  p.b3 = b3;
+  p.out = out;
+  p.B = B;
+  p.N = N;
+  p.S = S;
+  p.K = K;
+  p.C1 = C1;
+  p.C2 = C2;
+  p.C3 = C3;
+  p.inv_r = inv_r;
+  dim3 grid;
+  size_t smem = 0;
+  const int err = make_plan(&p, dev.sms, &grid, &smem);
+  if (err) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!idx) {
+    bq_kernel<<<dim3(cdiv(S, kBqThreads / 32), B), kBqThreads, 0, s>>>(xyz, centers, idx_ws, N, S,
+                                                                      K, r2);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  sa_tc_kernel<<<grid, kThreads, smem, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }

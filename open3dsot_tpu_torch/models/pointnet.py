@@ -8,8 +8,8 @@ K1/K2 (ops/chain_fused.py) for the M2 encoders, K3 (ops/sampling.py) and
 K4 (ops/sa_fused.py) for the SA layers. `fused_eval=False` is the plain
 PyTorch forward that the kernels are held against: the layer stack with
 BatchNorm unfolded, and for SA the plain FPS, ball query and grouping. The
-folded weights are cached and folded again whenever a parameter or buffer
-changes: a load_state_dict (in-place copy, bumping the tensor version), a
+folded weights (for SA with K4's packed form of them) are cached and folded
+again whenever a parameter or buffer changes: a load_state_dict (in-place copy, bumping the tensor version), a
 .to() (new storage) or a training step (optimizer and running-statistics
 updates are in place).
 
@@ -37,7 +37,7 @@ from open3dsot_tpu_torch.ops.chain_fused import (
 )
 from open3dsot_tpu_torch.ops.grouping import gather_points
 from open3dsot_tpu_torch.ops.neighbors import ball_query
-from open3dsot_tpu_torch.ops.sa_fused import fused_sa_apply, group_inputs
+from open3dsot_tpu_torch.ops.sa_fused import FoldedSA, fused_sa_apply, group_inputs
 from open3dsot_tpu_torch.ops.sa_fused_train import fused_sa_train_apply
 from open3dsot_tpu_torch.ops.sampling import furthest_point_sample, furthest_point_sample_plain
 
@@ -151,7 +151,8 @@ class SetAbstraction(_FoldCache):
         self.fused_eval, self.fused_train = fused_eval, fused_train
 
     def _fold(self):
-        return self.mlp_shared.folded()
+        # on a CUDA device, packed for K4 here, once per change of the weights
+        return FoldedSA(self.mlp_shared.folded())
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor], npoint: int):
         """xyz (B, N, 3), features (B, N, C) or None -> (new_xyz (B, S, 3),

@@ -45,10 +45,16 @@ SIGNATURES = {
     },
     "fps": {
         "fps_k3": [_P, _I, _I, _I, _P, _P],
+        "fps_chain_floor": [_I, _I, _P, _P],
+    },
+    "gather_probe": {
+        "gather_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "gather_elems": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "onehot_rowsums": [_P, _P, _I, _I, _I, _I, _P],
+        "gather_bf16_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
     "sa_fused": {
-        "sa_fused_k4": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        "sa_fused_k4": [_P] * 8 + [_LL, _P, _P, _LL, _P, _P] + [_I] * 7 + [_F, _F, _P],
     },
     "sa_fused_train": {
         "sa_train_workspace": ([_I] * 8, _LL),

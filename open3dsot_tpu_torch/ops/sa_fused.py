@@ -6,13 +6,17 @@ points within the radius (ball query), their centred xyz (divided by r if
 `normalize_xyz`) concatenated with their features, three Dense layers with
 eval BatchNorm folded in and ReLU, and the max over the K neighbors.
 
-  K4 `fused_sa_apply(..., idx=None, nsample=K)`: the ball query runs in the
-     kernel (csrc/sa_fused.cu; the design note is there).
+  K4 `fused_sa_apply(..., idx=None, nsample=K)`: the ball query runs on the
+     card too (csrc/sa_fused.cu; the design note is there).
   K5 `fused_sa_apply(..., idx=idx)`: the same with precomputed indices.
 
-Both kernels take layer 1 in A-form (`a_form`, computed here with
-torch.matmul as JAX computes it in XLA outside the pallas_call): only the
-C1-wide rows A[j] are gathered, and the centroid enters as ct[s].
+Both kernels take layer 1 in A-form: only the C1-wide rows A[j] are
+gathered, and the centroid enters as ct[s] = b1 - (c * inv_r) W1_xyz, which
+the kernel computes. A (`a_rows`) is computed here with torch.matmul, as JAX
+computes it in XLA outside the pallas_call. Layers 2-3 run on the tensor
+cores in 3xTF32 from weights packed by `pack_sa` (ops/chain_fused.py::
+pack_chunks); `FoldedSA` holds the folded layers and their packed form,
+built once where SetAbstraction caches its folded weights.
 
 `sa_eval_plain` is the plain PyTorch version: ball query by direct
 differences (ops/neighbors.py::ball_query), group, centre, the folded MLP
@@ -23,46 +27,85 @@ counted in `fused_sa_apply.launches` (K4) and
 
 Layout is channels-last (B, N, C); `folded` is the three (W' (in, out),
 b') pairs of a SetAbstraction's `mlp_shared` (models/layers.py::MLP.folded,
-which uses ops/chain_fused.py::fold_dense_bn).
+which uses ops/chain_fused.py::fold_dense_bn), as a plain sequence or a
+`FoldedSA`.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from open3dsot_tpu_torch.ops._launch import check, on_cuda, raise_on, stream_of
+from open3dsot_tpu_torch.ops.chain_fused import pack_chunks
 from open3dsot_tpu_torch.ops.grouping import group_points
 from open3dsot_tpu_torch.ops.neighbors import ball_query, radius_sq
 
 Folded = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
-_ERRORS = {-1: "B, N, S, K (1..128) or widths not accepted",
+_ERRORS = {-1: "B, N, S, K (1..64) or widths not accepted",
            -2: "a width C1, C2 or C3 is not a multiple of 4",
-           -3: "the activations of the smallest tile do not fit in shared memory"}
+           -3: "two weight stages do not fit in shared memory beside the row tile",
+           -4: "a packed weight has the wrong size"}
+
+
+class PackedSA(NamedTuple):
+    """K4/K5's weights: layer 1's xyz rows (3, C1) and bias, layers 2-3 packed
+    for the tensor cores (`pack_chunks`) with their biases."""
+    w1x: torch.Tensor
+    b1: torch.Tensor
+    w2: torch.Tensor
+    b2: torch.Tensor
+    w3: torch.Tensor
+    b3: torch.Tensor
+
+
+def pack_sa(folded: Folded) -> PackedSA:
+    """The packed form of three folded layers, on their device."""
+    (w1, b1), (w2, b2), (w3, b3) = folded
+    f = lambda t: t.detach().float().contiguous()  # noqa: E731
+    return PackedSA(f(w1[:3]), f(b1), pack_chunks(f(w2)), f(b2), pack_chunks(f(w3)), f(b3))
+
+
+class FoldedSA(tuple):
+    """The folded (W' (in, out), b') layers of an SA MLP, a tuple of pairs as
+    `sa_eval_plain` takes them, with `packed` = `pack_sa` of them when there
+    are three and they lie on a CUDA device (else None)."""
+
+    def __new__(cls, layers):
+        return super().__new__(cls, (tuple(layer) for layer in layers))
+
+    def __init__(self, layers):
+        super().__init__()
+        self.packed = pack_sa(self) if len(self) == 3 and self[0][0].is_cuda else None
+
+
+def a_rows(xyz: torch.Tensor, features: Optional[torch.Tensor], w1: torch.Tensor, *,
+           inv_r: float, use_xyz: bool) -> torch.Tensor:
+    """Layer 1's A over all N points, in as few launches as it takes: (x *
+    inv_r) @ W1_xyz (+ f @ W1_feat), or f @ W1 when layer 1 reads no xyz ->
+    (B, N, C1). K4/K5 take it alone and compute ct themselves."""
+    B, N = xyz.shape[:2]
+    if not (use_xyz or features is None):
+        return torch.matmul(features, w1)
+    x = (xyz if inv_r == 1.0 else xyz * inv_r).reshape(B * N, 3)
+    a = torch.mm(x, w1[:3])
+    if features is not None:
+        a.addmm_(features.reshape(B * N, -1), w1[3:])  # in place: no copy of a
+    return a.view(B, N, -1)
 
 
 def a_form(xyz: torch.Tensor, features: Optional[torch.Tensor], new_xyz: torch.Tensor,
            w1: torch.Tensor, b1: torch.Tensor, *, inv_r: float, use_xyz: bool
            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Layer 1 as A[j] + ct[s] (sa_fused.py::a_form): a = (x * inv_r) @ W1_xyz
-    + f @ W1_feat over all N points, ct = b1 - (c * inv_r) @ W1_xyz.
-    Returns (a (B, N, C1), ct (B, S, C1)), f32."""
+    """Layer 1 as A[j] + ct[s] (sa_fused.py::a_form): a = `a_rows`, ct = b1 -
+    (c * inv_r) @ W1_xyz. Returns (a (B, N, C1), ct (B, S, C1)), f32."""
     B, S = xyz.shape[0], new_xyz.shape[1]
     ct = b1[None, None, :].expand(B, S, w1.shape[1])
-    parts = []
     if use_xyz or features is None:
-        w1x = w1[:3]
-        parts.append(torch.matmul(xyz * inv_r, w1x))
-        ct = ct - torch.matmul(new_xyz * inv_r, w1x)
-        w1f = w1[3:]
-    else:
-        w1f = w1
-    if features is not None:
-        parts.append(torch.matmul(features, w1f))
-    a = parts[0] if len(parts) == 1 else parts[0] + parts[1]
-    return a.contiguous(), ct.contiguous()
+        ct = ct - torch.matmul(new_xyz * inv_r, w1[:3])
+    return a_rows(xyz, features, w1, inv_r=inv_r, use_xyz=use_xyz), ct.contiguous()
 
 
 def group_inputs(xyz: torch.Tensor, features: Optional[torch.Tensor], new_xyz: torch.Tensor,
@@ -114,25 +157,29 @@ def fused_sa_apply(xyz: torch.Tensor, features: Optional[torch.Tensor], new_xyz:
     from open3dsot_tpu_torch.ops._build import load_library
 
     dev = xyz.device
-    (w1, b1), (w2, b2), (w3, b3) = folded
+    (w1, _), (w2, _), (w3, _) = folded
     C1, C2, C3 = w1.shape[1], w2.shape[1], w3.shape[1]
     check("xyz", xyz, dev, (B, N, 3))
     check("new_xyz", new_xyz, dev, (B, S, 3))
     if features is not None and (features.device != dev or features.dtype != torch.float32):
-        raise TypeError(f"features must be float32 on {dev} (only a_form's matmul reads them)")
-    for name, t, shape in (("w2", w2, (C1, C2)), ("b2", b2, (C2,)), ("w3", w3, (C2, C3)),
-                           ("b3", b3, (C3,))):
-        check(name, t, dev, shape)
+        raise TypeError(f"features must be float32 on {dev} (only a_rows' matmul reads them)")
     if idx is not None:
         check("idx", idx, dev, (B, S, K), dtype=torch.int32)
+    packed = getattr(folded, "packed", None) or pack_sa(folded)
+    if packed.w2.device != dev:
+        raise ValueError(f"the packed weights are on {packed.w2.device}, expected {dev}")
     inv_r = 1.0 / radius if normalize_xyz else 1.0
-    a, ct = a_form(xyz, features, new_xyz, w1, b1, inv_r=inv_r, use_xyz=use_xyz)
+    a = a_rows(xyz, features, w1, inv_r=inv_r, use_xyz=use_xyz)
+    reads_xyz = use_xyz or features is None
+    idx_ws = torch.empty(B, S, K, dtype=torch.int32, device=dev) if idx is None else None
     out = torch.empty(B, S, C3, device=dev)
     rc = load_library("sa_fused").lib.sa_fused_k4(
         xyz.data_ptr(), new_xyz.data_ptr(), None if idx is None else idx.data_ptr(),
-        a.data_ptr(), ct.data_ptr(), w2.data_ptr(), b2.data_ptr(), w3.data_ptr(),
-        b3.data_ptr(), out.data_ptr(), B, N, S, K, C1, C2, C3, radius_sq(radius),
-        stream_of(xyz))
+        None if idx_ws is None else idx_ws.data_ptr(), a.data_ptr(),
+        packed.w1x.data_ptr() if reads_xyz else None, packed.b1.data_ptr(),
+        packed.w2.data_ptr(), packed.w2.numel(), packed.b2.data_ptr(), packed.w3.data_ptr(),
+        packed.w3.numel(), packed.b3.data_ptr(), out.data_ptr(), B, N, S, K, C1, C2, C3,
+        radius_sq(radius), inv_r, stream_of(xyz))
     if idx is None:
         raise_on(rc, "K4 sa_fused_k4 (ball query)", _ERRORS)
         fused_sa_apply.launches += 1

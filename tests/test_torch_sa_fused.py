@@ -136,3 +136,149 @@ def test_wrapper_checks_and_counts():
     port.train()  # the folded weights are eval-only; training takes the batch statistics
     with pytest.raises(NotImplementedError):
         port.folded_chains()
+
+
+# --- K4/K5 on the tensor cores: what the CPU can check --------------------------
+# csrc/sa_fused.cu runs layers 2-3 in 3xTF32 from weights packed by pack_sa
+# (ops/chain_fused.py::pack_chunks) and computes ct itself. The tests below
+# hold the packing to the folded weights bit for bit, an emulation of the
+# kernel's arithmetic to float64 within TOL_3XTF32 (the bound chip_smoke.py
+# holds the kernel to; TF32 alone misses it), and the kernel's ct formula to
+# a_form's.
+
+from open3dsot_tpu_torch.ops.chain_fused import CHUNK_IN, CHUNK_OUT, TOL_3XTF32, split_tf32
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _unpack(packed, k, c):
+    """(hi, lo) of W^T (out, in), padded, from pack_chunks' layout."""
+    nc, nk = _cdiv(_cdiv(c, 8) * 8, CHUNK_OUT), _cdiv(_cdiv(k, 8) * 8, CHUNK_IN)
+    t = packed.reshape(nc, nk, 2, CHUNK_OUT // 8, CHUNK_IN // 4, 8, 4).permute(2, 0, 3, 5, 1, 4, 6)
+    hi, lo = t.reshape(2, nc * CHUNK_OUT, nk * CHUNK_IN)
+    return hi, lo
+
+
+@pytest.mark.parametrize("mlp", [(64, 64, 128), (128, 128, 256), (256, 256, 256), (16, 16, 24)])
+def test_packed_weights_unpack_to_the_folded_weights(mlp):
+    """K4's weights as pack_sa lays them out (the BAT backbone's three SA
+    widths and the tests' small one): layer 1's xyz rows and the biases as
+    folded, W2 and W3 as whole zero-padded chunks of hi = tf32(W^T) and lo =
+    tf32(W^T - hi), bit for bit."""
+    _, _, _, _, port = _setup(7, mlp=list(mlp))
+    folded = port.folded_chains()
+    assert isinstance(folded, sa_fused.FoldedSA) and folded.packed is None  # CPU: nothing packed
+    packed = sa_fused.pack_sa(folded)
+    (w1, b1), (w2, b2), (w3, b3) = folded
+    assert torch.equal(packed.w1x, w1[:3]) and torch.equal(packed.b1, b1)
+    assert torch.equal(packed.b2, b2) and torch.equal(packed.b3, b3)
+    for w, p in ((w2, packed.w2), (w3, packed.w3)):
+        k, c = w.shape
+        # csrc/sa_fused.cu::packed_floats
+        assert p.numel() == _cdiv(_cdiv(c, 8) * 8, CHUNK_OUT) * _cdiv(_cdiv(k, 8) * 8, CHUNK_IN) \
+            * 2 * CHUNK_OUT * CHUNK_IN
+        hi, lo = _unpack(p, k, c)
+        want_hi, want_lo = split_tf32(w.t().contiguous())
+        assert torch.equal(hi[:c, :k], want_hi) and torch.equal(lo[:c, :k], want_lo)
+        assert not hi[c:].any() and not hi[:, k:].any() and not lo[c:].any() and not lo[:, k:].any()
+
+
+def test_folded_sa_is_the_folded_pairs_and_cached():
+    _, _, _, _, port = _setup(8)
+    folded = port.folded_chains()
+    assert folded is port.folded_chains()  # packed once per change of the weights
+    assert len(folded) == 3 and isinstance(folded[:2], tuple) and len(folded[:2]) == 2
+    for (w, b), (pw, pb) in zip(folded, port.mlp_shared.folded()):
+        assert torch.equal(w, pw) and torch.equal(b, pb)
+
+
+def _tc_layer(h, w, b, three):
+    """relu(h @ w + b) as csrc/sa_fused.cu runs it: the accumulators start at
+    b, and each 32-input chunk's products a_lo w_hi + a_hi w_lo + a_hi w_hi
+    are summed on the tensor cores and added to the accumulators on the CUDA
+    cores (TF32 alone: a_hi w_hi only)."""
+    hh, hl = split_tf32(h)
+    wh, wl = split_tf32(w)
+    acc = b.expand(h.shape[0], -1).clone()
+    for k0 in range(0, h.shape[1], CHUNK_IN):
+        k1 = k0 + CHUNK_IN
+        part = hh[:, k0:k1] @ wh[k0:k1]
+        if three:
+            part = (hl[:, k0:k1] @ wh[k0:k1] + hh[:, k0:k1] @ wl[k0:k1]) + part
+        acc = acc + part
+    return torch.relu(acc)
+
+
+def _within(got, want, tol):
+    """chip_smoke.py's form: |got - want| <= tol * max|want| + tol * |want|."""
+    err = (got.double() - want).abs()
+    return bool((err <= tol * want.abs().max() + tol * want.abs()).all()), err.max().item()
+
+
+def test_3xtf32_emulation_of_k4_within_bound_of_float64():
+    """Layers 2-3 and the max of K4 in the kernel's arithmetic at one BAT call
+    (template SA2: N 128 -> S 64, K 32, 256 -> 256 -> 256), from the A-form
+    rows and ct: within TOL_3XTF32 of float64, where TF32 alone misses."""
+    rng = np.random.default_rng(11)
+    n_pts, s, k, c = 128, 64, 32, 256
+    f = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(np.float32))  # noqa: E731
+    a, ct = f(n_pts, c), f(s, c)
+    w2, b2, w3, b3 = f(c, c) / 16, f(c) * 0.1, f(c, c) / 16, f(c) * 0.1
+    idx = torch.from_numpy(rng.integers(0, n_pts, (s, k)))
+    h1 = torch.relu(a[idx] + ct[:, None]).reshape(s * k, c)
+    h64 = torch.relu(h1.double() @ w2.double() + b2.double())
+    want = torch.relu(h64 @ w3.double() + b3.double()).reshape(s, k, c).amax(1)
+
+    def k4(three):
+        return _tc_layer(_tc_layer(h1, w2, b2, three), w3, b3, three).reshape(s, k, c).amax(1)
+
+    ok3, err3 = _within(k4(True), want, TOL_3XTF32)
+    ok1, err1 = _within(k4(False), want, TOL_3XTF32)
+    assert ok3, f"3xTF32 emulation {err3:.3e} from float64"
+    assert not ok1 and err1 > 10 * err3, (err1, err3)
+
+
+def _fma(x, y, z):
+    """f32 fused multiply-add, rounded once (through float64, exact for these)."""
+    return (x.double() * y.double() + z.double()).float()
+
+
+@pytest.mark.parametrize("normalize_xyz", [False, True])
+def test_kernel_ct_formula_matches_a_form(normalize_xyz):
+    """ct = b1 - (c * inv_r) W1_xyz as csrc/sa_fused.cu computes it per tile,
+    fma(z, w_z, fma(y, w_y, x * w_x)), against a_form's ct (a torch.matmul)."""
+    xyz, feats, _, _, port = _setup(9)
+    (w1, b1), _, _ = port.folded_chains()
+    inv_r = 1.0 / 0.8 if normalize_xyz else 1.0
+    c = t(xyz[:, :S]) * inv_r
+    x, y, z = c[..., 0:1], c[..., 1:2], c[..., 2:3]
+    got = b1 - _fma(z, w1[2], _fma(y, w1[1], x * w1[0]))
+    _, want = sa_fused.a_form(t(xyz), t(feats), t(xyz[:, :S]), w1, b1, inv_r=inv_r, use_xyz=True)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6 * float(want.abs().max()))
+
+
+def test_c_signatures_match_the_sources():
+    """ops/_build.py's ctypes signatures against each `extern "C"` entry of
+    csrc/*.cu: as many arguments, each a pointer, int, long long or float
+    where the source has one (ctypes would pass a wrong one silently or fail
+    only on the card)."""
+    import ctypes
+    import re
+
+    from open3dsot_tpu_torch.ops._build import CSRC, SIGNATURES
+
+    kinds = {ctypes.c_void_p: "ptr", ctypes.c_int: "int", ctypes.c_longlong: "long long",
+             ctypes.c_float: "float", ctypes.POINTER(ctypes.c_int): "ptr"}
+    for lib, entries in SIGNATURES.items():
+        src = (CSRC / f"{lib}.cu").read_text()
+        found = dict(re.findall(r'extern "C" [\w ]+?\b(\w+)\(([^)]*)\)', src))
+        assert set(found) == set(entries), lib
+        for fn, sig in entries.items():
+            argtypes = sig[0] if isinstance(sig, tuple) else sig
+            params = [" ".join(a.split()) for a in found[fn].split(",")]
+            want = ["ptr" if "*" in a else "long long" if a.startswith("long long")
+                    else a.rsplit(" ", 1)[0] for a in params]
+            assert [kinds[t] for t in argtypes] == want, fn
