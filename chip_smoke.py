@@ -29,7 +29,7 @@ Phases, one line or a few each; any failure exits non-zero:
      and 16, N 1024 -> 512 and 512 -> 256), index for index, on a
      continuous cloud and on one with duplicated points (ties); times, and
      at B = 1 its latency-aware bound: the serial skeleton of its npoint - 1
-     steps alone on its block (csrc/fps.cu::fps_chain_floor).
+     steps alone on its block (probes/fps_floor.py, csrc/fps_floor.cu).
   7. K4 (3xTF32 on the tensor cores) against sa_eval_plain at each of the
      seven SA calls of a BAT forward at cfgs/BAT_Car.yaml widths, on the
      inputs that forward gives them (B = 1 and 16); K5 (indices from the
@@ -37,8 +37,10 @@ Phases, one line or a few each; any failure exits non-zero:
      index out of range (its centroid's output NaN, the others unchanged);
      times by events and by profiler device time over one forward's seven
      calls, device time by kernel name, both bounds (f32 CUDA cores, 3xTF32
-     tensor cores) and the share; the HMMA/HGMMA count of K4's product
-     kernel (fails if it has none).
+     tensor cores) and the share; each call again in both gather forms
+     (16-byte loads, cp.async) forced, against the plain version and timed;
+     weights of a wrong shape refused before the kernel; the HMMA/HGMMA
+     count of K4's product kernels (fails if one has none).
   8. the BAT forward, kernel path vs plain path (B = 1 and 16), with the
      launches of one forward (K3 = 2, K4 = 7); P2B once (K4 = 7).
   9. the BAT slice through its entry points: evaluate_dataset on the
@@ -482,7 +484,8 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     libs = load_libraries(["chain_fused"] if chain_only else ["sa_fused_train"] if k6_only else
                           ["sa_fused"] if k4_only else
-                          ["chain_fused", "fps", "sa_fused", "sa_fused_train", "gather_probe"])
+                          ["chain_fused", "fps", "sa_fused", "sa_fused_train", "gather_probe",
+                           "fps_floor"])
     print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
     for lib in libs.values():
         print(f"  {lib.path.relative_to(ROOT)} in {lib.build_seconds:.1f} s "
@@ -633,8 +636,7 @@ def check_k3(card: str) -> dict:
     import torch
 
     from open3dsot_tpu_torch.ops import sampling as smp
-    from open3dsot_tpu_torch.ops._build import load_library
-    from open3dsot_tpu_torch.ops._launch import raise_on, stream_of
+    from open3dsot_tpu_torch.probes.fps_floor import fps_chain_floor
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     times = {}
@@ -661,16 +663,9 @@ def check_k3(card: str) -> dict:
                   f"device time kernel {fmt_ms(d_k)} plain {fmt_ms(d_p)} [{card}]", flush=True)
             if B == 1:
                 # the latency-aware bound: S - 1 serial steps of the step's skeleton alone
-                # (csrc/fps.cu::fps_chain_floor) on K3's block at this N
-                lib = load_library("fps").lib
+                # on K3's block at this N (probes/fps_floor.py)
                 sink = torch.empty(1, device="cuda")
-                threads = min(1024, (N + 31) // 32 * 32)
-
-                def chain():
-                    raise_on(lib.fps_chain_floor(S - 1, threads, sink.data_ptr(), stream_of(sink)),
-                             "fps_chain_floor")
-
-                floor = time_ms(chain)
+                floor = time_ms(lambda: fps_chain_floor(S - 1, N, sink))
                 share = "not measured" if d_k is None else f"{floor / d_k:.1%}"
                 print(f"  K3 B=1 N={N}->{S} latency-aware bound: {S - 1} serial steps x "
                       f"{floor / (S - 1) * 1e3:.4f} us = {floor:.4f} ms (one warp reduction, one "
@@ -755,6 +750,9 @@ def check_k4_k5(calls, card: str, lib, strict: bool = True):
     sums = {B: [0.0, 0.0, 0.0] for B in batches}  # K4, K5, plain over one forward's calls
     dev_sums = {B: [0.0, 0.0, 0.0] for B in batches}  # the same in device time
     forward = {B: [] for B in batches}  # one forward's K4 calls
+    # one forward's K4 calls with each gather form forced, and their device times
+    forms = {B: {f: [] for f in saf.GATHER_FORMS} for B in batches}
+    form_dev = {B: {f: [] for f in saf.GATHER_FORMS} for B in batches}
     for label, mod, xyz16, feats16, new16 in calls:
         kw = dict(radius=mod.radius, normalize_xyz=mod.normalize_xyz, use_xyz=mod.use_xyz)
         K, folded = mod.nsample, mod.folded_chains()
@@ -769,8 +767,9 @@ def check_k4_k5(calls, card: str, lib, strict: bool = True):
             work[B]["K5"][0] += nbytes + 4 * B * new.shape[1] * K  # the indices
             work[B]["K5"][1] += flops
 
-            def k4(xyz=xyz, feats=feats, new=new, folded=folded, K=K, kw=kw):
-                return saf.fused_sa_apply(xyz, feats, new, None, folded, nsample=K, **kw)
+            def k4(xyz=xyz, feats=feats, new=new, folded=folded, K=K, kw=kw, gather=None):
+                return saf.fused_sa_apply(xyz, feats, new, None, folded, nsample=K, gather=gather,
+                                          **kw)
 
             def plain(xyz=xyz, feats=feats, new=new, folded=folded, K=K, kw=kw):
                 return saf.sa_eval_plain(xyz, feats, new, None, folded, nsample=K, **kw)
@@ -792,6 +791,16 @@ def check_k4_k5(calls, card: str, lib, strict: bool = True):
             print(f"  time {shape}: K4 {t_4:.4f} ms K5 {t_5:.4f} ms plain {min(t_p, t_p2):.4f} ms; "
                   f"device time K4 {fmt_ms(d[0])} K5 {fmt_ms(d[1])} plain {fmt_ms(d[2])} [{card}]",
                   flush=True)
+            for form in saf.GATHER_FORMS:
+                def forced(k4=k4, form=form):
+                    return k4(gather=form)
+
+                compare(f"K4 gather {form} {shape}", forced(), want)
+                forms[B][form].append(forced)
+                form_dev[B][form].append(device_ms(forced))
+            print(f"  K4 gather forms {shape}, device time: " + ", ".join(
+                f"{f} {fmt_ms(form_dev[B][f][-1])}" for f in saf.GATHER_FORMS) + f" [{card}]",
+                flush=True)
     # ragged centroid counts: no tile divides them (the kernel masks the last tile)
     for label, mod, xyz, feats, new in (c for c in calls if c[0] in ("search SA0", "vote SA")):
         S = new.shape[1] - 3
@@ -819,6 +828,15 @@ def check_k4_k5(calls, card: str, lib, strict: bool = True):
               f"{btc:.5f} ms (device time at {share} of the 3xTF32 bound) [{card}]", flush=True)
         for key, v in sorted(by_name.items(), key=lambda kv: -kv[1]):
             print(f"    {v:.4f} ms  {key[:100]}")
+        for form in saf.GATHER_FORMS:
+            calls_f = forms[B][form]
+            rows = device_rows(lambda: [[f() for f in calls_f] for _ in range(10)])
+            tot = sum(dev_us(e) for e in rows) / 10 / 1e3
+            per_call = [v for v in form_dev[B][form] if v is not None]
+            print(f"  gather {form} forced, the 7 K4 calls back to back, B={B}: device "
+                  f"{fmt_ms(tot if tot > 0 else None)}; summed per call "
+                  f"{fmt_ms(sum(per_call) if len(per_call) == len(calls_f) else None)} [{card}]",
+                  flush=True)
     # an index outside [0, N) in K5's idx: its centroid's output is NaN, the rest as before
     label, mod, xyz, feats, new = calls[3]
     kw = dict(radius=mod.radius, normalize_xyz=mod.normalize_xyz, use_xyz=mod.use_xyz)
@@ -834,6 +852,18 @@ def check_k4_k5(calls, card: str, lib, strict: bool = True):
           f"{'unchanged' if torch.equal(bad[keep], good[keep]) else 'changed'}", flush=True)
     if strict and not nan_ok:
         fail("K5: an index outside [0, N) did not give its centroid NaN alone")
+    # weights of the wrong shape are refused before the kernel runs
+    (w1, b1), (w2, b2), (w3, b3) = mod.folded_chains()
+    for what, bad_folded in (("w2 with 4 inputs fewer", ((w1, b1), (w2[:-4], b2), (w3, b3))),
+                             ("b2 one too long", ((w1, b1), (w2, torch.cat([b2, b2[:1]])), (w3, b3))),
+                             ("b3 one too short", ((w1, b1), (w2, b2), (w3, b3[:-1])))):
+        try:
+            saf.fused_sa_apply(xyz, feats, new, idx, [(w.contiguous(), b) for w, b in bad_folded],
+                               **kw)
+        except ValueError as e:
+            print(f"  K5 with {what}: refused ({e})", flush=True)
+        else:
+            fail(f"K5 took folded weights with {what}")
     print("phase 7 ok: K4 and K5 within tolerance at every SA call of the BAT path", flush=True)
     return errs, sums, work[1]
 

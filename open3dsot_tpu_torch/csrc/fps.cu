@@ -34,12 +34,6 @@
 //  - The TPU kernel padded N with copies of point 0 and B to 8; here the
 //    slots past N are masked and B is the grid.
 //
-// fps_chain_floor runs the step's serial skeleton alone (a warp reduction of
-// (value, index), the slot write, one barrier, the second reduction and the
-// winner's read), each step fed by the last, with no points: its time over
-// npoint - 1 steps is the least a one-block FPS with this reduction can take,
-// the latency-aware bound chip_smoke.py reports beside K3.
-//
 // Interface: plain C, loaded with ctypes; pointers are device pointers and the
 // stream is PyTorch's current stream. Returns 0, a CUDA error code, or -1 for
 // arguments the kernel does not take.
@@ -146,49 +140,6 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-__global__ void __launch_bounds__(kMaxThreads) fps_chain_kernel(int steps, float* __restrict__ out) {
-  __shared__ float slot_v[2][32], slot_x[2][32];
-  __shared__ int slot_i[2][32];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, n_warps = blockDim.x >> 5;
-  float lx = 0.f;
-  for (int s = 1; s <= steps; ++s) {
-    const int buf = s & 1;
-    float wv = lx + static_cast<float>(tid);  // depends on the last step's winner
-    int wi = tid;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, wv, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, wi, off);
-      if (beats(ov, oi, wv, wi)) {
-        wv = ov;
-        wi = oi;
-      }
-    }
-    if (tid == wi) {
-      slot_v[buf][warp] = wv;
-      slot_i[buf][warp] = wi;
-      slot_x[buf][warp] = wv;
-    }
-    __syncthreads();
-    wv = lane < n_warps ? slot_v[buf][lane] : -1.f;
-    wi = lane < n_warps ? slot_i[buf][lane] : INT_MAX;
-    int ww = lane;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, wv, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, wi, off);
-      const int ow = __shfl_xor_sync(0xffffffffu, ww, off);
-      if (beats(ov, oi, wv, wi)) {
-        wv = ov;
-        wi = oi;
-        ww = ow;
-      }
-    }
-    lx = slot_x[buf][ww] * 1e-30f;
-  }
-  if (tid == 0) out[0] = lx;
-}
-
 template <int PPT>
 int launch(const float* xyz, int B, int N, int npoint, int* out, int threads, cudaStream_t s) {
   fps_kernel<PPT><<<B, threads, 0, s>>>(xyz, N, npoint, out);
@@ -208,12 +159,4 @@ extern "C" int fps_k3(const float* xyz, int B, int N, int npoint, int* out, void
   if (ppt <= 8) return launch<8>(xyz, B, N, npoint, out, threads, s);
   if (ppt <= 16) return launch<16>(xyz, B, N, npoint, out, threads, s);
   return launch<32>(xyz, B, N, npoint, out, threads, s);
-}
-
-// The serial skeleton of `steps` FPS steps on one block of `threads` threads
-// (K3's block at N = threads); out: one float, written so the chain is kept.
-extern "C" int fps_chain_floor(int steps, int threads, float* out, void* stream) {
-  if (steps < 1 || threads < 32 || threads > kMaxThreads || threads % 32) return kErrArgs;
-  fps_chain_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(steps, out);
-  return static_cast<int>(cudaGetLastError());
 }

@@ -28,11 +28,13 @@
 //     the kernel; here one 16-byte load of 8 bf16 values per thread, widened by
 //     a shift (exact), and two 16-byte stores.
 //
-// What bounds them on this card: bytes. A gather reads M rows of C floats
-// (from L2 where the table fits there, as every K4 table does: at most 4 MB)
-// and writes them: 8 x M x C bytes against 3.35 TB/s of device memory. The
-// one-hot form adds 2 x 2 x M x N x C TF32 operations (495 TFLOP/s dense):
-// at K4's shapes more time than its bytes.
+// What bounds them on this card: bytes. A gather must read each table row it
+// names once (at most N x C floats; repeats come from L2, which holds every
+// K4 table: at most 4 MB at B = 16), read its M indices and write M rows of C
+// floats: 4 (rows x C + M + M x C) bytes against 3.35 TB/s of device memory,
+// most of it the output at K4's shapes (M / N = 16 at K = 32). The one-hot
+// form adds 2 x 2 x M x N x C TF32 operations (495 TFLOP/s dense): at K4's
+// shapes more time than its bytes.
 //
 // An index outside [0, N) gives a NaN row in the copy forms and a zero row in
 // the one-hot form (no column of its one-hot is set, as on the TPU).

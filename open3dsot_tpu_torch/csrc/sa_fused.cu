@@ -51,16 +51,23 @@
 //    stands between chunks and the warpgroups need not run in step; the
 //    first chunks load while the block gathers its rows.
 //  - Gather. Layer 1 is never formed: the block copies its rows' A-form rows
-//    raw into shared memory with 16-byte cp.async (by the P1 probe,
-//    probes/gather.py, the fastest exact form over K4's seven gathers at
-//    B = 16; at B = 1, where each takes a few microseconds, 16-byte loads
-//    through registers are a little faster), and relu(A + ct) is applied as
-//    layer 2 loads its A fragments; ct is computed per tile.
+//    raw into shared memory, and relu(A + ct) is applied as layer 2 loads its
+//    A fragments; ct is computed per tile. Two of the P1 probe's exact forms
+//    (probes/gather.py) are built: 16-byte loads through registers, four in
+//    flight a thread (kLdg), and 16-byte cp.async (kCpAsync). Timed in K4 at
+//    BAT's seven calls, loads win where a row is 64 floats (search SA0 at B =
+//    16: 0.2480 against 0.2931 ms) and cp.async by 1-3% at 128 and 256, at B
+//    = 1 and 16 alike (H100 80GB HBM3, 700 W), so the form follows C1.
 //  - Layer 3 and the max. Each 128-channel chunk of layer 3 is ReLU'd into
 //    shared memory (the gathered rows' space, free by then) and reduced over
 //    each centroid's K rows by one thread a channel; the max starts at 0
 //    (every value is a ReLU output), and only the tile's real rows enter it:
-//    a zero row would give relu(b), not 0.
+//    a zero row would give relu(b), not 0. Taking the max from the
+//    accumulators instead (a reduce-scatter of each thread's 16 column maxima
+//    over the warp's rows by shuffles, then an atomic max of the bits across
+//    warps) was 2% slower over the seven calls at B = 1 and 16, and one
+//    shuffle chain and atomic per value 12% slower: the staged chunk's
+//    stores and column loads cost less than the shuffles.
 //  - Filling the card (the host's plan). At B = 1 the tiles alone fill at
 //    most a card's width (16 at the vote layer, 32-256 elsewhere), so the
 //    grid may also split layer 3's output chunks over blocks, each block then
@@ -106,6 +113,10 @@ constexpr int kErrArgs = -1;    // B, N, S, K or widths not accepted
 constexpr int kErrWidth = -2;   // a width is not a multiple of 4
 constexpr int kErrSmem = -3;    // two weight stages do not fit beside the tile
 constexpr int kErrPacked = -4;  // a packed weight has the wrong size
+
+// How a tile's A-form rows reach shared memory (the forms of the P1 probe,
+// csrc/gather_probe.cu): 16-byte loads through registers, or 16-byte cp.async.
+enum Gather { kLdg = 0, kCpAsync = 1 };
 
 struct SAArgs {
   const float* centers;  // (B, S, 3)
@@ -252,7 +263,8 @@ __device__ __forceinline__ void init_bias(float (&acc)[8][4], const float* bias,
 }
 
 // Block (x, y, z): tile x of batch element y (centroids [x ts, x ts + ts)),
-// layer 3's output chunks [z cz, z cz + cz).
+// layer 3's output chunks [z cz, z cz + cz); the rows gathered in form F.
+template <int F>
 __global__ void __launch_bounds__(kThreads, 1) sa_tc_kernel(const SAArgs p) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -307,20 +319,42 @@ __global__ void __launch_bounds__(kThreads, 1) sa_tc_kernel(const SAArgs p) {
   {  // gather the tile's A-form rows raw; zeros past C1, for rows past the tile and bad indices
     const int c4 = w1 / 4;
     const float* ab = p.a + static_cast<long long>(b) * p.N * p.C1;
-    for (int e = tid; e < kTile * c4; e += kThreads) {
-      const int r = e / c4, c = (e - r * c4) * 4;
-      const int j = sidx[r];
-      float* dst = h1 + r * p.s1 + c;
-      const bool ok = j >= 0 && j < p.N;
-      if (ok && c < p.C1) {
-        cp_async16(dst, ab + static_cast<long long>(j) * p.C1 + c);
-      } else {
-        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (r < nrows && !ok) bad[r / K] = 1;
+    if constexpr (F == kCpAsync) {
+      for (int e = tid; e < kTile * c4; e += kThreads) {
+        const int r = e / c4, c = (e - r * c4) * 4;
+        const int j = sidx[r];
+        float* dst = h1 + r * p.s1 + c;
+        const bool ok = j >= 0 && j < p.N;
+        if (ok && c < p.C1) {
+          cp_async16(dst, ab + static_cast<long long>(j) * p.C1 + c);
+        } else {
+          *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (r < nrows && !ok) bad[r / K] = 1;
+        }
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    } else {  // kU loads in flight a thread, then their stores
+      constexpr int kU = 4;
+      for (int e0 = tid; e0 < kTile * c4; e0 += kU * kThreads) {
+        float4 v[kU];
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          const int e = e0 + u * kThreads, r = e / c4, c = (e - r * c4) * 4;
+          const int j = e < kTile * c4 ? sidx[r] : -1;
+          const bool ok = j >= 0 && j < p.N;
+          v[u] = ok && c < p.C1
+                     ? __ldg(reinterpret_cast<const float4*>(ab + static_cast<long long>(j) * p.C1 + c))
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+          if (e < kTile * c4 && r < nrows && !ok) bad[r / K] = 1;
+        }
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          const int e = e0 + u * kThreads, r = e / c4, c = (e - r * c4) * 4;
+          if (e < kTile * c4) *reinterpret_cast<float4*>(h1 + r * p.s1 + c) = v[u];
+        }
       }
     }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   }
   __syncthreads();  // every thread's copies are seen
 
@@ -398,7 +432,11 @@ const DeviceInfo& device_info() {
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(sa_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+      e = cudaFuncSetAttribute(sa_tc_kernel<kLdg>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemMax);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(sa_tc_kernel<kCpAsync>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     d.err = static_cast<int>(e);
     return d;
   }();
@@ -447,18 +485,25 @@ int make_plan(SAArgs* p, int sms, dim3* grid, size_t* smem) {
   return 0;
 }
 
+// The gather form: 16-byte loads for rows of up to 64 floats, cp.async for
+// wider ones (K4 timed in both forms at BAT's seven calls; the note at the top).
+int plan_gather(int C1) { return C1 <= 64 ? kLdg : kCpAsync; }
+
 }  // namespace
 
 // idx == nullptr: K4 (ball query into idx_ws (B, S, K), xyz used); otherwise
 // K5 (xyz and idx_ws unused). centers are read by both (ct). w1x: layer 1's
 // three xyz rows (3, C1), or nullptr when layer 1 reads no xyz. r2 is the
-// squared radius in f32, inv_r 1 / r or 1.
+// squared radius in f32, inv_r 1 / r or 1. gather: kLdg or kCpAsync, or -1
+// for the plan's choice.
 extern "C" int sa_fused_k4(const float* xyz, const float* centers, const int* idx, int* idx_ws,
                            const float* a_rows, const float* w1x, const float* b1,
                            const float* w2, long long n_w2, const float* b2, const float* w3,
                            long long n_w3, const float* b3, float* out, int B, int N, int S,
-                           int K, int C1, int C2, int C3, float r2, float inv_r, void* stream) {
-  if (B < 1 || B > 65535 || N < 1 || S < 1 || K < 1 || K > kTile || C1 < 1 || C2 < 1 || C3 < 1)
+                           int K, int C1, int C2, int C3, float r2, float inv_r, int gather,
+                           void* stream) {
+  if (B < 1 || B > 65535 || N < 1 || S < 1 || K < 1 || K > kTile || C1 < 1 || C2 < 1 || C3 < 1 ||
+      gather < -1 || gather > kCpAsync)
     return kErrArgs;
   if (!centers || (!idx && (!xyz || !idx_ws))) return kErrArgs;
   if (C1 % 4 || C2 % 4 || C3 % 4) return kErrWidth;
@@ -495,6 +540,8 @@ extern "C" int sa_fused_k4(const float* xyz, const float* centers, const int* id
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  sa_tc_kernel<<<grid, kThreads, smem, s>>>(p);
+  if (gather < 0) gather = plan_gather(C1);
+  if (gather == kLdg) sa_tc_kernel<kLdg><<<grid, kThreads, smem, s>>>(p);
+  else sa_tc_kernel<kCpAsync><<<grid, kThreads, smem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

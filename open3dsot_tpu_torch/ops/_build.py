@@ -45,6 +45,8 @@ SIGNATURES = {
     },
     "fps": {
         "fps_k3": [_P, _I, _I, _I, _P, _P],
+    },
+    "fps_floor": {
         "fps_chain_floor": [_I, _I, _P, _P],
     },
     "gather_probe": {
@@ -54,7 +56,7 @@ SIGNATURES = {
         "gather_bf16_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
     "sa_fused": {
-        "sa_fused_k4": [_P] * 8 + [_LL, _P, _P, _LL, _P, _P] + [_I] * 7 + [_F, _F, _P],
+        "sa_fused_k4": [_P] * 8 + [_LL, _P, _P, _LL, _P, _P] + [_I] * 7 + [_F, _F, _I, _P],
     },
     "sa_fused_train": {
         "sa_train_workspace": ([_I] * 8, _LL),

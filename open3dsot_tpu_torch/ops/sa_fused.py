@@ -43,6 +43,7 @@ from open3dsot_tpu_torch.ops.grouping import group_points
 from open3dsot_tpu_torch.ops.neighbors import ball_query, radius_sq
 
 Folded = Sequence[Tuple[torch.Tensor, torch.Tensor]]
+GATHER_FORMS = ("ldg", "cp_async")  # how K4/K5 gather their rows (csrc/sa_fused.cu::Gather)
 
 _ERRORS = {-1: "B, N, S, K (1..64) or widths not accepted",
            -2: "a width C1, C2 or C3 is not a multiple of 4",
@@ -138,14 +139,18 @@ def sa_eval_plain(xyz: torch.Tensor, features: Optional[torch.Tensor], new_xyz: 
 
 def fused_sa_apply(xyz: torch.Tensor, features: Optional[torch.Tensor], new_xyz: torch.Tensor,
                    idx: Optional[torch.Tensor], folded: Folded, *, radius: float,
-                   normalize_xyz: bool, use_xyz: bool, nsample: Optional[int] = None
-                   ) -> torch.Tensor:
+                   normalize_xyz: bool, use_xyz: bool, nsample: Optional[int] = None,
+                   gather: Optional[str] = None) -> torch.Tensor:
     """K4 (idx None, pass nsample) or K5 (idx (B, S, K) int32): xyz (B, N, 3),
-    features (B, N, C) or None, new_xyz (B, S, 3) centroids -> (B, S, C3)."""
+    features (B, N, C) or None, new_xyz (B, S, 3) centroids -> (B, S, C3).
+    gather: one of GATHER_FORMS to force the kernel's gather form (to time
+    them), or None for the kernel's own choice."""
     if len(folded) != 3:
         raise ValueError(f"the fused SA takes 3 folded layers, got {len(folded)}")
     if idx is None and nsample is None:
         raise ValueError("nsample is required when idx is None")
+    if gather is not None and gather not in GATHER_FORMS:
+        raise ValueError(f"gather must be None or one of {GATHER_FORMS}, got {gather!r}")
     B, N, _ = xyz.shape
     S = new_xyz.shape[1]
     K = int(nsample) if idx is None else idx.shape[2]
@@ -157,7 +162,7 @@ def fused_sa_apply(xyz: torch.Tensor, features: Optional[torch.Tensor], new_xyz:
     from open3dsot_tpu_torch.ops._build import load_library
 
     dev = xyz.device
-    (w1, _), (w2, _), (w3, _) = folded
+    (w1, b1), (w2, b2), (w3, b3) = folded
     C1, C2, C3 = w1.shape[1], w2.shape[1], w3.shape[1]
     check("xyz", xyz, dev, (B, N, 3))
     check("new_xyz", new_xyz, dev, (B, S, 3))
@@ -165,12 +170,16 @@ def fused_sa_apply(xyz: torch.Tensor, features: Optional[torch.Tensor], new_xyz:
         raise TypeError(f"features must be float32 on {dev} (only a_rows' matmul reads them)")
     if idx is not None:
         check("idx", idx, dev, (B, S, K), dtype=torch.int32)
+    reads_xyz = use_xyz or features is None
+    c_in = 3 * reads_xyz + (0 if features is None else features.shape[2])
+    for name, t, shape in (("w1", w1, (c_in, C1)), ("b1", b1, (C1,)), ("w2", w2, (C1, C2)),
+                           ("b2", b2, (C2,)), ("w3", w3, (C2, C3)), ("b3", b3, (C3,))):
+        check(name, t, dev, shape)
     packed = getattr(folded, "packed", None) or pack_sa(folded)
     if packed.w2.device != dev:
         raise ValueError(f"the packed weights are on {packed.w2.device}, expected {dev}")
     inv_r = 1.0 / radius if normalize_xyz else 1.0
     a = a_rows(xyz, features, w1, inv_r=inv_r, use_xyz=use_xyz)
-    reads_xyz = use_xyz or features is None
     idx_ws = torch.empty(B, S, K, dtype=torch.int32, device=dev) if idx is None else None
     out = torch.empty(B, S, C3, device=dev)
     rc = load_library("sa_fused").lib.sa_fused_k4(
@@ -179,7 +188,8 @@ def fused_sa_apply(xyz: torch.Tensor, features: Optional[torch.Tensor], new_xyz:
         packed.w1x.data_ptr() if reads_xyz else None, packed.b1.data_ptr(),
         packed.w2.data_ptr(), packed.w2.numel(), packed.b2.data_ptr(), packed.w3.data_ptr(),
         packed.w3.numel(), packed.b3.data_ptr(), out.data_ptr(), B, N, S, K, C1, C2, C3,
-        radius_sq(radius), inv_r, stream_of(xyz))
+        radius_sq(radius), inv_r, -1 if gather is None else GATHER_FORMS.index(gather),
+        stream_of(xyz))
     if idx is None:
         raise_on(rc, "K4 sa_fused_k4 (ball query)", _ERRORS)
         fused_sa_apply.launches += 1

@@ -5,8 +5,10 @@
                gather shapes (csrc/gather_probe.cu);
   gather_bf16  P2, scripts/probe_pallas_int8.py: an exact gather of bf16
                rows widened to f32 (the same .cu).
+  fps_floor    K3's latency floor: FPS's serial step skeleton alone on
+               K3's block (csrc/fps_floor.cu), no port of a Pallas kernel.
 
-No model path runs them. Each runs as `python -m open3dsot_tpu_torch.probes.<name>`
-on a machine with a CUDA device; on CPU tensors the wrappers run their
+No model path runs them. The gathers run as `python -m
+open3dsot_tpu_torch.probes.<name>` on a machine with a CUDA device; on CPU tensors the wrappers run their
 plain versions, as the kernel wrappers under ops/ do.
 """

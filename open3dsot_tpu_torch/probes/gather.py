@@ -168,6 +168,11 @@ def k4_inputs(n: int, c: int, rows: int, B: int, seed: int, device="cpu"):
     return a, idx
 
 
+def unique_rows(idx: torch.Tensor) -> int:
+    """Table rows that idx (B, M) reads, counted once per cloud."""
+    return sum(int(torch.unique(row).numel()) for row in idx.reshape(idx.shape[0], -1))
+
+
 def event_ms(fn: Callable, iters: int = 20, repeats: int = 5) -> float:
     """Median over repeats of the mean time of `iters` back-to-back calls (CUDA events)."""
     for _ in range(3):
@@ -222,20 +227,23 @@ def run(time_fn: Optional[Callable] = None, device_fn: Optional[Callable] = None
         B, n, c = a.shape
         m = idx.shape[1]
         wide = idx.long()[..., None].expand(B, m, c)
+        # bytes: each table row that idx names read once (repeats come from L2),
+        # each index read and each output row written once; the one-hot form's
+        # two TF32 products count 2 x 2 x M x N x C operations
+        nbytes = 4 * (unique_rows(idx) * c + B * m + B * m * c)
         for form in FORMS:
-            # bytes: each index and row read once, each row written once; the
-            # one-hot form's two TF32 products count 2 x 2 x M x N x C operations
             one(f"gather_rows {form}", label, lambda: gather_rows(a, idx, form),
                 lambda: gather_rows_plain(a, idx), lambda: torch.gather(a, 1, wide),
-                form in EXACT_FORMS, 4 * B * (2 * m * c + m),
-                4 * B * m * n * c if form == "onehot" else 0)
+                form in EXACT_FORMS, nbytes, 4 * B * m * n * c if form == "onehot" else 0)
 
     n_of = {"P1": N, **{label: n for label, n, _, _, _ in shapes}}
     a, idx, idx_full = probe_inputs(device)
     forms("P1", a, idx)
+    # bytes: each table element that idx_full names, its indices and the output
+    elems = int(torch.unique(idx_full.long() * C + torch.arange(C, device=device)).numel())
     one("gather_elems", "P1", lambda: gather_elems(a, idx_full),
         lambda: gather_elems_plain(a, idx_full), lambda: torch.gather(a, 1, idx_full.long()),
-        True, 4 * 3 * M * C, 0)
+        True, 4 * (elems + 2 * M * C), 0)
     one("onehot_rowsums", "P1", lambda: onehot_rowsums(idx, N, C),
         lambda: onehot_rowsums_plain(idx, N, C), None, True, 4 * (M + M * C), 4 * M * N * C)
     for B in batches:

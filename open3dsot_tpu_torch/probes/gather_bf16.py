@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from open3dsot_tpu_torch.ops._launch import check, on_cuda, raise_on, stream_of
-from open3dsot_tpu_torch.probes.gather import K4_GATHERS, event_ms, sync
+from open3dsot_tpu_torch.probes.gather import K4_GATHERS, event_ms, sync, unique_rows
 
 N, C1, TS, K = 1024, 64, 64, 32  # scripts/probe_pallas_int8.py
 _ERRORS = {-1: "B, N, M or C not accepted", -2: "C is not a multiple of 8"}
@@ -97,7 +97,7 @@ def run(time_fn: Optional[Callable] = None, device_fn: Optional[Callable] = None
                          ok=err == 0.0 and bool(torch.isfinite(got).all()), err=err,
                          ms=time_fn(kernel), plain_ms=time_fn(plain),
                          dev_ms=device_fn(kernel) if device_fn else None, library_ms=None,
-                         nbytes=B * (2 * m * c + 4 * m * c + 4 * m), ops=0))
+                         nbytes=2 * unique_rows(idx) * c + 4 * B * (m + m * c), ops=0))
     return rows
 
 

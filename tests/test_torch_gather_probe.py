@@ -183,3 +183,36 @@ def test_probe_runs_check_every_form_on_cpu_tensors():
     rows = gather_bf16.run(time_fn=stub, batches=(2,), shapes=shapes, device="cpu")
     assert [r["label"] for r in rows] == ["P2", "template SA0"]
     assert all(r["ok"] for r in rows)
+
+
+def test_probe_bytes_count_each_table_row_once():
+    """A gather's bound counts each table row its indices name once (repeats
+    come from L2), each index and each output row: here 3 and 2 distinct rows
+    of 5 and 4 indices in two clouds."""
+    a = torch.arange(2 * 6 * 4, dtype=torch.float32).reshape(2, 6, 4)
+    idx = torch.tensor([[1, 1, 3, 5, 3], [0, 0, 0, 2, 2]], dtype=torch.int32)
+    assert gather.unique_rows(idx) == 3 + 2
+    stub = lambda fn: (fn(), 0.0)[1]  # noqa: E731
+    rows = []
+    orig = gather.k4_inputs
+    try:
+        gather.k4_inputs = lambda *args, **kw: (a, idx)
+        rows = gather.run(time_fn=stub, batches=(2,), shapes=(("t", 6, 4, 5, 1),), device="cpu")
+    finally:
+        gather.k4_inputs = orig
+    want = 4 * ((3 + 2) * 4 + 2 * 5 + 2 * 5 * 4)
+    assert [r["nbytes"] for r in rows if r["label"] == "t"] == [want] * len(gather.FORMS)
+    _, _, idx_full = gather.probe_inputs()
+    p1 = next(r for r in rows if r["what"] == "gather_elems")
+    distinct = len(set(idx_full[0, :, 0].tolist()))
+    assert p1["nbytes"] == 4 * (distinct * gather.C + 2 * gather.M * gather.C)
+
+
+def test_fps_floor_takes_k3s_block_and_needs_the_card():
+    from open3dsot_tpu_torch.probes import fps_floor
+
+    assert [fps_floor.block_threads(n) for n in (40, 256, 512, 1000, 1024, 4096)] == [
+        64, 256, 512, 1024, 1024, 1024]
+    with pytest.raises(ValueError, match="CUDA"):
+        fps_floor.fps_chain_floor(511, 1024, torch.empty(1))
+    assert fps_floor.fps_chain_floor.launches == 0

@@ -128,6 +128,9 @@ def test_wrapper_checks_and_counts():
     assert (sa_fused.fused_sa_apply.launches, sa_fused.fused_sa_apply.idx_launches) == (0, 0)
     with pytest.raises(ValueError, match="nsample"):
         sa_fused.fused_sa_apply(t(xyz), t(feats), t(xyz[:, :S]), None, folded, **kw)
+    with pytest.raises(ValueError, match="gather"):
+        sa_fused.fused_sa_apply(t(xyz), t(feats), t(xyz[:, :S]), None, folded, nsample=K,
+                                gather="bulk", **kw)
     with pytest.raises(ValueError, match="3 folded layers"):
         sa_fused.fused_sa_apply(t(xyz), t(feats), t(xyz[:, :S]), None, folded[:2], nsample=K, **kw)
     with pytest.raises(ValueError):
