@@ -5,6 +5,7 @@
     python3 chip_smoke.py --chain-times   # phases 1-3 only (K1/K2), no result line
     python3 chip_smoke.py --k6-times      # phases 1, 2 and 11 only (K6), no result line
     python3 chip_smoke.py --k4-times      # phases 1, 2 and 7 only (K4/K5), no result line
+    python3 chip_smoke.py --k3-times      # phases 1, 2 and 6 only (K3), no result line
 
 Phases, one line or a few each; any failure exits non-zero:
   1. environment: torch / CUDA versions, the card's name and power limit;
@@ -25,11 +26,18 @@ Phases, one line or a few each; any failure exits non-zero:
      on the synthetic dataset at point_sample_size 1024, and the CLI in a
      subprocess; Success/Precision, frames/s, launch counts, a short
      profiler window.
-  6. K3 (FPS) against its plain version at the BAT path's shapes (B = 1
-     and 16, N 1024 -> 512 and 512 -> 256), index for index, on a
-     continuous cloud and on one with duplicated points (ties); times, and
-     at B = 1 its latency-aware bound: the serial skeleton of its npoint - 1
-     steps alone on its block (probes/fps_floor.py, csrc/fps_floor.cu).
+  6. K3 (FPS) against its plain version, index for index, in both winner
+     forms: at the BAT path's shapes (B = 1, 16 and 50, N 1024 -> 512 and
+     512 -> 256) on a continuous cloud and on one with duplicated points
+     (ties), and on an all-identical cloud, ragged N = 1000 and 33, N =
+     8192 -> 2048 and npoint = N; times at BAT's shapes against bound_ms
+     and, at B = 1, against the skeleton floor of the v1 and of the v2
+     design (each design's serial step skeleton alone on its block for
+     npoint - 1 steps, probes/fps_floor.py, csrc/fps_floor.cu); K3's
+     launches against the profiler's records of them in a window that
+     opens on K3 and in one that opens on a sleep kernel; the block sweep
+     (every T from 32 to 1024 with PPT <= 32, both winner forms, at N =
+     512 to 16384, each checked).
   7. K4 (3xTF32 on the tensor cores) against sa_eval_plain at each of the
      seven SA calls of a BAT forward at cfgs/BAT_Car.yaml widths, on the
      inputs that forward gives them (B = 1 and 16); K5 (indices from the
@@ -44,8 +52,9 @@ Phases, one line or a few each; any failure exits non-zero:
   8. the BAT forward, kernel path vs plain path (B = 1 and 16), with the
      launches of one forward (K3 = 2, K4 = 7); P2B once (K4 = 7).
   9. the BAT slice through its entry points: evaluate_dataset on the
-     synthetic dataset at BAT_Car widths (both paths), a profiler window,
-     and the CLI on cfgs/BAT_synthetic.yaml.
+     synthetic dataset at BAT_Car widths (both paths), a profiler window
+     (K3's launches in it beside the profiler's records of them), and the
+     CLI on cfgs/BAT_synthetic.yaml.
  10. printed last, after phase 14: one JSON line of the kernels K1-K6 and
      the probes P1/P2 (each with its bound from this run's shapes), the card
      line, then the result line.
@@ -181,17 +190,24 @@ def dev_us(e) -> float:
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
 
+LEAD_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel
+
+
 def device_rows(fn) -> list:
-    """Key averages of the device work that fn() runs, from a profiler trace."""
+    """Key averages of the device work that fn() runs, from a profiler trace.
+    A window that opens on fn's first kernel can lose that kernel's record
+    (phase 6 counts them), so a short sleep kernel opens it, and its row is
+    left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(100)
         fn()
         torch.cuda.synchronize()
-    return [e for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us(e) > 0]
+    return [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and dev_us(e) > 0 and LEAD_KERNEL not in e.key]
 
 
 def device_ms(fn, iters: int = 10):
@@ -466,7 +482,7 @@ def main(argv=None) -> None:
 
     args = sys.argv[1:] if argv is None else argv
     chain_only, k6_only = "--chain-times" in args, "--k6-times" in args
-    k4_only = "--k4-times" in args
+    k4_only, k3_only = "--k4-times" in args, "--k3-times" in args
     # --- 1. environment ---------------------------------------------------
     print(f"env: python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
@@ -483,7 +499,7 @@ def main(argv=None) -> None:
     # --- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     libs = load_libraries(["chain_fused"] if chain_only else ["sa_fused_train"] if k6_only else
-                          ["sa_fused"] if k4_only else
+                          ["sa_fused"] if k4_only else ["fps", "fps_floor"] if k3_only else
                           ["chain_fused", "fps", "sa_fused", "sa_fused_train", "gather_probe",
                            "fps_floor"])
     print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -502,6 +518,10 @@ def main(argv=None) -> None:
     if k4_only:
         matching_phases(card, libs["sa_fused"], k4_only=True)
         print("k4 times done: phases 1, 2 and 7 only", flush=True)
+        return
+    if k3_only:
+        check_k3(card)
+        print("k3 times done: phases 1, 2 and 6 only", flush=True)
         return
 
     # --- 3. kernels vs plain at the main path's shapes --------------------
@@ -631,48 +651,154 @@ def matching_frames(model, sampler, n: int):
     return frames
 
 
+K3_SHAPES = ((1024, 512), (512, 256))  # BAT's two FPS calls: search and template, N -> npoint
+K3_BATCHES = (1, 16, TRAIN_B)  # the eval loop, a batched forward, the train step
+K3_SWEEP_N = (512, 1024, 1000, 2048, 4096, 8192, 16384)  # the block sweep's clouds (1000: ragged)
+K3_SWEEP_T = (32, 64, 128, 256, 512, 1024)
+
+
+def k3_work(B: int, N: int, S: int):
+    """(bytes, operations) of one K3 call: the clouds read and the indices
+    written once; per step and point 3 sub, 3 mul, 2 add and a min."""
+    return 4 * B * (N * 3 + S), 9 * B * (S - 1) * N
+
+
+def k3_profiler_records(card: str) -> None:
+    """K3's launches against the profiler's records of its kernel and their
+    device time: in a window that opens on a K3 launch, and in one that
+    opens on a sleep kernel (device_rows)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from open3dsot_tpu_torch.ops import sampling as smp
+
+    x = torch.randn(1, 512, 3, device="cuda")
+    n = 8
+    runs = lambda: [smp.furthest_point_sample(x, 256) for _ in range(n)]  # noqa: E731
+    runs()
+
+    def k3(rows):
+        rows = [e for e in rows if "fps_kernel" in e.key]
+        return f"{sum(e.count for e in rows)} records, {sum(dev_us(e) for e in rows):.1f} us"
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        runs()
+        torch.cuda.synchronize()
+    t = time_ms(runs, iters=1, repeats=5)
+    print(f"  profiler records of {n} K3 launches ({t * 1e3:.1f} us by events): window opening on "
+          f"K3: {k3(prof.key_averages())}; opening on a sleep kernel (device_rows): "
+          f"{k3(device_rows(runs))} [{card}]", flush=True)
+
+
 def check_k3(card: str) -> dict:
-    """K3 against furthest_point_sample_plain, index for index."""
+    """Phase 6: K3 against furthest_point_sample_plain, index for index, at
+    BAT's shapes and edge shapes; times against the bound and both skeleton
+    floors; the block sweep. On a tree from before K3's redesign (no
+    fps_block: a parent run with --k3-times) only what that tree has."""
     import torch
 
     from open3dsot_tpu_torch.ops import sampling as smp
-    from open3dsot_tpu_torch.probes.fps_floor import fps_chain_floor
+    from open3dsot_tpu_torch.probes import fps_floor
 
+    redesigned = hasattr(smp, "fps_block")
+    forms = smp.WINNERS if redesigned else (None,)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def cloud(B, N, distinct=None):
+        x = torch.randn(B, N, 3, device="cuda", generator=gen) * 3
+        if distinct is None:
+            return x
+        return x[:, torch.randint(0, distinct, (N,), device="cuda", generator=gen)].contiguous()
+
+    def same(label, x, S, want=None):
+        want = smp.furthest_point_sample_plain(x, S) if want is None else want
+        for form in forms:
+            kw = {} if form is None else {"winner": form}
+            n_diff = int((smp.furthest_point_sample(x, S, **kw) != want).sum())
+            what = f"K3 {label}" + ("" if form is None else f" ({form})")
+            print(f"  {what}: {'indices equal' if n_diff == 0 else f'{n_diff} indices differ'}",
+                  flush=True)
+            if n_diff:
+                fail(f"{what}: {n_diff} indices differ from the plain version")
+        return want
+
     times = {}
-    for B in (1, 16):
-        for N, S in ((1024, 512), (512, 256)):
-            x = torch.randn(B, N, 3, device="cuda", generator=gen) * 3
-            dup = x[:, torch.randint(0, N // 8, (N,), device="cuda", generator=gen)].contiguous()
-            for kind, cloud in (("continuous", x), ("duplicated points", dup)):
-                got = smp.furthest_point_sample(cloud, S)
-                want = smp.furthest_point_sample_plain(cloud, S)
-                torch.cuda.synchronize()
-                n_diff = int((got != want).sum())
-                print(f"  K3 B={B} N={N}->{S} {kind}: "
-                      f"{'indices equal' if n_diff == 0 else f'{n_diff} indices differ'}")
-                if n_diff:
-                    fail(f"K3 B={B} N={N}->{S} {kind}: {n_diff} indices differ from the plain version")
-            t_p = time_ms(lambda: smp.furthest_point_sample_plain(x, S), iters=3, repeats=3)
+    sink = torch.empty(1, device="cuda")
+    for B in K3_BATCHES:
+        for N, S in K3_SHAPES:
+            x = cloud(B, N)
+            same(f"B={B} N={N}->{S} continuous", x, S)
+            same(f"B={B} N={N}->{S} duplicated points", cloud(B, N, N // 8), S)
+            t_p = time_ms(lambda: smp.furthest_point_sample_plain(x, S), iters=2, repeats=3)
             t_k = time_ms(lambda: smp.furthest_point_sample(x, S))
-            t_p2 = time_ms(lambda: smp.furthest_point_sample_plain(x, S), iters=3, repeats=3)
-            times[(B, N)] = (t_k, min(t_p, t_p2))
+            t_p2 = time_ms(lambda: smp.furthest_point_sample_plain(x, S), iters=2, repeats=3)
             d_k = device_ms(lambda: smp.furthest_point_sample(x, S))
-            d_p = device_ms(lambda: smp.furthest_point_sample_plain(x, S), iters=2)
-            print(f"  time K3 B={B} N={N}->{S}: kernel {t_k:.4f} ms plain {min(t_p, t_p2):.4f} ms; "
-                  f"device time kernel {fmt_ms(d_k)} plain {fmt_ms(d_p)} [{card}]", flush=True)
-            if B == 1:
-                # the latency-aware bound: S - 1 serial steps of the step's skeleton alone
-                # on K3's block at this N (probes/fps_floor.py)
-                sink = torch.empty(1, device="cuda")
-                floor = time_ms(lambda: fps_chain_floor(S - 1, N, sink))
-                share = "not measured" if d_k is None else f"{floor / d_k:.1%}"
-                print(f"  K3 B=1 N={N}->{S} latency-aware bound: {S - 1} serial steps x "
-                      f"{floor / (S - 1) * 1e3:.4f} us = {floor:.4f} ms (one warp reduction, one "
-                      f"barrier, a second reduction a step); kernel device time at {share} of it "
+            bound, by = bound_of(*k3_work(B, N, S))
+            times[(B, N)] = (t_k, min(t_p, t_p2))
+            block = f" block T={smp.fps_block(N)[0]} {smp.fps_winner(N)}" if redesigned else ""
+            print(f"  time K3 B={B} N={N}->{S}{block}: kernel {t_k:.4f} ms plain "
+                  f"{min(t_p, t_p2):.4f} ms; device time kernel {fmt_ms(d_k)} "
+                  f"({'not measured' if d_k is None else f'{d_k / (S - 1) * 1e3:.4f} us a step'}); "
+                  f"bound_ms {bound:.6f} ({by}; {bound / t_k:.3%} of the kernel's event time) "
+                  f"[{card}]", flush=True)
+            if B != 1:
+                continue
+            # the skeleton floors: S - 1 serial steps of each design's step alone, no points
+            for design in fps_floor.DESIGNS if redesigned else (1,):
+                kw = {"design": design} if redesigned else {}
+                floor = time_ms(lambda: fps_floor.fps_chain_floor(S - 1, N, sink, **kw))
+                T = fps_floor.design_threads(design, N) if redesigned else min(1024, N)
+                if d_k is None:
+                    rel = "K3's device time not measured"
+                elif floor <= d_k:
+                    rel = f"K3's device time {d_k - floor:.4f} ms above it, the floor {floor / d_k:.1%} of it"
+                else:
+                    rel = f"K3's device time {floor - d_k:.4f} ms below it (a floor of another design)"
+                print(f"  K3 B=1 N={N}->{S}: skeleton floor of the v{design} design ({T} threads): "
+                      f"{S - 1} steps x {floor / (S - 1) * 1e3:.4f} us = {floor:.4f} ms; {rel} "
                       f"[{card}]", flush=True)
+    if redesigned:
+        same("B=2 N=1024->512 all points identical",
+             cloud(2, 1, None).expand(2, 1024, 3).contiguous(), 512)
+        same("B=4 N=1000->500 ragged", cloud(4, 1000, 300), 500)
+        same("B=4 N=33->16 ragged", cloud(4, 33), 16)
+        same("B=2 N=8192->2048", cloud(2, 8192), 2048)
+        same("B=4 N=512->512 npoint = N", cloud(4, 512, 64), 512)
+        same("B=4 N=100->100 npoint = N", cloud(4, 100), 100)
+    k3_profiler_records(card)
+    if redesigned:
+        k3_sweep(card, cloud, same)
     print("phase 6 ok: K3 indices equal to the plain version's", flush=True)
     return times
+
+
+def k3_sweep(card: str, cloud, same) -> None:
+    """K3 at every block T (PPT <= 32) and winner form on one cloud of each
+    sweep size, index for index against the plain version; time by events
+    over back-to-back calls (each call is far longer than its launch)."""
+    from open3dsot_tpu_torch.ops import sampling as smp
+
+    for N in K3_SWEEP_N:
+        S = min(N // 2, 2048)
+        x = cloud(1, N)
+        want = same(f"sweep B=1 N={N}->{S} at fps_block's T", x, S)
+        row = []
+        for T in K3_SWEEP_T:
+            if T * smp.MAX_PPT < N:
+                continue
+            for form in smp.WINNERS:
+                if form == "shared" and smp.fps_winner(N) != "shared":
+                    continue
+                got = smp.furthest_point_sample(x, S, threads=T, winner=form)
+                if not bool((got == want).all()):
+                    fail(f"K3 sweep N={N} T={T} {form}: indices differ from the plain version")
+                t = time_ms(lambda: smp.furthest_point_sample(x, S, threads=T, winner=form),
+                            iters=10, repeats=5)
+                row.append(f"T={T} {form} {t / (S - 1) * 1e3:.4f}")
+        T, ppt = smp.fps_block(N)
+        print(f"  K3 sweep N={N}->{S}, us a step (indices equal at each): " + ", ".join(row)
+              + f"; fps_block: T={T} PPT={ppt} {smp.fps_winner(N)} [{card}]", flush=True)
 
 
 def sa_calls(plain_model, batch) -> list:
@@ -969,7 +1095,8 @@ def matching_phases(card: str, lib, k4_only: bool = False) -> list:
     p_dt = time.perf_counter() - t0
     print(f"BAT eval plain path: success {p_succ:.4f} precision {p_prec:.4f}; "
           f"{n_frames / p_dt:.2f} frames/s (host loop) [{card}]", flush=True)
-    profile_window(model, sampler, cfg, card, wall_us_per_frame=dt * 1e6 / n_frames)
+    profile_window(model, sampler, cfg, card, wall_us_per_frame=dt * 1e6 / n_frames,
+                   k3_count=lambda: matching_counts()[0])
     host_breakdown(model, sampler, card)
 
     cli = [sys.executable, "-m", "open3dsot_tpu_torch.main", "--cfg", "cfgs/BAT_synthetic.yaml",
@@ -981,11 +1108,9 @@ def matching_phases(card: str, lib, k4_only: bool = False) -> list:
         fail(f"BAT CLI eval failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
     print("phase 9 ok", flush=True)
 
-    n, S = 1024, 512  # K3's timed call: B = 1, N 1024 -> 512
-    k3_work = (4 * (n * 3 + S), 9 * (S - 1) * n)  # per step and point: 3 sub, 3 mul, 2 add, min
     return [
         kernel_entry("K3 furthest_point_sample", "fps.cu", "open3dsot_tpu/ops/fps_pallas.py:69",
-                     launches[0], 0.0, *k3_times[(1, 1024)], k3_work),
+                     launches[0], 0.0, *k3_times[(1, 1024)], k3_work(1, 1024, 512)),
         kernel_entry("K4 fused_sa_apply (ball query)", "sa_fused.cu",
                      "open3dsot_tpu/ops/sa_fused.py:384", launches[1], errs["K4"], sa_sums[1][0],
                      sa_sums[1][2], sa_work["K4"], tensor_core=True),
@@ -1513,13 +1638,31 @@ def probe_phase(card: str) -> list:
                entry("gather_bf16_rows", "search SA0", 16, p2, "gather_bf16_rows")])
 
 
-def profile_window(model, sampler, cfg, card: str, wall_us_per_frame: float) -> None:
+def profile_window(model, sampler, cfg, card: str, wall_us_per_frame: float,
+                   k3_count=None) -> None:
     """Device time by kernel over one tracklet of the host loop, and the
-    device's idle share against the unprofiled run's time per frame."""
+    device's idle share against the unprofiled run's time per frame; with
+    k3_count (the wrapper's launch count), K3's launches over the window
+    beside the profiler's records of them."""
     from open3dsot_tpu_torch.tracking.eval import evaluate_dataset
 
     frames = len(sampler[0]) - 1
-    rows = device_rows(lambda: evaluate_dataset(model, sampler, cfg, max_tracklets=1))
+    run = lambda: evaluate_dataset(model, sampler, cfg, max_tracklets=1)  # noqa: E731
+    before = k3_count() if k3_count else 0
+    rows = device_rows(run)
+    if k3_count:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        launched = k3_count() - before
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        bare = sum(e.count for e in prof.key_averages() if "fps_kernel" in e.key)
+        print(f"profile: K3 over the window: {launched} launches by the wrapper's count, "
+              f"{sum(e.count for e in rows if 'fps_kernel' in e.key)} profiler records "
+              f"({bare} in a window without the opening sleep kernel)")
     total = sum(dev_us(e) for e in rows)
     if total <= 0:
         print("profile: no device time recorded (not measured)")

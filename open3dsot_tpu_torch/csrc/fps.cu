@@ -7,27 +7,40 @@
 //     index on ties.
 //
 // What bounds it on this card. The npoint - 1 steps form a serial chain: step
-// s needs the point that step s - 1 picked. The work per step is tiny (N
-// distance updates and one argmax); its time is the latency of one block-wide
-// reduction and one barrier. One cloud is one block, so at B = 1 (the eval
-// loop) the kernel runs on one SM of 132 and its time is npoint x the step
-// latency; at B = 16 sixteen SMs run side by side. Spreading one cloud over
-// several SMs (a cluster reduction over distributed shared memory) is left to
-// a later change.
+// s needs the point that step s - 1 picked. The work per step is tiny (about
+// 9 operations a point and one argmax), so the card's peak rate bounds
+// nothing; the time is npoint times the latency of one step: the distance
+// updates a thread issues, its argmax, the warp's and the block's argmax and
+// the read of the winner's coordinates. One cloud is one block, so at B = 1
+// (the eval loop) the kernel runs on one SM of 132.
 //
 // What the design does about it.
-//  - The cloud and its running min stay in registers for the whole loop: PPT
-//    points per thread, point j on thread j % T (T threads). Device memory is
-//    read once.
-//  - One barrier per step. Each warp reduces (value, index) with shuffles;
-//    the lane that owns the warp's winner writes value, index and the
-//    winner's coordinates to a shared slot; after the barrier every warp
-//    reduces the slots again and reads the winner's coordinates from its
-//    slot. The slots are double-buffered by step parity, so no second
-//    barrier is needed before the next step overwrites them.
-//  - Ties: a thread scans its points in ascending index with a strict >, and
-//    the shuffle reductions prefer the lower index on equal values, so the
-//    argmax is the lowest index, as torch.argmax and jnp.argmax.
+//  - Fewer, fuller warps. T threads hold PPT points each, point j on thread
+//    j % T, the cloud and its running min in registers for the whole loop.
+//    ops/sampling.py::fps_block picks T by N from the block sweep of
+//    chip_smoke.py phase 6 (256 threads at N = 1024, 512 at N = 512); this
+//    file only checks it. One warp (T = 32) needs no barrier, but its one
+//    issue slot of four SMSPs makes the distance updates its whole step.
+//  - A thread's argmax over its PPT points is a tree (the lower slot wins a
+//    tie), not a chain of compare-selects.
+//  - A warp's argmax is two redux.sync: the largest key, then the lowest
+//    index among the lanes that hold it. The bits of a float d^2 >= +0 order
+//    as the float does, so the key is d^2's bits as an unsigned int. A masked
+//    slot (j >= N) keeps d^2 = +0, key 0: it loses to every real point of a
+//    larger key, and on key 0 to every real point by its index j >= N.
+//  - One barrier a step: the owner of each warp's winner writes (key, index)
+//    to the warp's slot, double-buffered by step parity; after the barrier
+//    every warp reduces the slots with the same two redux.sync
+//    (fps_step.cuh, which the skeleton floor in fps_floor.cu shares).
+//  - The winner's coordinates come from a copy of the cloud in shared memory
+//    (kShared, where 12 N bytes fit) or from the warp's slot, written by the
+//    owner beside its key (kSlot, above 19264 points; then a thread's tree
+//    carries coordinates). The copy was faster at every T above one warp.
+//  - Tried on the card and slower: a ballot for the lowest lane in place of
+//    redux.sync min, with points in ranges by thread and the coordinates
+//    shuffled from the slots (about 16% a step); a 64-bit shared atomic max
+//    of (key, ~index) in place of the slots' reduction (ptxas makes it a CAS
+//    loop, about 60%).
 //  - Exact indices need the same rounding as the plain version: d^2 is
 //    ((dx*dx) + (dy*dy)) + (dz*dz) with __fmul_rn/__fadd_rn, which nvcc does
 //    not contract into FMAs.
@@ -35,17 +48,26 @@
 //    slots past N are masked and B is the grid.
 //
 // Interface: plain C, loaded with ctypes; pointers are device pointers and the
-// stream is PyTorch's current stream. Returns 0, a CUDA error code, or -1 for
-// arguments the kernel does not take.
+// stream is PyTorch's current stream. Returns 0, a CUDA error code, or a
+// negative code for arguments the kernel does not take.
 
 #include <climits>
 #include <cuda_runtime.h>
 
+#include "fps_step.cuh"
+
 namespace {
 
 constexpr int kErrArgs = -1;
-constexpr int kMaxThreads = 1024;
-constexpr int kMaxPPT = 32;  // N <= 32768
+constexpr int kErrBlock = -2;
+constexpr int kErrShared = -3;
+constexpr int kMaxN = 32768;
+constexpr int kMaxPPT = 32;
+constexpr int kSlot = 0, kShared = 1;  // where the winner's coordinates come from
+// a block may use 227 KB of shared memory, 48 KB without opting in; the slots
+// take 1280 bytes of it
+constexpr int kStatic = 1280;
+constexpr int kMaxShared = 232448 - kStatic;
 
 __device__ __forceinline__ float sqdist(float ax, float ay, float az, float bx, float by,
                                         float bz) {
@@ -53,20 +75,19 @@ __device__ __forceinline__ float sqdist(float ax, float ay, float az, float bx, 
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
 }
 
-// (v, i) beats (bv, bi): a larger value, or the lower index on an equal value
-__device__ __forceinline__ bool beats(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
-}
-
-template <int PPT>
-__global__ void __launch_bounds__(kMaxThreads)
+// MAXT: the most threads the instantiation takes (its register budget)
+template <int PPT, int MAXT, int WIN>
+__global__ void __launch_bounds__(MAXT)
     fps_kernel(const float* __restrict__ xyz, int N, int npoint, int* __restrict__ out) {
-  __shared__ float slot_v[2][32], slot_x[2][32], slot_y[2][32], slot_z[2][32];
-  __shared__ int slot_i[2][32];
+  __shared__ unsigned slots[2][2][32];          // [key, index][step parity][warp]
+  __shared__ float slot_xyz[3][2][32];          // kSlot: the winner's coordinates
+  extern __shared__ float cloud[];              // kShared: x[N], y[N], z[N]
   const int T = blockDim.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5, n_warps = T >> 5;
   const float* p = xyz + static_cast<size_t>(blockIdx.x) * N * 3;
   int* o = out + static_cast<size_t>(blockIdx.x) * npoint;
+  const unsigned s_slots = smem_u32(slots), s_xyz = smem_u32(slot_xyz);
+  const unsigned s_cx = smem_u32(cloud), s_cy = s_cx + 4 * N, s_cz = s_cy + 4 * N;
 
   float px[PPT], py[PPT], pz[PPT], md[PPT];
 #pragma unroll
@@ -76,87 +97,130 @@ __global__ void __launch_bounds__(kMaxThreads)
     px[i] = valid ? p[3 * j] : 0.f;
     py[i] = valid ? p[3 * j + 1] : 0.f;
     pz[i] = valid ? p[3 * j + 2] : 0.f;
-    md[i] = valid ? 1e10f : -1.f;  // a masked slot never wins
+    md[i] = valid ? 1e10f : 0.f;  // a masked slot stays at +0: key 0
+    if (WIN == kShared && valid) {
+      cloud[j] = px[i];
+      cloud[N + j] = py[i];
+      cloud[2 * N + j] = pz[i];
+    }
   }
+  init_slots(s_slots, tid, n_warps);
   float lx = p[0], ly = p[1], lz = p[2];
   if (tid == 0) o[0] = 0;
+  __syncthreads();
 
   for (int s = 1; s < npoint; ++s) {
     const int buf = s & 1;
-    float best = -1.f, bx = 0.f, by = 0.f, bz = 0.f;
-    int bi = INT_MAX;
+    // the running min, and the thread's argmax as a tree (the lower slot on ties)
+    float v[PPT], bx[PPT], by[PPT], bz[PPT];
+    int k[PPT];
 #pragma unroll
     for (int i = 0; i < PPT; ++i) {
-      const int j = tid + i * T;
-      if (j < N) {
-        md[i] = fminf(md[i], sqdist(px[i], py[i], pz[i], lx, ly, lz));
-        if (md[i] > best) {
-          best = md[i];
-          bi = j;
-          bx = px[i];
-          by = py[i];
-          bz = pz[i];
+      md[i] = fminf(md[i], sqdist(px[i], py[i], pz[i], lx, ly, lz));
+      v[i] = md[i];
+      k[i] = i;
+      if (WIN == kSlot) {
+        bx[i] = px[i];
+        by[i] = py[i];
+        bz[i] = pz[i];
+      }
+    }
+#pragma unroll
+    for (int w = 1; w < PPT; w *= 2) {
+#pragma unroll
+      for (int i = 0; i + w < PPT; i += 2 * w) {
+        if (v[i + w] > v[i]) {
+          v[i] = v[i + w];
+          k[i] = k[i + w];
+          if (WIN == kSlot) {
+            bx[i] = bx[i + w];
+            by[i] = by[i + w];
+            bz[i] = bz[i + w];
+          }
         }
       }
     }
-    float wv = best;
-    int wi = bi;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, wv, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, wi, off);
-      if (beats(ov, oi, wv, wi)) {
-        wv = ov;
-        wi = oi;
+    const unsigned idx = static_cast<unsigned>(tid + k[0] * T);
+    unsigned wkey, widx;
+    warp_argmax(__float_as_uint(v[0]), idx, wkey, widx);
+    if (n_warps > 1) {  // uniform over the block
+      if (WIN == kSlot && idx == widx) {
+        const unsigned a = s_xyz + 4 * (32 * buf + warp);
+        st_shared(a, bx[0]);
+        st_shared(a + 4 * 64, by[0]);
+        st_shared(a + 4 * 128, bz[0]);
       }
+      block_argmax(s_slots, buf, lane, warp, idx, wkey, widx);
     }
-    // the owner of the warp's winner publishes it (lane 0 for a warp with no point)
-    if (bi == wi && (wi != INT_MAX || lane == 0)) {
-      slot_v[buf][warp] = wv;
-      slot_i[buf][warp] = wi;
-      slot_x[buf][warp] = bx;
-      slot_y[buf][warp] = by;
-      slot_z[buf][warp] = bz;
+    if (WIN == kShared) {
+      lx = ld_shared_f32(s_cx + 4 * widx);
+      ly = ld_shared_f32(s_cy + 4 * widx);
+      lz = ld_shared_f32(s_cz + 4 * widx);
+    } else if (n_warps > 1) {  // the winner's warp
+      const unsigned a = s_xyz + 4 * (32 * buf + ((widx & static_cast<unsigned>(T - 1)) >> 5));
+      lx = ld_shared_f32(a);
+      ly = ld_shared_f32(a + 4 * 64);
+      lz = ld_shared_f32(a + 4 * 128);
+    } else {  // one warp: from the winner's lane
+      const int l = static_cast<int>(widx & 31u);
+      lx = __shfl_sync(kFull, bx[0], l);
+      ly = __shfl_sync(kFull, by[0], l);
+      lz = __shfl_sync(kFull, bz[0], l);
     }
-    __syncthreads();
-    wv = lane < n_warps ? slot_v[buf][lane] : -1.f;
-    wi = lane < n_warps ? slot_i[buf][lane] : INT_MAX;
-    int ww = lane;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, wv, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, wi, off);
-      const int ow = __shfl_xor_sync(0xffffffffu, ww, off);
-      if (beats(ov, oi, wv, wi)) {
-        wv = ov;
-        wi = oi;
-        ww = ow;
-      }
-    }
-    lx = slot_x[buf][ww];
-    ly = slot_y[buf][ww];
-    lz = slot_z[buf][ww];
-    if (tid == 0) o[s] = wi;
+    if (tid == 0) o[s] = static_cast<int>(widx);
   }
 }
 
-template <int PPT>
+template <int PPT, int MAXT, int WIN>
 int launch(const float* xyz, int B, int N, int npoint, int* out, int threads, cudaStream_t s) {
-  fps_kernel<PPT><<<B, threads, 0, s>>>(xyz, N, npoint, out);
+  auto kernel = fps_kernel<PPT, MAXT, WIN>;
+  const int smem = WIN == kShared ? 12 * N : 0;
+  if (smem + kStatic > 48 * 1024) {  // above the default, with the slots
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<B, threads, smem, s>>>(xyz, N, npoint, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int PPT, int WIN>
+int launch_ppt(const float* xyz, int B, int N, int npoint, int* out, int threads,
+               cudaStream_t s) {
+  return threads <= 256 ? launch<PPT, 256, WIN>(xyz, B, N, npoint, out, threads, s)
+                        : launch<PPT, 1024, WIN>(xyz, B, N, npoint, out, threads, s);
+}
+
+template <int WIN>
+int launch_win(const float* xyz, int B, int N, int npoint, int* out, int threads, int ppt,
+               cudaStream_t s) {
+  switch (ppt) {
+    case 1: return launch_ppt<1, WIN>(xyz, B, N, npoint, out, threads, s);
+    case 2: return launch_ppt<2, WIN>(xyz, B, N, npoint, out, threads, s);
+    case 4: return launch_ppt<4, WIN>(xyz, B, N, npoint, out, threads, s);
+    case 8: return launch_ppt<8, WIN>(xyz, B, N, npoint, out, threads, s);
+    case 16: return launch_ppt<16, WIN>(xyz, B, N, npoint, out, threads, s);
+    default: return launch_ppt<32, WIN>(xyz, B, N, npoint, out, threads, s);
+  }
 }
 
 }  // namespace
 
-extern "C" int fps_k3(const float* xyz, int B, int N, int npoint, int* out, void* stream) {
-  if (B < 1 || N < 1 || npoint < 1 || N > kMaxThreads * kMaxPPT) return kErrArgs;
+// threads (T, a power of two in [32, 1024]) and ppt (points a thread holds, a
+// power of two up to 32, T * ppt >= N) as ops/sampling.py::fps_block gives
+// them; winner 0 reads the winner's coordinates from the warps' slots, 1 from
+// a copy of the cloud in shared memory (12 N bytes).
+extern "C" int fps_k3(const float* xyz, int B, int N, int npoint, int threads, int ppt,
+                      int winner, int* out, void* stream) {
+  if (B < 1 || N < 1 || npoint < 1 || N > kMaxN) return kErrArgs;
+  if (threads < 32 || threads > 1024 || (threads & (threads - 1)) || ppt < 1 || ppt > kMaxPPT ||
+      (ppt & (ppt - 1)) || static_cast<long long>(threads) * ppt < N)
+    return kErrBlock;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = N < kMaxThreads ? (N + 31) / 32 * 32 : kMaxThreads;
-  const int ppt = (N + threads - 1) / threads;
-  if (ppt <= 1) return launch<1>(xyz, B, N, npoint, out, threads, s);
-  if (ppt <= 2) return launch<2>(xyz, B, N, npoint, out, threads, s);
-  if (ppt <= 4) return launch<4>(xyz, B, N, npoint, out, threads, s);
-  if (ppt <= 8) return launch<8>(xyz, B, N, npoint, out, threads, s);
-  if (ppt <= 16) return launch<16>(xyz, B, N, npoint, out, threads, s);
-  return launch<32>(xyz, B, N, npoint, out, threads, s);
+  if (winner == kShared) {
+    if (12 * N > kMaxShared) return kErrShared;
+    return launch_win<kShared>(xyz, B, N, npoint, out, threads, ppt, s);
+  }
+  if (winner != kSlot) return kErrArgs;
+  return launch_win<kSlot>(xyz, B, N, npoint, out, threads, ppt, s);
 }

@@ -44,10 +44,10 @@ SIGNATURES = {
         "chain_fused_k2": [_P, _P, _P, _P, _LL, _PI, _I, _I, _I, _I, _P, _P, _P, _LL, _P],
     },
     "fps": {
-        "fps_k3": [_P, _I, _I, _I, _P, _P],
+        "fps_k3": [_P, _I, _I, _I, _I, _I, _I, _P, _P],
     },
     "fps_floor": {
-        "fps_chain_floor": [_I, _I, _P, _P],
+        "fps_chain_floor": [_I, _I, _I, _P, _P],
     },
     "gather_probe": {
         "gather_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -209,10 +209,17 @@ def test_probe_bytes_count_each_table_row_once():
 
 
 def test_fps_floor_takes_k3s_block_and_needs_the_card():
+    from open3dsot_tpu_torch.ops.sampling import fps_block
     from open3dsot_tpu_torch.probes import fps_floor
 
-    assert [fps_floor.block_threads(n) for n in (40, 256, 512, 1000, 1024, 4096)] == [
-        64, 256, 512, 1024, 1024, 1024]
-    with pytest.raises(ValueError, match="CUDA"):
-        fps_floor.fps_chain_floor(511, 1024, torch.empty(1))
+    ns = (40, 256, 512, 1000, 1024, 4096)
+    # v1: the block K3 had before its redesign, one point a thread up to 1024
+    assert [fps_floor.design_threads(1, n) for n in ns] == [64, 256, 512, 1024, 1024, 1024]
+    # v2: K3's block as the wrapper chooses it
+    assert [fps_floor.design_threads(2, n) for n in ns] == [fps_block(n)[0] for n in ns]
+    for design in fps_floor.DESIGNS:
+        with pytest.raises(ValueError, match="CUDA"):
+            fps_floor.fps_chain_floor(511, 1024, torch.empty(1), design=design)
+    with pytest.raises(ValueError, match="design"):
+        fps_floor.fps_chain_floor(511, 1024, torch.empty(1), design=3)
     assert fps_floor.fps_chain_floor.launches == 0
