@@ -6,6 +6,7 @@
     python3 chip_smoke.py --k6-times      # phases 1, 2 and 11 only (K6), no result line
     python3 chip_smoke.py --k4-times      # phases 1, 2 and 7 only (K4/K5), no result line
     python3 chip_smoke.py --k3-times      # phases 1, 2 and 6 only (K3), no result line
+    python3 chip_smoke.py --scan-times    # phases 1, 2 and 15 only (M2 scan), no result line
 
 Phases, one line or a few each; any failure exits non-zero:
   1. environment: torch / CUDA versions, the card's name and power limit;
@@ -55,7 +56,7 @@ Phases, one line or a few each; any failure exits non-zero:
      synthetic dataset at BAT_Car widths (both paths), a profiler window
      (K3's launches in it beside the profiler's records of them), and the
      CLI on cfgs/BAT_synthetic.yaml.
- 10. printed last, after phase 14: one JSON line of the kernels K1-K6 and
+ 10. printed last, after phase 15: one JSON line of the kernels K1-K6 and
      the probes P1/P2 (each with its bound from this run's shapes), the card
      line, then the result line.
  11. K6 (training-mode SA, 3xTF32 on the tensor cores) forward and backward
@@ -81,6 +82,22 @@ Phases, one line or a few each; any failure exits non-zero:
      own shapes and at K4's gather shapes (B = 1 and 16), with times by
      events (host included) and by events behind a queued sleep (device
      only), beside the plain versions and torch.gather.
+ 15. the M2 scan tracker (tracking/scan_tracker.py) at bench.py's
+     configuration (16 tracklets x 64 frames, max_points 1024,
+     frame_bucket 64, N = 2048, box_aware) at B = 1, 8 and 16: the graph
+     path's boxes bit-identical to the eager path's (B = 1 and 16); no host
+     sync in the frame loop (torch.cuda.set_sync_debug_mode "error");
+     frames/s of both paths with the batch on the card, device busy per
+     frame and idle share (profiler), H2D of a batch from pinned memory;
+     K1/K2's kernels per step in a profiler window of replays against the
+     eager steps' (K1 x3, K2 x1 by the wrappers); at B = 16 the first-step
+     boxes against the plain path run in float64 and the scorer's time; then
+     evaluate_dataset_scan from launch counts of 0 on a fresh tracker (K1/K2
+     captured per replay x replays), its on-device scoring against host
+     scoring (every frame within 3e-4; Success/Precision equal but for the
+     frame-0 self-IoUs, which round to 1.0 or just below it on either side),
+     the plain path's Success/Precision, the graph captured again after new
+     weights (equal to eager), and the CLI with --tracker scan.
 
 Weights are random, made with numpy from a seed in the JAX tree's shape
 (open3dsot_tpu_torch.weights). Needs one card; no network.
@@ -483,6 +500,7 @@ def main(argv=None) -> None:
     args = sys.argv[1:] if argv is None else argv
     chain_only, k6_only = "--chain-times" in args, "--k6-times" in args
     k4_only, k3_only = "--k4-times" in args, "--k3-times" in args
+    scan_only = "--scan-times" in args
     # --- 1. environment ---------------------------------------------------
     print(f"env: python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
@@ -498,7 +516,8 @@ def main(argv=None) -> None:
 
     # --- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    libs = load_libraries(["chain_fused"] if chain_only else ["sa_fused_train"] if k6_only else
+    libs = load_libraries(["chain_fused"] if chain_only or scan_only else
+                          ["sa_fused_train"] if k6_only else
                           ["sa_fused"] if k4_only else ["fps", "fps_floor"] if k3_only else
                           ["chain_fused", "fps", "sa_fused", "sa_fused_train", "gather_probe",
                            "fps_floor"])
@@ -522,6 +541,10 @@ def main(argv=None) -> None:
     if k3_only:
         check_k3(card)
         print("k3 times done: phases 1, 2 and 6 only", flush=True)
+        return
+    if scan_only:
+        scan_phase(card)
+        print("scan times done: phases 1, 2 and 15 only", flush=True)
         return
 
     # --- 3. kernels vs plain at the main path's shapes --------------------
@@ -622,6 +645,9 @@ def main(argv=None) -> None:
 
     # --- 14. the probes P1/P2 -----------------------------------------------
     probe_kernels = probe_phase(card)
+
+    # --- 15. the M2 scan tracker ------------------------------------------
+    scan_phase(card)
 
     # --- 10. results ------------------------------------------------------
     kernels = [
@@ -1636,6 +1662,256 @@ def probe_phase(card: str) -> list:
             + [entry("gather_elems", "P1", 1, p1, "gather_elems"),
                entry("onehot_rowsums", "P1", 1, p1, "onehot_rowsums"),
                entry("gather_bf16_rows", "search SA0", 16, p2, "gather_bf16_rows")])
+
+
+SCAN_T = 64  # bench.py's M2 scan: 16 tracklets x 64 frames, max_points 1024, frame_bucket 64
+SCAN_MAX_POINTS = 1024
+SCAN_BATCHES = (1, 8, 16)
+
+def scan_host(tracker, seqs) -> list:
+    """A batch's host tensors (pinned) as the tracker ships them: packed
+    points, counts, wlh, init."""
+    return tracker._prepare(seqs)[2]
+
+
+def to_card(host: list) -> list:
+    return [t.to("cuda", non_blocking=True) for t in host]
+
+
+def wall_ms(fn, repeats: int = 5) -> float:
+    """Median host wall time of fn() up to a device synchronize, in ms."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def chain_records(rows) -> tuple:
+    """Profiler records of K1/K2's kernels: (chain_tc_kernel, pool_bias_kernel);
+    K2 launches pool_bias_kernel once, each K1/K2 call chain_tc_kernel once a stage."""
+    return (sum(e.count for e in rows if "chain_tc_kernel" in e.key),
+            sum(e.count for e in rows if "pool_bias_kernel" in e.key))
+
+
+SCORE_ATOL = 3e-4  # device (float32) against host (float64) scoring, tests/test_iou_device.py's
+
+
+def check_scores(tracker, seqs, cfg, device_sp, host_sp) -> None:
+    """On-device scoring against host scoring: every frame's IoU and distance
+    within SCORE_ATOL, Precision equal, and Success equal up to the frame-0
+    self-IoU of each tracklet, which lands on 1.0 or a hair below it by the
+    rounding of each side (geometry/iou_device.py's docstring): each such frame
+    moves Success by 100 * (1/40) / frames, the trapezoid weight of the
+    threshold 1.0."""
+    import numpy as np
+
+    iou_d, dist_d = (t.cpu().numpy() for t in tracker.dispatch_scored(seqs))
+    host = tracker.evaluate_sequences(seqs, cfg)
+    iou_h, dist_h = np.array([h[0] for h in host]), np.array([h[1] for h in host])
+    e_iou, e_dist = np.abs(iou_d - iou_h).max(), np.abs(dist_d - dist_h).max()
+    flips = int(((iou_d[:, 0] >= 1.0) != (iou_h[:, 0] >= 1.0)).sum())
+    bound = flips * 100 * (1 / 40) / iou_h.size
+    print(f"  scoring on the card against the host: max |iou diff| {e_iou:.3e}, max |distance "
+          f"diff| {e_dist:.3e} (atol {SCORE_ATOL}); {flips} of {len(seqs)} frame-0 self-IoUs "
+          f"on the other side of 1.0, Success may differ by {bound:.6f}: it differs by "
+          f"{abs(device_sp[0] - host_sp[0]):.6f}, Precision by {abs(device_sp[1] - host_sp[1]):.6f}",
+          flush=True)
+    if not (e_iou <= SCORE_ATOL and e_dist <= SCORE_ATOL):
+        fail(f"on-device scores differ from the host's by {e_iou}, {e_dist}")
+    if device_sp[1] != host_sp[1] or abs(device_sp[0] - host_sp[0]) > bound + 1e-9:
+        fail(f"on-device scoring {device_sp} != host scoring {host_sp} beyond the frame-0 flips")
+
+
+def first_step_float64(plain, plain_model, dev):
+    """The first step's boxes (B, 4) of the plain path in float64 (the net
+    converted and back), on a batch's device tensors (pts, counts, wlh, init).
+
+    Phase 15 holds the kernel path's first step to it by `compare` (the
+    kernels' tolerance, relative to the boxes' size), not to the plain
+    float32 path at an absolute 5e-4: on random weights the boxes reach tens
+    of metres and radians and the second MiniPointNet amplifies rounding, so
+    the plain float32 path is itself 1.5e-3 from float64 at B = 16 on the
+    card. A fault (a wrong index, a missed tile) gives errors of order one."""
+    import torch
+
+    from open3dsot_tpu_torch.tracking.scan_tracker import _expand_counts
+
+    pts, counts, wlh, init = dev
+    valid = _expand_counts(counts[:, :2], pts.shape[2])
+    net = plain_model.net.double()
+    try:
+        return plain._step(wlh.double(), init.double(), pts[:, 0].double(), valid[:, 0],
+                           pts[:, 1].double(), valid[:, 1],
+                           torch.zeros((), dtype=torch.int64, device=pts.device))
+    finally:
+        net.float()
+
+
+def scan_phase(card: str) -> None:
+    """Phase 15: the M2 scan tracker (tracking/scan_tracker.py) on the card at
+    bench.py's configuration; see the module docstring."""
+    import torch
+
+    from open3dsot_tpu_torch.data import get_dataset
+    from open3dsot_tpu_torch.ops import chain_fused as cf
+    from open3dsot_tpu_torch.tracking import scan_tracker as st
+
+    cfg = bench_cfg(syn_num_tracklets=16, syn_tracklet_len=SCAN_T)
+    model, variables = make_model(cfg, fused_eval=True)
+    plain_model, _ = make_model(cfg, fused_eval=False, variables=variables)
+    sampler = get_dataset(cfg, "test", "test")
+    seqs = [sampler[i] for i in range(len(sampler))]
+    kw = dict(max_points=SCAN_MAX_POINTS, frame_bucket=SCAN_T)
+    graph = st.M2ScanTracker(model, cfg, **kw)
+    eager = st.M2ScanTracker(model, cfg, cuda_graph=False, **kw)
+    plain = st.M2ScanTracker(plain_model, cfg, cuda_graph=False, **kw)
+    steps = SCAN_T - 1
+    for B in SCAN_BATCHES:
+        host = scan_host(graph, seqs[:B])
+        mb = sum(t.numel() * t.element_size() for t in host) / 1e6
+        h2d = time_ms(lambda: to_card(host), iters=5, repeats=5)
+        dev = to_card(host)
+        t0 = time.perf_counter()
+        g_boxes = graph.track_frames(*dev)  # captures the step for (B, P) here
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        e_boxes = eager.track_frames(*dev)
+        torch.cuda.synchronize()
+        same = torch.equal(g_boxes, e_boxes)
+        diff = (g_boxes - e_boxes).abs().max().item()
+        print(f"  scan B={B}: graph boxes {'bit-identical to' if same else 'DIFFER from'} the eager "
+              f"path's (max |diff| {diff:.3e}); first call with the capture {capture_s:.3f} s",
+              flush=True)
+        if B in (1, 16) and not same:
+            fail(f"scan B={B}: the graph path's boxes differ from the eager path's by {diff}")
+        if not torch.isfinite(g_boxes).all():
+            fail(f"scan B={B}: non-finite boxes")
+        # the frame loop makes no host sync: a synchronizing call raises in this mode
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            graph.track_frames(*dev)
+            eager.track_frames(*dev)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        t_g = wall_ms(lambda: graph.track_frames(*dev))
+        t_e = wall_ms(lambda: eager.track_frames(*dev))
+        frames = B * steps
+        # A window can lose records (ROADMAP §3; once a whole replay's, 5 + 1 of 315 + 63,
+        # measured on one H100): a lost record only lowers a count, so up to three windows
+        # are taken until the replays' and the eager steps' records agree.
+        for window in range(3):
+            rows_g = device_rows(lambda: graph.track_frames(*dev))
+            cf.reset_launch_counts()
+            rows_e = device_rows(lambda: eager.track_frames(*dev))
+            wrapped = (cf.fused_pointnet_encoder.launches, cf.fused_seg_head.launches)
+            rec_g, rec_e = chain_records(rows_g), chain_records(rows_e)
+            if rec_g == rec_e and rec_g[1] == steps:
+                break
+            print(f"  scan B={B}: profiler window {window + 1} short of records: replays "
+                  f"{rec_g}, eager steps {rec_e} (chain_tc_kernel, pool_bias_kernel) over {steps} "
+                  f"steps", flush=True)
+        busy_g = sum(dev_us(e) for e in rows_g) / frames
+        busy_e = sum(dev_us(e) for e in rows_e) / frames
+        wall_g, wall_e = t_g * 1e3 / frames, t_e * 1e3 / frames
+        print(f"  scan B={B}: {frames} frames a batch; frames/s graph {frames / t_g * 1e3:.2f} "
+              f"eager {frames / t_e * 1e3:.2f} (batch on the card, to a synchronize); device busy "
+              f"per frame graph {busy_g:.2f} us eager {busy_e:.2f} us; wall per frame graph "
+              f"{wall_g:.2f} us eager {wall_e:.2f} us; idle share graph {1 - busy_g / wall_g:.3f} "
+              f"eager {1 - busy_e / wall_e:.3f}; H2D of the batch {h2d:.4f} ms for {mb:.2f} MB "
+              f"[{card}]", flush=True)
+        per_replay = graph.graph_launches()["captured_per_replay"]
+        print(f"  scan B={B}: profiler records over {steps} steps (windows opened on a sleep kernel): "
+              f"graph chain_tc_kernel {rec_g[0]} pool_bias_kernel {rec_g[1]}; eager {rec_e[0]} / "
+              f"{rec_e[1]}; eager wrapper launches K1 {wrapped[0]} K2 {wrapped[1]}; the graph "
+              f"captured K1/K2 {per_replay} per replay (wrappers count at capture)", flush=True)
+        if wrapped != (3 * steps, steps) or (3, 1) not in per_replay:
+            fail(f"scan B={B}: expected K1 x3 and K2 x1 per step, got eager {wrapped} over {steps} "
+                 f"steps and {per_replay} captured per replay")
+        if rec_g != rec_e or rec_g[1] != steps or rec_g[0] < 4 * steps:
+            fail(f"scan B={B}: the replays ran K1/K2's kernels {rec_g}, the eager steps {rec_e} "
+                 f"(expected equal, pool_bias_kernel once a step)")
+        print(f"  scan B={B}: graph device time by kernel, us a step (launches a step), "
+              f"{sum(e.count for e in rows_g) / steps:.1f} launches a step in all:", flush=True)
+        for e in sorted(rows_g, key=lambda e: -dev_us(e))[:10]:
+            print(f"    {dev_us(e) / steps:9.2f} us ({e.count / steps:5.2f})  {e.key[:100]}")
+        if B == 16:
+            p_boxes = plain.track_frames(*dev)
+            truth = first_step_float64(plain, plain_model, dev)
+            e_p = (p_boxes[:, 0].double() - truth).abs().max().item()
+            e_kp = (g_boxes[:, 0] - p_boxes[:, 0]).abs().max().item()
+            e_all = (g_boxes - p_boxes).abs().max().item()
+            compare("scan B=16 first-step boxes, kernel path against the plain path in float64",
+                    g_boxes[:, 0].double(), truth)
+            print(f"  scan B=16: first-step boxes, the plain float32 path from float64 {e_p:.3e}, "
+                  f"the kernel path from the plain float32 path {e_kp:.3e}; over the whole "
+                  f"trajectories {e_all:.3e} (argmax gates part them on random weights)", flush=True)
+            gp, gw = (torch.from_numpy(a).cuda() for a in st._gt_arrays(seqs[:16], SCAN_T, None))
+            score = st._make_scorer(cfg)
+            t_score = time_ms(lambda: score(g_boxes, dev[-1], dev[-2], gp, gw), iters=5, repeats=5)
+            print(f"  scan B=16: scorer (IoU + distance of 16 x {SCAN_T} boxes on the card) "
+                  f"{t_score:.4f} ms by events [{card}]", flush=True)
+
+    # the scan slice through its entry points: counts from 0, a fresh tracker
+    n_frames = sum(len(s) - 1 for s in seqs)
+    cf.reset_launch_counts()
+    fresh = st.M2ScanTracker(model, cfg, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    succ, prec = st.evaluate_dataset_scan(model, sampler, cfg, tracker=fresh)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    k1, k2 = cf.fused_pointnet_encoder.launches, cf.fused_seg_head.launches
+    gl = fresh.graph_launches()
+    print(f"scan eval: {len(seqs)} tracklets x {SCAN_T} frames, on-device scoring: success "
+          f"{succ:.4f} precision {prec:.4f}; {n_frames} frames in {dt:.4f} s = {n_frames / dt:.2f} "
+          f"frames/s (the first batch captures the graph) [{card}]", flush=True)
+    print(f"launches in the scan eval run: K1 {k1} K2 {k2} by the wrappers (warm-up and capture; "
+          f"a graph counts at capture); the graphs launched K1/K2 {gl['captured_per_replay']} per "
+          f"replay x {gl['replays']} replays", flush=True)
+    if not (k1 and k2) or gl["captured_per_replay"] != [(3, 1)] or gl["replays"] != steps:
+        fail(f"the scan eval run did not go through K1/K2 in a graph: {k1}, {k2}, {gl}")
+    t0 = time.perf_counter()
+    h_succ, h_prec = st.evaluate_dataset_scan(model, sampler, cfg, tracker=fresh,
+                                              device_metrics=False)
+    h_dt = time.perf_counter() - t0
+    print(f"scan eval, host scoring: success {h_succ:.4f} precision {h_prec:.4f}; "
+          f"{n_frames / h_dt:.2f} frames/s [{card}]", flush=True)
+    check_scores(fresh, seqs, cfg, (succ, prec), (h_succ, h_prec))
+    p_succ, p_prec = st.evaluate_dataset_scan(plain_model, sampler, cfg, tracker=plain)
+    print(f"scan eval, plain path (eager): success {p_succ:.4f} precision {p_prec:.4f}", flush=True)
+    for v in (succ, prec, p_succ, p_prec):
+        if not 0 <= v <= 100:
+            fail(f"Success/Precision not finite in [0, 100]: {succ, prec, p_succ, p_prec}")
+
+    # new weights loaded in place: the graph is captured again and follows them
+    from open3dsot_tpu_torch.weights import random_variables, state_dict_from_jax
+
+    before = graph.track_frames(*dev)
+    model.net.load_state_dict(state_dict_from_jax(random_variables(model.net, SEED + 1)))
+    after, want = graph.track_frames(*dev), eager.track_frames(*dev)
+    torch.cuda.synchronize()
+    print(f"  scan B=16, new weights: graph boxes {'equal' if torch.equal(after, want) else 'DIFFER'} "
+          f"to the eager path's, max change from the old weights' boxes "
+          f"{(after - before).abs().max().item():.3e}", flush=True)
+    if not torch.equal(after, want) or torch.equal(after, before):
+        fail("the graph did not follow new weights")
+
+    cli = [sys.executable, "-m", "open3dsot_tpu_torch.main", "--cfg", "cfgs/M2_track_synthetic.yaml",
+           "--test", "--tracker", "scan", "--device", "cuda"]
+    proc = subprocess.run(cli, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    print(f"cli --tracker scan: exit {proc.returncode}: {last}", flush=True)
+    if proc.returncode != 0 or not last.startswith("success/test:"):
+        fail(f"CLI scan eval failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    print("phase 15 ok: graph == eager bit for bit, K1 x3 and K2 x1 a replay, device scores == "
+          "host scores (frame-0 self-IoUs aside)", flush=True)
 
 
 def profile_window(model, sampler, cfg, card: str, wall_us_per_frame: float,

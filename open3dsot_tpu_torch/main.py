@@ -4,9 +4,17 @@
         [--epoch N] [--batch_size B] [--seed S] [--log_dir DIR] [--workers W] \
         [--check_val_every_n_epoch E] [--device cuda]                        # train
     python -m open3dsot_tpu_torch.main --cfg cfgs/M2_track_synthetic.yaml --test \
-        [--checkpoint ckpt_best.pt] [--max_tracklets N] [--device cuda]      # eval
+        [--checkpoint ckpt_best.pt] [--max_tracklets N] [--device cuda] \
+        [--tracker scan [--host_metrics] [--transfer_quant int16]]          # eval
 
 Flags keep the JAX CLI's names (main.py); a flag given overrides the YAML.
+Eval runs the host loop (`--tracker host`, tracking/eval.py) for every
+model, or for M2-Track the batched device-resident scan tracker
+(`--tracker scan`, tracking/scan_tracker.py): on-device scoring by default,
+host scoring with `--host_metrics`, frame points shipped as int16 with
+`--transfer_quant int16`. The matching scan tracker (BAT/P2B) is not ported
+yet and `--tracker scan` refuses them; so are process sharding, the disk
+prep cache (`--eval_prep_cache`) and `--save_results`.
 Training runs the matching trackers (BAT, P2B; `train_siamese`) through
 `train/trainer.py`, starting from random weights made from the seed
 (weights.random_variables); M2-Track training (`train_motion`) is not
@@ -21,7 +29,8 @@ from __future__ import annotations
 import argparse
 import sys
 
-_OVERRIDES = ("epoch", "batch_size", "seed", "log_dir", "workers", "check_val_every_n_epoch")
+_OVERRIDES = ("epoch", "batch_size", "seed", "log_dir", "workers", "check_val_every_n_epoch",
+              "transfer_quant")
 
 
 def parse_args(argv=None):
@@ -40,6 +49,15 @@ def parse_args(argv=None):
     parser.add_argument("--check_val_every_n_epoch", type=int, default=None)
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device (cuda or cpu)")
+    parser.add_argument("--tracker", type=str, default="host", choices=["host", "scan"],
+                        help="eval path: 'host' = per-frame loop, 'scan' = batched "
+                             "device-resident tracker (M2-Track)")
+    parser.add_argument("--host_metrics", action="store_true",
+                        help="with --tracker scan: score trajectories on the host "
+                             "(geometry/iou.py) instead of on the device (geometry/iou_device.py)")
+    parser.add_argument("--transfer_quant", type=str, default=None, choices=["int16"],
+                        help="with --tracker scan: ship frame points to the device as "
+                             "per-sample fixed-point int16 (utils/quant.py)")
     return parser.parse_args(argv)
 
 
@@ -54,6 +72,9 @@ def main(argv=None):
 
     cfg = load_config(args.cfg, {k: getattr(args, k) for k in _OVERRIDES
                                  if getattr(args, k) is not None})
+    if args.test and args.tracker == "scan" and cfg.net_model.lower() != "m2track":
+        sys.exit(f"--tracker scan: the matching scan tracker ({cfg.net_model}) is not ported yet "
+                 "(ROADMAP.md, section 1 item 3); use --tracker host")
     if not args.test and getattr(cfg, "train_type", "") != "train_siamese":
         sys.exit(f"{cfg.net_model} ({getattr(cfg, 'train_type', None)}): training is not "
                  "ported yet (ROADMAP.md, modules to port); the port trains BAT and P2B")
@@ -69,11 +90,18 @@ def main(argv=None):
     model.net.load_state_dict(sd, strict=True)
 
     if args.test:
-        from open3dsot_tpu_torch.tracking.eval import evaluate_dataset
-
         test_sampler = get_dataset(cfg, "test", cfg.test_split)
-        succ, prec = evaluate_dataset(model, test_sampler, cfg,
-                                      max_tracklets=args.max_tracklets, verbose=True)
+        if args.tracker == "scan":
+            from open3dsot_tpu_torch.tracking.scan_tracker import evaluate_dataset_scan
+
+            succ, prec = evaluate_dataset_scan(model, test_sampler, cfg,
+                                               max_tracklets=args.max_tracklets,
+                                               device_metrics=not args.host_metrics)
+        else:
+            from open3dsot_tpu_torch.tracking.eval import evaluate_dataset
+
+            succ, prec = evaluate_dataset(model, test_sampler, cfg,
+                                          max_tracklets=args.max_tracklets, verbose=True)
         print(f"success/test: {succ:.2f}  precision/test: {prec:.2f}")
         return
 

@@ -42,16 +42,19 @@ from open3dsot_tpu_torch.ops.sa_fused_train import fused_sa_train_apply
 from open3dsot_tpu_torch.ops.sampling import furthest_point_sample, furthest_point_sample_plain
 
 
+def weights_key(module: nn.Module):
+    """Changes whenever a parameter or buffer of `module` is replaced or
+    written in place (its storage pointer or its version counter)."""
+    return tuple((t.data_ptr(), t._version) for t in (*module.parameters(), *module.buffers()))
+
+
 class _FoldCache(nn.Module):
     """Caches `self._fold()` until a parameter or buffer changes."""
-
-    def _weights_key(self):
-        return tuple((t.data_ptr(), t._version) for t in (*self.parameters(), *self.buffers()))
 
     def folded_chains(self):
         if self.training:
             raise NotImplementedError("the fused chains are eval-only: call .eval()")
-        key = self._weights_key()
+        key = weights_key(self)
         if getattr(self, "_fold_key", None) != key:
             with torch.no_grad():
                 self._fold_value = self._fold()

@@ -1,0 +1,545 @@
+"""Batched, device-resident M2-Track tracker, port of
+`open3dsot_tpu/tracking/scan_tracker.py` (M2 part).
+
+The host loop (tracking/eval.py) builds each frame's input in numpy and
+runs a batch-of-1 forward per frame. Here B tracklets move through their
+frames together and every step of a frame stays on the device:
+
+  crop (strict AABB in each ref-box frame)  ->  fixed-size resample
+  ->  prior-targetness / timestamp channels (+ BoxCloud)  ->  forward (B)
+  ->  4-DoF box composition  (the carry, one box per tracklet)
+
+A batch's padded points and per-frame point counts go to the card once
+(from pinned host memory, without blocking), and the loop over its frames
+makes no host sync: the carry stays on the device and each frame's boxes
+are written into a (B, T - 1, 4) device tensor. On the card the loop
+replays one captured CUDA graph of the step per (B, P, n) shape; the eager
+loop is what the graph is held to, and what the CPU runs. Scoring
+(geometry/iou_device.py) runs on the device too, and `pipelined_scores`
+keeps `depth` batches in flight while the host bins earlier ones.
+
+The JAX package runs the frames as one `lax.scan`; its limit-box redraw
+'uniform' draws from `jax.random` and is refused here (ROADMAP.md §3).
+Resampling is the deterministic `_select_fixed`, so trajectories differ
+from the host loop's seeded `np.random.choice` at the decimal level, as on
+the JAX side. Not ported yet: process sharding, the disk prep store and
+the results writer (ROADMAP.md §1).
+"""
+
+from __future__ import annotations
+
+from collections import defaultdict, deque
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from open3dsot_tpu_torch.geometry import rigid
+from open3dsot_tpu_torch.geometry.data_classes import Box
+from open3dsot_tpu_torch.geometry.iou import estimateAccuracy, estimateOverlap
+from open3dsot_tpu_torch.geometry.quaternion import Quaternion
+from open3dsot_tpu_torch.models.pointnet import weights_key
+from open3dsot_tpu_torch.utils.quant import dequantize, quantize_per_sample
+
+
+def _select_fixed(points: torch.Tensor, valid: torch.Tensor, n: int,
+                  mode: str = "strided") -> torch.Tensor:
+    """Pick exactly n rows from the valid subset of (B, P, C) points, with
+    the JAX package's indices.
+
+    - 'strided' (default): downsampling takes evenly spaced valid rows in
+      index order, upsampling cycles evenly through them. The k-th valid
+      row is #{p : cs[p] <= k} for the running count cs of valid rows, which
+      a binary search over the non-decreasing cs gives without the
+      (B, P, n) compare that the JAX package reduces.
+    - 'first': the first n valid rows, cyclic fill (a stable sort of the
+      validity keys puts the valid rows first, in index order).
+
+    Returns (B, n, C); an all-invalid row returns zeros.
+    """
+    B, P, C = points.shape
+    count = valid.sum(dim=1, keepdim=True, dtype=torch.int32)  # (B, 1)
+    capped = count.clamp(1, P)
+    ar = torch.arange(n, dtype=torch.int32, device=points.device)[None, :]
+    if mode == "strided":
+        vpos = torch.where(capped >= n, (ar * capped) // n, ar % capped)
+        cs = torch.cumsum(valid, dim=1, dtype=torch.int32)  # (B, P)
+        idx = torch.searchsorted(cs, vpos, right=True).clamp(max=P - 1)
+    else:
+        iota = torch.arange(P, dtype=torch.int32, device=points.device)[None, :]
+        key = torch.where(valid, iota, iota + P)
+        order = torch.sort(key, dim=1, stable=True).values[:, : min(n, P)]
+        pick = torch.clamp(ar % capped, max=order.shape[1] - 1)
+        idx = torch.gather(order, 1, pick.long())
+        idx = torch.where(idx < P, idx, 0)
+    out = torch.gather(points, 1, idx.long()[..., None].expand(B, n, C))
+    return torch.where(count[..., None] > 0, out, 0.0)
+
+
+def pad_frame(p: np.ndarray, P: int):
+    """Pad/truncate one frame's (N, 3) points to (P, 3) + validity mask.
+    Frames larger than P keep the P points closest (L-inf) to the median."""
+    p = np.asarray(p, np.float32).reshape(-1, 3)
+    if len(p) > P:
+        center = np.median(p, axis=0, keepdims=True)
+        d = np.max(np.abs(p - center), axis=1)
+        p = p[np.argsort(d, kind="stable")[:P]]
+    out = np.zeros((P, 3), np.float32)
+    valid = np.zeros((P,), bool)
+    out[: len(p)] = p
+    valid[: len(p)] = True
+    return out, valid
+
+
+def _pack_transfer(transfer_dtype, pts, valid):
+    """Host-side transfer packing of padded frame points: (pts,) as f32, or
+    the ('int16') per-sample fixed-point triple (scale, off, q)."""
+    if transfer_dtype is None:
+        return (np.asarray(pts, np.float32),)
+    q, scale, off = quantize_per_sample(pts, valid)
+    return (scale, off, q)
+
+
+def _counts(valid: np.ndarray) -> np.ndarray:
+    """Per-frame valid-point counts of a PREFIX mask (what `pad_frame`
+    writes); the device expands them back (`_expand_counts`). A non-prefix
+    mask would come back as another valid set, so it is refused."""
+    v = np.asarray(valid, bool)
+    if v.shape[-1] > 1 and np.any(v[..., 1:] & ~v[..., :-1]):
+        raise ValueError(
+            "_counts: validity mask is not a prefix mask; the count encoding "
+            "would change the valid set on device")
+    return np.ascontiguousarray(v.sum(axis=-1, dtype=np.int32))
+
+
+def _expand_counts(counts: torch.Tensor, P: int) -> torch.Tensor:
+    """Inverse of `_counts` on the device: (...,) int32 -> (..., P) prefix mask."""
+    return torch.arange(P, dtype=torch.int32, device=counts.device) < counts[..., None]
+
+
+def _gt_arrays(sequences, T_pad: int, A_np):
+    """Ground-truth (B, T_pad, 4) params + (B, T_pad, 3) wlh for scoring;
+    padded frames repeat the last gt box."""
+    B = len(sequences)
+    gt_params = np.zeros((B, T_pad, 4), np.float32)
+    gt_wlh = np.ones((B, T_pad, 3), np.float32)
+    for b, seq in enumerate(sequences):
+        for t, frame in enumerate(seq):
+            gt = frame["3d_bbox"]
+            theta = rigid.theta_from_rotation(gt.rotation_matrix, A_np)
+            gt_params[b, t] = np.append(gt.center, theta)
+            gt_wlh[b, t] = gt.wlh
+        if len(seq) < T_pad:
+            gt_params[b, len(seq):] = gt_params[b, len(seq) - 1]
+            gt_wlh[b, len(seq):] = gt_wlh[b, len(seq) - 1]
+    return gt_params, gt_wlh
+
+
+def _make_scorer(config):
+    """Whole-trajectory scorer on the device: (boxes (B, T-1, 4), init
+    (B, 4), wlh (B, 3), gt_params (B, T, 4), gt_wlh (B, T, 3)) -> (iou,
+    dist) (B, T). Frame 0 scores the first gt box against itself."""
+    from open3dsot_tpu_torch.geometry.iou_device import overlap_accuracy, up_index
+
+    dim = int(config.IoU_space)
+    up_idx = up_index(config.up_axis)
+
+    def score(boxes, init, wlh, gt_params, gt_wlh):
+        preds = torch.cat([init[:, None, :], boxes], dim=1)
+        pred_wlh = wlh if wlh.dim() == 3 else wlh[:, None, :].expand_as(gt_wlh)
+        return overlap_accuracy(gt_params, gt_wlh, preds, pred_wlh, dim=dim, up_idx=up_idx)
+
+    return score
+
+
+def _fetch_async(*tensors: torch.Tensor):
+    """Start copies of device tensors into pinned host buffers without
+    blocking; returns the host tensors and an event recorded behind the
+    copies (None for tensors already on the CPU)."""
+    if tensors[0].device.type != "cuda":
+        return (*tensors, None)
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record()
+    return (*host, ready)
+
+
+def pipelined_scores(tracker, batches, depth: int = 3, prep_cache=None):
+    """Yield per-tracklet (ious, distances) with `depth` batches in flight:
+    the host pads batch j and bins batch j - depth while the card tracks.
+    A batch's (B, T) scores come back by non-blocking copies into pinned
+    buffers, read only after their event has completed.
+
+    prep_cache: optional dict; the packed host tensors of batch j are kept
+    under ("prep", j) and reused on later calls over the same batches.
+    """
+    q: deque = deque()
+
+    def drain():
+        seqs, iou_h, dist_h, ready = q.popleft()
+        if ready is not None:
+            ready.synchronize()
+        iou, dist = iou_h.numpy(), dist_h.numpy()
+        for b, seq in enumerate(seqs):
+            T = len(seq)
+            yield iou[b, :T], dist[b, :T]
+
+    for j, seqs in enumerate(batches):
+        key = None if prep_cache is None else ("prep", j)
+        q.append((list(seqs), *_fetch_async(*tracker.dispatch_scored(seqs, prep_cache, key))))
+        if len(q) > depth:
+            yield from drain()
+    while q:
+        yield from drain()
+
+
+def make_m2_step(net, config, A, box_aware: bool, compute_dtype=None):
+    """The single-frame M2-Track step on tensors (JAX make_m2_step):
+
+        step(wlh, ref_box, prev_pts, prev_valid, this_pts, this_valid, step_idx) -> new_ref
+
+    wlh (B, 3), ref_box (B, 4) world frame, points (B, P, 3) with (B, P)
+    validity, step_idx a 0-d device tensor (the first step uses the hard
+    prior-targetness, later ones the soft 0.8 / 0.2). Mirrors
+    MotionBaseModel.build_input_dict + evaluate_one_sample (reference
+    base_model.py:255-303, 44-57). `net` is the M2TrackNet, called directly.
+    """
+    if compute_dtype not in (None, torch.float32):
+        raise NotImplementedError(
+            "the scan tracker computes in float32: bf16 compute is not ported yet "
+            "(ROADMAP.md, section 1 item 4)")
+    resample = getattr(config, "scan_resample", "strided")
+    n = config.point_sample_size
+    scale, offset = float(config.bb_scale), float(config.bb_offset)
+    use_z = bool(getattr(config, "use_z", True))
+    limit_box = bool(getattr(config, "limit_box", False))
+    if limit_box and str(getattr(config, "limit_box_redraw", "uniform")) == "uniform":
+        raise NotImplementedError(
+            "limit_box with limit_box_redraw 'uniform' draws from jax.random "
+            "(PRNGKey(2) folded with the step), which the port does not reproduce yet "
+            "(ROADMAP.md, section 3); set limit_box_redraw: zero")
+
+    def step(wlh, ref_box, prev_pts, prev_valid, this_pts, this_valid, step_idx):
+        B = ref_box.shape[0]
+        # canonicalize both frames into each ref-box frame (generate_subwindow)
+        half = (torch.stack([wlh[:, 1], wlh[:, 0], wlh[:, 2]], dim=-1) * (scale / 2.0)
+                + offset)[:, None, :]
+
+        def crop(pts, pad_valid):
+            local = rigid.remove_transform_points(pts, ref_box, A=A)
+            inside = ((local < half) & (local > -half)).all(dim=-1)
+            return local, inside & pad_valid
+
+        prev_sel = _select_fixed(*crop(prev_pts, prev_valid), n, mode=resample)  # (B, n, 3)
+        this_sel = _select_fixed(*crop(this_pts, this_valid), n, mode=resample)
+
+        canonical = prev_sel.new_zeros(B, 4)
+        seg_mask_prev = rigid.points_in_box(prev_sel, canonical, wlh, 1.25).to(prev_sel.dtype)
+        # soft prior-targetness after the first tracked frame (base_model.py:282-284)
+        soft = torch.where(seg_mask_prev > 0.5, 0.8, 0.2).to(prev_sel.dtype)
+        seg_mask_prev = torch.where(step_idx == 0, seg_mask_prev, soft)
+        prev_stack = torch.cat([prev_sel, prev_sel.new_zeros(B, n, 1), seg_mask_prev[..., None]],
+                               dim=-1)
+        this_stack = torch.cat([this_sel, this_sel.new_full((B, n, 1), 0.1),
+                                this_sel.new_full((B, n, 1), 0.5)], dim=-1)
+        points = torch.cat([prev_stack, this_stack], dim=1)  # (B, 2n, 5)
+        bc = None
+        if box_aware:
+            bc_prev = rigid.box_cloud(prev_sel, canonical, wlh)  # (B, n, 9)
+            bc = torch.cat([bc_prev, torch.zeros_like(bc_prev)], dim=1)
+        with torch.no_grad():
+            pred = net(points, bc)["estimation_boxes"]
+        if limit_box:  # limit_box_redraw 'zero' (reference points_utils.py:70-76)
+            pred = rigid.limit_box_offset(pred, wlh, use_z)
+        return rigid.get_offset_box(ref_box, pred, A=A)
+
+    return step
+
+
+class _StepGraph:
+    """One captured CUDA graph of the step for a (B, P) shape, with the
+    static buffers it reads: a frame pair's points (B, 2, P, 3) and counts
+    (B, 2), wlh, the step index, and the carry `ref`, which the graph
+    updates in place. Warmed up on a side stream first, as torch.cuda.graph
+    requires (and so that the kernels' first-use setup and the folded
+    weights are done outside the capture). The kernel wrappers count their
+    launches at capture: `launches` holds (K1, K2) of one replay."""
+
+    def __init__(self, step, B: int, P: int, device: torch.device):
+        from open3dsot_tpu_torch.ops import chain_fused as cf
+
+        self.step = step
+        self.pts = torch.zeros(B, 2, P, 3, device=device)
+        self.counts = torch.zeros(B, 2, dtype=torch.int32, device=device)
+        self.wlh = torch.ones(B, 3, device=device)
+        self.ref = torch.zeros(B, 4, device=device)
+        self.step_idx = torch.zeros((), dtype=torch.int64, device=device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                self._body()
+        torch.cuda.current_stream(device).wait_stream(side)
+        before = (cf.fused_pointnet_encoder.launches, cf.fused_seg_head.launches)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self._body()
+        self.launches = (cf.fused_pointnet_encoder.launches - before[0],
+                         cf.fused_seg_head.launches - before[1])
+
+    def _body(self) -> None:
+        valid = _expand_counts(self.counts, self.pts.shape[2])
+        new = self.step(self.wlh, self.ref, self.pts[:, 0], valid[:, 0], self.pts[:, 1],
+                        valid[:, 1], self.step_idx)
+        self.ref.copy_(new)
+
+
+class M2ScanTracker:
+    """Batched tracker for M2-Track (B tracklets per batch) on the model's
+    device. `cuda_graph` (the default) replays a captured step on the card;
+    False runs the eager loop there too. A capture that fails raises."""
+
+    def __init__(self, model, config, max_points: int = 4096, frame_bucket: int = 16,
+                 compute_dtype=None, transfer_dtype=None, cuda_graph: bool = True):
+        # 'int16' ships fixed-point frame points (half the H2D bytes,
+        # dequantized on the device); None ships exact f32. Falls back to
+        # config.transfer_quant when not given.
+        if transfer_dtype is None:
+            transfer_dtype = getattr(config, "transfer_quant", None)
+        if transfer_dtype not in (None, "int16"):
+            raise ValueError(f"transfer_dtype must be None or 'int16', got {transfer_dtype!r}")
+        self.transfer_dtype = transfer_dtype
+        self.compute_dtype = compute_dtype
+        self.config = config
+        self.max_points = max_points
+        self.frame_bucket = frame_bucket
+        self.box_aware = bool(getattr(config, "box_aware", False))
+        self.device = model.device
+        self._A = rigid.up_frame(config.up_axis, device=self.device)
+        self._A_np = None if self._A is None else self._A.cpu().numpy()
+        self.cuda_graph = cuda_graph and self.device.type == "cuda"
+        self._scorer = None  # built lazily by dispatch_scored
+        self.set_model(model)
+
+    def set_model(self, model) -> None:
+        """Track with `model`'s net from now on (dropping captured graphs)."""
+        self.model = model
+        self._step = make_m2_step(model.net, self.config, self._A, self.box_aware,
+                                  self.compute_dtype)
+        self.reset_graphs()
+
+    def reset_graphs(self) -> None:
+        self._graphs = {}
+        self._graphs_weights = None
+        self.replays = 0  # graph replays since the graphs were (re)captured
+
+    # --- the frame loop (device) --------------------------------------------
+    def _graph_for(self, B: int, P: int) -> _StepGraph:
+        """The captured step for (B, P), captured anew after the weights changed
+        (a graph keeps the folded weights it was captured with)."""
+        key = weights_key(self.model.net)
+        if key != self._graphs_weights:
+            self.reset_graphs()
+            self._graphs_weights = key
+        if (B, P) not in self._graphs:
+            self._graphs[(B, P)] = _StepGraph(self._step, B, P, self.device)
+        return self._graphs[(B, P)]
+
+    def graph_launches(self) -> dict:
+        """K1/K2 launches of the captured graphs: captured per replay x replays."""
+        per = [g.launches for g in self._graphs.values()]
+        return {"captured_per_replay": per, "replays": self.replays}
+
+    def track_frames(self, pts: torch.Tensor, counts: torch.Tensor, wlh: torch.Tensor,
+                     init: torch.Tensor) -> torch.Tensor:
+        """pts (B, T, P, 3) f32, counts (B, T) int32 valid-prefix lengths,
+        wlh (B, 3), init (B, 4), all on the device -> predicted world boxes
+        (B, T - 1, 4) on the device. No host sync."""
+        B, T, P, _ = pts.shape
+        boxes = pts.new_empty(B, T - 1, 4)
+        steps = torch.arange(T - 1, device=pts.device)
+        if self.cuda_graph:
+            g = self._graph_for(B, P)
+            g.ref.copy_(init)
+            g.wlh.copy_(wlh)
+            for t in range(T - 1):
+                g.pts.copy_(pts[:, t:t + 2])
+                g.counts.copy_(counts[:, t:t + 2])
+                g.step_idx.copy_(steps[t])
+                g.graph.replay()
+                boxes[:, t].copy_(g.ref)
+            self.replays += T - 1
+            return boxes
+        valid = _expand_counts(counts, P)
+        ref = init
+        for t in range(T - 1):
+            ref = self._step(wlh, ref, pts[:, t], valid[:, t], pts[:, t + 1], valid[:, t + 1],
+                             steps[t])
+            boxes[:, t] = ref
+        return boxes
+
+    # --- host-side driver -------------------------------------------------
+    def _pad_frames(self, sequence, T_pad):
+        P = self.max_points
+        pts = np.zeros((T_pad, P, 3), np.float32)
+        valid = np.zeros((T_pad, P), bool)
+        for t, frame in enumerate(sequence):
+            pts[t], valid[t] = pad_frame(frame["pc"].points.T, P)
+        return pts, valid
+
+    def _bucket_len(self, T: int) -> int:
+        return max(2, -(-T // self.frame_bucket) * self.frame_bucket)
+
+    def _prepare(self, sequences: Sequence[list]):
+        """Pad a tracklet batch and pack it for the transfer: (sequences,
+        T_pad, host tensors [*packed points, counts, wlh, init])."""
+        sequences = list(sequences)
+        B = len(sequences)
+        T_pad = max(self._bucket_len(len(s)) for s in sequences)
+        P = self.max_points
+        pts = np.zeros((B, T_pad, P, 3), np.float32)
+        valid = np.zeros((B, T_pad, P), bool)
+        wlh = np.zeros((B, 3), np.float32)
+        init = np.zeros((B, 4), np.float32)
+        for b, seq in enumerate(sequences):
+            pts[b], valid[b] = self._pad_frames(seq, T_pad)
+            first_box = seq[0]["3d_bbox"]
+            wlh[b] = first_box.wlh
+            theta0 = rigid.theta_from_rotation(first_box.rotation_matrix, self._A_np)
+            init[b] = np.append(first_box.center, theta0)
+        host = self._host(*_pack_transfer(self.transfer_dtype, pts, valid), _counts(valid),
+                          wlh, init)
+        return sequences, T_pad, host
+
+    def _host(self, *arrays) -> list:
+        """numpy arrays as CPU tensors, in pinned memory when the tracker runs
+        on the card (so that their copies to it need not block)."""
+        out = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+        return [t.pin_memory() for t in out] if self.device.type == "cuda" else out
+
+    def _on_device(self, host: list):
+        """A batch's host tensors -> (pts f32, counts, wlh, init) on the device,
+        by non-blocking copies; int16 points are dequantized there."""
+        *packed, counts, wlh, init = [t.to(self.device, non_blocking=True) for t in host]
+        if self.transfer_dtype is None:
+            pts = packed[0]
+        else:
+            scale, off, q = packed
+            pts = dequantize(q, scale, off)
+        return pts, counts, wlh, init
+
+    def track_batch(self, sequences: Sequence[list]) -> List[np.ndarray]:
+        """Run B tracklets (same padded length bucket) as one batch.
+
+        Returns a list of (T_i - 1, 4) world-frame box parameter arrays.
+        """
+        sequences, _, host = self._prepare(sequences)
+        boxes = self.track_frames(*self._on_device(host)).cpu().numpy()
+        return [boxes[b, : len(seq) - 1] for b, seq in enumerate(sequences)]
+
+    def dispatch_scored(self, sequences: Sequence[list], prep_cache=None, cache_key=None):
+        """Track AND score a batch on the device; no host sync.
+
+        Returns (iou, dist) (B, T_pad) device tensors (slice [b, :len(seq)]
+        per tracklet). prep_cache/cache_key: optional dict + key caching the
+        packed host tensors across calls (the caller owns invalidation).
+        """
+        if prep_cache is not None and cache_key in prep_cache:
+            host, gt = prep_cache[cache_key]
+        else:
+            sequences, T_pad, host = self._prepare(sequences)
+            gt = self._host(*_gt_arrays(sequences, T_pad, self._A_np))
+            if prep_cache is not None:
+                prep_cache[cache_key] = (host, gt)
+        pts, counts, wlh, init = self._on_device(host)
+        boxes = self.track_frames(pts, counts, wlh, init)
+        if self._scorer is None:
+            self._scorer = _make_scorer(self.config)
+        gt_params, gt_wlh = (t.to(self.device, non_blocking=True) for t in gt)
+        return self._scorer(boxes, init, wlh, gt_params, gt_wlh)
+
+    def _score(self, sequence, box_params, config):
+        first_box = sequence[0]["3d_bbox"]
+        wlh = first_box.wlh.tolist()
+        results_bbs = [first_box]
+        for t in range(len(sequence) - 1):
+            cx, cy, cz, th = (float(v) for v in box_params[t])
+            results_bbs.append(
+                Box([cx, cy, cz], wlh,
+                    Quaternion(matrix=rigid.rotation_from_theta(th, self._A_np))))
+        ious, distances = [], []
+        for t, frame in enumerate(sequence):
+            gt = frame["3d_bbox"]
+            ious.append(estimateOverlap(gt, results_bbs[t], dim=config.IoU_space,
+                                        up_axis=config.up_axis))
+            distances.append(estimateAccuracy(gt, results_bbs[t], dim=config.IoU_space,
+                                              up_axis=config.up_axis))
+        return ious, distances, results_bbs
+
+    def evaluate_one_sequence(self, sequence, config):
+        boxes = self.track_batch([sequence])[0]
+        return self._score(sequence, boxes, config)
+
+    def evaluate_sequences(self, sequences, config):
+        """Batched tracking + host scoring; returns list of (ious, distances, boxes)."""
+        all_boxes = self.track_batch(sequences)
+        return [self._score(seq, boxes, config) for seq, boxes in zip(sequences, all_boxes)]
+
+
+def evaluate_dataset_scan(model, test_sampler, config, max_points: int = 4096,
+                          batch_tracklets: int = 16, max_tracklets: Optional[int] = None,
+                          tracker: Optional[M2ScanTracker] = None, device_metrics: bool = True,
+                          pipeline_depth: int = 3, prep_cache: Optional[dict] = None):
+    """Scan-tracker dataset evaluation; returns (success, precision).
+
+    Tracklets are grouped into same-length-bucket batches of up to
+    `batch_tracklets`. Pass a prebuilt `tracker` to reuse its captured
+    graphs across calls; it tracks with `model` from then on.
+    device_metrics=True (default) scores on the device with
+    `pipeline_depth` batches in flight; False is the serial host-scored loop
+    (fetch boxes, clip polygons per frame). prep_cache: optional dict (the
+    same one with the same sampler and arguments each call) caching the
+    batching and the packed host tensors.
+    """
+    from open3dsot_tpu_torch.utils.metrics import Precision, Success
+
+    if tracker is None:
+        tracker = M2ScanTracker(model, config, max_points=max_points)
+    elif tracker.model is not model:
+        tracker.set_model(model)
+    success, precision = Success(), Precision()
+    n = len(test_sampler)
+    if max_tracklets is not None:
+        n = min(n, max_tracklets)
+    if prep_cache is not None and "batches" in prep_cache:
+        batches = prep_cache["batches"]
+    else:
+        batches = _bucketed_batches(test_sampler, n, tracker, batch_tracklets)
+        if prep_cache is not None:
+            prep_cache["batches"] = batches
+    if device_metrics:
+        for ious, distances in pipelined_scores(tracker, batches, depth=pipeline_depth,
+                                                prep_cache=prep_cache):
+            success.update(ious)
+            precision.update(distances)
+    else:
+        for batch in batches:
+            for ious, distances, _ in tracker.evaluate_sequences(batch, config):
+                success.update(ious)
+                precision.update(distances)
+    return success.compute(), precision.compute()
+
+
+def _bucketed_batches(test_sampler, n, tracker, batch_tracklets):
+    """Group tracklets [0, n) into same-length-bucket batches."""
+    buckets = defaultdict(list)
+    for i in range(n):
+        seq = test_sampler[i]
+        buckets[tracker._bucket_len(len(seq))].append(seq)
+    return [
+        seqs[j: j + batch_tracklets]
+        for _, seqs in sorted(buckets.items())
+        for j in range(0, len(seqs), batch_tracklets)
+    ]

@@ -11,7 +11,9 @@ import pytest
 import open3dsot_tpu.config as j_config
 import open3dsot_tpu.geometry.iou as j_iou
 import open3dsot_tpu.geometry.points_utils as j_pu
+import open3dsot_tpu.geometry.rigid as j_rigid
 import open3dsot_tpu.utils.metrics as j_metrics
+import open3dsot_tpu.utils.quant as j_quant
 from open3dsot_tpu.data import get_dataset as j_get_dataset
 from open3dsot_tpu.geometry import Box as JBox
 from open3dsot_tpu.geometry import PointCloud as JPC
@@ -19,7 +21,9 @@ from open3dsot_tpu.geometry import Quaternion as JQ
 import open3dsot_tpu_torch.config as p_config
 import open3dsot_tpu_torch.geometry.iou as p_iou
 import open3dsot_tpu_torch.geometry.points_utils as p_pu
+import open3dsot_tpu_torch.geometry.rigid as p_rigid
 import open3dsot_tpu_torch.utils.metrics as p_metrics
+import open3dsot_tpu_torch.utils.quant as p_quant
 from open3dsot_tpu_torch.data import get_dataset as p_get_dataset
 from open3dsot_tpu_torch.geometry import Box as PBox
 from open3dsot_tpu_torch.geometry import PointCloud as PPC
@@ -127,6 +131,31 @@ def test_iou_copy():
             assert (p_iou.estimateAccuracy(pa, pb, dim=dim, up_axis=[0, 0, 1])
                     == j_iou.estimateAccuracy(ja, jb, dim=dim, up_axis=[0, 0, 1]))
         assert p_iou.estimateOverlap(pa, pa, dim=3, up_axis=[0, 0, 1]) == pytest.approx(1.0)
+
+
+@pytest.mark.parametrize("up_axis", [(0, 0, 1), (0, -1, 0)])
+def test_rigid_host_functions_copy(up_axis):
+    """theta_from_rotation / rotation_from_theta (numpy) in both bases."""
+    pA, jA = p_rigid.up_frame(up_axis), j_rigid.up_frame(up_axis)
+    pA = None if pA is None else pA.numpy()
+    jA = None if jA is None else np.asarray(jA)
+    for theta in np.random.default_rng(5).uniform(-np.pi, np.pi, 8):
+        R = p_rigid.rotation_from_theta(theta, pA)
+        np.testing.assert_array_equal(R, j_rigid.rotation_from_theta(theta, jA))
+        got = p_rigid.theta_from_rotation(R, pA)
+        assert got == j_rigid.theta_from_rotation(R, jA)
+        assert abs(got - theta) < 1e-12
+
+
+def test_quantize_per_sample_copy():
+    rng = np.random.default_rng(6)
+    pts = (rng.normal(0, 30, (4, 3, 40, 3)) + 50).astype(np.float32)
+    valid = rng.random((4, 3, 40)) > 0.4
+    valid[2] = False
+    for got, want in zip(p_quant.quantize_per_sample(pts, valid),
+                         j_quant._quantize_per_sample_numpy(pts, valid)):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
 
 
 def test_metrics_copy():
