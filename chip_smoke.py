@@ -7,6 +7,7 @@
     python3 chip_smoke.py --k4-times      # phases 1, 2 and 7 only (K4/K5), no result line
     python3 chip_smoke.py --k3-times      # phases 1, 2 and 6 only (K3), no result line
     python3 chip_smoke.py --scan-times    # phases 1, 2 and 15 only (M2 scan), no result line
+    python3 chip_smoke.py --match-scan-times  # phases 1, 2 and 16 only (BAT/P2B scan), no result
 
 Phases, one line or a few each; any failure exits non-zero:
   1. environment: torch / CUDA versions, the card's name and power limit;
@@ -56,7 +57,7 @@ Phases, one line or a few each; any failure exits non-zero:
      synthetic dataset at BAT_Car widths (both paths), a profiler window
      (K3's launches in it beside the profiler's records of them), and the
      CLI on cfgs/BAT_synthetic.yaml.
- 10. printed last, after phase 15: one JSON line of the kernels K1-K6 and
+ 10. printed last, after phase 16: one JSON line of the kernels K1-K6 and
      the probes P1/P2 (each with its bound from this run's shapes), the card
      line, then the result line.
  11. K6 (training-mode SA, 3xTF32 on the tensor cores) forward and backward
@@ -98,6 +99,23 @@ Phases, one line or a few each; any failure exits non-zero:
      frame-0 self-IoUs, which round to 1.0 or just below it on either side),
      the plain path's Success/Precision, the graph captured again after new
      weights (equal to eager), and the CLI with --tracker scan.
+ 16. the matching scan tracker (tracking/scan_matching.py) at bench.py's
+     matching configuration (BAT_Car widths, 16 tracklets x 64 frames,
+     max_points 1024, frame_bucket 64, first_crop_points 1024,
+     firstandprevious, previous_result, use_z and limit_box off) at B = 1, 8
+     and 16: the graph path's boxes bit-identical to the eager path's; no
+     host sync in the frame loop; frames/s of both paths with the batch on
+     the card, device busy per frame and idle share, H2D of a batch; K3 x2
+     and K4 x7 a step by the wrappers (captured per replay, and over the
+     eager steps) and by the profiler's records of their kernels in windows
+     of replays and of eager steps; at B = 16 the first-step boxes against
+     the plain path run in float64 (BOX_ATOL) and the scorer's time; P2B_Car
+     (camera basis, limit_box 'uniform', no FPS: K4 x7, K3 x0) at B = 8,
+     BAT_Pedestrian's limit_box 'uniform' and shape_aggregation 'all' at B
+     = 8, each graph against eager; evaluate_dataset_scan_matching from
+     launch counts of 0 on a fresh tracker, its on-device scoring against
+     host scoring (phase 15's rule), the plain path's Success/Precision, and
+     the CLI with --tracker scan on cfgs/BAT_synthetic.yaml.
 
 Weights are random, made with numpy from a seed in the JAX tree's shape
 (open3dsot_tpu_torch.weights). Needs one card; no network.
@@ -500,7 +518,7 @@ def main(argv=None) -> None:
     args = sys.argv[1:] if argv is None else argv
     chain_only, k6_only = "--chain-times" in args, "--k6-times" in args
     k4_only, k3_only = "--k4-times" in args, "--k3-times" in args
-    scan_only = "--scan-times" in args
+    scan_only, match_only = "--scan-times" in args, "--match-scan-times" in args
     # --- 1. environment ---------------------------------------------------
     print(f"env: python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
@@ -517,6 +535,7 @@ def main(argv=None) -> None:
     # --- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     libs = load_libraries(["chain_fused"] if chain_only or scan_only else
+                          ["fps", "sa_fused"] if match_only else
                           ["sa_fused_train"] if k6_only else
                           ["sa_fused"] if k4_only else ["fps", "fps_floor"] if k3_only else
                           ["chain_fused", "fps", "sa_fused", "sa_fused_train", "gather_probe",
@@ -545,6 +564,10 @@ def main(argv=None) -> None:
     if scan_only:
         scan_phase(card)
         print("scan times done: phases 1, 2 and 15 only", flush=True)
+        return
+    if match_only:
+        match_scan_phase(card)
+        print("match scan times done: phases 1, 2 and 16 only", flush=True)
         return
 
     # --- 3. kernels vs plain at the main path's shapes --------------------
@@ -648,6 +671,9 @@ def main(argv=None) -> None:
 
     # --- 15. the M2 scan tracker ------------------------------------------
     scan_phase(card)
+
+    # --- 16. the matching scan tracker (BAT/P2B) ----------------------------
+    match_scan_phase(card)
 
     # --- 10. results ------------------------------------------------------
     kernels = [
@@ -1912,6 +1938,245 @@ def scan_phase(card: str) -> None:
         fail(f"CLI scan eval failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
     print("phase 15 ok: graph == eager bit for bit, K1 x3 and K2 x1 a replay, device scores == "
           "host scores (frame-0 self-IoUs aside)", flush=True)
+
+
+MATCH_T = 64  # bench.py's matching scan: 64-frame tracklets, max_points 1024, frame_bucket 64
+MATCH_KW = dict(max_points=1024, frame_bucket=MATCH_T, first_crop_points=1024)
+K34_RECORDS = (("fps_kernel", 2), ("bq_kernel", 7), ("sa_tc_kernel", 7))  # BAT, a step
+
+
+def match_cfg(name: str, path=None, **kw):
+    """bench.py's matching scan configuration (bench.py:209-262) at the
+    shipped widths: 16 tracklets x 64 frames, firstandprevious,
+    previous_result, use_z and limit_box off; `path` loads another config
+    file with its own settings instead."""
+    from open3dsot_tpu_torch.config import load_config
+
+    over = dict(dataset="synthetic", syn_num_tracklets=16, syn_tracklet_len=MATCH_T, seed=SEED,
+                tensorboard=False)
+    if path is None:
+        over.update(use_z=False, limit_box=False, shape_aggregation="firstandprevious",
+                    reference_BB="previous_result")
+        path = ROOT / MATCHING_CFG[name]
+    over.update(kw)
+    return load_config(str(path), over)
+
+
+def k34_records(rows) -> tuple:
+    """Profiler records of K3's and K4's kernels: (fps_kernel, bq_kernel,
+    sa_tc_kernel); K3 launches fps_kernel once, K4 bq_kernel and sa_tc_kernel."""
+    return tuple(sum(e.count for e in rows if name in e.key) for name, _ in K34_RECORDS)
+
+
+def match_first_step_float64(plain, plain_model, dev):
+    """The first step's boxes (B, 4) of the plain matching path in float64
+    (the net converted and back), on a batch's device tensors."""
+    import torch
+
+    from open3dsot_tpu_torch.tracking.scan_tracker import _expand_counts
+
+    pts, counts, wlh, init, first_pts, first_count = dev
+    valid = _expand_counts(counts[:, :2], pts.shape[2])
+    first_valid = _expand_counts(first_count, first_pts.shape[1])
+    carry = tuple(c.double() if c.is_floating_point() else c for c in plain._carry0(init, wlh))
+    net = plain_model.net.double()
+    try:
+        return plain._step(first_pts.double(), first_valid, carry,
+                           (pts[:, 0].double(), valid[:, 0], pts[:, 1].double(), valid[:, 1]))[1]
+    finally:
+        net.float()
+
+
+def graph_equals_eager(graph, eager, dev, what: str) -> None:
+    """Fails unless the graph path's boxes are bit-identical to the eager path's."""
+    import torch
+
+    g, e = graph.track_frames(*dev), eager.track_frames(*dev)
+    torch.cuda.synchronize()
+    same = torch.equal(g, e)
+    print(f"  {what}: graph boxes {'bit-identical to' if same else 'DIFFER from'} the eager "
+          f"path's (max |diff| {(g - e).abs().max().item():.3e})", flush=True)
+    if not same or not torch.isfinite(g).all():
+        fail(f"{what}: the graph path's boxes differ from the eager path's, or are not finite")
+
+
+def match_scan_phase(card: str) -> None:
+    """Phase 16: the matching scan tracker (tracking/scan_matching.py) on the
+    card at bench.py's matching configuration; see the module docstring."""
+    import torch
+
+    from open3dsot_tpu_torch.data import get_dataset
+    from open3dsot_tpu_torch.ops import sa_fused, sampling
+    from open3dsot_tpu_torch.tracking import scan_matching as sm
+
+    cfg = match_cfg("bat")
+    model, variables = make_model(cfg, fused_eval=True)
+    plain_model, _ = make_model(cfg, fused_eval=False, variables=variables)
+    sampler = get_dataset(cfg, "test", "test")
+    seqs = [sampler[i] for i in range(len(sampler))]
+    graph = sm.MatchScanTracker(model, cfg, **MATCH_KW)
+    eager = sm.MatchScanTracker(model, cfg, cuda_graph=False, **MATCH_KW)
+    plain = sm.MatchScanTracker(plain_model, cfg, cuda_graph=False, **MATCH_KW)
+    steps = MATCH_T - 1
+    want_records = tuple(n * steps for _, n in K34_RECORDS)
+    for B in SCAN_BATCHES:
+        host = scan_host(graph, seqs[:B])
+        mb = sum(t.numel() * t.element_size() for t in host) / 1e6
+        h2d = time_ms(lambda: to_card(host), iters=5, repeats=5)
+        dev = to_card(host)
+        t0 = time.perf_counter()
+        g_boxes = graph.track_frames(*dev)  # captures the step for (B, P, P1) here
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        e_boxes = eager.track_frames(*dev)
+        torch.cuda.synchronize()
+        same = torch.equal(g_boxes, e_boxes)
+        print(f"  match scan BAT B={B}: graph boxes "
+              f"{'bit-identical to' if same else 'DIFFER from'} the eager path's (max |diff| {(g_boxes - e_boxes).abs().max().item():.3e}); first "
+              f"call with the capture {capture_s:.3f} s", flush=True)
+        if not same or not torch.isfinite(g_boxes).all():
+            fail(f"match scan B={B}: the graph path's boxes differ from the eager path's, or are "
+                 f"not finite")
+        # the frame loop makes no host sync: a synchronizing call raises in this mode
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            graph.track_frames(*dev)
+            eager.track_frames(*dev)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        t_g = wall_ms(lambda: graph.track_frames(*dev))
+        t_e = wall_ms(lambda: eager.track_frames(*dev), repeats=3)
+        frames = B * steps
+        # a window can lose records (ROADMAP §3): up to three windows are taken
+        for window in range(3):
+            rows_g = device_rows(lambda: graph.track_frames(*dev))
+            reset_matching_counts()
+            rows_e = device_rows(lambda: eager.track_frames(*dev))
+            wrapped = matching_counts()[:2]
+            rec_g, rec_e = k34_records(rows_g), k34_records(rows_e)
+            if rec_g == rec_e == want_records:
+                break
+            print(f"  match scan B={B}: profiler window {window + 1} short of records: replays "
+                  f"{rec_g}, eager steps {rec_e} (fps_kernel, bq_kernel, sa_tc_kernel) over "
+                  f"{steps} steps", flush=True)
+        busy_g = sum(dev_us(e) for e in rows_g) / frames
+        busy_e = sum(dev_us(e) for e in rows_e) / frames
+        wall_g, wall_e = t_g * 1e3 / frames, t_e * 1e3 / frames
+        print(f"  match scan BAT B={B}: {frames} frames a batch; frames/s graph "
+              f"{frames / t_g * 1e3:.2f} eager {frames / t_e * 1e3:.2f} (batch on the card, to a "
+              f"synchronize); device busy per frame graph {busy_g:.2f} us eager {busy_e:.2f} us; "
+              f"wall per frame graph {wall_g:.2f} us eager {wall_e:.2f} us; idle share graph "
+              f"{1 - busy_g / wall_g:.3f} eager {1 - busy_e / wall_e:.3f}; H2D of the batch "
+              f"{h2d:.4f} ms for {mb:.2f} MB [{card}]", flush=True)
+        per_replay = graph.graph_launches()["captured_per_replay"]
+        print(f"  match scan BAT B={B}: profiler records over {steps} steps (windows opened on a "
+              f"sleep kernel), fps_kernel / bq_kernel / sa_tc_kernel: graph {rec_g}, eager "
+              f"{rec_e}; eager wrapper launches K3 {wrapped[0]} K4 {wrapped[1]}; the graph "
+              f"captured K3/K4 {per_replay} per replay (wrappers count at capture)", flush=True)
+        if wrapped != (2 * steps, 7 * steps) or (2, 7) not in per_replay:
+            fail(f"match scan B={B}: expected K3 x2 and K4 x7 per step, got eager {wrapped} over "
+                 f"{steps} steps and {per_replay} captured per replay")
+        if rec_g != want_records or rec_e != want_records:
+            fail(f"match scan B={B}: the replays ran K3/K4's kernels {rec_g}, the eager steps "
+                 f"{rec_e}, expected {want_records}")
+        print(f"  match scan BAT B={B}: graph device time by kernel, us a step (launches a step), "
+              f"{sum(e.count for e in rows_g) / steps:.1f} launches a step in all:", flush=True)
+        for e in sorted(rows_g, key=lambda e: -dev_us(e))[:10]:
+            print(f"    {dev_us(e) / steps:9.2f} us ({e.count / steps:5.2f})  {e.key[:100]}")
+        if B == 16:
+            p_boxes = plain.track_frames(*dev)
+            truth = match_first_step_float64(plain, plain_model, dev)
+            e_k = (g_boxes[:, 0].double() - truth).abs().max().item()
+            e_p = (p_boxes[:, 0].double() - truth).abs().max().item()
+            e_kp = (g_boxes[:, 0] - p_boxes[:, 0]).abs().max().item()
+            e_all = (g_boxes - p_boxes).abs().max().item()
+            print(f"  match scan B=16: first-step boxes, the kernel path from the plain path in "
+                  f"float64 {e_k:.3e} (atol {BOX_ATOL}); the plain float32 path from float64 "
+                  f"{e_p:.3e}; the kernel path from the plain float32 path {e_kp:.3e}; over the "
+                  f"whole trajectories {e_all:.3e} (argmax proposals part them on random weights)",
+                  flush=True)
+            if not e_k <= BOX_ATOL:
+                fail(f"match scan B=16: first-step boxes {e_k} from the plain path in float64")
+            from open3dsot_tpu_torch.tracking import scan_tracker as st
+
+            gp, gw = (torch.from_numpy(a).cuda() for a in st._gt_arrays(seqs[:16], MATCH_T, None))
+            score = st._make_scorer(cfg)
+            t_score = time_ms(lambda: score(g_boxes, dev[3], dev[2], gp, gw), iters=5, repeats=5)
+            print(f"  match scan B=16: scorer (IoU + distance of 16 x {MATCH_T} boxes on the card) "
+                  f"{t_score:.4f} ms by events [{card}]", flush=True)
+
+    # P2B (P2B_Car: camera basis, no FPS, limit_box with the 'uniform' redraw) at B = 8
+    p2b_cfg = match_cfg("p2b", path=ROOT / MATCHING_CFG["p2b"])
+    p2b, _ = make_model(p2b_cfg, fused_eval=True)
+    p2b_seqs = [get_dataset(p2b_cfg, "test", "test")[i] for i in range(8)]
+    p2b_graph = sm.MatchScanTracker(p2b, p2b_cfg, **MATCH_KW)
+    p2b_eager = sm.MatchScanTracker(p2b, p2b_cfg, cuda_graph=False, **MATCH_KW)
+    dev = to_card(scan_host(p2b_graph, p2b_seqs))
+    graph_equals_eager(p2b_graph, p2b_eager, dev, "match scan P2B B=8 (camera basis, limit_box)")
+    reset_matching_counts()
+    p2b_eager.track_frames(*dev)
+    torch.cuda.synchronize()
+    wrapped, per_replay = matching_counts()[:2], p2b_graph.graph_launches()["captured_per_replay"]
+    t_g = wall_ms(lambda: p2b_graph.track_frames(*dev))
+    print(f"  match scan P2B B=8: frames/s graph {8 * steps / t_g * 1e3:.2f}; eager wrapper "
+          f"launches K3 {wrapped[0]} K4 {wrapped[1]} over {steps} steps; the graph captured K3/K4 "
+          f"{per_replay} per replay [{card}]", flush=True)
+    if wrapped != (0, 7 * steps) or per_replay != [(0, 7)]:
+        fail(f"match scan P2B: expected K3 x0 and K4 x7 per step, got {wrapped}, {per_replay}")
+
+    # BAT_Pedestrian's limit_box 'uniform' redraw, and the 'all' reservoir, at B = 8
+    for what, mcfg in (("BAT_Pedestrian (limit_box uniform)",
+                        match_cfg("bat", path=ROOT / "cfgs" / "BAT_Pedestrian.yaml")),
+                       ("BAT shape_aggregation all", match_cfg("bat", shape_aggregation="all"))):
+        m, _ = make_model(mcfg, fused_eval=True, variables=variables)
+        mseqs = [get_dataset(mcfg, "test", "test")[i] for i in range(8)]
+        g_tr = sm.MatchScanTracker(m, mcfg, **MATCH_KW)
+        dev = to_card(scan_host(g_tr, mseqs))
+        graph_equals_eager(g_tr, sm.MatchScanTracker(m, mcfg, cuda_graph=False, **MATCH_KW), dev,
+                           f"match scan {what} B=8")
+
+    # the matching scan slice through its entry points: counts from 0, a fresh tracker
+    n_frames = sum(len(s) - 1 for s in seqs)
+    reset_matching_counts()
+    fresh = sm.MatchScanTracker(model, cfg, **MATCH_KW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    succ, prec = sm.evaluate_dataset_scan_matching(model, sampler, cfg, tracker=fresh)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    k3, k4 = matching_counts()[:2]
+    gl = fresh.graph_launches()
+    print(f"match scan eval: {len(seqs)} tracklets x {MATCH_T} frames, batches of 8, on-device "
+          f"scoring: success {succ:.4f} precision {prec:.4f}; {n_frames} frames in {dt:.4f} s = "
+          f"{n_frames / dt:.2f} frames/s (the first batch captures the graph) [{card}]", flush=True)
+    print(f"launches in the match scan eval run: K3 {k3} K4 {k4} by the wrappers (warm-up and "
+          f"capture); the graphs launched K3/K4 {gl['captured_per_replay']} per replay x "
+          f"{gl['replays']} replays", flush=True)
+    if not (k3 and k4) or gl["captured_per_replay"] != [(2, 7)] or gl["replays"] != 2 * steps:
+        fail(f"the match scan eval run did not go through K3/K4 in a graph: {k3}, {k4}, {gl}")
+    t0 = time.perf_counter()
+    h_succ, h_prec = sm.evaluate_dataset_scan_matching(model, sampler, cfg, tracker=fresh,
+                                                       device_metrics=False)
+    h_dt = time.perf_counter() - t0
+    print(f"match scan eval, host scoring: success {h_succ:.4f} precision {h_prec:.4f}; "
+          f"{n_frames / h_dt:.2f} frames/s [{card}]", flush=True)
+    check_scores(fresh, seqs, cfg, (succ, prec), (h_succ, h_prec))
+    p_succ, p_prec = sm.evaluate_dataset_scan_matching(plain_model, sampler, cfg, tracker=plain)
+    print(f"match scan eval, plain path (eager): success {p_succ:.4f} precision {p_prec:.4f}",
+          flush=True)
+    for v in (succ, prec, p_succ, p_prec):
+        if not 0 <= v <= 100:
+            fail(f"Success/Precision not finite in [0, 100]: {succ, prec, p_succ, p_prec}")
+
+    cli = [sys.executable, "-m", "open3dsot_tpu_torch.main", "--cfg", "cfgs/BAT_synthetic.yaml",
+           "--test", "--tracker", "scan", "--device", "cuda"]
+    proc = subprocess.run(cli, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    print(f"cli --tracker scan (BAT): exit {proc.returncode}: {last}", flush=True)
+    if proc.returncode != 0 or not last.startswith("success/test:"):
+        fail(f"BAT CLI scan eval failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    print("phase 16 ok: BAT graph == eager bit for bit, K3 x2 and K4 x7 a replay (P2B K4 x7), "
+          "device scores == host scores (frame-0 self-IoUs aside)", flush=True)
 
 
 def profile_window(model, sampler, cfg, card: str, wall_us_per_frame: float,

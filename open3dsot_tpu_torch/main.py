@@ -9,12 +9,12 @@
 
 Flags keep the JAX CLI's names (main.py); a flag given overrides the YAML.
 Eval runs the host loop (`--tracker host`, tracking/eval.py) for every
-model, or for M2-Track the batched device-resident scan tracker
-(`--tracker scan`, tracking/scan_tracker.py): on-device scoring by default,
-host scoring with `--host_metrics`, frame points shipped as int16 with
-`--transfer_quant int16`. The matching scan tracker (BAT/P2B) is not ported
-yet and `--tracker scan` refuses them; so are process sharding, the disk
-prep cache (`--eval_prep_cache`) and `--save_results`.
+model, or the batched device-resident scan tracker (`--tracker scan`:
+tracking/scan_tracker.py for M2-Track, tracking/scan_matching.py for BAT
+and P2B): on-device scoring by default, host scoring with
+`--host_metrics`, frame points shipped as int16 with `--transfer_quant
+int16`. Not ported yet: process sharding, the disk prep cache
+(`--eval_prep_cache`) and `--save_results`.
 Training runs the matching trackers (BAT, P2B; `train_siamese`) through
 `train/trainer.py`, starting from random weights made from the seed
 (weights.random_variables); M2-Track training (`train_motion`) is not
@@ -51,7 +51,7 @@ def parse_args(argv=None):
                         help="torch device (cuda or cpu)")
     parser.add_argument("--tracker", type=str, default="host", choices=["host", "scan"],
                         help="eval path: 'host' = per-frame loop, 'scan' = batched "
-                             "device-resident tracker (M2-Track)")
+                             "device-resident tracker")
     parser.add_argument("--host_metrics", action="store_true",
                         help="with --tracker scan: score trajectories on the host "
                              "(geometry/iou.py) instead of on the device (geometry/iou_device.py)")
@@ -72,9 +72,6 @@ def main(argv=None):
 
     cfg = load_config(args.cfg, {k: getattr(args, k) for k in _OVERRIDES
                                  if getattr(args, k) is not None})
-    if args.test and args.tracker == "scan" and cfg.net_model.lower() != "m2track":
-        sys.exit(f"--tracker scan: the matching scan tracker ({cfg.net_model}) is not ported yet "
-                 "(ROADMAP.md, section 1 item 3); use --tracker host")
     if not args.test and getattr(cfg, "train_type", "") != "train_siamese":
         sys.exit(f"{cfg.net_model} ({getattr(cfg, 'train_type', None)}): training is not "
                  "ported yet (ROADMAP.md, modules to port); the port trains BAT and P2B")
@@ -91,12 +88,18 @@ def main(argv=None):
 
     if args.test:
         test_sampler = get_dataset(cfg, "test", cfg.test_split)
-        if args.tracker == "scan":
+        if args.tracker == "scan" and cfg.net_model.lower() == "m2track":
             from open3dsot_tpu_torch.tracking.scan_tracker import evaluate_dataset_scan
 
             succ, prec = evaluate_dataset_scan(model, test_sampler, cfg,
                                                max_tracklets=args.max_tracklets,
                                                device_metrics=not args.host_metrics)
+        elif args.tracker == "scan":
+            from open3dsot_tpu_torch.tracking.scan_matching import evaluate_dataset_scan_matching
+
+            succ, prec = evaluate_dataset_scan_matching(model, test_sampler, cfg,
+                                                        max_tracklets=args.max_tracklets,
+                                                        device_metrics=not args.host_metrics)
         else:
             from open3dsot_tpu_torch.tracking.eval import evaluate_dataset
 

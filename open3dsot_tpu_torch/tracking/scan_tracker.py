@@ -18,12 +18,14 @@ loop is what the graph is held to, and what the CPU runs. Scoring
 (geometry/iou_device.py) runs on the device too, and `pipelined_scores`
 keeps `depth` batches in flight while the host bins earlier ones.
 
-The JAX package runs the frames as one `lax.scan`; its limit-box redraw
-'uniform' draws from `jax.random` and is refused here (ROADMAP.md §3).
-Resampling is the deterministic `_select_fixed`, so trajectories differ
-from the host loop's seeded `np.random.choice` at the decimal level, as on
-the JAX side. Not ported yet: process sharding, the disk prep store and
-the results writer (ROADMAP.md §1).
+The JAX package runs the frames as one `lax.scan`. Its limit-box redraw
+'uniform' draws from `jax.random`, which utils/prng.py reproduces bit for
+bit on the device. Resampling is the deterministic `_select_fixed`, so
+trajectories differ from the host loop's seeded `np.random.choice` at the
+decimal level, as on the JAX side. `_ScanTracker` and `_CapturedStep` hold
+what this tracker shares with the matching one (tracking/scan_matching.py).
+Not ported yet: process sharding, the disk prep store and the results
+writer (ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -39,7 +41,18 @@ from open3dsot_tpu_torch.geometry.data_classes import Box
 from open3dsot_tpu_torch.geometry.iou import estimateAccuracy, estimateOverlap
 from open3dsot_tpu_torch.geometry.quaternion import Quaternion
 from open3dsot_tpu_torch.models.pointnet import weights_key
+from open3dsot_tpu_torch.utils import prng
 from open3dsot_tpu_torch.utils.quant import dequantize, quantize_per_sample
+
+# The limit-box redraw's key, jax.random.PRNGKey(2) in the JAX package's scan steps
+LIMIT_BOX_KEY = prng.prng_key(2)
+
+
+def redraws_uniform(config) -> bool:
+    """Whether limit_box redraws an overshooting x/y offset from U(-1, 1)
+    (limit_box_redraw 'uniform', the default) rather than setting it to 0."""
+    return bool(getattr(config, "limit_box", False)) and str(
+        getattr(config, "limit_box_redraw", "uniform")) == "uniform"
 
 
 def _select_fixed(points: torch.Tensor, valid: torch.Tensor, n: int,
@@ -202,9 +215,10 @@ def make_m2_step(net, config, A, box_aware: bool, compute_dtype=None):
 
     wlh (B, 3), ref_box (B, 4) world frame, points (B, P, 3) with (B, P)
     validity, step_idx a 0-d device tensor (the first step uses the hard
-    prior-targetness, later ones the soft 0.8 / 0.2). Mirrors
-    MotionBaseModel.build_input_dict + evaluate_one_sample (reference
-    base_model.py:255-303, 44-57). `net` is the M2TrackNet, called directly.
+    prior-targetness, later ones the soft 0.8 / 0.2; it also keys the
+    'uniform' limit-box redraw). Mirrors MotionBaseModel.build_input_dict +
+    evaluate_one_sample (reference base_model.py:255-303, 44-57). `net` is
+    the M2TrackNet, called directly.
     """
     if compute_dtype not in (None, torch.float32):
         raise NotImplementedError(
@@ -215,11 +229,7 @@ def make_m2_step(net, config, A, box_aware: bool, compute_dtype=None):
     scale, offset = float(config.bb_scale), float(config.bb_offset)
     use_z = bool(getattr(config, "use_z", True))
     limit_box = bool(getattr(config, "limit_box", False))
-    if limit_box and str(getattr(config, "limit_box_redraw", "uniform")) == "uniform":
-        raise NotImplementedError(
-            "limit_box with limit_box_redraw 'uniform' draws from jax.random "
-            "(PRNGKey(2) folded with the step), which the port does not reproduce yet "
-            "(ROADMAP.md, section 3); set limit_box_redraw: zero")
+    lb_uniform = redraws_uniform(config)
 
     def step(wlh, ref_box, prev_pts, prev_valid, this_pts, this_valid, step_idx):
         B = ref_box.shape[0]
@@ -251,21 +261,50 @@ def make_m2_step(net, config, A, box_aware: bool, compute_dtype=None):
             bc = torch.cat([bc_prev, torch.zeros_like(bc_prev)], dim=1)
         with torch.no_grad():
             pred = net(points, bc)["estimation_boxes"]
-        if limit_box:  # limit_box_redraw 'zero' (reference points_utils.py:70-76)
-            pred = rigid.limit_box_offset(pred, wlh, use_z)
+        if limit_box:  # reference points_utils.py:70-76
+            # an overshooting x/y is redrawn from U(-1, 1) keyed on the step
+            # ('uniform'), or set to 0 ('zero')
+            redraw = None
+            if lb_uniform:
+                key = prng.fold_in(LIMIT_BOX_KEY, step_idx.reshape(-1).expand(B))
+                redraw = prng.uniform(key, (2,), -1.0, 1.0)
+            pred = rigid.limit_box_offset(pred, wlh, use_z, redraw=redraw)
         return rigid.get_offset_box(ref_box, pred, A=A)
 
     return step
 
 
-class _StepGraph:
-    """One captured CUDA graph of the step for a (B, P) shape, with the
-    static buffers it reads: a frame pair's points (B, 2, P, 3) and counts
-    (B, 2), wlh, the step index, and the carry `ref`, which the graph
-    updates in place. Warmed up on a side stream first, as torch.cuda.graph
+class _CapturedStep:
+    """One captured CUDA graph of `self._body()`, a step that reads and
+    writes only the static buffers a subclass makes before calling this
+    constructor. Warmed up twice on a side stream first, as torch.cuda.graph
     requires (and so that the kernels' first-use setup and the folded
-    weights are done outside the capture). The kernel wrappers count their
-    launches at capture: `launches` holds (K1, K2) of one replay."""
+    weights are done outside the capture), then captured on the current
+    stream. The kernel wrappers count their launches at capture: `launches`
+    holds, for each wrapper of `counted`, its launches in one replay."""
+
+    def __init__(self, device: torch.device, counted: Sequence) -> None:
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                self._body()
+        torch.cuda.current_stream(device).wait_stream(side)
+        before = [f.launches for f in counted]
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self._body()
+        self.launches = tuple(f.launches - b for f, b in zip(counted, before))
+
+    def _body(self) -> None:
+        raise NotImplementedError
+
+
+class _StepGraph(_CapturedStep):
+    """The M2 step for a (B, P) shape over its static buffers: a frame
+    pair's points (B, 2, P, 3) and counts (B, 2), wlh, the step index, and
+    the carry `ref`, which the graph updates in place; `launches` holds
+    (K1, K2) of one replay."""
 
     def __init__(self, step, B: int, P: int, device: torch.device):
         from open3dsot_tpu_torch.ops import chain_fused as cf
@@ -276,18 +315,7 @@ class _StepGraph:
         self.wlh = torch.ones(B, 3, device=device)
         self.ref = torch.zeros(B, 4, device=device)
         self.step_idx = torch.zeros((), dtype=torch.int64, device=device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                self._body()
-        torch.cuda.current_stream(device).wait_stream(side)
-        before = (cf.fused_pointnet_encoder.launches, cf.fused_seg_head.launches)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self._body()
-        self.launches = (cf.fused_pointnet_encoder.launches - before[0],
-                         cf.fused_seg_head.launches - before[1])
+        super().__init__(device, (cf.fused_pointnet_encoder, cf.fused_seg_head))
 
     def _body(self) -> None:
         valid = _expand_counts(self.counts, self.pts.shape[2])
@@ -296,13 +324,41 @@ class _StepGraph:
         self.ref.copy_(new)
 
 
-class M2ScanTracker:
-    """Batched tracker for M2-Track (B tracklets per batch) on the model's
-    device. `cuda_graph` (the default) replays a captured step on the card;
-    False runs the eager loop there too. A capture that fails raises."""
+def _score(sequence, box_params, wlhs, config, A_np):
+    """Host scoring of one tracklet: results_bbs is the first gt box, then
+    each predicted (T - 1, 4) box with its wlh (`wlhs[t]`) -> (ious,
+    distances, results_bbs)."""
+    results_bbs = [sequence[0]["3d_bbox"]]
+    for t in range(len(sequence) - 1):
+        cx, cy, cz, th = (float(v) for v in box_params[t])
+        results_bbs.append(
+            Box([cx, cy, cz], np.asarray(wlhs[t]).tolist(),
+                Quaternion(matrix=rigid.rotation_from_theta(th, A_np))))
+    ious, distances = [], []
+    for t, frame in enumerate(sequence):
+        gt = frame["3d_bbox"]
+        ious.append(estimateOverlap(gt, results_bbs[t], dim=config.IoU_space,
+                                    up_axis=config.up_axis))
+        distances.append(estimateAccuracy(gt, results_bbs[t], dim=config.IoU_space,
+                                          up_axis=config.up_axis))
+    return ious, distances, results_bbs
 
-    def __init__(self, model, config, max_points: int = 4096, frame_bucket: int = 16,
-                 compute_dtype=None, transfer_dtype=None, cuda_graph: bool = True):
+
+class _ScanTracker:
+    """The host plumbing of the scan trackers (M2 here, BAT/P2B in
+    tracking/scan_matching.py): padding and packing a batch into pinned
+    host tensors, their copies to the device, the captured graphs keyed on
+    the weights, on-device or host scoring.
+
+    A subclass gives `_make_step(model)`, `track_frames(pts, counts, wlh,
+    init, *extra[, gt_params, gt_wlh])` (the gt arrays when `gt_inputs`),
+    `_extra_inputs(sequences)` (host arrays shipped after init) and
+    `_frame_wlh(sequence)` (each predicted box's wlh, host scoring)."""
+
+    gt_inputs = False  # whether tracking reads the per-frame gt boxes
+
+    def __init__(self, model, config, max_points: int, frame_bucket: int, transfer_dtype,
+                 cuda_graph: bool):
         # 'int16' ships fixed-point frame points (half the H2D bytes,
         # dequantized on the device); None ships exact f32. Falls back to
         # config.transfer_quant when not given.
@@ -311,11 +367,9 @@ class M2ScanTracker:
         if transfer_dtype not in (None, "int16"):
             raise ValueError(f"transfer_dtype must be None or 'int16', got {transfer_dtype!r}")
         self.transfer_dtype = transfer_dtype
-        self.compute_dtype = compute_dtype
         self.config = config
         self.max_points = max_points
         self.frame_bucket = frame_bucket
-        self.box_aware = bool(getattr(config, "box_aware", False))
         self.device = model.device
         self._A = rigid.up_frame(config.up_axis, device=self.device)
         self._A_np = None if self._A is None else self._A.cpu().numpy()
@@ -326,8 +380,7 @@ class M2ScanTracker:
     def set_model(self, model) -> None:
         """Track with `model`'s net from now on (dropping captured graphs)."""
         self.model = model
-        self._step = make_m2_step(model.net, self.config, self._A, self.box_aware,
-                                  self.compute_dtype)
+        self._step = self._make_step(model)
         self.reset_graphs()
 
     def reset_graphs(self) -> None:
@@ -335,22 +388,145 @@ class M2ScanTracker:
         self._graphs_weights = None
         self.replays = 0  # graph replays since the graphs were (re)captured
 
-    # --- the frame loop (device) --------------------------------------------
-    def _graph_for(self, B: int, P: int) -> _StepGraph:
-        """The captured step for (B, P), captured anew after the weights changed
-        (a graph keeps the folded weights it was captured with)."""
+    def _captured(self, shape: tuple, make):
+        """The captured step for `shape` (made by make()), captured anew after
+        the weights changed (a graph keeps the folded weights it was captured
+        with)."""
         key = weights_key(self.model.net)
         if key != self._graphs_weights:
             self.reset_graphs()
             self._graphs_weights = key
-        if (B, P) not in self._graphs:
-            self._graphs[(B, P)] = _StepGraph(self._step, B, P, self.device)
-        return self._graphs[(B, P)]
+        if shape not in self._graphs:
+            self._graphs[shape] = make()
+        return self._graphs[shape]
 
     def graph_launches(self) -> dict:
-        """K1/K2 launches of the captured graphs: captured per replay x replays."""
+        """The kernels' launches of the captured graphs: captured per replay x replays."""
         per = [g.launches for g in self._graphs.values()]
         return {"captured_per_replay": per, "replays": self.replays}
+
+    # --- host-side driver -------------------------------------------------
+    def _bucket_len(self, T: int) -> int:
+        return max(2, -(-T // self.frame_bucket) * self.frame_bucket)
+
+    def _extra_inputs(self, sequences) -> tuple:
+        return ()
+
+    def _prepare(self, sequences: Sequence[list]):
+        """Pad a tracklet batch and pack it for the transfer: (sequences,
+        T_pad, host tensors [*packed points, counts, wlh, init, *extra])."""
+        sequences = list(sequences)
+        B = len(sequences)
+        T_pad = max(self._bucket_len(len(s)) for s in sequences)
+        P = self.max_points
+        pts = np.zeros((B, T_pad, P, 3), np.float32)
+        valid = np.zeros((B, T_pad, P), bool)
+        wlh = np.zeros((B, 3), np.float32)
+        init = np.zeros((B, 4), np.float32)
+        for b, seq in enumerate(sequences):
+            for t, frame in enumerate(seq):
+                pts[b, t], valid[b, t] = pad_frame(frame["pc"].points.T, P)
+            first_box = seq[0]["3d_bbox"]
+            wlh[b] = first_box.wlh
+            theta0 = rigid.theta_from_rotation(first_box.rotation_matrix, self._A_np)
+            init[b] = np.append(first_box.center, theta0)
+        host = self._host(*_pack_transfer(self.transfer_dtype, pts, valid), _counts(valid),
+                          wlh, init, *self._extra_inputs(sequences))
+        return sequences, T_pad, host
+
+    def _host(self, *arrays) -> list:
+        """numpy arrays as CPU tensors, in pinned memory when the tracker runs
+        on the card (so that their copies to it need not block)."""
+        out = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+        return [t.pin_memory() for t in out] if self.device.type == "cuda" else out
+
+    def _on_device(self, host: list) -> list:
+        """A batch's host tensors -> [pts f32, counts, wlh, init, *extra] on
+        the device, by non-blocking copies; int16 points are dequantized there."""
+        dev = [t.to(self.device, non_blocking=True) for t in host]
+        if self.transfer_dtype is None:
+            return dev
+        scale, off, q, *rest = dev
+        return [dequantize(q, scale, off), *rest]
+
+    def _dispatch(self, host: list, gt: list):
+        """Copy a batch to the device and track it: -> (boxes, wlh, init,
+        gt on the device)."""
+        pts, counts, wlh, init, *extra = self._on_device(host)
+        gt_dev = [t.to(self.device, non_blocking=True) for t in gt]
+        boxes = self.track_frames(pts, counts, wlh, init, *extra,
+                                  *(gt_dev if self.gt_inputs else ()))
+        return boxes, wlh, init, gt_dev
+
+    def _gt_host(self, sequences, T_pad: int) -> list:
+        return self._host(*_gt_arrays(sequences, T_pad, self._A_np))
+
+    def track_batch(self, sequences: Sequence[list]) -> List[np.ndarray]:
+        """Run B tracklets (same padded length bucket) as one batch.
+
+        Returns a list of (T_i - 1, 4) world-frame box parameter arrays.
+        """
+        sequences, T_pad, host = self._prepare(sequences)
+        gt = self._gt_host(sequences, T_pad) if self.gt_inputs else []
+        boxes = self._dispatch(host, gt)[0].cpu().numpy()
+        return [boxes[b, : len(seq) - 1] for b, seq in enumerate(sequences)]
+
+    def _pred_wlh(self, wlh: torch.Tensor, gt_wlh: torch.Tensor) -> torch.Tensor:
+        """The predicted boxes' wlh for the scorer: (B, 3), or (B, T, 3)."""
+        return wlh
+
+    def dispatch_scored(self, sequences: Sequence[list], prep_cache=None, cache_key=None):
+        """Track AND score a batch on the device; no host sync.
+
+        Returns (iou, dist) (B, T_pad) device tensors (slice [b, :len(seq)]
+        per tracklet). prep_cache/cache_key: optional dict + key caching the
+        packed host tensors across calls (the caller owns invalidation).
+        """
+        if prep_cache is not None and cache_key in prep_cache:
+            host, gt = prep_cache[cache_key]
+        else:
+            sequences, T_pad, host = self._prepare(sequences)
+            gt = self._gt_host(sequences, T_pad)
+            if prep_cache is not None:
+                prep_cache[cache_key] = (host, gt)
+        boxes, wlh, init, (gt_params, gt_wlh) = self._dispatch(host, gt)
+        if self._scorer is None:
+            self._scorer = _make_scorer(self.config)
+        return self._scorer(boxes, init, self._pred_wlh(wlh, gt_wlh), gt_params, gt_wlh)
+
+    def _frame_wlh(self, sequence) -> list:
+        """Each predicted box's wlh: the first box's (getOffsetBB copies the
+        anchor's wlh, and the chain's anchor keeps the first box's)."""
+        return [sequence[0]["3d_bbox"].wlh] * (len(sequence) - 1)
+
+    def evaluate_one_sequence(self, sequence, config):
+        return self.evaluate_sequences([sequence], config)[0]
+
+    def evaluate_sequences(self, sequences, config):
+        """Batched tracking + host scoring; returns list of (ious, distances, boxes)."""
+        all_boxes = self.track_batch(sequences)
+        return [_score(seq, boxes, self._frame_wlh(seq), config, self._A_np)
+                for seq, boxes in zip(sequences, all_boxes)]
+
+
+class M2ScanTracker(_ScanTracker):
+    """Batched tracker for M2-Track (B tracklets per batch) on the model's
+    device. `cuda_graph` (the default) replays a captured step on the card;
+    False runs the eager loop there too. A capture that fails raises."""
+
+    def __init__(self, model, config, max_points: int = 4096, frame_bucket: int = 16,
+                 compute_dtype=None, transfer_dtype=None, cuda_graph: bool = True):
+        self.compute_dtype = compute_dtype
+        self.box_aware = bool(getattr(config, "box_aware", False))
+        super().__init__(model, config, max_points, frame_bucket, transfer_dtype, cuda_graph)
+
+    def _make_step(self, model):
+        return make_m2_step(model.net, self.config, self._A, self.box_aware, self.compute_dtype)
+
+    # --- the frame loop (device) --------------------------------------------
+    def _graph_for(self, B: int, P: int) -> _StepGraph:
+        """The captured step for (B, P)."""
+        return self._captured((B, P), lambda: _StepGraph(self._step, B, P, self.device))
 
     def track_frames(self, pts: torch.Tensor, counts: torch.Tensor, wlh: torch.Tensor,
                      init: torch.Tensor) -> torch.Tensor:
@@ -380,113 +556,6 @@ class M2ScanTracker:
             boxes[:, t] = ref
         return boxes
 
-    # --- host-side driver -------------------------------------------------
-    def _pad_frames(self, sequence, T_pad):
-        P = self.max_points
-        pts = np.zeros((T_pad, P, 3), np.float32)
-        valid = np.zeros((T_pad, P), bool)
-        for t, frame in enumerate(sequence):
-            pts[t], valid[t] = pad_frame(frame["pc"].points.T, P)
-        return pts, valid
-
-    def _bucket_len(self, T: int) -> int:
-        return max(2, -(-T // self.frame_bucket) * self.frame_bucket)
-
-    def _prepare(self, sequences: Sequence[list]):
-        """Pad a tracklet batch and pack it for the transfer: (sequences,
-        T_pad, host tensors [*packed points, counts, wlh, init])."""
-        sequences = list(sequences)
-        B = len(sequences)
-        T_pad = max(self._bucket_len(len(s)) for s in sequences)
-        P = self.max_points
-        pts = np.zeros((B, T_pad, P, 3), np.float32)
-        valid = np.zeros((B, T_pad, P), bool)
-        wlh = np.zeros((B, 3), np.float32)
-        init = np.zeros((B, 4), np.float32)
-        for b, seq in enumerate(sequences):
-            pts[b], valid[b] = self._pad_frames(seq, T_pad)
-            first_box = seq[0]["3d_bbox"]
-            wlh[b] = first_box.wlh
-            theta0 = rigid.theta_from_rotation(first_box.rotation_matrix, self._A_np)
-            init[b] = np.append(first_box.center, theta0)
-        host = self._host(*_pack_transfer(self.transfer_dtype, pts, valid), _counts(valid),
-                          wlh, init)
-        return sequences, T_pad, host
-
-    def _host(self, *arrays) -> list:
-        """numpy arrays as CPU tensors, in pinned memory when the tracker runs
-        on the card (so that their copies to it need not block)."""
-        out = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
-        return [t.pin_memory() for t in out] if self.device.type == "cuda" else out
-
-    def _on_device(self, host: list):
-        """A batch's host tensors -> (pts f32, counts, wlh, init) on the device,
-        by non-blocking copies; int16 points are dequantized there."""
-        *packed, counts, wlh, init = [t.to(self.device, non_blocking=True) for t in host]
-        if self.transfer_dtype is None:
-            pts = packed[0]
-        else:
-            scale, off, q = packed
-            pts = dequantize(q, scale, off)
-        return pts, counts, wlh, init
-
-    def track_batch(self, sequences: Sequence[list]) -> List[np.ndarray]:
-        """Run B tracklets (same padded length bucket) as one batch.
-
-        Returns a list of (T_i - 1, 4) world-frame box parameter arrays.
-        """
-        sequences, _, host = self._prepare(sequences)
-        boxes = self.track_frames(*self._on_device(host)).cpu().numpy()
-        return [boxes[b, : len(seq) - 1] for b, seq in enumerate(sequences)]
-
-    def dispatch_scored(self, sequences: Sequence[list], prep_cache=None, cache_key=None):
-        """Track AND score a batch on the device; no host sync.
-
-        Returns (iou, dist) (B, T_pad) device tensors (slice [b, :len(seq)]
-        per tracklet). prep_cache/cache_key: optional dict + key caching the
-        packed host tensors across calls (the caller owns invalidation).
-        """
-        if prep_cache is not None and cache_key in prep_cache:
-            host, gt = prep_cache[cache_key]
-        else:
-            sequences, T_pad, host = self._prepare(sequences)
-            gt = self._host(*_gt_arrays(sequences, T_pad, self._A_np))
-            if prep_cache is not None:
-                prep_cache[cache_key] = (host, gt)
-        pts, counts, wlh, init = self._on_device(host)
-        boxes = self.track_frames(pts, counts, wlh, init)
-        if self._scorer is None:
-            self._scorer = _make_scorer(self.config)
-        gt_params, gt_wlh = (t.to(self.device, non_blocking=True) for t in gt)
-        return self._scorer(boxes, init, wlh, gt_params, gt_wlh)
-
-    def _score(self, sequence, box_params, config):
-        first_box = sequence[0]["3d_bbox"]
-        wlh = first_box.wlh.tolist()
-        results_bbs = [first_box]
-        for t in range(len(sequence) - 1):
-            cx, cy, cz, th = (float(v) for v in box_params[t])
-            results_bbs.append(
-                Box([cx, cy, cz], wlh,
-                    Quaternion(matrix=rigid.rotation_from_theta(th, self._A_np))))
-        ious, distances = [], []
-        for t, frame in enumerate(sequence):
-            gt = frame["3d_bbox"]
-            ious.append(estimateOverlap(gt, results_bbs[t], dim=config.IoU_space,
-                                        up_axis=config.up_axis))
-            distances.append(estimateAccuracy(gt, results_bbs[t], dim=config.IoU_space,
-                                              up_axis=config.up_axis))
-        return ious, distances, results_bbs
-
-    def evaluate_one_sequence(self, sequence, config):
-        boxes = self.track_batch([sequence])[0]
-        return self._score(sequence, boxes, config)
-
-    def evaluate_sequences(self, sequences, config):
-        """Batched tracking + host scoring; returns list of (ious, distances, boxes)."""
-        all_boxes = self.track_batch(sequences)
-        return [self._score(seq, boxes, config) for seq, boxes in zip(sequences, all_boxes)]
-
 
 def evaluate_dataset_scan(model, test_sampler, config, max_points: int = 4096,
                           batch_tracklets: int = 16, max_tracklets: Optional[int] = None,
@@ -503,11 +572,21 @@ def evaluate_dataset_scan(model, test_sampler, config, max_points: int = 4096,
     same one with the same sampler and arguments each call) caching the
     batching and the packed host tensors.
     """
-    from open3dsot_tpu_torch.utils.metrics import Precision, Success
-
     if tracker is None:
         tracker = M2ScanTracker(model, config, max_points=max_points)
-    elif tracker.model is not model:
+    return evaluate_with_tracker(tracker, model, test_sampler, config, batch_tracklets,
+                                 max_tracklets, device_metrics, pipeline_depth, prep_cache)
+
+
+def evaluate_with_tracker(tracker: _ScanTracker, model, test_sampler, config,
+                          batch_tracklets: int, max_tracklets: Optional[int],
+                          device_metrics: bool, pipeline_depth: int, prep_cache: Optional[dict]):
+    """The dataset loop of evaluate_dataset_scan and
+    scan_matching.evaluate_dataset_scan_matching on a built tracker, which
+    tracks with `model` from then on; -> (success, precision)."""
+    from open3dsot_tpu_torch.utils.metrics import Precision, Success
+
+    if tracker.model is not model:
         tracker.set_model(model)
     success, precision = Success(), Precision()
     n = len(test_sampler)

@@ -6,8 +6,9 @@ trackers (BAT, P2B) on one device.
   when asked (at log steps), so the other steps never wait for the device.
 - `Trainer.fit`: batches from `data/loader.py::BatchLoader`, whose
   background thread builds the next batches on the host while the device
-  trains; validation every `check_val_every_n_epoch` epochs on the host
-  eval loop (`tracking/eval.py`, the JAX package's `val_tracker: host`);
+  trains; validation every `check_val_every_n_epoch` epochs on the scan
+  tracker (`tracking/scan_matching.py`), or on the host eval loop
+  (`tracking/eval.py`) with `val_tracker: host`;
   `ckpt_best.pt` (best validation precision), `ckpt_last.pt`,
   `ckpt_meta.json` and `history.jsonl` in the work directory.
 
@@ -60,6 +61,8 @@ class Trainer:
         self.log_every = log_every
         self.best_metric = -np.inf
         self.history = []
+        self._val_scan = None  # the scan tracker of validation, built on first use
+        self._val_prep_cache, self._val_prep_cache_for = None, None
         from open3dsot_tpu_torch.utils.logging import ScalarLogger
 
         self.logger = ScalarLogger(self.work_dir,
@@ -102,9 +105,7 @@ class Trainer:
                     "time_s": time.perf_counter() - t0, "data_wait_s": wait}
             if val_sampler is not None and (
                     (epoch + 1) % getattr(cfg, "check_val_every_n_epoch", 1) == 0):
-                from open3dsot_tpu_torch.tracking.eval import evaluate_dataset
-
-                succ, prec = evaluate_dataset(self.model, val_sampler, cfg)
+                succ, prec = self.validate(val_sampler)
                 info.update(success=succ, precision=prec)
                 self.logger.log_scalars({"success/test": succ, "precision/test": prec}, step=step)
                 if prec > self.best_metric:
@@ -117,6 +118,44 @@ class Trainer:
         loader.close()
         self.logger.close()
         return self.history
+
+    def validate(self, val_sampler):
+        """Success/Precision of the current weights on `val_sampler`.
+
+        `config.val_tracker` 'host' runs the host eval loop
+        (tracking/eval.py); 'auto' (the default) and 'scan' run the batched
+        scan tracker (tracking/scan_matching.py), built on the first call and
+        kept with its captured graphs, which it captures again when the
+        weights have changed, and with its prep cache of the padded batches,
+        kept while the sampler is the same object (`val_prep_cache: false`
+        pads them anew each time).
+        """
+        cfg = self.config
+        mode = getattr(cfg, "val_tracker", "auto")
+        if mode not in ("auto", "scan", "host"):
+            raise ValueError(f"val_tracker must be 'auto', 'scan' or 'host', got {mode!r}")
+        self.model.net.eval()  # the scan step calls the net directly
+        try:
+            if mode == "host":
+                from open3dsot_tpu_torch.tracking.eval import evaluate_dataset
+
+                return evaluate_dataset(self.model, val_sampler, cfg)
+            from open3dsot_tpu_torch.tracking.scan_matching import (
+                MatchScanTracker,
+                evaluate_dataset_scan_matching,
+            )
+
+            if self._val_scan is None:
+                self._val_scan = MatchScanTracker(self.model, cfg)
+            if getattr(cfg, "val_prep_cache", True) is False:
+                self._val_prep_cache = None  # large validation splits: pad every time
+            elif self._val_prep_cache_for is not val_sampler:
+                self._val_prep_cache, self._val_prep_cache_for = {}, val_sampler
+            return evaluate_dataset_scan_matching(self.model, val_sampler, cfg,
+                                                  tracker=self._val_scan,
+                                                  prep_cache=self._val_prep_cache)
+        finally:
+            self.model.net.train()
 
     def save_checkpoint(self, optimizer, step: int, epoch: int, name: str) -> str:
         """`ckpt_{name}.pt`: the net's state_dict, the optimizer's, step and epoch."""

@@ -214,6 +214,32 @@ def test_limit_box_zero_matches_jax():
         np.testing.assert_allclose(g, w, atol=1e-3)
 
 
+def test_limit_box_uniform_matches_jax():
+    """The same heads under limit_box_redraw 'uniform': x is redrawn from
+    U(-1, 1) keyed on the step (jax.random.fold_in(PRNGKey(2), step)), the
+    rest kept; one step at the tolerance of the forward, then whole
+    trajectories."""
+    over = dict(limit_box=True, limit_box_redraw="uniform", syn_num_tracklets=2)
+    (jm, variables, jcfg), (port, pcfg) = _pair(seed=13, offset=[5.0, 0.5, 0.3, 0.1], **over)
+    inputs = _step_inputs(get_dataset(pcfg, "test", "test"), 1, None)
+    wlh, ref, *xs = inputs
+    want, _ = js.make_m2_step(jm, jcfg, None, True)(
+        variables, jnp.asarray(wlh), jnp.asarray(ref),
+        tuple(jnp.asarray(x) for x in xs) + (jnp.asarray(3),))
+    got = ps.make_m2_step(port.net, pcfg, None, True)(*(torch.from_numpy(x) for x in inputs),
+                                                      torch.tensor(3))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-4)
+    local = rigid.transform_box_params(got, torch.from_numpy(ref)).numpy()
+    assert np.all(np.abs(local[:, 0]) < 1.0) and np.all(local[:, 0] != 0.0)  # redrawn
+    np.testing.assert_allclose(local[:, 1:], [[0.5, 0.3, 0.1]] * 2, atol=1e-5)
+    jt = js.M2ScanTracker(jm, variables, jcfg, max_points=MAX_POINTS, frame_bucket=4)
+    pt = ps.M2ScanTracker(port, pcfg, max_points=MAX_POINTS, frame_bucket=4)
+    want = jt.track_batch([j_get_dataset(jcfg, "test", "test")[i] for i in range(2)])
+    for g, w in zip(pt.track_batch([get_dataset(pcfg, "test", "test")[i] for i in range(2)]),
+                    want):
+        np.testing.assert_allclose(g, w, atol=1e-3)
+
+
 def _net_inputs(pcfg, inputs):
     """The first step's forward inputs, as make_m2_step builds them."""
     captured = {}
@@ -251,9 +277,11 @@ def test_graphs_captured_again_on_new_weights(pair, monkeypatch):
 
 def test_refusals():
     _, (port, pcfg) = _pair()
+    # limit_box_redraw 'uniform' is no longer refused: it tracks
     uniform = load_config(CFG, dict(OVERRIDES, limit_box=True, limit_box_redraw="uniform"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, section 3"):
-        ps.M2ScanTracker(port, uniform)
+    boxes = ps.M2ScanTracker(port, uniform, max_points=MAX_POINTS, frame_bucket=4).track_batch(
+        [get_dataset(uniform, "test", "test")[0]])[0]
+    assert boxes.shape == (5, 4) and np.isfinite(boxes).all()
     with pytest.raises(NotImplementedError, match="ROADMAP.md, section 1 item 4"):
         ps.M2ScanTracker(port, pcfg, compute_dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -267,6 +295,8 @@ def test_cli_tracker_scan(capsys):
                     "--max_tracklets", "2"])
     last = capsys.readouterr().out.strip().splitlines()[-1]
     assert last.startswith("success/test:") and "precision/test:" in last
-    with pytest.raises(SystemExit, match="section 1 item 3"):
-        port_main.main(["--cfg", "cfgs/BAT_synthetic.yaml", "--test", "--tracker", "scan",
-                        "--device", "cpu"])
+    # BAT's --tracker scan, refused before the matching scan tracker was ported, runs
+    port_main.main(["--cfg", "cfgs/BAT_synthetic.yaml", "--test", "--tracker", "scan",
+                    "--device", "cpu", "--max_tracklets", "2"])
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert last.startswith("success/test:") and "precision/test:" in last
