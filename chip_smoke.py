@@ -8,6 +8,8 @@
     python3 chip_smoke.py --k3-times      # phases 1, 2 and 6 only (K3), no result line
     python3 chip_smoke.py --scan-times    # phases 1, 2 and 15 only (M2 scan), no result line
     python3 chip_smoke.py --match-scan-times  # phases 1, 2 and 16 only (BAT/P2B scan), no result
+    python3 chip_smoke.py --online-times  # phases 1, 2 and 17 only (online trackers), no result
+    python3 chip_smoke.py --eager-rates   # phases 1, 2 and the eager paths' frames/s, no result
 
 Phases, one line or a few each; any failure exits non-zero:
   1. environment: torch / CUDA versions, the card's name and power limit;
@@ -57,7 +59,7 @@ Phases, one line or a few each; any failure exits non-zero:
      synthetic dataset at BAT_Car widths (both paths), a profiler window
      (K3's launches in it beside the profiler's records of them), and the
      CLI on cfgs/BAT_synthetic.yaml.
- 10. printed last, after phase 16: one JSON line of the kernels K1-K6 and
+ 10. printed last, after phase 17: one JSON line of the kernels K1-K6 and
      the probes P1/P2 (each with its bound from this run's shapes), the card
      line, then the result line.
  11. K6 (training-mode SA, 3xTF32 on the tensor cores) forward and backward
@@ -116,6 +118,33 @@ Phases, one line or a few each; any failure exits non-zero:
      launch counts of 0 on a fresh tracker, its on-device scoring against
      host scoring (phase 15's rule), the plain path's Success/Precision, and
      the CLI with --tracker scan on cfgs/BAT_synthetic.yaml.
+ 17. the online trackers (tracking/online.py) at scripts/bench_online.py's
+     configurations (M2 point_sample_size 1024 box_aware; BAT_Car and
+     P2B_Car widths, firstandprevious, previous_result, use_z and limit_box
+     off; max_points 1024, first_crop_points 512) on synthetic tracklets of
+     17 frames, M2 and BAT at B = 8, 16 and 32 slots, P2B at B = 16: the
+     graph path's boxes bit-identical to the scan tracker's at the same B
+     and to the eager advance's, and its first step held to the plain path
+     run in float64 at every B (M2 by `compare`, BAT/P2B at BOX_ATOL, as
+     phases 15 and 16 hold theirs); a stream started mid-flight against the
+     same stream alone (bit-identical at the same B; alone at B = 1 the
+     first step held at 1e-4 and the whole trajectory at BOX_ATOL, the
+     recurrence compounding the first step's rounding); launches a replay by the wrappers
+     (M2 K1 3 / K2 1, BAT K3 2 / K4 7, P2B K4 7) and by the profiler's
+     records; no host sync in the uploads and replays; wall time a step
+     (median of 50 `step()` calls) and its split (padding / H2D / replay and
+     fetch), device time a step and idle share (profiler, one step),
+     frames/s; the eager advance's at B = 16; the int16 path against the
+     f32 path fed the dequantized rows; serving bundles of the M2 and BAT
+     trackers (B = 16) saved with torch.export and loaded in the same
+     process: 16 steps against the live tracker's, their launches, and the
+     loaded graph's replay time against the live graph's; the host time a
+     call of K1, K3 and K4 through their wrappers, through their operators
+     and through their CUDA kernel functions called directly. Then the host
+     loops' and eager scans' frames/s of this run (phases 5, 9, 15, 16)
+     beside this script's last run before the kernels became operators.
+     `--eager-rates` measures those frames/s alone, through entry points an
+     older tree has too, to compare two trees in one call.
 
 Weights are random, made with numpy from a seed in the JAX tree's shape
 (open3dsot_tpu_torch.weights). Needs one card; no network.
@@ -128,6 +157,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -166,6 +196,16 @@ PEAK_BYTES_PER_S = 3.35e12
 # products per multiply-add (3xTF32), so their bound counts 3x their FLOP at
 # this rate.
 PEAK_TF32_FLOPS = 494.7e12
+# Frames/s of the paths that call the kernels' operators eagerly, filled by
+# phases 5, 9, 15 and 16 and printed after phase 17 beside BEFORE_OPERATORS:
+# the same phases in this script's last run on an NVIDIA H100 80GB HBM3 at
+# 700 W before the wrappers called the kernels through operators (they
+# launched them through ctypes directly then; PERF.md keeps that run).
+EAGER_RATES: dict = {}
+BEFORE_OPERATORS = {"M2 host loop": 144.88, "BAT host loop": 109.69,
+             "M2 eager scan B=1": 121.81, "M2 eager scan B=8": 1313.51,
+             "M2 eager scan B=16": 1815.32, "BAT eager scan B=1": 150.43,
+             "BAT eager scan B=8": 973.71, "BAT eager scan B=16": 1778.91}
 
 
 def fail(msg: str) -> None:
@@ -519,6 +559,7 @@ def main(argv=None) -> None:
     chain_only, k6_only = "--chain-times" in args, "--k6-times" in args
     k4_only, k3_only = "--k4-times" in args, "--k3-times" in args
     scan_only, match_only = "--scan-times" in args, "--match-scan-times" in args
+    online_only, rates_only = "--online-times" in args, "--eager-rates" in args
     # --- 1. environment ---------------------------------------------------
     print(f"env: python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
@@ -536,6 +577,7 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     libs = load_libraries(["chain_fused"] if chain_only or scan_only else
                           ["fps", "sa_fused"] if match_only else
+                          ["chain_fused", "fps", "sa_fused"] if online_only or rates_only else
                           ["sa_fused_train"] if k6_only else
                           ["sa_fused"] if k4_only else ["fps", "fps_floor"] if k3_only else
                           ["chain_fused", "fps", "sa_fused", "sa_fused_train", "gather_probe",
@@ -568,6 +610,14 @@ def main(argv=None) -> None:
     if match_only:
         match_scan_phase(card)
         print("match scan times done: phases 1, 2 and 16 only", flush=True)
+        return
+    if online_only:
+        online_phase(card)
+        print("online times done: phases 1, 2 and 17 only", flush=True)
+        return
+    if rates_only:
+        eager_rates(card)
+        print("eager rates done: phases 1 and 2 and the eager paths' frames/s only", flush=True)
         return
 
     # --- 3. kernels vs plain at the main path's shapes --------------------
@@ -637,6 +687,7 @@ def main(argv=None) -> None:
           f"{N_POINTS}: success {succ:.4f} precision {prec:.4f}; {n_frames} forwards in "
           f"{dt:.4f} s = {n_frames / dt:.2f} frames/s (host loop) [{card}]", flush=True)
     print(f"launches in the eval run: K1 {k1_launches} K2 {k2_launches}", flush=True)
+    EAGER_RATES["M2 host loop"] = n_frames / dt
     if not (succ == succ and prec == prec and 0 <= succ <= 100 and 0 <= prec <= 100):
         fail(f"Success/Precision not finite in [0, 100]: {succ}, {prec}")
     if (k1_launches, k2_launches) != (3 * n_frames, n_frames):
@@ -674,6 +725,12 @@ def main(argv=None) -> None:
 
     # --- 16. the matching scan tracker (BAT/P2B) ----------------------------
     match_scan_phase(card)
+
+    # --- 17. the online trackers and their serving bundles ------------------
+    online_phase(card)
+    for k, before in BEFORE_OPERATORS.items():
+        print(f"dispatch: {k} {EAGER_RATES[k]:.2f} frames/s in this run, {before:.2f} before the "
+              f"kernels became operators [{card}]", flush=True)
 
     # --- 10. results ------------------------------------------------------
     kernels = [
@@ -1136,6 +1193,7 @@ def matching_phases(card: str, lib, k4_only: bool = False) -> list:
           flush=True)
     print(f"launches in the BAT eval run: K3 {launches[0]} K4 {launches[1]} K5 {launches[2]}",
           flush=True)
+    EAGER_RATES["BAT host loop"] = n_frames / dt
     if not (np.isfinite([succ, prec]).all() and 0 <= succ <= 100 and 0 <= prec <= 100):
         fail(f"BAT Success/Precision not finite in [0, 100]: {succ}, {prec}")
     if launches != (2 * n_frames, 7 * n_frames, 0):
@@ -1846,6 +1904,7 @@ def scan_phase(card: str) -> None:
         busy_g = sum(dev_us(e) for e in rows_g) / frames
         busy_e = sum(dev_us(e) for e in rows_e) / frames
         wall_g, wall_e = t_g * 1e3 / frames, t_e * 1e3 / frames
+        EAGER_RATES[f"M2 eager scan B={B}"] = frames / t_e * 1e3
         print(f"  scan B={B}: {frames} frames a batch; frames/s graph {frames / t_g * 1e3:.2f} "
               f"eager {frames / t_e * 1e3:.2f} (batch on the card, to a synchronize); device busy "
               f"per frame graph {busy_g:.2f} us eager {busy_e:.2f} us; wall per frame graph "
@@ -2062,6 +2121,7 @@ def match_scan_phase(card: str) -> None:
         busy_g = sum(dev_us(e) for e in rows_g) / frames
         busy_e = sum(dev_us(e) for e in rows_e) / frames
         wall_g, wall_e = t_g * 1e3 / frames, t_e * 1e3 / frames
+        EAGER_RATES[f"BAT eager scan B={B}"] = frames / t_e * 1e3
         print(f"  match scan BAT B={B}: {frames} frames a batch; frames/s graph "
               f"{frames / t_g * 1e3:.2f} eager {frames / t_e * 1e3:.2f} (batch on the card, to a "
               f"synchronize); device busy per frame graph {busy_g:.2f} us eager {busy_e:.2f} us; "
@@ -2177,6 +2237,409 @@ def match_scan_phase(card: str) -> None:
         fail(f"BAT CLI scan eval failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
     print("phase 16 ok: BAT graph == eager bit for bit, K3 x2 and K4 x7 a replay (P2B K4 x7), "
           "device scores == host scores (frame-0 self-IoUs aside)", flush=True)
+
+
+ONLINE_T = 17  # frames a synthetic tracklet in phase 17: 16 steps
+ONLINE_P, ONLINE_FIRST_CROP = 1024, 512  # scripts/bench_online.py's max_points, first_crop_points
+ONLINE_STEPS = 50  # step() calls a wall-time median is taken over
+# wrapper launches captured per replay: (K1, K2, K3, K4)
+ONLINE_LAUNCHES = {"m2track": (3, 1, 0, 0), "bat": (0, 0, 2, 7), "p2b": (0, 0, 0, 7)}
+
+
+def online_cfg(name: str):
+    """scripts/bench_online.py's configurations with 32 synthetic tracklets
+    of ONLINE_T frames: M2 as bench.py builds it, BAT_Car and P2B_Car as
+    phase 16's (firstandprevious, previous_result, use_z and limit_box off)."""
+    if name == "m2track":
+        return bench_cfg(syn_num_tracklets=32, syn_tracklet_len=ONLINE_T)
+    return match_cfg(name, syn_num_tracklets=32, syn_tracklet_len=ONLINE_T)
+
+
+def online_tracker(model, cfg, B: int, **kw):
+    from open3dsot_tpu_torch.tracking.online import make_online_tracker
+
+    if cfg.net_model.lower() != "m2track":
+        kw["first_crop_points"] = ONLINE_FIRST_CROP
+    return make_online_tracker(model, cfg, max_streams=B, max_points=ONLINE_P, **kw)
+
+
+def online_track(tracker, seqs, frames, slots=None, first: int = 1, steps=None):
+    """Reset `slots` (default 0..len(seqs)-1) with the tracklets' first
+    frames, feed frames first, first + 1, ... (`steps` of them, default to
+    the end); -> boxes (len(seqs), steps, 4)."""
+    import numpy as np
+
+    from open3dsot_tpu_torch.tracking.online import OnlineMatchTracker
+
+    slots = list(range(len(seqs))) if slots is None else slots
+    match = isinstance(tracker, OnlineMatchTracker)
+    for slot, seq, f in zip(slots, seqs, frames):
+        tracker.reset(slot, seq[0]["pc"] if match else f[0], seq[0]["3d_bbox"])
+    steps = ONLINE_T - first if steps is None else steps
+    out = [tracker.step({s: f[first + t] for s, f in zip(slots, frames)}) for t in range(steps)]
+    return np.stack([[o[s] for o in out] for s in slots])
+
+
+def online_step_times(tracker, feeds) -> dict:
+    """Per-step wall time (median of the step() calls over `feeds`, host
+    padding, H2D, replay and box fetch included) and its split, in ms."""
+    import torch
+
+    tracker.step(feeds[0])
+    walls = []
+    for f in feeds:
+        t0 = time.perf_counter()
+        tracker.step(f)
+        walls.append(time.perf_counter() - t0)
+    parts = {"pad": [], "h2d": [], "replay+fetch": []}
+    for f in feeds[:20]:
+        t0 = time.perf_counter()
+        host = tracker._pack(f)
+        t1 = time.perf_counter()
+        tracker._upload(host)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        tracker._advance()
+        tracker._state["ref"].cpu()
+        t3 = time.perf_counter()
+        for k, d in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[k].append(d)
+    out = {k: statistics.median(v) * 1e3 for k, v in parts.items()}
+    out["wall"] = statistics.median(walls) * 1e3
+    return out
+
+
+def same(a, b) -> str:
+    import numpy as np
+
+    return "bit-identical to" if np.array_equal(a, b) else "DIFFER from"
+
+
+def online_records(name: str, rows) -> tuple:
+    """Profiler records a step of the kernels of `name`'s path: K1/K2's
+    (chain_tc_kernel, pool_bias_kernel), or K3/K4's (fps_kernel, bq_kernel,
+    sa_tc_kernel)."""
+    return chain_records(rows) if name == "m2track" else k34_records(rows)
+
+
+def online_records_ok(name: str, rec: tuple) -> bool:
+    if name == "m2track":
+        return rec[1] == 1 and rec[0] >= 4
+    return rec == ((2, 7, 7) if name == "bat" else (0, 7, 7))
+
+
+def online_timed(tracker, name: str, feeds, what: str, card: str) -> dict:
+    """Phase 17's timing lines of one tracker: wall and split, device time
+    and idle share of one step, frames/s, profiler records; no host sync in
+    the upload and the advance."""
+    import torch
+
+    B = tracker.max_streams
+    t = online_step_times(tracker, feeds)
+    host = tracker._pack(feeds[0])
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tracker._upload(host)
+        tracker._advance()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for window in range(3):
+        rows = device_rows(lambda: tracker.step(feeds[0]))
+        rec = online_records(name, rows)
+        if online_records_ok(name, rec):
+            break
+        print(f"  {what}: profiler window {window + 1} short of records: {rec}", flush=True)
+    busy = sum(dev_us(e) for e in rows)
+    wall_us = t["wall"] * 1e3
+    print(f"  {what}: wall a step {t['wall']:.4f} ms (median of {len(feeds)} step() calls) = "
+          f"{B / t['wall'] * 1e3:.2f} frames/s; split pad {t['pad']:.4f} / H2D {t['h2d']:.4f} / "
+          f"replay+fetch {t['replay+fetch']:.4f} ms; device time a step {busy:.2f} us, idle share "
+          f"{1 - busy / wall_us:.3f}; profiler records a step {rec} [{card}]", flush=True)
+    if not online_records_ok(name, rec):
+        fail(f"{what}: profiler records of a step {rec}")
+    t["busy_us"] = busy
+    return t
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host time of one call of fn, which enqueues work on the card without
+    waiting for it: the mean over n calls back to back, in us."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def dispatch_cost(card: str, m2, bat) -> None:
+    """Host time a call of K1, K3 and K4 through their wrappers, through
+    their operators (as a loaded serving program calls them) and through
+    their CUDA kernel functions called directly, in turns (wrapper,
+    operator, direct, direct, operator, wrapper), on inputs small enough
+    that each kernel takes less time than its launch: M2's mini PointNet
+    chain on 64 points, FPS of 256 points to 64, BAT's first SA layer at 64
+    centroids. The wrappers call the CUDA functions directly on an untraced
+    CUDA tensor, so wrapper and direct should agree."""
+    import torch
+
+    from open3dsot_tpu_torch.ops import chain_fused as cf
+    from open3dsot_tpu_torch.ops import sa_fused as saf
+    from open3dsot_tpu_torch.ops import sampling as smp
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    chain = m2.net.mini_pointnet.folded_chains()
+    x = torch.randn(1, 64, chain.widths[0], device="cuda", generator=g)
+    xyz = torch.rand(1, 256, 3, device="cuda", generator=g)
+    new = xyz[:, :64].contiguous()
+    sa = bat.net.backbone.sa0
+    folded = sa.folded_chains()
+    kw = dict(radius=sa.radius, normalize_xyz=sa.normalize_xyz, use_xyz=sa.use_xyz)
+    k1 = (x, chain.packed, chain.weights, chain.biases, chain.packed_widths, -1)
+    k3 = (xyz, 64, -1, -1)
+    k4 = (xyz, None, new, [t for layer in folded for t in layer], list(folded.packed),
+          sa.radius, sa.normalize_xyz, sa.use_xyz, sa.nsample, -1)
+    ops = torch.ops.open3dsot
+    calls = {
+        "K1": (lambda: cf.fused_pointnet_encoder(x, chain),
+               lambda: ops.fused_pointnet_encoder.default(*k1), lambda: cf._k1_cuda(*k1)),
+        "K3": (lambda: smp.furthest_point_sample(xyz, 64),
+               lambda: ops.furthest_point_sample.default(*k3), lambda: smp._k3_cuda(*k3)),
+        "K4": (lambda: saf.fused_sa_apply(xyz, None, new, None, folded, nsample=sa.nsample, **kw),
+               lambda: ops.fused_sa_apply.default(*k4), lambda: saf._k4_cuda(*k4)),
+    }
+    parts = []
+    for k, fns in calls.items():
+        t = {fn: [] for fn in fns}
+        for fn in (*fns, *fns[::-1]):
+            t[fn].append(host_us(fn))
+        w, o, d = (statistics.mean(t[fn]) for fn in fns)
+        parts.append(f"{k} {w:.2f} / {o:.2f} / {d:.2f}")
+    print(f"dispatch: host us a call through the wrapper / its operator / the CUDA kernel "
+          f"function called directly: {'; '.join(parts)} [{card}]", flush=True)
+
+
+def eager_rates(card: str) -> None:
+    """--eager-rates: frames/s of the paths that launch the kernels eagerly,
+    through the port's entry points only, so that it runs on an older tree
+    as well (copy this script there and run both trees in turns in one
+    call): the M2 and BAT host loops (evaluate_dataset at phases 5's and
+    9's configurations, the median of three runs after a warm-up) and the
+    M2 and BAT scan trackers' eager paths at B = 1, 8 and 16 (phases 15's
+    and 16's configurations, the batch on the card, `wall_ms`). One line,
+    `eager rates: {json}`."""
+    import torch
+
+    from open3dsot_tpu_torch.data import get_dataset
+    from open3dsot_tpu_torch.tracking.eval import evaluate_dataset
+    from open3dsot_tpu_torch.tracking.scan_matching import MatchScanTracker
+    from open3dsot_tpu_torch.tracking.scan_tracker import M2ScanTracker
+
+    rates = {}
+    for name, cfg in (("M2", bench_cfg()), ("BAT", matching_cfg("bat"))):
+        model, _ = make_model(cfg, fused_eval=True)
+        sampler = get_dataset(cfg, "test", "test")
+        n_frames = sum(len(sampler[i]) - 1 for i in range(len(sampler)))
+        evaluate_dataset(model, sampler, cfg, max_tracklets=1)  # warm-up
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            evaluate_dataset(model, sampler, cfg)
+            torch.cuda.synchronize()
+            runs.append(n_frames / (time.perf_counter() - t0))
+        rates[f"{name} host loop"] = statistics.median(runs)
+    scans = (("M2", bench_cfg(syn_num_tracklets=16, syn_tracklet_len=SCAN_T), M2ScanTracker,
+              dict(max_points=SCAN_MAX_POINTS, frame_bucket=SCAN_T), SCAN_T),
+             ("BAT", match_cfg("bat"), MatchScanTracker, MATCH_KW, MATCH_T))
+    for name, cfg, make, kw, T in scans:
+        model, _ = make_model(cfg, fused_eval=True)
+        sampler = get_dataset(cfg, "test", "test")
+        seqs = [sampler[i] for i in range(len(sampler))]
+        eager = make(model, cfg, cuda_graph=False, **kw)
+        for B in SCAN_BATCHES:
+            dev = to_card(scan_host(eager, seqs[:B]))
+            t = wall_ms(lambda: eager.track_frames(*dev))
+            rates[f"{name} eager scan B={B}"] = B * (T - 1) / t * 1e3
+    print(f"eager rates: {json.dumps(rates)} [{card}]", flush=True)
+
+
+def online_first_step_float64(g, plain, plain_model, scan, seqs, what: str) -> None:
+    """Holds the online graph path's first-step boxes g[:, 0] to the plain
+    path run in float64 on the same batch, as phases 15 and 16 hold the scan
+    trackers' at B = 16: M2 by `compare` (the kernels' tolerance relative to
+    the boxes' size), BAT/P2B at BOX_ATOL. This checks K1/K2 or K3/K4 at
+    the shapes of this B against their plain versions."""
+    import torch
+
+    from open3dsot_tpu_torch.tracking.scan_matching import MatchScanTracker
+
+    dev = to_card(scan_host(scan, seqs))
+    got = torch.from_numpy(g[:, 0]).to(dev[0].device, torch.float64)
+    label = f"{what} first-step boxes, online graph path against the plain path in float64"
+    if not isinstance(plain, MatchScanTracker):
+        compare(label, got, first_step_float64(plain, plain_model, dev))
+        return
+    err = (got - match_first_step_float64(plain, plain_model, dev)).abs().max().item()
+    verdict = "ok" if err <= BOX_ATOL else "FAIL"
+    print(f"  {label}: max_abs_err {err:.3e} (atol {BOX_ATOL}) {verdict}", flush=True)
+    if not err <= BOX_ATOL:
+        fail(f"{what}: first-step boxes {err} from the plain path in float64")
+
+
+def online_phase(card: str) -> None:
+    """Phase 17: the online trackers (tracking/online.py) and their serving
+    bundles (tracking/serving_export.py) on the card; see the module
+    docstring."""
+    import numpy as np
+    import torch
+
+    from open3dsot_tpu_torch.data import get_dataset
+    from open3dsot_tpu_torch.tracking.scan_matching import MatchScanTracker
+    from open3dsot_tpu_torch.tracking.scan_tracker import M2ScanTracker
+    from open3dsot_tpu_torch.tracking.serving_export import (
+        load_serving_bundle,
+        save_serving_bundle,
+    )
+    from open3dsot_tpu_torch.utils.quant import dequantize
+
+    live16 = {}
+    for name, batches in (("m2track", (8, 16, 32)), ("bat", (8, 16, 32)), ("p2b", (16,))):
+        cfg = online_cfg(name)
+        model, variables = make_model(cfg, fused_eval=True)
+        plain_model, _ = make_model(cfg, fused_eval=False, variables=variables)
+        sampler = get_dataset(cfg, "test", "test")
+        seqs = [sampler[i] for i in range(32)]
+        frames = [[f["pc"].points.T.astype(np.float32) for f in seq] for seq in seqs]
+        scan_kw = dict(max_points=ONLINE_P, frame_bucket=ONLINE_T)
+        if name == "m2track":
+            scan = M2ScanTracker(model, cfg, **scan_kw)
+            plain = M2ScanTracker(plain_model, cfg, cuda_graph=False, **scan_kw)
+        else:
+            scan_kw["first_crop_points"] = ONLINE_FIRST_CROP
+            scan = MatchScanTracker(model, cfg, **scan_kw)
+            plain = MatchScanTracker(plain_model, cfg, cuda_graph=False, **scan_kw)
+        for B in batches:
+            what = f"online {name} B={B}"
+            graph = online_tracker(model, cfg, B)
+            eager = online_tracker(model, cfg, B, cuda_graph=False)
+            t0 = time.perf_counter()
+            g = online_track(graph, seqs[:B], frames[:B])  # captures the advance here
+            capture_s = time.perf_counter() - t0
+            e = online_track(eager, seqs[:B], frames[:B])
+            w = np.stack(scan.track_batch(seqs[:B]))
+            per_replay = graph.graph_launches()["captured_per_replay"]
+            print(f"  {what}: graph boxes {same(g, w)} the scan tracker's (max |diff| "
+                  f"{np.abs(g - w).max():.3e}) and {same(g, e)} the eager "
+                  f"advance's (max |diff| {np.abs(g - e).max():.3e}) over {ONLINE_T - 1} steps; "
+                  f"first {ONLINE_T - 1} steps with the capture {capture_s:.3f} s; launches "
+                  f"captured per replay (K1, K2, K3, K4) {per_replay}, {graph.replays} replays "
+                  f"[{card}]", flush=True)
+            if not (np.array_equal(g, w) and np.array_equal(g, e) and np.isfinite(g).all()):
+                fail(f"{what}: the online graph path differs from the scan tracker or the eager "
+                     f"advance, or is not finite")
+            if per_replay != [ONLINE_LAUNCHES[name]]:
+                fail(f"{what}: expected {ONLINE_LAUNCHES[name]} a replay, got {per_replay}")
+            online_first_step_float64(g, plain, plain_model, scan, seqs[:B], what)
+            feeds = [{s: frames[s][1 + i % (ONLINE_T - 1)] for s in range(B)}
+                     for i in range(ONLINE_STEPS)]
+            online_timed(graph, name, feeds, f"{what} graph", card)
+            if B == 16:
+                online_timed(eager, name, feeds, f"{what} eager", card)
+                live16[name] = (model, cfg, graph, seqs[:B], frames[:B])
+        if name == "p2b":
+            continue
+
+        # a stream started mid-flight against the same stream alone, at B = 16 and at B = 1
+        B, late, start = 16, 15, 4
+        tr = online_tracker(model, cfg, B)
+        online_track(tr, seqs[:late], frames[:late], steps=start - 1)
+        match = name != "m2track"
+        tr.reset(late, seqs[late][0]["pc"] if match else frames[late][0], seqs[late][0]["3d_bbox"])
+        got = np.stack([tr.step({**{s: frames[s][t] for s in range(late)},
+                                 late: frames[late][t - start + 1]})[late]
+                        for t in range(start, ONLINE_T)])
+        n = len(got)
+        alone = online_track(online_tracker(model, cfg, B), [seqs[late]], [frames[late]],
+                             slots=[late], steps=n)[0]
+        alone1 = online_track(online_tracker(model, cfg, 1), [seqs[late]], [frames[late]],
+                              steps=n)[0]
+        d1, d1_all = np.abs(got[0] - alone1[0]).max(), np.abs(got - alone1).max()
+        print(f"  online {name}: a stream started at step {start} of 15 running, over {n} steps: "
+              f"{same(got, alone)} the stream "
+              f"alone at B = 16; alone at B = 1 max |diff| {d1:.3e} at its first step (atol "
+              f"1e-4), {d1_all:.3e} over the {n} steps (atol {BOX_ATOL}) [{card}]", flush=True)
+        if not np.array_equal(got, alone) or not d1 <= 1e-4 or not d1_all <= BOX_ATOL:
+            fail(f"online {name}: a stream started mid-flight differs from the stream alone")
+
+        # int16 against f32 fed the dequantized rows, B = 16
+        tq = online_tracker(model, cfg, 16, transfer_dtype="int16")
+        tf = online_tracker(model, cfg, 16)
+        for tr in (tq, tf):
+            online_track(tr, seqs[:16], frames[:16], steps=0)
+        worst = 0.0
+        for t in range(1, ONLINE_T):
+            feed = {s: frames[s][t] for s in range(16)}
+            scale, off, q, counts = tq._pack(feed)
+            deq = dequantize(q, scale, off).numpy()
+            b_q, b_f = tq.step(feed), tf.step({s: deq[s][: int(counts[s])] for s in range(16)})
+            worst = max(worst, max(np.abs(b_q[s] - b_f[s]).max() for s in range(16)))
+        print(f"  online {name} B=16: int16 path against the f32 path fed the dequantized rows, "
+              f"max |diff| {worst:.3e} over {ONLINE_T - 1} steps [{card}]", flush=True)
+        if worst != 0.0:
+            fail(f"online {name}: the int16 path differs from the f32 path on the same rows")
+
+    # serving bundles of the M2 and BAT trackers at B = 16, saved and loaded here
+    with tempfile.TemporaryDirectory(prefix="_bundles-", dir=ROOT) as tmp:
+        for name in ("m2track", "bat"):
+            model, cfg, live, seqs, frames = live16[name]
+            path = Path(tmp) / name
+            t0 = time.perf_counter()
+            save_serving_bundle(live, path)
+            save_s = time.perf_counter() - t0
+            mb = sum(f.stat().st_size for f in path.iterdir()) / 1e6
+            t0 = time.perf_counter()
+            served = load_serving_bundle(path)
+            load_s = time.perf_counter() - t0
+            want = online_track(live, seqs, frames)
+            got = online_track(served, seqs, frames)
+            per_replay = served.graph_launches()["captured_per_replay"]
+            diff = np.abs(got - want).max()
+            print(f"  bundle {name} B=16: saved in {save_s:.2f} s ({mb:.1f} MB), loaded in "
+                  f"{load_s:.2f} s; {ONLINE_T - 1} steps {same(got, want)} "
+                  f"the live tracker's (max |diff| {diff:.3e}); the loaded graph launched (K1, "
+                  f"K2, K3, K4) {per_replay} a replay [{card}]", flush=True)
+            if not np.array_equal(got, want):
+                fail(f"bundle {name}: the loaded tracker's boxes differ from the live one's by "
+                     f"{diff}")
+            if per_replay != [ONLINE_LAUNCHES[name]]:
+                fail(f"bundle {name}: the loaded graph launched {per_replay} a replay")
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                served._advance()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            times = {"live": [], "loaded": []}
+            for who in ("live", "loaded", "loaded", "live"):
+                tr = live if who == "live" else served
+                times[who].append(time_ms(tr._advance, iters=20, repeats=5))
+            t_live, t_loaded = (statistics.mean(times[k]) for k in ("live", "loaded"))
+            print(f"  bundle {name} B=16: replay {t_loaded:.4f} ms loaded against {t_live:.4f} ms "
+                  f"live by events (runs live, loaded, loaded, live: {times}); ratio "
+                  f"{t_loaded / t_live:.3f} [{card}]", flush=True)
+            if abs(t_loaded / t_live - 1) > 0.10:
+                fail(f"bundle {name}: the loaded graph's replay is {t_loaded / t_live:.3f}x the "
+                     f"live graph's")
+            feeds = [{s: frames[s][1 + i % (ONLINE_T - 1)] for s in range(16)}
+                     for i in range(ONLINE_STEPS)]
+            online_timed(served, name, feeds, f"bundle {name} B=16 loaded graph", card)
+    dispatch_cost(card, live16["m2track"][0], live16["bat"][0])
+    print("phase 17 ok: online graph == scan tracker == eager advance bit for bit, launches a "
+          "replay M2 K1 3 / K2 1, BAT K3 2 / K4 7, P2B K4 7, bundles == live", flush=True)
 
 
 def profile_window(model, sampler, cfg, card: str, wall_us_per_frame: float,

@@ -24,6 +24,7 @@ set; the M2 encoders have no training form here yet.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
 import torch
@@ -48,18 +49,60 @@ def weights_key(module: nn.Module):
     return tuple((t.data_ptr(), t._version) for t in (*module.parameters(), *module.buffers()))
 
 
+def _fold_parts(value) -> tuple:
+    """A fold cache's value as its parts: SegPointNet folds into a tuple of
+    two FoldedChains, the others into one FoldedChain or FoldedSA."""
+    return value if type(value) is tuple else (value,)
+
+
 class _FoldCache(nn.Module):
     """Caches `self._fold()` until a parameter or buffer changes."""
+
+    _fold_buffers = None  # the buffers' names, inside `folds_as_buffers`
 
     def folded_chains(self):
         if self.training:
             raise NotImplementedError("the fused chains are eval-only: call .eval()")
+        if self._fold_buffers is not None:
+            tensors = [getattr(self, name) for name in self._fold_buffers]
+            parts = []
+            for part in _fold_parts(self._fold_value):
+                n = len(part.tensors())
+                parts.append(part.with_tensors(tensors[:n]))
+                tensors = tensors[n:]
+            return tuple(parts) if type(self._fold_value) is tuple else parts[0]
         key = weights_key(self)
         if getattr(self, "_fold_key", None) != key:
             with torch.no_grad():
                 self._fold_value = self._fold()
             self._fold_key = key
         return self._fold_value
+
+
+@contextlib.contextmanager
+def folds_as_buffers(net: nn.Module):
+    """Inside: every fold cache of `net` folded once, now, its folded and
+    packed tensors held as buffers of its module (`folded_<i>`, copies), and
+    `folded_chains()` rebuilding its value from those buffers without
+    folding again or reading data pointers. torch.export traces a module
+    with its buffers as the program's own, so an exported step carries the
+    weights its kernels read and traces no fold (`weights_key` reads data
+    pointers, which a traced tensor has none of). Undone on exit."""
+    caches = [m for m in net.modules() if isinstance(m, _FoldCache)]
+    added = {m: [] for m in caches}  # what the finally removes, even after a partial fold
+    try:
+        for m in caches:
+            tensors = [t for part in _fold_parts(m.folded_chains()) for t in part.tensors()]
+            for i, t in enumerate(tensors):
+                added[m].append(f"folded_{i}")
+                m.register_buffer(f"folded_{i}", t.detach().clone())
+            m._fold_buffers = added[m]
+        yield
+    finally:
+        for m, names in added.items():
+            for name in names:
+                m._buffers.pop(name, None)
+            m._fold_buffers = None
 
 
 class MiniPointNet(_FoldCache):

@@ -18,6 +18,15 @@ def on_cuda(x: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {x.device}")
 
 
+def direct(x: torch.Tensor) -> bool:
+    """Whether a wrapper calls its kernel's CUDA function itself, skipping its
+    operator's dispatch (tens of microseconds of host time a call): for a
+    CUDA tensor that is not being traced. torch.export and torch.compile
+    hand the wrappers tensor subclasses, which go through the operator so
+    that a traced program records it."""
+    return type(x) is torch.Tensor and x.is_cuda
+
+
 def check(name: str, t: torch.Tensor, device: torch.device, shape=None,
           dtype: torch.dtype = torch.float32) -> None:
     if t.device != device:

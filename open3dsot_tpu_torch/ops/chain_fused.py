@@ -9,10 +9,19 @@ Two kernels, CUDA C++ in `csrc/chain_fused.cu` (the design note is there):
   K2 `fused_seg_head`: concat(tap, broadcast(pooled)) -> folded chain with
      ReLU -> plain head Dense -> per-point logits.
 
-Each wrapper takes its plain PyTorch version (`pointnet_encoder_plain`,
-`seg_head_plain`) for a tensor on the CPU, and launches its kernel for a
-tensor on a CUDA device, or raises; nothing falls back. Each wrapper counts
-its kernel launches in a plain integer attribute, `<wrapper>.launches`.
+Each kernel is an operator (`open3dsot::fused_pointnet_encoder`,
+`open3dsot::fused_seg_head`, registered with torch.library.custom_op): the
+plain PyTorch version (`pointnet_encoder_plain`, `seg_head_plain`) for a
+tensor on the CPU, the kernel for a tensor on a CUDA device, which raises if
+it cannot build or launch; nothing falls back. The operators take tensors
+and ints, not a `FoldedChain`, and have fake implementations that give
+their outputs' shapes, so that torch.export traces a step through them (the
+launch reads data pointers, which a traced tensor has none of) and a loaded
+program calls them again (tracking/serving_export.py). A wrapper calls its
+operator for a CPU tensor or a traced one, and the operator's CUDA function
+directly for a CUDA tensor (`_launch.direct`), which spares the eager paths
+the dispatch. Each wrapper counts its kernel launches in a plain integer
+attribute, `<wrapper>.launches`.
 
 Layout is channels-last (B, N, C) at every function, as in the JAX package.
 Folded weights are (in, out) float32, as `fold_dense_bn` gives them; the
@@ -23,13 +32,14 @@ the 3xTF32 tensor-core products.
 
 from __future__ import annotations
 
+import copy
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from open3dsot_tpu_torch.ops._launch import check, on_cuda, raise_on, stream_of
+from open3dsot_tpu_torch.ops._launch import check, direct, on_cuda, raise_on, stream_of
 
 BN_EPS = 1e-5  # models/layers.py::DenseBNRelu epsilon, as on the JAX side
 
@@ -132,37 +142,59 @@ class FoldedChain:
     def layers(self):
         return list(zip(self.weights, self.biases))
 
+    def tensors(self) -> List[torch.Tensor]:
+        """Every tensor the kernels and the plain versions read, in the order
+        `with_tensors` takes them."""
+        return [*self.weights, *self.biases, self.packed] + ([self.w_pool] if self.split else [])
+
+    def with_tensors(self, tensors: Sequence[torch.Tensor]) -> "FoldedChain":
+        """This chain with its tensors replaced (in `tensors()`'s order), not
+        packed again."""
+        new, n = copy.copy(self), len(self.weights)
+        new.weights, new.biases = list(tensors[:n]), list(tensors[n:2 * n])
+        new.packed = tensors[2 * n]
+        new.w_pool = tensors[2 * n + 1] if self.split else None
+        return new
+
 
 # --- plain versions -------------------------------------------------------
 
-def pointnet_encoder_plain(x: torch.Tensor, chain: FoldedChain,
-                           tap_at: Optional[int] = None
-                           ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
-    """x (B, N, C) -> (tap (B, N, C_tap) or None, pooled (B, C_last))."""
+def _encoder_layers(x: torch.Tensor, layers, tap_at: Optional[int]):
     h, tap = x, None
-    for i, (w, b) in enumerate(chain.layers):
+    for i, (w, b) in enumerate(layers):
         h = torch.relu(h @ w + b)
         if i == tap_at:
             tap = h
     return tap, h.amax(dim=1)
 
 
-def seg_head_plain(tap: torch.Tensor, pooled: torch.Tensor, chain: FoldedChain) -> torch.Tensor:
-    """tap (B, N, C_tap), pooled (B, C_pool) -> (B, N, C_out); last layer plain."""
+def _seg_head_layers(tap: torch.Tensor, pooled: torch.Tensor, layers) -> torch.Tensor:
     B, N, _ = tap.shape
     h = torch.cat([tap, pooled[:, None, :].expand(B, N, pooled.shape[1])], dim=-1)
-    layers = chain.layers
     for w, b in layers[:-1]:
         h = torch.relu(h @ w + b)
     w, b = layers[-1]
     return h @ w + b
 
 
-# --- kernel wrappers ------------------------------------------------------
+def pointnet_encoder_plain(x: torch.Tensor, chain: FoldedChain,
+                           tap_at: Optional[int] = None
+                           ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """x (B, N, C) -> (tap (B, N, C_tap) or None, pooled (B, C_last))."""
+    return _encoder_layers(x, chain.layers, tap_at)
 
-def _widths(chain: FoldedChain):
-    w = chain.packed_widths
-    return (ctypes.c_int * len(w))(*w), len(w) - 1
+
+def seg_head_plain(tap: torch.Tensor, pooled: torch.Tensor, chain: FoldedChain) -> torch.Tensor:
+    """tap (B, N, C_tap), pooled (B, C_pool) -> (B, N, C_out); last layer plain."""
+    return _seg_head_layers(tap, pooled, chain.layers)
+
+
+# --- the kernels' operators -----------------------------------------------
+# `widths` are a FoldedChain's `packed_widths`; tap_at -1 means no tap, and
+# K1 then returns a (B, N, 0) tap.
+
+def _c_widths(widths: Sequence[int]):
+    return (ctypes.c_int * len(widths))(*widths), len(widths) - 1
 
 
 def _workspace(lib, widths, n_layers: int, B: int, N: int, dev, what: str):
@@ -172,6 +204,83 @@ def _workspace(lib, widths, n_layers: int, B: int, N: int, dev, what: str):
         raise_on(n, what, _ERRORS)
     return torch.empty(max(n, 1), device=dev), n
 
+
+@torch.library.custom_op("open3dsot::fused_pointnet_encoder", mutates_args=(),
+                         device_types="cpu")
+def _k1_op(x: torch.Tensor, packed: torch.Tensor, weights: List[torch.Tensor],
+           biases: List[torch.Tensor], widths: List[int], tap_at: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 on the CPU: the plain version."""
+    tap, pooled = _encoder_layers(x, list(zip(weights, biases)), tap_at)
+    return (x.new_empty(x.shape[0], x.shape[1], 0) if tap is None else tap), pooled
+
+
+@_k1_op.register_fake
+def _k1_fake(x, packed, weights, biases, widths, tap_at):
+    B, N, _ = x.shape
+    return x.new_empty(B, N, widths[tap_at + 1] if tap_at >= 0 else 0), x.new_empty(B, widths[-1])
+
+
+@_k1_op.register_kernel("cuda")
+def _k1_cuda(x, packed, weights, biases, widths, tap_at):
+    from open3dsot_tpu_torch.ops._build import load_library
+
+    B, N, _ = x.shape
+    dev = x.device
+    check("x", x, dev)
+    check("packed weights", packed, dev)
+    tap = torch.empty(B, N, widths[tap_at + 1] if tap_at >= 0 else 0, device=dev)
+    pooled = torch.empty(B, widths[-1], device=dev)
+    c_widths, n_layers = _c_widths(widths)
+    lib = load_library("chain_fused").lib
+    ws, ws_n = _workspace(lib, c_widths, n_layers, B, N, dev, "K1 chain_fused_k1")
+    rc = lib.chain_fused_k1(
+        x.data_ptr(), packed.data_ptr(), packed.numel(), c_widths, n_layers, B, N, tap_at,
+        tap.data_ptr() if tap_at >= 0 else None, pooled.data_ptr(), ws.data_ptr(), ws_n,
+        stream_of(x))
+    raise_on(rc, "K1 chain_fused_k1", _ERRORS)
+    fused_pointnet_encoder.launches += 1
+    return tap, pooled
+
+
+@torch.library.custom_op("open3dsot::fused_seg_head", mutates_args=(), device_types="cpu")
+def _k2_op(tap: torch.Tensor, pooled: torch.Tensor, packed: torch.Tensor, w_pool: torch.Tensor,
+           weights: List[torch.Tensor], biases: List[torch.Tensor], widths: List[int]
+           ) -> torch.Tensor:
+    """K2 on the CPU: the plain version (`weights[0]` is W_tap and W_pool stacked)."""
+    return _seg_head_layers(tap, pooled, list(zip(weights, biases)))
+
+
+@_k2_op.register_fake
+def _k2_fake(tap, pooled, packed, w_pool, weights, biases, widths):
+    return tap.new_empty(tap.shape[0], tap.shape[1], widths[-1])
+
+
+@_k2_op.register_kernel("cuda")
+def _k2_cuda(tap, pooled, packed, w_pool, weights, biases, widths):
+    from open3dsot_tpu_torch.ops._build import load_library
+
+    B, N, _ = tap.shape
+    dev = tap.device
+    check("tap", tap, dev)
+    check("pooled", pooled, dev)
+    check("packed weights", packed, dev)
+    check("w_pool", w_pool, dev)
+    g = torch.empty(B, widths[1], device=dev)
+    out = torch.empty(B, N, widths[-1], device=dev)
+    c_widths, n_layers = _c_widths(widths)
+    lib = load_library("chain_fused").lib
+    ws, ws_n = _workspace(lib, c_widths, n_layers, B, N, dev, "K2 chain_fused_k2")
+    rc = lib.chain_fused_k2(
+        tap.data_ptr(), pooled.data_ptr(), w_pool.data_ptr(), packed.data_ptr(), packed.numel(),
+        c_widths, n_layers, pooled.shape[1], B, N, g.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        ws_n, stream_of(tap))
+    raise_on(rc, "K2 chain_fused_k2", _ERRORS)
+    fused_seg_head.launches += 1
+    return out
+
+
+# --- kernel wrappers ------------------------------------------------------
 
 def fused_pointnet_encoder(x: torch.Tensor, chain: FoldedChain, *,
                            tap_at: Optional[int] = None
@@ -184,29 +293,11 @@ def fused_pointnet_encoder(x: torch.Tensor, chain: FoldedChain, *,
         raise ValueError(f"x must be (B, N, {chain.widths[0]}), got {tuple(x.shape)}")
     if chain.split:
         raise ValueError("K1 takes a chain without a split first layer")
-    if not on_cuda(x):
-        return pointnet_encoder_plain(x, chain, tap_at)
-    from open3dsot_tpu_torch.ops._build import load_library
-
-    B, N, _ = x.shape
-    dev = x.device
-    check("x", x, dev)
-    check("packed weights", chain.packed, dev)
-    tap = None
-    if tap_at is not None:
-        tap = torch.empty(B, N, chain.widths[tap_at + 1], device=dev)
-    pooled = torch.empty(B, chain.widths[-1], device=dev)
-    widths, n_layers = _widths(chain)
-    lib = load_library("chain_fused").lib
-    ws, ws_n = _workspace(lib, widths, n_layers, B, N, dev, "K1 chain_fused_k1")
-    rc = lib.chain_fused_k1(
-        x.data_ptr(), chain.packed.data_ptr(), chain.packed.numel(), widths, n_layers,
-        B, N, -1 if tap_at is None else tap_at,
-        None if tap is None else tap.data_ptr(), pooled.data_ptr(),
-        ws.data_ptr(), ws_n, stream_of(x))
-    raise_on(rc, "K1 chain_fused_k1", _ERRORS)
-    fused_pointnet_encoder.launches += 1
-    return tap, pooled
+    on_cuda(x)  # a device with neither a kernel nor a plain version raises
+    tap, pooled = (_k1_cuda if direct(x) else _k1_op)(
+        x, chain.packed, chain.weights, chain.biases, chain.packed_widths,
+        -1 if tap_at is None else tap_at)
+    return (None if tap_at is None else tap), pooled
 
 
 def fused_seg_head(tap: torch.Tensor, pooled: torch.Tensor, chain: FoldedChain) -> torch.Tensor:
@@ -221,28 +312,10 @@ def fused_seg_head(tap: torch.Tensor, pooled: torch.Tensor, chain: FoldedChain) 
     if chain.split != tap.shape[2] or chain.widths[0] != tap.shape[2] + pooled.shape[1]:
         raise ValueError(f"chain split {chain.split} / width {chain.widths[0]} does not match "
                          f"tap {tap.shape[2]} + pooled {pooled.shape[1]}")
-    if not on_cuda(tap):
-        return seg_head_plain(tap, pooled, chain)
-    from open3dsot_tpu_torch.ops._build import load_library
-
-    B, N, _ = tap.shape
-    dev = tap.device
-    check("tap", tap, dev)
-    check("pooled", pooled, dev)
-    check("packed weights", chain.packed, dev)
-    check("w_pool", chain.w_pool, dev)
-    g = torch.empty(B, chain.widths[1], device=dev)
-    out = torch.empty(B, N, chain.widths[-1], device=dev)
-    widths, n_layers = _widths(chain)
-    lib = load_library("chain_fused").lib
-    ws, ws_n = _workspace(lib, widths, n_layers, B, N, dev, "K2 chain_fused_k2")
-    rc = lib.chain_fused_k2(
-        tap.data_ptr(), pooled.data_ptr(), chain.w_pool.data_ptr(), chain.packed.data_ptr(),
-        chain.packed.numel(), widths, n_layers, pooled.shape[1], B, N,
-        g.data_ptr(), out.data_ptr(), ws.data_ptr(), ws_n, stream_of(tap))
-    raise_on(rc, "K2 chain_fused_k2", _ERRORS)
-    fused_seg_head.launches += 1
-    return out
+    on_cuda(tap)
+    return (_k2_cuda if direct(tap) else _k2_op)(
+        tap, pooled, chain.packed, chain.w_pool, chain.weights, chain.biases,
+        chain.packed_widths)
 
 
 fused_pointnet_encoder.launches = 0

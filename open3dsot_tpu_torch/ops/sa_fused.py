@@ -21,8 +21,12 @@ built once where SetAbstraction caches its folded weights.
 `sa_eval_plain` is the plain PyTorch version: ball query by direct
 differences (ops/neighbors.py::ball_query), group, centre, the folded MLP
 over the (B, S, K, C) grid, max over K. The wrapper takes it for a CPU
-tensor and launches the kernel for a CUDA tensor, or raises. Launches are
-counted in `fused_sa_apply.launches` (K4) and
+tensor and launches the kernel for a CUDA tensor, or raises. K4 is an
+operator (`open3dsot::fused_sa_apply`, registered with
+torch.library.custom_op, with a fake implementation for torch.export; see
+ops/chain_fused.py), which takes the folded and packed weights as tensor
+lists; the wrapper calls it, or launches K4 itself for a CUDA tensor that
+is not being traced. K5, which no model calls, is launched directly. Launches are counted in `fused_sa_apply.launches` (K4) and
 `fused_sa_apply.idx_launches` (K5).
 
 Layout is channels-last (B, N, C); `folded` is the three (W' (in, out),
@@ -33,11 +37,11 @@ which uses ops/chain_fused.py::fold_dense_bn), as a plain sequence or a
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from open3dsot_tpu_torch.ops._launch import check, on_cuda, raise_on, stream_of
+from open3dsot_tpu_torch.ops._launch import check, direct, on_cuda, raise_on, stream_of
 from open3dsot_tpu_torch.ops.chain_fused import pack_chunks
 from open3dsot_tpu_torch.ops.grouping import group_points
 from open3dsot_tpu_torch.ops.neighbors import ball_query, radius_sq
@@ -80,6 +84,19 @@ class FoldedSA(tuple):
     def __init__(self, layers):
         super().__init__()
         self.packed = pack_sa(self) if len(self) == 3 and self[0][0].is_cuda else None
+
+    def tensors(self) -> List[torch.Tensor]:
+        """The layers' tensors, then the packed ones, in the order
+        `with_tensors` takes them."""
+        return [t for layer in self for t in layer] + list(self.packed or ())
+
+    def with_tensors(self, tensors: Sequence[torch.Tensor]) -> "FoldedSA":
+        """These layers with their tensors replaced (in `tensors()`'s order),
+        not packed again."""
+        n = 2 * len(self)
+        new = tuple.__new__(FoldedSA, (tuple(tensors[i:i + 2]) for i in range(0, n, 2)))
+        new.packed = None if self.packed is None else PackedSA(*tensors[n:])
+        return new
 
 
 def a_rows(xyz: torch.Tensor, features: Optional[torch.Tensor], w1: torch.Tensor, *,
@@ -137,30 +154,16 @@ def sa_eval_plain(xyz: torch.Tensor, features: Optional[torch.Tensor], new_xyz: 
     return grouped.amax(dim=2)
 
 
-def fused_sa_apply(xyz: torch.Tensor, features: Optional[torch.Tensor], new_xyz: torch.Tensor,
-                   idx: Optional[torch.Tensor], folded: Folded, *, radius: float,
-                   normalize_xyz: bool, use_xyz: bool, nsample: Optional[int] = None,
-                   gather: Optional[str] = None) -> torch.Tensor:
-    """K4 (idx None, pass nsample) or K5 (idx (B, S, K) int32): xyz (B, N, 3),
-    features (B, N, C) or None, new_xyz (B, S, 3) centroids -> (B, S, C3).
-    gather: one of GATHER_FORMS to force the kernel's gather form (to time
-    them), or None for the kernel's own choice."""
-    if len(folded) != 3:
-        raise ValueError(f"the fused SA takes 3 folded layers, got {len(folded)}")
-    if idx is None and nsample is None:
-        raise ValueError("nsample is required when idx is None")
-    if gather is not None and gather not in GATHER_FORMS:
-        raise ValueError(f"gather must be None or one of {GATHER_FORMS}, got {gather!r}")
-    B, N, _ = xyz.shape
-    S = new_xyz.shape[1]
-    K = int(nsample) if idx is None else idx.shape[2]
-    if idx is not None and tuple(idx.shape[:2]) != (B, S):
-        raise ValueError(f"idx must be ({B}, {S}, K), got {tuple(idx.shape)}")
-    if not on_cuda(xyz):
-        return sa_eval_plain(xyz, features, new_xyz, idx, folded, radius=radius,
-                             normalize_xyz=normalize_xyz, use_xyz=use_xyz, nsample=nsample)
+def _launch(xyz: torch.Tensor, features: Optional[torch.Tensor], new_xyz: torch.Tensor,
+            idx: Optional[torch.Tensor], folded: Folded, packed: Optional[PackedSA], *,
+            radius: float, normalize_xyz: bool, use_xyz: bool, K: int, gather: int
+            ) -> torch.Tensor:
+    """Check the inputs against the kernel's and launch it: K4 when idx is
+    None (K neighbors by its ball query), else K5 (idx (B, S, K) int32)."""
     from open3dsot_tpu_torch.ops._build import load_library
 
+    B, N, _ = xyz.shape
+    S = new_xyz.shape[1]
     dev = xyz.device
     (w1, b1), (w2, b2), (w3, b3) = folded
     C1, C2, C3 = w1.shape[1], w2.shape[1], w3.shape[1]
@@ -175,7 +178,7 @@ def fused_sa_apply(xyz: torch.Tensor, features: Optional[torch.Tensor], new_xyz:
     for name, t, shape in (("w1", w1, (c_in, C1)), ("b1", b1, (C1,)), ("w2", w2, (C1, C2)),
                            ("b2", b2, (C2,)), ("w3", w3, (C2, C3)), ("b3", b3, (C3,))):
         check(name, t, dev, shape)
-    packed = getattr(folded, "packed", None) or pack_sa(folded)
+    packed = packed or pack_sa(folded)
     if packed.w2.device != dev:
         raise ValueError(f"the packed weights are on {packed.w2.device}, expected {dev}")
     inv_r = 1.0 / radius if normalize_xyz else 1.0
@@ -188,13 +191,76 @@ def fused_sa_apply(xyz: torch.Tensor, features: Optional[torch.Tensor], new_xyz:
         packed.w1x.data_ptr() if reads_xyz else None, packed.b1.data_ptr(),
         packed.w2.data_ptr(), packed.w2.numel(), packed.b2.data_ptr(), packed.w3.data_ptr(),
         packed.w3.numel(), packed.b3.data_ptr(), out.data_ptr(), B, N, S, K, C1, C2, C3,
-        radius_sq(radius), inv_r, -1 if gather is None else GATHER_FORMS.index(gather),
-        stream_of(xyz))
+        radius_sq(radius), inv_r, gather, stream_of(xyz))
+    raise_on(rc, "K4 sa_fused_k4 (ball query)" if idx is None else "K5 sa_fused_k4 (idx given)",
+             _ERRORS)
+    return out
+
+
+def _pairs(layers: Sequence[torch.Tensor]) -> tuple:
+    return tuple(tuple(layers[i:i + 2]) for i in range(0, len(layers), 2))
+
+
+# K4's operator: `layers` the three folded layers flat (w1, b1, w2, b2, w3,
+# b3), `packed` their PackedSA (six tensors) or empty; gather -1 is the
+# kernel's own choice of gather form.
+@torch.library.custom_op("open3dsot::fused_sa_apply", mutates_args=(), device_types="cpu")
+def _k4_op(xyz: torch.Tensor, features: Optional[torch.Tensor], new_xyz: torch.Tensor,
+           layers: List[torch.Tensor], packed: List[torch.Tensor], radius: float,
+           normalize_xyz: bool, use_xyz: bool, nsample: int, gather: int) -> torch.Tensor:
+    """K4 on the CPU: the plain version."""
+    return sa_eval_plain(xyz, features, new_xyz, None, _pairs(layers), radius=radius,
+                         normalize_xyz=normalize_xyz, use_xyz=use_xyz, nsample=nsample)
+
+
+@_k4_op.register_fake
+def _k4_fake(xyz, features, new_xyz, layers, packed, radius, normalize_xyz, use_xyz, nsample,
+             gather):
+    return new_xyz.new_empty(new_xyz.shape[0], new_xyz.shape[1], layers[4].shape[1])
+
+
+@_k4_op.register_kernel("cuda")
+def _k4_cuda(xyz, features, new_xyz, layers, packed, radius, normalize_xyz, use_xyz, nsample,
+             gather):
+    out = _launch(xyz, features, new_xyz, None, _pairs(layers),
+                  PackedSA(*packed) if packed else None, radius=radius,
+                  normalize_xyz=normalize_xyz, use_xyz=use_xyz, K=nsample, gather=gather)
+    fused_sa_apply.launches += 1
+    return out
+
+
+def fused_sa_apply(xyz: torch.Tensor, features: Optional[torch.Tensor], new_xyz: torch.Tensor,
+                   idx: Optional[torch.Tensor], folded: Folded, *, radius: float,
+                   normalize_xyz: bool, use_xyz: bool, nsample: Optional[int] = None,
+                   gather: Optional[str] = None) -> torch.Tensor:
+    """K4 (idx None, pass nsample) or K5 (idx (B, S, K) int32): xyz (B, N, 3),
+    features (B, N, C) or None, new_xyz (B, S, 3) centroids -> (B, S, C3).
+    gather: one of GATHER_FORMS to force the kernel's gather form (to time
+    them), or None for the kernel's own choice."""
+    if len(folded) != 3:
+        raise ValueError(f"the fused SA takes 3 folded layers, got {len(folded)}")
+    if idx is None and nsample is None:
+        raise ValueError("nsample is required when idx is None")
+    if gather is not None and gather not in GATHER_FORMS:
+        raise ValueError(f"gather must be None or one of {GATHER_FORMS}, got {gather!r}")
+    B = xyz.shape[0]
+    S = new_xyz.shape[1]
+    if idx is not None and tuple(idx.shape[:2]) != (B, S):
+        raise ValueError(f"idx must be ({B}, {S}, K), got {tuple(idx.shape)}")
+    cuda = on_cuda(xyz)  # a device with neither a kernel nor a plain version raises
+    gather_form = -1 if gather is None else GATHER_FORMS.index(gather)
+    kw = dict(radius=radius, normalize_xyz=normalize_xyz, use_xyz=use_xyz)
+    packed = getattr(folded, "packed", None)
+    if idx is None and not direct(xyz):
+        return _k4_op(xyz, features, new_xyz, [t for layer in folded for t in layer],
+                      list(packed or ()), nsample=int(nsample), gather=gather_form, **kw)
+    if not cuda:
+        return sa_eval_plain(xyz, features, new_xyz, idx, folded, **kw)
+    K = int(nsample) if idx is None else idx.shape[2]
+    out = _launch(xyz, features, new_xyz, idx, folded, packed, K=K, gather=gather_form, **kw)
     if idx is None:
-        raise_on(rc, "K4 sa_fused_k4 (ball query)", _ERRORS)
         fused_sa_apply.launches += 1
     else:
-        raise_on(rc, "K5 sa_fused_k4 (idx given)", _ERRORS)
         fused_sa_apply.idx_launches += 1
     return out
 

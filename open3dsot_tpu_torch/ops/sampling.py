@@ -7,8 +7,11 @@ running min that starts at 1e10, argmax with the lowest index on ties.
 The indices are exact, so every rounding is pinned: the kernel
 (csrc/fps.cu) computes d^2 with __fmul_rn/__fadd_rn in the same order.
 
-`furthest_point_sample` takes the plain version for a CPU tensor and
-launches K3 for a CUDA tensor, or raises. Launches are counted in
+K3 is an operator (`open3dsot::furthest_point_sample`, registered with
+torch.library.custom_op, with a fake implementation for torch.export; see
+ops/chain_fused.py): the plain version for a CPU tensor, K3 for a CUDA
+tensor, or it raises. `furthest_point_sample` calls the operator, or its
+CUDA function directly for a CUDA tensor that is not being traced. Launches are counted in
 `furthest_point_sample.launches`. K3's block (T threads, PPT points a
 thread) is chosen here, by `fps_block`, and where the winner's coordinates
 come from by `fps_winner`; the kernel only checks them.
@@ -20,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from open3dsot_tpu_torch.ops._launch import check, on_cuda, raise_on, stream_of
+from open3dsot_tpu_torch.ops._launch import check, direct, on_cuda, raise_on, stream_of
 
 MAX_N = 32768
 MAX_PPT = 32
@@ -79,6 +82,36 @@ def furthest_point_sample_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return idxs.int()
 
 
+@torch.library.custom_op("open3dsot::furthest_point_sample", mutates_args=(),
+                         device_types="cpu")
+def _k3_op(xyz: torch.Tensor, npoint: int, threads: int, winner: int) -> torch.Tensor:
+    """K3 on the CPU: the plain version. threads / winner -1: K3's own choice."""
+    return furthest_point_sample_plain(xyz, npoint)
+
+
+@_k3_op.register_fake
+def _k3_fake(xyz, npoint, threads, winner):
+    return xyz.new_empty(xyz.shape[0], npoint, dtype=torch.int32)
+
+
+@_k3_op.register_kernel("cuda")
+def _k3_cuda(xyz, npoint, threads, winner):
+    from open3dsot_tpu_torch.ops._build import load_library
+
+    B, N, _ = xyz.shape
+    check("xyz", xyz, xyz.device)
+    T, ppt = fps_block(N)
+    if threads >= 0:
+        T, ppt = threads, _pow2_at_least(-(-N // threads))
+    form = winner if winner >= 0 else WINNERS.index(fps_winner(N))
+    out = torch.empty(B, npoint, dtype=torch.int32, device=xyz.device)
+    rc = load_library("fps").lib.fps_k3(xyz.data_ptr(), B, N, npoint, T, ppt, form,
+                                         out.data_ptr(), stream_of(xyz))
+    raise_on(rc, "K3 fps_k3", _ERRORS)
+    furthest_point_sample.launches += 1
+    return out
+
+
 def furthest_point_sample(xyz: torch.Tensor, npoint: int, threads: Optional[int] = None,
                           winner: Optional[str] = None) -> torch.Tensor:
     """K3: xyz (B, N, 3) -> (B, npoint) int32 indices. `threads` and
@@ -88,22 +121,10 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int, threads: Optional[int]
         raise ValueError(f"xyz must be (B, N, 3), got {tuple(xyz.shape)}")
     if winner is not None and winner not in WINNERS:
         raise ValueError(f"winner must be one of {WINNERS}, got {winner!r}")
-    if not on_cuda(xyz):
-        return furthest_point_sample_plain(xyz, npoint)
-    from open3dsot_tpu_torch.ops._build import load_library
-
-    B, N, _ = xyz.shape
-    check("xyz", xyz, xyz.device)
-    T, ppt = fps_block(N)
-    if threads is not None:
-        T, ppt = threads, _pow2_at_least(-(-N // threads))
-    form = WINNERS.index(winner or fps_winner(N))
-    out = torch.empty(B, npoint, dtype=torch.int32, device=xyz.device)
-    rc = load_library("fps").lib.fps_k3(xyz.data_ptr(), B, N, npoint, T, ppt, form,
-                                         out.data_ptr(), stream_of(xyz))
-    raise_on(rc, "K3 fps_k3", _ERRORS)
-    furthest_point_sample.launches += 1
-    return out
+    on_cuda(xyz)  # a device with neither a kernel nor a plain version raises
+    return (_k3_cuda if direct(xyz) else _k3_op)(
+        xyz, int(npoint), -1 if threads is None else int(threads),
+        -1 if winner is None else WINNERS.index(winner))
 
 
 furthest_point_sample.launches = 0

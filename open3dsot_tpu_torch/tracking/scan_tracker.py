@@ -344,21 +344,15 @@ def _score(sequence, box_params, wlhs, config, A_np):
     return ious, distances, results_bbs
 
 
-class _ScanTracker:
-    """The host plumbing of the scan trackers (M2 here, BAT/P2B in
-    tracking/scan_matching.py): padding and packing a batch into pinned
-    host tensors, their copies to the device, the captured graphs keyed on
-    the weights, on-device or host scoring.
+class _DeviceTracker:
+    """What the scan trackers and the online ones (tracking/online.py) share:
+    the transfer codec, the model's device and up frame, pinned host tensors,
+    and captured graphs keyed on the weights. A subclass gives
+    `_make_step(model)`. A tracker with no model (a loaded serving bundle)
+    runs on `device` and keys its graphs on nothing: its weights never
+    change."""
 
-    A subclass gives `_make_step(model)`, `track_frames(pts, counts, wlh,
-    init, *extra[, gt_params, gt_wlh])` (the gt arrays when `gt_inputs`),
-    `_extra_inputs(sequences)` (host arrays shipped after init) and
-    `_frame_wlh(sequence)` (each predicted box's wlh, host scoring)."""
-
-    gt_inputs = False  # whether tracking reads the per-frame gt boxes
-
-    def __init__(self, model, config, max_points: int, frame_bucket: int, transfer_dtype,
-                 cuda_graph: bool):
+    def __init__(self, model, config, transfer_dtype, cuda_graph: bool, device=None):
         # 'int16' ships fixed-point frame points (half the H2D bytes,
         # dequantized on the device); None ships exact f32. Falls back to
         # config.transfer_quant when not given.
@@ -368,14 +362,14 @@ class _ScanTracker:
             raise ValueError(f"transfer_dtype must be None or 'int16', got {transfer_dtype!r}")
         self.transfer_dtype = transfer_dtype
         self.config = config
-        self.max_points = max_points
-        self.frame_bucket = frame_bucket
-        self.device = model.device
+        self.device = model.device if model is not None else torch.device(device)
         self._A = rigid.up_frame(config.up_axis, device=self.device)
         self._A_np = None if self._A is None else self._A.cpu().numpy()
         self.cuda_graph = cuda_graph and self.device.type == "cuda"
-        self._scorer = None  # built lazily by dispatch_scored
-        self.set_model(model)
+        self.model = None
+        self.reset_graphs()
+        if model is not None:
+            self.set_model(model)
 
     def set_model(self, model) -> None:
         """Track with `model`'s net from now on (dropping captured graphs)."""
@@ -392,7 +386,7 @@ class _ScanTracker:
         """The captured step for `shape` (made by make()), captured anew after
         the weights changed (a graph keeps the folded weights it was captured
         with)."""
-        key = weights_key(self.model.net)
+        key = None if self.model is None else weights_key(self.model.net)
         if key != self._graphs_weights:
             self.reset_graphs()
             self._graphs_weights = key
@@ -404,6 +398,33 @@ class _ScanTracker:
         """The kernels' launches of the captured graphs: captured per replay x replays."""
         per = [g.launches for g in self._graphs.values()]
         return {"captured_per_replay": per, "replays": self.replays}
+
+    def _host(self, *arrays) -> list:
+        """numpy arrays as CPU tensors, in pinned memory when the tracker runs
+        on the card (so that their copies to it need not block)."""
+        out = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+        return [t.pin_memory() for t in out] if self.device.type == "cuda" else out
+
+
+class _ScanTracker(_DeviceTracker):
+    """The host plumbing of the scan trackers (M2 here, BAT/P2B in
+    tracking/scan_matching.py): padding and packing a batch into pinned
+    host tensors, their copies to the device, the captured graphs keyed on
+    the weights, on-device or host scoring.
+
+    A subclass gives `_make_step(model)`, `track_frames(pts, counts, wlh,
+    init, *extra[, gt_params, gt_wlh])` (the gt arrays when `gt_inputs`),
+    `_extra_inputs(sequences)` (host arrays shipped after init) and
+    `_frame_wlh(sequence)` (each predicted box's wlh, host scoring)."""
+
+    gt_inputs = False  # whether tracking reads the per-frame gt boxes
+
+    def __init__(self, model, config, max_points: int, frame_bucket: int, transfer_dtype,
+                 cuda_graph: bool):
+        self.max_points = max_points
+        self.frame_bucket = frame_bucket
+        self._scorer = None  # built lazily by dispatch_scored
+        super().__init__(model, config, transfer_dtype, cuda_graph)
 
     # --- host-side driver -------------------------------------------------
     def _bucket_len(self, T: int) -> int:
@@ -433,12 +454,6 @@ class _ScanTracker:
         host = self._host(*_pack_transfer(self.transfer_dtype, pts, valid), _counts(valid),
                           wlh, init, *self._extra_inputs(sequences))
         return sequences, T_pad, host
-
-    def _host(self, *arrays) -> list:
-        """numpy arrays as CPU tensors, in pinned memory when the tracker runs
-        on the card (so that their copies to it need not block)."""
-        out = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
-        return [t.pin_memory() for t in out] if self.device.type == "cuda" else out
 
     def _on_device(self, host: list) -> list:
         """A batch's host tensors -> [pts f32, counts, wlh, init, *extra] on
