@@ -10,6 +10,7 @@
     python3 chip_smoke.py --match-scan-times  # phases 1, 2 and 16 only (BAT/P2B scan), no result
     python3 chip_smoke.py --online-times  # phases 1, 2 and 17 only (online trackers), no result
     python3 chip_smoke.py --eager-rates   # phases 1, 2 and the eager paths' frames/s, no result
+    python3 chip_smoke.py --bf16-times    # phases 1, 2 and 18 only (the bf16 mode), no result
 
 Phases, one line or a few each; any failure exits non-zero:
   1. environment: torch / CUDA versions, the card's name and power limit;
@@ -59,9 +60,9 @@ Phases, one line or a few each; any failure exits non-zero:
      synthetic dataset at BAT_Car widths (both paths), a profiler window
      (K3's launches in it beside the profiler's records of them), and the
      CLI on cfgs/BAT_synthetic.yaml.
- 10. printed last, after phase 17: one JSON line of the kernels K1-K6 and
-     the probes P1/P2 (each with its bound from this run's shapes), the card
-     line, then the result line.
+ 10. printed last, after phase 18: one JSON line of the kernels K1-K6 and
+     the probes P1/P2, then K1/K2/K4/K5 in the bf16 mode (each with its bound
+     from this run's shapes), the card line, then the result line.
  11. K6 (training-mode SA, 3xTF32 on the tensor cores) forward and backward
      against their plain versions at the four K6 calls of a BAT train step at
      BAT_Car widths, on the inputs that step gives them (B = 16 and 50, and a
@@ -145,6 +146,21 @@ Phases, one line or a few each; any failure exits non-zero:
      beside this script's last run before the kernels became operators.
      `--eager-rates` measures those frames/s alone, through entry points an
      older tree has too, to compare two trees in one call.
+ 18. the bf16 compute mode of eval (`bf16: true`): the M2 and BAT host loops
+     under bf16, kernel path against plain path on one forward (B = 1 and
+     16; the kernel path's distance from the f32 path between 0.5x and 1.5x
+     the plain bf16 path's; launches a forward K1 3 / K2 1, K3 2 / K4 7),
+     then evaluate_dataset from launch counts of 0 (the bf16 rows'
+     launches); K1 at M2's three calls and K2 (B = 1 and 16, N = 2048) and
+     K4/K5 at the seven SA calls of a bf16 BAT forward (B = 1 and 16)
+     against their plain bf16 versions (max error within 2^-6 and mean
+     within 2^-14 of max|plain|, K2's seg argmax on > 99% of points; the f32
+     plain versions on the same inputs must fall outside those limits),
+     event and device times beside the plain versions, K1/K2's plain stack
+     through cuBLAS in bf16, and the bound at
+     989 TFLOP/s dense bf16; M2ScanTracker(compute_dtype=bf16) and
+     MatchScanTracker on a bf16 BAT at B = 8: graph == eager bit for bit,
+     launches a replay, frames/s.
 
 Weights are random, made with numpy from a seed in the JAX tree's shape
 (open3dsot_tpu_torch.weights). Needs one card; no network.
@@ -298,12 +314,12 @@ def device_ms(fn, iters: int = 10):
     return None
 
 
-def queued_ms(fn, iters: int = 20, repeats: int = 5) -> float:
+def queued_ms(fn, iters: int = 20, repeats: int = 5, sleep: int = 2_000_000) -> float:
     """Device time per call by CUDA events, without the host's time: a queued
-    sleep of about a millisecond keeps the device busy while the host
-    enqueues `iters` calls, which then run back to back. For kernels of a
-    few microseconds, where a profiler trace of a quick burst of launches has
-    come back short of records; median over `repeats`."""
+    sleep (`sleep` cycles; the default about a millisecond) keeps the device
+    busy while the host enqueues `iters` calls, which then run back to back.
+    For kernels of a few microseconds, where a profiler trace of a quick
+    burst of launches has come back short of records; median over `repeats`."""
     import torch
 
     fn()
@@ -312,7 +328,7 @@ def queued_ms(fn, iters: int = 20, repeats: int = 5) -> float:
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(sleep)
         start.record()
         for _ in range(iters):
             fn()
@@ -372,7 +388,8 @@ def k2_work(chain, B: int, N: int):
 
 def kernel_name(mangled: str) -> str:
     """A kernel's name with its integer template arguments, from its mangled
-    name (`_ZN12_GLOBAL__N_112rowmm_kernelILi0ELi0EEEv...` -> rowmm_kernel<0,0>):
+    name (`_ZN12_GLOBAL__N_112rowmm_kernelILi0ELi0EEEv...` -> rowmm_kernel<0,0>; a bool
+    argument as 0 or 1):
     the first length-prefixed identifier that ends in `_kernel`."""
     import re
 
@@ -381,8 +398,8 @@ def kernel_name(mangled: str) -> str:
         for i in range(len(digits)):  # a namespace tag's digits may run into the length
             name = mangled[m.end():m.end() + int(digits[i:])]
             if name.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*", name):
-                t = re.match(r"I((?:Li-?\d+E)+)E", mangled[m.end() + len(name):])
-                args = re.findall(r"Li(-?\d+)E", t.group(1)) if t else []
+                t = re.match(r"I((?:L[ib]-?\d+E)+)E", mangled[m.end() + len(name):])
+                args = re.findall(r"L[ib](-?\d+)E", t.group(1)) if t else []
                 return name + (f"<{','.join(args)}>" if args else "")
     return mangled
 
@@ -487,6 +504,7 @@ def check_chains(model, card: str, lib, strict: bool = True) -> dict:
         calls = [r for (name, b), r in rows.items() if b == B]
         tot = {k: None if any(r[k] is None for r in calls) else sum(r[k] for r in calls)
                for k in ("ms", "plain_ms", "dev_ms", "plain_dev_ms", "library_ms")}
+        BF16_F32_ROWS[("chains", B)] = tot["ms"]
         b32 = sum(bound_of(*r["work"])[0] for r in calls)
         btc = sum(tc_bound_of(*r["work"])[0] for r in calls)
         print(f"  one M2 forward's four K1/K2 calls, B={B} N={n}: kernel ev {tot['ms']:.4f} ms dev "
@@ -560,6 +578,7 @@ def main(argv=None) -> None:
     k4_only, k3_only = "--k4-times" in args, "--k3-times" in args
     scan_only, match_only = "--scan-times" in args, "--match-scan-times" in args
     online_only, rates_only = "--online-times" in args, "--eager-rates" in args
+    bf16_only = "--bf16-times" in args
     # --- 1. environment ---------------------------------------------------
     print(f"env: python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
@@ -577,7 +596,8 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     libs = load_libraries(["chain_fused"] if chain_only or scan_only else
                           ["fps", "sa_fused"] if match_only else
-                          ["chain_fused", "fps", "sa_fused"] if online_only or rates_only else
+                          ["chain_fused", "fps", "sa_fused"] if online_only or rates_only
+                          or bf16_only else
                           ["sa_fused_train"] if k6_only else
                           ["sa_fused"] if k4_only else ["fps", "fps_floor"] if k3_only else
                           ["chain_fused", "fps", "sa_fused", "sa_fused_train", "gather_probe",
@@ -618,6 +638,10 @@ def main(argv=None) -> None:
     if rates_only:
         eager_rates(card)
         print("eager rates done: phases 1 and 2 and the eager paths' frames/s only", flush=True)
+        return
+    if bf16_only:
+        bf16_phase(card)
+        print("bf16 times done: phases 1, 2 and 18 only", flush=True)
         return
 
     # --- 3. kernels vs plain at the main path's shapes --------------------
@@ -732,6 +756,9 @@ def main(argv=None) -> None:
         print(f"dispatch: {k} {EAGER_RATES[k]:.2f} frames/s in this run, {before:.2f} before the "
               f"kernels became operators [{card}]", flush=True)
 
+    # --- 18. the bf16 compute mode of eval ------------------------------------
+    bf16_kernels = bf16_phase(card)
+
     # --- 10. results ------------------------------------------------------
     kernels = [
         kernel_entry("K1 fused_pointnet_encoder", "chain_fused.cu",
@@ -739,7 +766,7 @@ def main(argv=None) -> None:
                      **chains["rows"][("K1 seg mlp1 tap", 1)]),
         kernel_entry("K2 fused_seg_head", "chain_fused.cu", "open3dsot_tpu/ops/chain_fused.py:217",
                      k2_launches, chains["errs"]["K2"], **chains["rows"][("K2 seg head", 1)]),
-    ] + matching_kernels + training_kernels + probe_kernels
+    ] + matching_kernels + training_kernels + probe_kernels + bf16_kernels
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1047,6 +1074,7 @@ def check_k4_k5(calls, card: str, lib, strict: bool = True):
     for B in batches:
         t_4, t_5, t_p = sums[B]
         d_4, d_5, d_p = dev_sums[B]
+        BF16_F32_ROWS[("sa", B)] = t_4
         print(f"  time of one BAT forward's 7 SA calls, B={B}: K4 {t_4:.4f} ms K5 {t_5:.4f} ms "
               f"plain {t_p:.4f} ms; device time K4 {fmt_ms(d_4)} K5 {fmt_ms(d_5)} plain "
               f"{fmt_ms(d_p)} [{card}]", flush=True)
@@ -2708,6 +2736,500 @@ def host_breakdown(model, sampler, card: str) -> None:
     n = len(seq) - 1
     print("host loop per frame: " + ", ".join(f"{k} {v * 1e6 / n:.1f} us" for k, v in parts.items())
           + f" [{card}]")
+
+
+# --- phase 18: the bf16 compute mode of eval ------------------------------------
+
+# Dense bf16 on the tensor cores (NVIDIA's H100 SXM data sheet, at 700 W):
+# the bound of the bf16 mode's kernels, one product a multiply-add.
+PEAK_BF16_FLOPS = 989e12
+# A bf16 kernel against its plain version (both round the same operands to
+# bf16 and sum in f32, in another order): the sums differ by ~1e-7, which
+# now and then moves an activation across a bf16 rounding boundary, one step
+# of 2^-8 of it, and that step spreads through the layers after it. Held:
+# max |k - p| <= 2^-6 max|p| and mean |k - p| <= 2^-14 max|p| (the bf16
+# kernels measured at most 1.1e-5 of max|p| on average); a wrong index, tile
+# or weight chunk gives errors of order max|p|. The control: the f32 plain
+# version on the same inputs must fall outside these limits, or they could
+# not tell a kernel that quietly computed in f32. K2's seg argmax agrees on
+# > 99% of points (a point whose two logits lie within a step of each other
+# may flip).
+BF16_MAX_REL = 2.0 ** -6
+BF16_MEAN_REL = 2.0 ** -14
+BF16_ARGMAX_AGREE = 0.99
+# A whole bf16 forward, kernel path against plain path: the two round at
+# other places (the kernels fold BatchNorm in f32 and round only the
+# products' operands; the plain layers round the Dense output, the bias sum
+# and the BatchNorm output, as flax does), so they are held to the f32 plain
+# path instead: the kernel path's mean_rel distance from it (mean |x - f32| /
+# max(|f32|, 1), tests/test_sa_fused.py's form) between 0.5x and 1.5x the
+# plain bf16 path's + 1e-4. The lower limit is the control: a kernel path
+# that quietly computed in f32 would sit near 0.
+BF16_B = 8  # the scan trackers' batch in phase 18
+# cycles of the sleep queued ahead of phase 18's timed calls (about 20 ms at
+# the H100's clocks): longer than the host takes to enqueue them, so that
+# `queued_ms` reads device time only, even where the host is the slower side
+BF16_SLEEP = 40_000_000
+
+
+def compare_bf16(name: str, got, want, f32) -> float:
+    """A bf16 kernel's output `got` against its plain bf16 version's `want`,
+    within BF16_MAX_REL / BF16_MEAN_REL of max|want|; the f32 plain
+    version's `f32` on the same inputs must lie outside them."""
+    import torch
+
+    got, want, f32 = got.float(), want.float(), f32.float()
+    if got.shape != want.shape:
+        fail(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        fail(f"{name}: non-finite values")
+    scale = max(want.abs().max().item(), 1e-30)
+
+    def errs(x):
+        err = (x - want).abs()
+        return err.max().item(), err.mean().item()
+
+    def within(max_abs, mean_abs):
+        return max_abs <= BF16_MAX_REL * scale and mean_abs <= BF16_MEAN_REL * scale
+
+    (max_abs, mean_abs), (f32_max, f32_mean) = errs(got), errs(f32)
+    ok, control = within(max_abs, mean_abs), not within(f32_max, f32_mean)
+    print(f"  {name}: max_abs_err {max_abs:.3e} ({max_abs / scale:.2e} of max|ref| {scale:.3e}), "
+          f"mean {mean_abs / scale:.2e} of it {'ok' if ok else 'FAIL'}; f32 control max "
+          f"{f32_max / scale:.2e} mean {f32_mean / scale:.2e} of it "
+          f"{'outside: ok' if control else 'inside: FAIL'}", flush=True)
+    if not ok:
+        fail(f"{name}: outside the bf16 tolerance (max {BF16_MAX_REL:.2e}, mean {BF16_MEAN_REL:.2e} "
+             f"of max|ref|)")
+    if not control:
+        fail(f"{name}: the f32 plain version is inside the bf16 tolerance, which then cannot "
+             "tell bf16 from f32")
+    return max_abs
+
+
+def bf16_bound(work):
+    """(least ms, "bytes" or "operations") of a bf16 kernel's work."""
+    return bound_of(*work, PEAK_BF16_FLOPS)
+
+
+def bf16_chain_work(chain, B: int, N: int, out_elems: int, tap_elems: int = 0, pooled_in: int = 0,
+                    c_in=None):
+    """(bytes, operations) of a chain in the bf16 mode: f32 inputs and outputs,
+    bf16 weights with f32 biases; K2's W_pool GEMV once per batch element."""
+    c_in = chain.widths[0] if c_in is None else c_in
+    weights = sum(2 * w.numel() + 4 * b.numel() for w, b in chain.layers)
+    nbytes = 4 * (B * N * c_in + pooled_in + out_elems + tap_elems) + weights
+    flops = 2 * B * N * sum(w.shape[0] * w.shape[1] for w in chain.weights)
+    if chain.split:  # the pooled rows enter once per batch element, not per point
+        c_pool = chain.widths[0] - chain.split
+        flops -= 2 * B * (N - 1) * c_pool * chain.weights[0].shape[1]
+    return nbytes, flops
+
+
+def cublas_bf16_chain(chain, seg_head: bool):
+    """The plain stack through cuBLAS in bf16 (bf16 in, bf16 out): the
+    yardstick of the bf16 chains, timed only here."""
+    import torch
+
+    layers = [(w.to(torch.bfloat16), b.to(torch.bfloat16)) for w, b in chain.layers]
+
+    def encoder(x, tap_at):
+        h, tap = x.to(torch.bfloat16), None
+        for i, (w, b) in enumerate(layers):
+            h = torch.relu(h @ w + b)
+            tap = h if i == tap_at else tap
+        return tap, h.amax(dim=1)
+
+    def head(tap, pooled):
+        B, N, _ = tap.shape
+        h = torch.cat([tap.to(torch.bfloat16),
+                       pooled.to(torch.bfloat16)[:, None, :].expand(B, N, pooled.shape[1])], -1)
+        for w, b in layers[:-1]:
+            h = torch.relu(h @ w + b)
+        return h @ layers[-1][0] + layers[-1][1]
+
+    return head if seg_head else encoder
+
+
+def time_bf16(kernel, plain, library, work, card: str, what: str) -> dict:
+    """Event times of a bf16 kernel call, its plain version and the library
+    yardstick (plain, kernel, plain), their device times, and the bf16 bound.
+    Device time here is by events behind a queued sleep (`queued_ms`): the
+    profiler's records of these short kernels came back short in a run
+    (K2 at B = 16 "in" a tenth of its event time)."""
+    t_p = time_ms(plain)
+    t_k = time_ms(kernel)
+    t_p2 = time_ms(plain)
+    d_k, d_p = queued_ms(kernel, sleep=BF16_SLEEP), queued_ms(plain, sleep=BF16_SLEEP)
+    t_lib = None if library is None else time_ms(library)
+    bound, by = bf16_bound(work)
+    d_k = d_k if d_k > 0 else None
+    share = "not measured" if d_k is None else f"{bound / d_k:.1%}"
+    lib = "" if t_lib is None else f"; cuBLAS bf16 stack ev {t_lib:.4f} ms"
+    print(f"  time bf16 {what}: kernel ev {t_k:.4f} ms dev {fmt_ms(d_k)}; plain ev "
+          f"{min(t_p, t_p2):.4f} ms dev {fmt_ms(d_p)}{lib}; bound {bound:.5f} ms by {by} at "
+          f"989 TFLOP/s bf16 (kernel dev at {share} of it) [{card}]", flush=True)
+    return dict(ms=t_k, plain_ms=min(t_p, t_p2), dev_ms=d_k, plain_dev_ms=d_p, library_ms=t_lib,
+                work=work, peak=PEAK_BF16_FLOPS)
+
+
+def check_chains_bf16(model, card: str) -> dict:
+    """K1 at M2's three calls and K2, bf16 mode, against their plain versions
+    at B = 1 and 16, N = 2048; times beside the bound."""
+    import torch
+
+    from open3dsot_tpu_torch.ops import chain_fused as cf
+
+    net = model.net
+    chain1, chain2 = net.seg_pointnet.folded_chains()
+    if chain1.dtype is not torch.bfloat16:
+        fail("the bf16 model's chains are not packed for the bf16 mode")
+    k1_cases = [("K1 seg mlp1 tap", chain1, 1), ("K1 mini", net.mini_pointnet.folded_chains(), None),
+                ("K1 mini2", net.mini_pointnet2.folded_chains(), None)]
+    dev = chain1.packed.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    f32 = {id(c): cf.FoldedChain(c.layers, split=c.split)  # the f32 controls
+           for c in (chain1, chain2, *(case[1] for case in k1_cases))}
+    errs, rows = {"K1": 0.0, "K2": 0.0}, {}
+    n = 2 * N_POINTS
+    for B in (1, 16):
+        for name, chain, tap_at in k1_cases:
+            x = torch.randn(B, n, chain.widths[0], device=dev, generator=gen)
+            k_tap, k_pool = cf.fused_pointnet_encoder(x, chain, tap_at=tap_at)
+            p_tap, p_pool = cf.pointnet_encoder_plain(x, chain, tap_at)
+            f_tap, f_pool = cf.pointnet_encoder_plain(x, f32[id(chain)], tap_at)
+            torch.cuda.synchronize()
+            errs["K1"] = max(errs["K1"], compare_bf16(f"bf16 {name} B={B} pooled", k_pool, p_pool,
+                                                      f_pool))
+            tap_elems = 0
+            if tap_at is not None:
+                errs["K1"] = max(errs["K1"], compare_bf16(f"bf16 {name} B={B} tap", k_tap, p_tap,
+                                                          f_tap))
+                tap, pooled, tap_elems = p_tap, p_pool, p_tap.numel()
+            lib = cublas_bf16_chain(chain, False)
+            rows[(name, B)] = time_bf16(
+                lambda: cf.fused_pointnet_encoder(x, chain, tap_at=tap_at),
+                lambda: cf.pointnet_encoder_plain(x, chain, tap_at), lambda: lib(x, tap_at),
+                bf16_chain_work(chain, B, n, B * chain.widths[-1], tap_elems), card,
+                f"{name} B={B} N={n}")
+        k_out = cf.fused_seg_head(tap, pooled, chain2)
+        p_out = cf.seg_head_plain(tap, pooled, chain2)
+        f_out = cf.seg_head_plain(tap, pooled, f32[id(chain2)])
+        torch.cuda.synchronize()
+        errs["K2"] = max(errs["K2"], compare_bf16(f"bf16 K2 seg head B={B}", k_out, p_out, f_out))
+        agree = (k_out[..., :2].argmax(-1) == p_out[..., :2].argmax(-1)).float().mean().item()
+        print(f"  bf16 K2 seg head B={B}: seg argmax agrees on {agree:.5f} of points "
+              f"(> {BF16_ARGMAX_AGREE})", flush=True)
+        if agree <= BF16_ARGMAX_AGREE:
+            fail(f"bf16 K2 B={B}: the seg argmax agrees on {agree} of points only")
+        lib = cublas_bf16_chain(chain2, True)
+        rows[("K2 seg head", B)] = time_bf16(
+            lambda: cf.fused_seg_head(tap, pooled, chain2),
+            lambda: cf.seg_head_plain(tap, pooled, chain2), lambda: lib(tap, pooled),
+            bf16_chain_work(chain2, B, n, p_out.numel(), pooled_in=pooled.numel(),
+                            c_in=chain2.split), card, f"K2 seg head B={B} N={n}")
+    for B in (1, 16):
+        calls = [r for (name, b), r in rows.items() if b == B]
+        ev = sum(r["ms"] for r in calls)
+        dev = None if any(r["dev_ms"] is None for r in calls) else sum(r["dev_ms"] for r in calls)
+        bound = sum(bf16_bound(r["work"])[0] for r in calls)
+        f32_rows = BF16_F32_ROWS.get(("chains", B))
+        print(f"  bf16: one M2 forward's four K1/K2 calls, B={B}: kernel ev {ev:.4f} ms dev "
+              f"{fmt_ms(dev)}; plain ev {sum(r['plain_ms'] for r in calls):.4f} ms; cuBLAS bf16 "
+              f"stack ev {sum(r['library_ms'] for r in calls):.4f} ms; bound {bound:.5f} ms"
+              + ("" if f32_rows is None else f"; the 3xTF32 kernels in this run ev {f32_rows:.4f} ms")
+              + f" [{card}]", flush=True)
+    print("phase 18a ok: K1/K2 bf16 within tolerance of their plain versions", flush=True)
+    return {"errs": errs, "rows": rows}
+
+
+def bf16_sa_work(xyz, feats, new, folded, K: int, walked: int):
+    """(bytes, operations) of one bf16 K4 call: as sa_work, with the weights
+    of layers 2-3 and the output in bf16 and the features as they come."""
+    B, N, S = xyz.shape[0], xyz.shape[1], new.shape[1]
+    fbytes = 0 if feats is None else feats.numel() * feats.element_size()
+    (w1, b1), (w2, b2), (w3, b3) = folded
+    c1, c2, c3 = w1.shape[1], w2.shape[1], w3.shape[1]
+    weights = 4 * (w1.numel() + b1.numel() + b2.numel() + b3.numel()) + 2 * (w2.numel() + w3.numel())
+    nbytes = 4 * B * (N * 3 + S * 3) + fbytes + 2 * B * S * c3 + weights
+    flops = 2 * B * N * w1.shape[0] * c1 + 2 * B * S * K * (c1 * c2 + c2 * c3)
+    return nbytes, flops + 8 * walked
+
+
+def check_sa_bf16(calls, card: str) -> tuple:
+    """K4 (ball query) and K5 (idx given) in the bf16 mode against the plain
+    bf16 version at the seven SA calls of a bf16 BAT forward, B = 1 and 16;
+    times by call and over the seven calls, beside the bf16 bound."""
+    import torch
+
+    from open3dsot_tpu_torch.ops import sa_fused as saf
+    from open3dsot_tpu_torch.ops.neighbors import ball_query
+
+    errs = {"K4": 0.0, "K5": 0.0}
+    sums = {B: dict(k4=0.0, k5=0.0, plain=0.0, k4_dev=0.0, w4=[0, 0], w5=[0, 0]) for B in (1, 16)}
+    forward = {1: [], 16: []}
+    for label, mod, xyz16, feats16, new16 in calls:
+        kw = dict(radius=mod.radius, normalize_xyz=mod.normalize_xyz, use_xyz=mod.use_xyz)
+        K, folded = mod.nsample, mod.folded_chains()
+        if folded.dtype is not torch.bfloat16:
+            fail(f"bf16 {label}: the SA layer is not packed for the bf16 mode")
+        for B in (1, 16):
+            xyz, new = xyz16[:B].contiguous(), new16[:B].contiguous()
+            feats = None if feats16 is None else feats16[:B].contiguous()
+            shape = (f"{label} B={B} S={new.shape[1]} K={K} N={xyz.shape[1]} "
+                     f"C={0 if feats is None else feats.shape[2]} "
+                     f"({'none' if feats is None else str(feats.dtype)[6:]})->{folded[-1][0].shape[1]}")
+
+            def k4(xyz=xyz, feats=feats, new=new, folded=folded, K=K, kw=kw):
+                return saf.fused_sa_apply(xyz, feats, new, None, folded, nsample=K, **kw)
+
+            def plain(xyz=xyz, feats=feats, new=new, folded=folded, K=K, kw=kw):
+                return saf.sa_eval_plain(xyz, feats, new, None, folded, nsample=K,
+                                         dtype=torch.bfloat16, **kw)
+
+            idx = ball_query(mod.radius, K, xyz, new)
+            k5 = lambda: saf.fused_sa_apply(xyz, feats, new, idx, folded, **kw)  # noqa: E731
+            got4, want, got5 = k4(), plain(), k5()
+            control = saf.sa_eval_plain(xyz, feats, new, idx, folded, **kw)  # f32
+            torch.cuda.synchronize()
+            if got4.dtype != torch.bfloat16 or got5.dtype != torch.bfloat16:
+                fail(f"bf16 {shape}: K4/K5 gave {got4.dtype} / {got5.dtype}, expected bfloat16")
+            errs["K4"] = max(errs["K4"], compare_bf16(f"bf16 K4 {shape}", got4, want, control))
+            errs["K5"] = max(errs["K5"], compare_bf16(f"bf16 K5 {shape}", got5, want, control))
+            nbytes, flops = bf16_sa_work(xyz, feats, new, folded, K, 0)
+            w4 = (nbytes, flops + 8 * bq_walked(xyz, new, mod.radius, K))
+            w5 = (nbytes + 4 * B * new.shape[1] * K, flops)
+            r4 = time_bf16(k4, plain, None, w4, card, f"K4 {shape}")
+            t5 = time_ms(k5)
+            s = sums[B]
+            s["k4"] += r4["ms"]
+            s["k5"] += t5
+            s["plain"] += r4["plain_ms"]
+            s["k4_dev"] = None if r4["dev_ms"] is None or s["k4_dev"] is None else s["k4_dev"] + r4["dev_ms"]
+            for i in range(2):
+                s["w4"][i] += w4[i]
+                s["w5"][i] += w5[i]
+            forward[B].append(k4)
+    for B in (1, 16):
+        s = sums[B]
+        total = queued_ms(lambda: [f() for f in forward[B]], iters=10, sleep=BF16_SLEEP)
+        bound, by = bf16_bound(s["w4"])
+        share = f"{bound / total:.1%}" if total > 0 else "not measured"
+        f32 = BF16_F32_ROWS.get(("sa", B))
+        print(f"  bf16: one BAT forward's 7 SA calls, B={B}: K4 ev {s['k4']:.4f} ms (summed), "
+              f"back to back device {fmt_ms(total if total > 0 else None)}; K5 ev {s['k5']:.4f} ms; "
+              f"plain ev {s['plain']:.4f} ms; bound {bound:.5f} ms by {by} (device time at {share})"
+              + ("" if f32 is None else f"; the 3xTF32 K4 in this run ev {f32:.4f} ms") + f" [{card}]",
+              flush=True)
+    print("phase 18b ok: K4/K5 bf16 within tolerance at every SA call of the BAT path", flush=True)
+    return errs, sums
+
+
+# event times of the 3xTF32 kernels in this run, for the bf16 lines: ("chains", B): one M2
+# forward's four K1/K2 calls; ("sa", B): one BAT forward's seven K4 calls (summed)
+BF16_F32_ROWS: dict = {}
+
+
+def no_worse_than_plain(what: str, got, plain, truth) -> None:
+    """The kernel path's bf16 output against the plain bf16 path's, both held
+    to the f32 plain path (see BF16_MAX_REL's notes): the kernel path's
+    distance from it between 0.5x and 1.5x the plain path's + 1e-4."""
+    import torch
+
+    def mean_rel(x):
+        return ((x.double() - truth.double()).abs() / truth.double().abs().clamp_min(1.0)).mean().item()
+
+    k, p = mean_rel(got), mean_rel(plain)
+    ok = 0.5 * p < k <= 1.5 * p + 1e-4
+    print(f"  {what}: mean_rel from the f32 path: kernel path {k:.3e}, plain bf16 path {p:.3e} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok or not torch.isfinite(got).all():
+        fail(f"{what}: the bf16 kernel path is {k} from f32, the plain bf16 path {p}")
+
+
+def bf16_host_loops(card: str) -> dict:
+    """The M2 and BAT host loops under bf16: true, kernel path against plain
+    path on one forward (launches a forward; both held to the f32 plain
+    path), then evaluate_dataset from launch counts of 0. Returns the
+    launches of those runs."""
+    import numpy as np
+    import torch
+
+    from open3dsot_tpu_torch.data import get_dataset
+    from open3dsot_tpu_torch.ops import chain_fused as cf
+    from open3dsot_tpu_torch.tracking.eval import evaluate_dataset
+
+    launches = {}
+    cfg = bench_cfg(bf16=True)
+    model, variables = make_model(cfg, fused_eval=True)
+    plain_model, _ = make_model(cfg, fused_eval=False, variables=variables)
+    f32_model, _ = make_model(bench_cfg(), fused_eval=False, variables=variables)
+    sampler = get_dataset(cfg, "test", "test")
+    frames = [model.build_input_dict(seq, f, [seq[f - 1]["3d_bbox"]])[0]
+              for seq in (sampler[0], sampler[1]) for f in range(1, 9)]
+    batch16 = {k: np.concatenate([f[k] for f in frames]) for k in frames[0]}
+    for B, batch in ((1, frames[0]), (16, batch16)):
+        cf.reset_launch_counts()
+        got = model.apply(batch)
+        torch.cuda.synchronize()
+        n = (cf.fused_pointnet_encoder.launches, cf.fused_seg_head.launches)
+        want = plain_model.apply(batch)
+        if n != (3, 1):
+            fail(f"bf16 M2 B={B}: one forward launched K1/K2 {n}, expected (3, 1)")
+        if any(v.dtype != torch.float32 for v in got.values()):
+            fail(f"bf16 M2 B={B}: an output is not f32")
+        no_worse_than_plain(f"bf16 M2 B={B} seg_logits", got["seg_logits"], want["seg_logits"],
+                            f32_model.apply(batch)["seg_logits"])
+        agree = (got["seg_logits"].argmax(-1) == want["seg_logits"].argmax(-1)).float().mean().item()
+        e = (got["estimation_boxes"] - want["estimation_boxes"]).abs().max().item()
+        print(f"  bf16 M2 B={B}: K1 x3, K2 x1 a forward; seg mask agrees on {agree:.5f} of points; "
+              f"boxes {e:.3e} from the plain bf16 path (argmax gates amplify a bf16 step: "
+              f"reported, not held)", flush=True)
+        if agree <= BF16_ARGMAX_AGREE or not torch.isfinite(got["estimation_boxes"]).all():
+            fail(f"bf16 M2 B={B}: seg mask agrees on {agree} of points, or boxes not finite")
+    n_frames = sum(len(sampler[i]) - 1 for i in range(len(sampler)))
+    evaluate_dataset(model, sampler, cfg, max_tracklets=1)  # warm-up
+    cf.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    succ, prec = evaluate_dataset(model, sampler, cfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches["K1"], launches["K2"] = cf.fused_pointnet_encoder.launches, cf.fused_seg_head.launches
+    print(f"bf16 M2 eval (host loop): success {succ:.4f} precision {prec:.4f}; {n_frames} forwards "
+          f"in {dt:.4f} s = {n_frames / dt:.2f} frames/s; launches K1 {launches['K1']} K2 "
+          f"{launches['K2']} [{card}]", flush=True)
+    if (launches["K1"], launches["K2"]) != (3 * n_frames, n_frames):
+        fail(f"bf16 M2 eval: expected K1 {3 * n_frames} and K2 {n_frames} launches")
+    if not (np.isfinite([succ, prec]).all() and 0 <= succ <= 100 and 0 <= prec <= 100):
+        fail(f"bf16 M2 Success/Precision not finite in [0, 100]: {succ}, {prec}")
+
+    bcfg = matching_cfg("bat", bf16=True)
+    bat, bvars = make_model(bcfg, fused_eval=True)
+    bat_plain, _ = make_model(bcfg, fused_eval=False, variables=bvars)
+    bat_f32, _ = make_model(matching_cfg("bat"), fused_eval=False, variables=bvars)
+    bsampler = get_dataset(bcfg, "test", "test")
+    bframes = matching_frames(bat, bsampler, 16)
+    bbatch16 = {k: np.concatenate([f[k] for f in bframes]) for k in bframes[0]}
+    for B, batch in ((1, bframes[0]), (16, bbatch16)):
+        reset_matching_counts()
+        got = bat.apply(batch)
+        torch.cuda.synchronize()
+        n = matching_counts()
+        want = bat_plain.apply(batch)
+        if n != (2, 7, 0):
+            fail(f"bf16 BAT B={B}: one forward launched K3/K4/K5 {n}, expected (2, 7, 0)")
+        if not torch.equal(got["sample_idxs"], want["sample_idxs"]):
+            fail(f"bf16 BAT B={B}: sample_idxs differ between the kernel and the plain path")
+        no_worse_than_plain(f"bf16 BAT B={B} estimation_cla", got["estimation_cla"],
+                            want["estimation_cla"], bat_f32.apply(batch)["estimation_cla"])
+        e = (got["estimation_boxes"] - want["estimation_boxes"]).abs().max().item()
+        print(f"  bf16 BAT B={B}: K3 x2, K4 x7 a forward; boxes {e:.3e} from the plain bf16 path "
+              f"(reported, not held)", flush=True)
+        if not torch.isfinite(got["estimation_boxes"]).all():
+            fail(f"bf16 BAT B={B}: boxes not finite")
+    calls = sa_calls(bat_plain, bbatch16)
+    bn_frames = sum(len(bsampler[i]) - 1 for i in range(len(bsampler)))
+    evaluate_dataset(bat, bsampler, bcfg, max_tracklets=1)  # warm-up
+    reset_matching_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    succ, prec = evaluate_dataset(bat, bsampler, bcfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches["K3"], launches["K4"], launches["K5"] = matching_counts()
+    print(f"bf16 BAT eval (host loop): success {succ:.4f} precision {prec:.4f}; {bn_frames} "
+          f"forwards in {dt:.4f} s = {bn_frames / dt:.2f} frames/s; launches K3 {launches['K3']} "
+          f"K4 {launches['K4']} K5 {launches['K5']} [{card}]", flush=True)
+    if (launches["K3"], launches["K4"]) != (2 * bn_frames, 7 * bn_frames):
+        fail(f"bf16 BAT eval: expected K3 {2 * bn_frames} and K4 {7 * bn_frames} launches")
+    if not (np.isfinite([succ, prec]).all() and 0 <= succ <= 100 and 0 <= prec <= 100):
+        fail(f"bf16 BAT Success/Precision not finite in [0, 100]: {succ}, {prec}")
+    print("phase 18c ok: the M2 and BAT host loops under bf16", flush=True)
+    return {"launches": launches, "m2": model, "sa_calls": calls}
+
+
+def bf16_scans(card: str) -> None:
+    """M2ScanTracker(compute_dtype=bf16) and MatchScanTracker on a bf16 BAT
+    at B = BF16_B: graph == eager bit for bit, launches a replay, frames/s
+    beside the f32 trackers' graphs in the same call."""
+    import torch
+
+    from open3dsot_tpu_torch.data import get_dataset
+    from open3dsot_tpu_torch.ops import chain_fused as cf
+    from open3dsot_tpu_torch.tracking import scan_matching as sm
+    from open3dsot_tpu_torch.tracking import scan_tracker as st
+
+    B, steps = BF16_B, SCAN_T - 1
+    cfg = bench_cfg(syn_num_tracklets=BF16_B, syn_tracklet_len=SCAN_T)
+    model, _ = make_model(cfg, fused_eval=True)  # f32 weights: the tracker rounds a copy
+    seqs = [get_dataset(cfg, "test", "test")[i] for i in range(B)]
+    kw = dict(max_points=SCAN_MAX_POINTS, frame_bucket=SCAN_T, compute_dtype=torch.bfloat16)
+    f32 = st.M2ScanTracker(model, cfg, max_points=SCAN_MAX_POINTS, frame_bucket=SCAN_T)
+    cases = [("M2 scan bf16", st.M2ScanTracker(model, cfg, **kw),
+              st.M2ScanTracker(model, cfg, cuda_graph=False, **kw), f32,
+              lambda: (cf.fused_pointnet_encoder.launches, cf.fused_seg_head.launches), (3, 1))]
+    bcfg = match_cfg("bat", syn_num_tracklets=BF16_B, bf16=True)
+    bat, bvars = make_model(bcfg, fused_eval=True)
+    bat32, _ = make_model(match_cfg("bat", syn_num_tracklets=BF16_B), fused_eval=True,
+                          variables=bvars)
+    bseqs = [get_dataset(bcfg, "test", "test")[i] for i in range(B)]
+    cases.append(("BAT scan bf16", sm.MatchScanTracker(bat, bcfg, **MATCH_KW),
+                  sm.MatchScanTracker(bat, bcfg, cuda_graph=False, **MATCH_KW),
+                  sm.MatchScanTracker(bat32, bcfg, **MATCH_KW), lambda: matching_counts()[:2],
+                  (2, 7)))
+    for what, graph, eager, ref, counts, want in cases:
+        host = scan_host(graph, seqs if what.startswith("M2") else bseqs)
+        dev = to_card(host)
+        graph_equals_eager(graph, eager, dev, f"{what} B={B}")
+        d = (graph.track_frames(*dev) - ref.track_frames(*dev)).abs().max().item()
+        print(f"  {what} B={B}: boxes {d:.3e} from the f32 tracker's over {steps} frames "
+              f"(argmax flips compound: reported)", flush=True)
+        per_replay = graph.graph_launches()["captured_per_replay"]
+        if tuple(want) not in [tuple(p) for p in per_replay]:
+            fail(f"{what}: captured {per_replay} per replay, expected {want}")
+        cf.reset_launch_counts()
+        reset_matching_counts()
+        eager.track_frames(*dev)
+        torch.cuda.synchronize()
+        if tuple(counts()) != tuple(n * steps for n in want):
+            fail(f"{what}: the eager steps launched {counts()}, expected {want} a step")
+        t_f = wall_ms(lambda: ref.track_frames(*dev))
+        t_g = wall_ms(lambda: graph.track_frames(*dev))
+        t_e = wall_ms(lambda: eager.track_frames(*dev), repeats=3)
+        t_f2 = wall_ms(lambda: ref.track_frames(*dev))
+        frames = B * steps
+        print(f"  {what} B={B}: launches a replay {per_replay}; frames/s graph "
+              f"{frames / t_g * 1e3:.2f} eager {frames / t_e * 1e3:.2f}; the f32 tracker's graph "
+              f"{frames / t_f * 1e3:.2f} / {frames / t_f2 * 1e3:.2f} before / after (batch on "
+              f"the card) [{card}]", flush=True)
+    print("phase 18d ok: the scan trackers under bf16, graph == eager", flush=True)
+
+
+def bf16_phase(card: str) -> list:
+    """Phase 18: the bf16 compute mode of eval; returns its kernels' entries."""
+    t0 = time.perf_counter()
+    loops = bf16_host_loops(card)
+    chains = check_chains_bf16(loops["m2"], card)
+    sa_errs, sa_sums = check_sa_bf16(loops["sa_calls"], card)
+    bf16_scans(card)
+    print(f"phase 18 ok in {time.perf_counter() - t0:.1f} s", flush=True)
+    n = loops["launches"]
+    s1 = sa_sums[1]
+    return [
+        kernel_entry("K1 fused_pointnet_encoder (bf16)", "chain_fused.cu",
+                     "open3dsot_tpu/ops/chain_fused.py:150", n["K1"], chains["errs"]["K1"],
+                     **chains["rows"][("K1 seg mlp1 tap", 1)]),
+        kernel_entry("K2 fused_seg_head (bf16)", "chain_fused.cu",
+                     "open3dsot_tpu/ops/chain_fused.py:217", n["K2"], chains["errs"]["K2"],
+                     **chains["rows"][("K2 seg head", 1)]),
+        kernel_entry("K4 fused_sa_apply (ball query, bf16)", "sa_fused.cu",
+                     "open3dsot_tpu/ops/sa_fused.py:384", n["K4"], sa_errs["K4"], s1["k4"],
+                     s1["plain"], s1["w4"], peak=PEAK_BF16_FLOPS),
+        kernel_entry("K5 fused_sa_apply (idx given, bf16)", "sa_fused.cu",
+                     "open3dsot_tpu/ops/sa_fused.py:415", n["K5"], sa_errs["K5"], s1["k5"],
+                     s1["plain"], s1["w5"], peak=PEAK_BF16_FLOPS),
+    ]
 
 
 if __name__ == "__main__":

@@ -90,6 +90,20 @@
 //    them, and they stay out of the max and the output. An index outside
 //    [0, N) in K5's idx reads nothing; its centroid's output is NaN.
 //
+// The bf16 mode (sa_tc_kernel<F, true>; the JAX kernels' cdt = bfloat16,
+// open3dsot_tpu/ops/sa_fused.py:276-420). The A-form rows are rounded to bf16
+// once, outside (the compiled TPU kernel gathers them as bf16: its od = bf16
+// operand, or the int8 byte planes that are bit-identical to it), so the
+// gather moves half the bytes: the port's form of the P2 probe's exact bf16
+// row gather, with the same two copy forms (16 bytes are 8 values). Then
+// relu(g + ct) in f32, rounded to bf16 as layer 2 loads its A fragments;
+// layer 2's output is stored in shared memory as bf16 (the JAX kernel rounds
+// it to bf16 before layer 3's dot); layers 2-3 are one wgmma m64n64k16 pass
+// a k16 step (bf16 operands, f32 accumulate) on weights packed in bf16 (8 KB
+// chunks, bf16_tc.cuh), and the max over K is written as bf16. The bound is
+// FLOP / 989 TFLOP/s dense bf16, six times below 3xTF32's. C1 must be a
+// multiple of 8 (16-byte rows of bf16).
+//
 // Interface: plain C, loaded with ctypes; pointers are device pointers and the
 // stream is PyTorch's current stream. Returns 0, a CUDA error code, or a
 // negative code for arguments the kernels do not take.
@@ -97,6 +111,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "bf16_tc.cuh"  // the bf16 mode's chunks and wgmma
 #include "tf32_tc.cuh"  // kCC x kKC weight chunks, the TF32 split, wgmma, TMA
 
 namespace {
@@ -110,7 +127,7 @@ constexpr int kSmemMax = 232448;     // 227 KB, the most a block may take
 constexpr int kBqThreads = 256;      // ball query: a warp per centroid
 
 constexpr int kErrArgs = -1;    // B, N, S, K or widths not accepted
-constexpr int kErrWidth = -2;   // a width is not a multiple of 4
+constexpr int kErrWidth = -2;   // a width is not a multiple of 4 (C1 of 8 in bf16)
 constexpr int kErrSmem = -3;    // two weight stages do not fit beside the tile
 constexpr int kErrPacked = -4;  // a packed weight has the wrong size
 
@@ -121,14 +138,14 @@ enum Gather { kLdg = 0, kCpAsync = 1 };
 struct SAArgs {
   const float* centers;  // (B, S, 3)
   const int* idx;        // (B, S, K)
-  const float* a;        // (B, N, C1) A-form rows
+  const void* a;         // (B, N, C1) A-form rows, f32 (bf16 in the bf16 mode)
   const float* w1x;      // (3, C1): layer 1's rows for xyz, or nullptr (ct = b1)
   const float* b1;       // (C1)
   const float* w2;       // packed (ops/chain_fused.py::pack_chunks)
   const float* b2;       // (C2)
   const float* w3;       // packed
   const float* b3;       // (C3)
-  float* out;            // (B, S, C3)
+  void* out;             // (B, S, C3), f32 (bf16 in the bf16 mode)
   int B, N, S, K, C1, C2, C3;
   float inv_r;
   int ts;                // centroids per tile: kTile / K
@@ -136,7 +153,8 @@ struct SAArgs {
   int nc2, nc3;          // output chunks of layers 2 and 3
   int cz;                // layer-3 output chunks per block: blockIdx.z takes [z cz, z cz + cz)
   int nst;               // weight stages
-  int s1, s2;            // row strides (floats) of the gathered rows and of layer 2
+  int wst;               // floats of a weight chunk: kWStage, or kWStage16 in bf16
+  int s1, s2;            // row strides (elements) of the gathered rows and of layer 2
   int o_h2, o_ct, o_idx, o_w, o_bar;  // shared-memory offsets in floats
 };
 
@@ -175,7 +193,7 @@ __global__ void __launch_bounds__(kBqThreads) bq_kernel(const float* __restrict_
   for (int k = min(count, K) + lane; k < K; k += 32) slots[k] = first;
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
                : "memory");
 }
@@ -184,8 +202,8 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
 // output chunks [c30, ...) with their input chunks.
 __device__ __forceinline__ const float* chunk_src(const SAArgs& p, int u, int c30) {
   const int u2 = p.nc2 * p.nk2;
-  return u < u2 ? p.w2 + static_cast<long long>(u) * kWStage
-                : p.w3 + (static_cast<long long>(c30) * p.nk3 + (u - u2)) * kWStage;
+  return u < u2 ? p.w2 + static_cast<long long>(u) * p.wst
+                : p.w3 + (static_cast<long long>(c30) * p.nk3 + (u - u2)) * p.wst;
 }
 
 // The consumer warps' barrier (named barrier 1; the producer warp goes on).
@@ -193,49 +211,80 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 }
 
-// One weight chunk's 3xTF32 products into acc: chunk t (stage t % nst) times
-// the 32 input channels [kb * kKC, +32) of the row tile hin (stride sin).
-// kCt: the rows are raw A-form rows, so each value is relu(v + ct) of its
-// row's centroid (ct0, ct1 for the thread's rows g and g + 8). full[s]: stage
-// s holds its chunk; empty[s]: the eight consumer warps are done with it.
-template <bool kCt>
+// One weight chunk's products into acc: chunk t (stage t % nst) times the 32
+// input channels [kb * kKC, +32) of the row tile hin (stride sin elements;
+// f32, or bf16 in the bf16 mode BF). kCt: the rows are raw A-form rows, so
+// each value is relu(v + ct) of its row's centroid (ct0, ct1 for the thread's
+// rows g and g + 8). full[s]: stage s holds its chunk; empty[s]: the eight
+// consumer warps are done with it. 3xTF32: 12 products; bf16: 2 (k16).
+template <bool kCt, bool BF>
 __device__ __forceinline__ void chunk_products(const SAArgs& p, float (&acc)[8][4], int t,
                                                float* wsm, uint64_t* full, uint64_t* empty,
-                                               const float* hin, int sin, int kb, const float* ct0,
+                                               const void* hin, int sin, int kb, const float* ct0,
                                                const float* ct1) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
   const int rbase = (warp & 3) * 16, cbase = (warp >> 2) * 64;
   const int st = t % p.nst;
   mbar_wait(&full[st], (t / p.nst) & 1);  // chunk t has landed
-  const float* wh = wsm + st * kWStage;
-  const float* wl = wh + kWPart;
-  uint32_t ah[kKC / 8][4], al[kKC / 8][4];
-#pragma unroll
-  for (int ks = 0; ks < kKC / 8; ++ks) {
-    const int k = kb * kKC + ks * 8 + q;
-    const float* pa = hin + (rbase + g) * sin + k;
-    float v[4] = {pa[0], pa[8 * sin], pa[4], pa[8 * sin + 4]};
-    if constexpr (kCt) {
-      v[0] = fmaxf(v[0] + ct0[k], 0.f);
-      v[1] = fmaxf(v[1] + ct1[k], 0.f);
-      v[2] = fmaxf(v[2] + ct0[k + 4], 0.f);
-      v[3] = fmaxf(v[3] + ct1[k + 4], 0.f);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) split_tf32(v[i], ah[ks][i], al[ks][i]);
-  }
-  // the chunk's 12 products queue on the tensor cores back to back, summed
-  // there (32 inputs), and the chunk's sum is added to acc on the CUDA cores
+  // the chunk's products queue on the tensor cores back to back, summed there
+  // (32 inputs), and the chunk's sum is added to acc on the CUDA cores
   float part[8][4];
-  wgmma_fence();
+  if constexpr (BF) {
+    // rows g and g + 8, inputs k, k + 1 and k + 8, k + 9 of each k16 step:
+    // one 32-bit word each (bf16_tc.cuh's A fragment)
+    const uint16_t* wb = reinterpret_cast<const uint16_t*>(wsm + st * kWStage16);
+    uint32_t af[2][4];
 #pragma unroll
-  for (int ks = 0; ks < kKC / 8; ++ks) {
-    const uint64_t dh = smem_desc(wh + wofs(cbase, ks * 8));
-    const uint64_t dl = smem_desc(wl + wofs(cbase, ks * 8));
-    if (ks == 0) wgmma_m64n64k8<0>(part, al[ks], dh);
-    else wgmma_m64n64k8<1>(part, al[ks], dh);
-    wgmma_m64n64k8<1>(part, ah[ks], dl);
-    wgmma_m64n64k8<1>(part, ah[ks], dh);
+    for (int ks = 0; ks < 2; ++ks) {
+      const int k = kb * kKC + ks * 16 + 2 * q;
+      const uint16_t* r0 = static_cast<const uint16_t*>(hin) + (rbase + g) * sin + k;
+      const uint16_t* r1 = r0 + 8 * sin;
+      const uint32_t w[4] = {*reinterpret_cast<const uint32_t*>(r0),
+                             *reinterpret_cast<const uint32_t*>(r1),
+                             *reinterpret_cast<const uint32_t*>(r0 + 8),
+                             *reinterpret_cast<const uint32_t*>(r1 + 8)};
+      if constexpr (kCt) {  // relu(g + ct) in f32, then bf16: the JAX kernel's order
+        const float* cts[4] = {ct0 + k, ct1 + k, ct0 + k + 8, ct1 + k + 8};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          af[ks][i] = pack_bf16(fmaxf(bf16_lo(w[i]) + cts[i][0], 0.f),
+                                fmaxf(bf16_hi(w[i]) + cts[i][1], 0.f));
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) af[ks][i] = w[i];
+      }
+    }
+    wgmma_fence();
+    wgmma_m64n64k16_bf16<0>(part, af[0], smem_desc16(wb + wofs16(cbase, 0)));
+    wgmma_m64n64k16_bf16<1>(part, af[1], smem_desc16(wb + wofs16(cbase, 16)));
+  } else {
+    const float* wh = wsm + st * kWStage;
+    const float* wl = wh + kWPart;
+    uint32_t ah[kKC / 8][4], al[kKC / 8][4];
+#pragma unroll
+    for (int ks = 0; ks < kKC / 8; ++ks) {
+      const int k = kb * kKC + ks * 8 + q;
+      const float* pa = static_cast<const float*>(hin) + (rbase + g) * sin + k;
+      float v[4] = {pa[0], pa[8 * sin], pa[4], pa[8 * sin + 4]};
+      if constexpr (kCt) {
+        v[0] = fmaxf(v[0] + ct0[k], 0.f);
+        v[1] = fmaxf(v[1] + ct1[k], 0.f);
+        v[2] = fmaxf(v[2] + ct0[k + 4], 0.f);
+        v[3] = fmaxf(v[3] + ct1[k + 4], 0.f);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(v[i], ah[ks][i], al[ks][i]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kKC / 8; ++ks) {
+      const uint64_t dh = smem_desc(wh + wofs(cbase, ks * 8));
+      const uint64_t dl = smem_desc(wl + wofs(cbase, ks * 8));
+      if (ks == 0) wgmma_m64n64k8<0>(part, al[ks], dh);
+      else wgmma_m64n64k8<1>(part, al[ks], dh);
+      wgmma_m64n64k8<1>(part, ah[ks], dl);
+      wgmma_m64n64k8<1>(part, ah[ks], dh);
+    }
   }
   wgmma_commit();
   wgmma_wait<0>();  // all of the chunk's products are in before its stage is refilled
@@ -263,14 +312,17 @@ __device__ __forceinline__ void init_bias(float (&acc)[8][4], const float* bias,
 }
 
 // Block (x, y, z): tile x of batch element y (centroids [x ts, x ts + ts)),
-// layer 3's output chunks [z cz, z cz + cz); the rows gathered in form F.
-template <int F>
+// layer 3's output chunks [z cz, z cz + cz); the rows gathered in form F. BF:
+// the bf16 mode (A rows, h2 and the output in bf16; layers 2-3 in bf16).
+template <int F, bool BF>
 __global__ void __launch_bounds__(kThreads, 1) sa_tc_kernel(const SAArgs p) {
+  using Act = typename std::conditional<BF, uint16_t, float>::type;  // a stored activation
+  constexpr int kVec = 16 / sizeof(Act);  // activations a 16-byte copy
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  float* h1 = sm;   // the gathered rows (kTile x s1); then layer 3's chunk (kTile x kRedStride)
-  float* y3 = sm;
-  float* h2 = sm + p.o_h2;  // kTile x s2
+  Act* h1 = reinterpret_cast<Act*>(sm);  // the gathered rows (kTile x s1); then layer 3's
+  float* y3 = sm;                        // chunk (kTile x kRedStride, f32)
+  Act* h2 = reinterpret_cast<Act*>(sm + p.o_h2);  // kTile x s2
   float* cts = sm + p.o_ct;  // ts x (nk2 * kKC)
   int* sidx = reinterpret_cast<int*>(sm + p.o_idx);  // kTile
   int* bad = sidx + kTile;   // ts: the centroid has an index outside [0, N)
@@ -292,7 +344,8 @@ __global__ void __launch_bounds__(kThreads, 1) sa_tc_kernel(const SAArgs p) {
       mbar_init(&empty[i], kConsumers / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int u = 0; u < p.nst && u < U; ++u) bulk_load(wsm + u * kWStage, chunk_src(p, u, c30), &full[u]);
+    for (int u = 0; u < p.nst && u < U; ++u)
+      bulk_load(wsm + u * p.wst, chunk_src(p, u, c30), &full[u], p.wst * sizeof(float));
   }
   // the tile's indices (-1 past its rows), flags and ct = b1 - (c * inv_r) W1_xyz
   for (int r = tid; r < kTile; r += kThreads)
@@ -317,13 +370,13 @@ __global__ void __launch_bounds__(kThreads, 1) sa_tc_kernel(const SAArgs p) {
   __syncthreads();  // the barriers, indices and flags are in place
 
   {  // gather the tile's A-form rows raw; zeros past C1, for rows past the tile and bad indices
-    const int c4 = w1 / 4;
-    const float* ab = p.a + static_cast<long long>(b) * p.N * p.C1;
+    const int c4 = w1 / kVec;  // 16-byte copies a padded row
+    const Act* ab = static_cast<const Act*>(p.a) + static_cast<long long>(b) * p.N * p.C1;
     if constexpr (F == kCpAsync) {
       for (int e = tid; e < kTile * c4; e += kThreads) {
-        const int r = e / c4, c = (e - r * c4) * 4;
+        const int r = e / c4, c = (e - r * c4) * kVec;
         const int j = sidx[r];
-        float* dst = h1 + r * p.s1 + c;
+        Act* dst = h1 + r * p.s1 + c;
         const bool ok = j >= 0 && j < p.N;
         if (ok && c < p.C1) {
           cp_async16(dst, ab + static_cast<long long>(j) * p.C1 + c);
@@ -340,7 +393,7 @@ __global__ void __launch_bounds__(kThreads, 1) sa_tc_kernel(const SAArgs p) {
         float4 v[kU];
 #pragma unroll
         for (int u = 0; u < kU; ++u) {
-          const int e = e0 + u * kThreads, r = e / c4, c = (e - r * c4) * 4;
+          const int e = e0 + u * kThreads, r = e / c4, c = (e - r * c4) * kVec;
           const int j = e < kTile * c4 ? sidx[r] : -1;
           const bool ok = j >= 0 && j < p.N;
           v[u] = ok && c < p.C1
@@ -350,7 +403,7 @@ __global__ void __launch_bounds__(kThreads, 1) sa_tc_kernel(const SAArgs p) {
         }
 #pragma unroll
         for (int u = 0; u < kU; ++u) {
-          const int e = e0 + u * kThreads, r = e / c4, c = (e - r * c4) * 4;
+          const int e = e0 + u * kThreads, r = e / c4, c = (e - r * c4) * kVec;
           if (e < kTile * c4) *reinterpret_cast<float4*>(h1 + r * p.s1 + c) = v[u];
         }
       }
@@ -362,7 +415,8 @@ __global__ void __launch_bounds__(kThreads, 1) sa_tc_kernel(const SAArgs p) {
     if (lane == 0)
       for (int u = p.nst; u < U; ++u) {
         mbar_wait(&empty[u % p.nst], ((u - p.nst) / p.nst) & 1);
-        bulk_load(wsm + (u % p.nst) * kWStage, chunk_src(p, u, c30), &full[u % p.nst]);
+        bulk_load(wsm + (u % p.nst) * p.wst, chunk_src(p, u, c30), &full[u % p.nst],
+                  p.wst * sizeof(float));
       }
     return;
   }
@@ -378,15 +432,18 @@ __global__ void __launch_bounds__(kThreads, 1) sa_tc_kernel(const SAArgs p) {
   for (int cb = 0; cb < p.nc2; ++cb) {
     init_bias(acc, p.b2, p.C2, cb);
     for (int kb = 0; kb < p.nk2; ++kb, ++t)
-      chunk_products<true>(p, acc, t, wsm, full, empty, h1, p.s1, kb, ct0, ct1);
+      chunk_products<true, BF>(p, acc, t, wsm, full, empty, h1, p.s1, kb, ct0, ct1);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
       const int n = cb * kCC + cbase + nt * 8 + 2 * q;
       if (n >= w2) continue;
-      *reinterpret_cast<float2*>(h2 + (rbase + g) * p.s2 + n) =
-          make_float2(fmaxf(acc[nt][0], 0.f), fmaxf(acc[nt][1], 0.f));
-      *reinterpret_cast<float2*>(h2 + (rbase + g + 8) * p.s2 + n) =
-          make_float2(fmaxf(acc[nt][2], 0.f), fmaxf(acc[nt][3], 0.f));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float v0 = fmaxf(acc[nt][2 * h], 0.f), v1 = fmaxf(acc[nt][2 * h + 1], 0.f);
+        Act* dst = h2 + (rbase + g + 8 * h) * p.s2 + n;
+        if constexpr (BF) *reinterpret_cast<uint32_t*>(dst) = pack_bf16(v0, v1);
+        else *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+      }
     }
   }
   consumer_sync();  // h2 is whole, and no warp reads h1 again
@@ -395,7 +452,7 @@ __global__ void __launch_bounds__(kThreads, 1) sa_tc_kernel(const SAArgs p) {
   for (int cb = c30; cb < c31; ++cb) {
     init_bias(acc, p.b3, p.C3, cb);
     for (int kb = 0; kb < p.nk3; ++kb, ++t)
-      chunk_products<false>(p, acc, t, wsm, full, empty, h2, p.s2, kb, nullptr, nullptr);
+      chunk_products<false, BF>(p, acc, t, wsm, full, empty, h2, p.s2, kb, nullptr, nullptr);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
       const int c = cbase + nt * 8 + 2 * q;
@@ -411,8 +468,9 @@ __global__ void __launch_bounds__(kThreads, 1) sa_tc_kernel(const SAArgs p) {
       float m = 0.f;  // every value is a ReLU output, so >= 0
       const float* col = y3 + tc * K * kRedStride + c;
       for (int k = 0; k < K; ++k) m = fmaxf(m, col[k * kRedStride]);
-      p.out[(static_cast<long long>(b) * p.S + s0 + tc) * p.C3 + n] =
-          bad[tc] ? __int_as_float(0x7fc00000) : m;
+      const long long o = (static_cast<long long>(b) * p.S + s0 + tc) * p.C3 + n;
+      if constexpr (BF) static_cast<uint16_t*>(p.out)[o] = bad[tc] ? uint16_t{0x7fc0} : bf16_bits(m);
+      else static_cast<float*>(p.out)[o] = bad[tc] ? __int_as_float(0x7fc00000) : m;
     }
     consumer_sync();  // y3 is read before the next chunk writes it
   }
@@ -431,38 +489,44 @@ const DeviceInfo& device_info() {
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(sa_tc_kernel<kLdg>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemMax);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(sa_tc_kernel<kCpAsync>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    const void* kernels[] = {reinterpret_cast<const void*>(sa_tc_kernel<kLdg, false>),
+                             reinterpret_cast<const void*>(sa_tc_kernel<kCpAsync, false>),
+                             reinterpret_cast<const void*>(sa_tc_kernel<kLdg, true>),
+                             reinterpret_cast<const void*>(sa_tc_kernel<kCpAsync, true>)};
+    for (const void* k : kernels)
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     d.err = static_cast<int>(e);
     return d;
   }();
   return info;
 }
 
-long long packed_floats(int k, int c) {
-  return static_cast<long long>(cdiv(round8(c), kCC)) * cdiv(round8(k), kKC) * kWStage;
+long long packed_floats(int k, int c, int bf) {
+  return static_cast<long long>(cdiv(round8(c), kCC)) * cdiv(round8(k), kKC) *
+         (bf ? kWStage16 : kWStage);
 }
 
-// Widths, shared-memory layout, weight stages and the grid (tiles, B, nz).
-int make_plan(SAArgs* p, int sms, dim3* grid, size_t* smem) {
+// Widths, shared-memory layout, weight stages and the grid (tiles, B, nz). Rows
+// of f32 are padded by 4 floats, of bf16 by 8 values (4 words): each keeps the
+// fragment loads of a warp on 32 banks and a row's start on 16 bytes.
+int make_plan(SAArgs* p, int bf, int sms, dim3* grid, size_t* smem) {
   p->ts = kTile / p->K;
   p->nk2 = cdiv(round8(p->C1), kKC);
   p->nk3 = cdiv(round8(p->C2), kKC);
   p->nc2 = cdiv(round8(p->C2), kCC);
   p->nc3 = cdiv(round8(p->C3), kCC);
-  p->s1 = p->nk2 * kKC + 4;
-  p->s2 = p->nk3 * kKC + 4;
-  const int r1 = kTile * (p->s1 > kRedStride ? p->s1 : kRedStride);
+  p->wst = bf ? kWStage16 : kWStage;
+  p->s1 = p->nk2 * kKC + (bf ? 8 : 4);
+  p->s2 = p->nk3 * kKC + (bf ? 8 : 4);
+  const int h1f = bf ? kTile * p->s1 / 2 : kTile * p->s1;  // floats of the gathered rows
+  const int r1 = h1f > kTile * kRedStride ? h1f : kTile * kRedStride;
   p->o_h2 = r1;
-  p->o_ct = p->o_h2 + kTile * p->s2;
+  p->o_ct = p->o_h2 + (bf ? kTile * p->s2 / 2 : kTile * p->s2);
   p->o_idx = p->o_ct + p->ts * p->nk2 * kKC;
   p->o_w = (p->o_idx + kTile + p->ts + 31) & ~31;  // 128-byte aligned stages
   for (p->nst = kMaxStages; p->nst >= 2; --p->nst) {
-    p->o_bar = p->o_w + p->nst * kWStage;
+    p->o_bar = p->o_w + p->nst * p->wst;
     *smem = static_cast<size_t>(p->o_bar + 4 * p->nst) * sizeof(float);  // full and empty
     if (*smem <= static_cast<size_t>(kSmemMax)) break;
   }
@@ -495,19 +559,20 @@ int plan_gather(int C1) { return C1 <= 64 ? kLdg : kCpAsync; }
 // K5 (xyz and idx_ws unused). centers are read by both (ct). w1x: layer 1's
 // three xyz rows (3, C1), or nullptr when layer 1 reads no xyz. r2 is the
 // squared radius in f32, inv_r 1 / r or 1. gather: kLdg or kCpAsync, or -1
-// for the plan's choice.
+// for the plan's choice. bf16: 1 for the bf16 mode (a_rows and out bf16, w2
+// and w3 packed in bf16; C1 a multiple of 8), 0 for 3xTF32 (f32).
 extern "C" int sa_fused_k4(const float* xyz, const float* centers, const int* idx, int* idx_ws,
-                           const float* a_rows, const float* w1x, const float* b1,
+                           const void* a_rows, const float* w1x, const float* b1,
                            const float* w2, long long n_w2, const float* b2, const float* w3,
-                           long long n_w3, const float* b3, float* out, int B, int N, int S,
+                           long long n_w3, const float* b3, void* out, int B, int N, int S,
                            int K, int C1, int C2, int C3, float r2, float inv_r, int gather,
-                           void* stream) {
+                           int bf16, void* stream) {
   if (B < 1 || B > 65535 || N < 1 || S < 1 || K < 1 || K > kTile || C1 < 1 || C2 < 1 || C3 < 1 ||
-      gather < -1 || gather > kCpAsync)
+      gather < -1 || gather > kCpAsync || bf16 < 0 || bf16 > 1)
     return kErrArgs;
   if (!centers || (!idx && (!xyz || !idx_ws))) return kErrArgs;
-  if (C1 % 4 || C2 % 4 || C3 % 4) return kErrWidth;
-  if (n_w2 != packed_floats(C1, C2) || n_w3 != packed_floats(C2, C3)) return kErrPacked;
+  if (C1 % 4 || C2 % 4 || C3 % 4 || (bf16 && C1 % 8)) return kErrWidth;
+  if (n_w2 != packed_floats(C1, C2, bf16) || n_w3 != packed_floats(C2, C3, bf16)) return kErrPacked;
   const DeviceInfo& dev = device_info();
   if (dev.err) return dev.err;
   SAArgs p{};
@@ -531,7 +596,7 @@ extern "C" int sa_fused_k4(const float* xyz, const float* centers, const int* id
   p.inv_r = inv_r;
   dim3 grid;
   size_t smem = 0;
-  const int err = make_plan(&p, dev.sms, &grid, &smem);
+  const int err = make_plan(&p, bf16, dev.sms, &grid, &smem);
   if (err) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!idx) {
@@ -541,7 +606,12 @@ extern "C" int sa_fused_k4(const float* xyz, const float* centers, const int* id
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if (gather < 0) gather = plan_gather(C1);
-  if (gather == kLdg) sa_tc_kernel<kLdg><<<grid, kThreads, smem, s>>>(p);
-  else sa_tc_kernel<kCpAsync><<<grid, kThreads, smem, s>>>(p);
+  if (bf16) {
+    if (gather == kLdg) sa_tc_kernel<kLdg, true><<<grid, kThreads, smem, s>>>(p);
+    else sa_tc_kernel<kCpAsync, true><<<grid, kThreads, smem, s>>>(p);
+  } else {
+    if (gather == kLdg) sa_tc_kernel<kLdg, false><<<grid, kThreads, smem, s>>>(p);
+    else sa_tc_kernel<kCpAsync, false><<<grid, kThreads, smem, s>>>(p);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -75,10 +75,10 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
-// One thread: a chunk of kWStage floats from device memory into a stage, the
-// stage's mbarrier completing when the bytes have landed.
-__device__ __forceinline__ void bulk_load(float* dst, const float* src, uint64_t* bar) {
-  constexpr uint32_t bytes = kWStage * sizeof(float);
+// One thread: a chunk of `bytes` (kWStage floats unless given) from device
+// memory into a stage, the stage's mbarrier completing when the bytes have landed.
+__device__ __forceinline__ void bulk_load(float* dst, const float* src, uint64_t* bar,
+                                          uint32_t bytes = kWStage * sizeof(float)) {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // after generic reads of dst
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                ::"r"(smem_addr(bar)), "r"(bytes) : "memory");

@@ -4,7 +4,7 @@
         [--epoch N] [--batch_size B] [--seed S] [--log_dir DIR] [--workers W] \
         [--check_val_every_n_epoch E] [--device cuda]                        # train
     python -m open3dsot_tpu_torch.main --cfg cfgs/M2_track_synthetic.yaml --test \
-        [--checkpoint ckpt_best.pt] [--max_tracklets N] [--device cuda] \
+        [--checkpoint ckpt_best.pt] [--max_tracklets N] [--device cuda] [--bf16] \
         [--tracker scan [--host_metrics] [--transfer_quant int16]]          # eval
 
 Flags keep the JAX CLI's names (main.py); a flag given overrides the YAML.
@@ -13,12 +13,15 @@ model, or the batched device-resident scan tracker (`--tracker scan`:
 tracking/scan_tracker.py for M2-Track, tracking/scan_matching.py for BAT
 and P2B): on-device scoring by default, host scoring with
 `--host_metrics`, frame points shipped as int16 with `--transfer_quant
-int16`. Not ported yet: process sharding, the disk prep cache
+int16`. `--bf16` (or `bf16: true` in the YAML) computes eval in bf16 on
+either path (the kernels in their bf16 mode); parameters and statistics stay
+f32. Not ported yet: process sharding, the disk prep cache
 (`--eval_prep_cache`) and `--save_results`.
 Training runs the matching trackers (BAT, P2B; `train_siamese`) through
 `train/trainer.py`, starting from random weights made from the seed
 (weights.random_variables); M2-Track training (`train_motion`) is not
-ported yet and is refused, as the models refuse `bf16`. `--checkpoint` is a trainer checkpoint
+ported yet and is refused, as is training under `--bf16` (it needs K6's bf16
+mode, ROADMAP.md section 2). `--checkpoint` is a trainer checkpoint
 (`ckpt_best.pt`, `ckpt_last.pt`) or a file written by
 `torch.save(model.net.state_dict(), path)`; without one the weights are
 random, made from the seed.
@@ -30,7 +33,7 @@ import argparse
 import sys
 
 _OVERRIDES = ("epoch", "batch_size", "seed", "log_dir", "workers", "check_val_every_n_epoch",
-              "transfer_quant")
+              "transfer_quant", "bf16")
 
 
 def parse_args(argv=None):
@@ -47,6 +50,8 @@ def parse_args(argv=None):
     parser.add_argument("--workers", type=int, default=None)
     parser.add_argument("--seed", type=int, default=None)
     parser.add_argument("--check_val_every_n_epoch", type=int, default=None)
+    parser.add_argument("--bf16", action="store_true", default=None,
+                        help="bf16 compute (params/BN stats stay f32); eval only")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device (cuda or cpu)")
     parser.add_argument("--tracker", type=str, default="host", choices=["host", "scan"],
@@ -75,7 +80,10 @@ def main(argv=None):
     if not args.test and getattr(cfg, "train_type", "") != "train_siamese":
         sys.exit(f"{cfg.net_model} ({getattr(cfg, 'train_type', None)}): training is not "
                  "ported yet (ROADMAP.md, modules to port); the port trains BAT and P2B")
-    model = get_model(cfg.net_model)(cfg, device=args.device)  # refuses bf16
+    if not args.test and cfg.bf16:
+        sys.exit("training under bf16 compute is not ported yet (ROADMAP.md, section 2, bf16 "
+                 "item 3: K6's bf16 mode with bf16 training); bf16 runs with --test")
+    model = get_model(cfg.net_model)(cfg, device=args.device)
     if args.checkpoint:
         from open3dsot_tpu_torch.train.trainer import state_dict_of_checkpoint
 

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from open3dsot_tpu_torch.models.layers import MLP, refuse_bf16, resolve_device
+from open3dsot_tpu_torch.models.layers import MLP, compute_dtype, linear, resolve_device, to_f32
 from open3dsot_tpu_torch.models.losses import smooth_l1
 from open3dsot_tpu_torch.models.matching_base import (
     MatchingEvalMixin,
@@ -21,6 +21,7 @@ from open3dsot_tpu_torch.models.matching_base import (
 )
 from open3dsot_tpu_torch.models.pointnet import PointnetBackbone
 from open3dsot_tpu_torch.models.rpn import P2BVoteNetRPN
+from open3dsot_tpu_torch.ops.chain_fused import BF16, is_bf16
 from open3dsot_tpu_torch.models.xcorr import BoxAwareXCorr
 from open3dsot_tpu_torch.ops.grouping import gather_points
 
@@ -31,20 +32,20 @@ class BATNet(nn.Module):
                  k: int = 4, bc_channel: int = 9, use_search_bc: bool = False,
                  use_search_feature: bool = False, use_fps: bool = True,
                  normalize_xyz: bool = False, fused_eval: bool = True, fused_train: bool = True,
-                 device=None):
+                 device=None, dtype=None):
         super().__init__()
         f = feature_channel
+        kw = dict(device=device, dtype=dtype)
+        self.dtype = BF16 if is_bf16(dtype) else None
         self.backbone = PointnetBackbone(use_fps=use_fps, normalize_xyz=normalize_xyz,
-                                         fused_eval=fused_eval, fused_train=fused_train,
-                                         device=device)
+                                         fused_eval=fused_eval, fused_train=fused_train, **kw)
         self.conv_final = nn.Linear(PointnetBackbone.OUT_CHANNELS, f, device=device)
-        self.mlp_bc = MLP(3 + f, [f, f, bc_channel], final_plain=True, device=device)
+        self.mlp_bc = MLP(3 + f, [f, f, bc_channel], final_plain=True, **kw)
         self.xcorr = BoxAwareXCorr(f, hidden_channel, out_channel, k=k, bc_channel=bc_channel,
                                    use_search_bc=use_search_bc,
-                                   use_search_feature=use_search_feature, device=device)
+                                   use_search_feature=use_search_feature, **kw)
         self.rpn = P2BVoteNetRPN(out_channel, vote_channel, num_proposal,
-                                 normalize_xyz=normalize_xyz, fused_eval=fused_eval,
-                                 device=device)
+                                 normalize_xyz=normalize_xyz, fused_eval=fused_eval, **kw)
 
     def forward(self, template: torch.Tensor, search: torch.Tensor,
                 template_bc: torch.Tensor) -> dict:
@@ -53,9 +54,10 @@ class BATNet(nn.Module):
         template_xyz, template_feature, sample_idxs_t = self.backbone(
             template, [M // 2, M // 4, M // 8])
         search_xyz, search_feature, sample_idxs = self.backbone(search, [N // 2, N // 4, N // 8])
-        template_feature = self.conv_final(template_feature)
-        search_feature = self.conv_final(search_feature)
-        pred_search_bc = self.mlp_bc(torch.cat([search_xyz, search_feature], dim=-1))
+        template_feature = linear(template_feature, self.conv_final, self.dtype)
+        search_feature = linear(search_feature, self.conv_final, self.dtype)
+        # BoxCloud targets regress in f32 (JAX bat.py:79)
+        pred_search_bc = to_f32(self.mlp_bc(torch.cat([search_xyz, search_feature], dim=-1)))
         template_bc = gather_points(template_bc, sample_idxs_t[:, : M // 8])
         fusion_feature = self.xcorr(template_feature, search_feature, template_xyz, search_xyz,
                                     template_bc, pred_search_bc)
@@ -75,13 +77,13 @@ class BATModel(MatchingEvalMixin):
     """The net on `device` (the card unless the caller asks for the CPU) and
     the matching input building, with the template BoxCloud channel
     (reference bat.py:41-55). `fused_eval`: K3/K4 in eval; `fused_train`:
-    K6 in training (FPS stays K3 with `fused_eval`)."""
+    K6 in training (FPS stays K3 with `fused_eval`). `bf16: true` computes the
+    eval forward in bf16 (K4 in its bf16 mode); training then is refused."""
 
     name = "bat"
     input_keys = ("template_points", "search_points", "points2cc_dist_t")
 
     def __init__(self, config, device="cuda", fused_eval: bool = True, fused_train: bool = True):
-        refuse_bf16(config)
         self.config = config
         self.device = resolve_device(device)
         self.net = BATNet(
@@ -99,6 +101,7 @@ class BATModel(MatchingEvalMixin):
             fused_eval=fused_eval,
             fused_train=fused_train,
             device=self.device,
+            dtype=compute_dtype(config),
         ).eval()
 
     def dummy_batch(self, batch_size: int = 2) -> dict:

@@ -13,6 +13,16 @@ the unbiased one, so `F.batch_norm(training=True)` is not used). The update
 is in place under no_grad; it bumps the buffers' versions, so a cached BN
 fold (models/pointnet.py::_FoldCache) is refolded before the next eval
 forward.
+
+bf16 compute (`dtype=torch.bfloat16`, JAX `dtype=jnp.bfloat16`) follows
+flax's rounding order in eval: `nn.Dense(dtype=bf16)` rounds its input,
+kernel and bias to bf16, multiplies with f32 sums and rounds the product to
+bf16, then adds the bias in bf16; `nn.BatchNorm(dtype=bf16)` computes
+(x - mean) * (rsqrt(var + eps) * scale) + bias in the statistics' type (f32,
+or bf16 where the statistics themselves are bf16) and rounds the result to
+bf16; ReLU keeps bf16. Parameters and statistics stay f32 (the scan tracker
+rounds a copy of them). Training in bf16 is refused: it needs K6's bf16
+mode (ROADMAP.md, section 2, bf16 item 3).
 """
 
 from __future__ import annotations
@@ -23,7 +33,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from open3dsot_tpu_torch.ops.chain_fused import BN_EPS, fold_dense_bn
+from open3dsot_tpu_torch.ops.chain_fused import BF16, BN_EPS, fold_dense_bn, is_bf16
 
 
 def resolve_device(device) -> torch.device:
@@ -34,13 +44,46 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def refuse_bf16(config) -> None:
-    """Every model runs in float32: the JAX package's bf16 compute (`bf16: true`)
-    has no counterpart in the port yet, so a config asking for it is refused."""
-    if getattr(config, "bf16", False):
-        raise NotImplementedError("bf16 compute is not ported yet (ROADMAP.md, section 1 item 4: "
-                                  "the bf16 paths of the kernels K1/K2 and K6 and of the "
-                                  "layers around them); run in float32")
+def compute_dtype(config):
+    """torch.bfloat16 under `bf16: true`, else None (float32), as JAX's
+    models/matching_base.py::_compute_dtype."""
+    return BF16 if getattr(config, "bf16", False) else None
+
+
+def refuse_bf16_training(what: str = "training") -> None:
+    """bf16 runs in eval only: training in bf16 needs K6's bf16 forward and
+    VJP, which come with bf16 training."""
+    raise NotImplementedError(f"{what} under bf16 compute is not ported yet (ROADMAP.md, "
+                              "section 2, bf16 item 3: K6's bf16 mode with bf16 training); "
+                              "train in float32")
+
+
+def set_compute_dtype(net: nn.Module, dtype) -> nn.Module:
+    """Every module of `net` with a compute dtype (`dtype` attribute: the
+    layers, encoders and SA layers of the port) computes in `dtype` from now
+    on; its fold caches refold for the new mode at their next use."""
+    dtype = BF16 if is_bf16(dtype) else None
+    for m in net.modules():
+        if "dtype" in vars(m):
+            m.dtype = dtype
+    return net
+
+
+def to_f32(x: torch.Tensor) -> torch.Tensor:
+    """A bf16 result back in f32 (JAX's `.astype(jnp.float32)` after a bf16
+    head); any other dtype, float64 in the reference runs, as it is."""
+    return x.float() if x.dtype == BF16 else x
+
+
+def computes_in_bf16(net: nn.Module) -> bool:
+    """Whether any module of `net` computes in bf16."""
+    return any(vars(m).get("dtype") is BF16 for m in net.modules())
+
+
+def linear(x: torch.Tensor, dense: nn.Linear, dtype) -> torch.Tensor:
+    """A bare Dense (a head, conv_final) in the compute dtype: flax's
+    nn.Dense(dtype=bf16) rounding in the bf16 mode."""
+    return dense_bf16(x, dense) if is_bf16(dtype) else dense(x)
 
 
 BN_MOMENTUM = 0.9  # flax's: ra <- m * ra + (1 - m) * batch
@@ -54,17 +97,28 @@ def batch_stats(x: torch.Tensor):
     return mean, ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
 
 
+def dense_bf16(x: torch.Tensor, dense: nn.Linear) -> torch.Tensor:
+    """flax nn.Dense(dtype=bf16): x, kernel and bias rounded to bf16, the
+    product with f32 sums rounded to bf16, plus the bias in bf16."""
+    y = (x.to(BF16).float() @ dense.weight.to(BF16).float().t()).to(BF16)
+    return y + dense.bias.to(BF16)
+
+
 class DenseBNRelu(nn.Module):
-    """Dense -> BatchNorm -> ReLU over the last axis (any leading shape)."""
+    """Dense -> BatchNorm -> ReLU over the last axis (any leading shape);
+    `dtype` None (float32) or torch.bfloat16 (eval only)."""
 
     def __init__(self, in_features: int, features: int, bn: bool = True,
-                 activation: bool = True, device=None):
+                 activation: bool = True, device=None, dtype=None):
         super().__init__()
         self.dense = nn.Linear(in_features, features, device=device)
         self.bn = nn.BatchNorm1d(features, eps=BN_EPS, momentum=0.1, device=device) if bn else None
         self.activation = activation
+        self.dtype = BF16 if is_bf16(dtype) else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is not None:
+            return self._forward_bf16(x)
         x = self.dense(x)
         bn = self.bn
         if bn is not None and self.training:
@@ -75,6 +129,19 @@ class DenseBNRelu(nn.Module):
             shape = x.shape
             x = F.batch_norm(x.reshape(-1, shape[-1]), bn.running_mean, bn.running_var,
                              bn.weight, bn.bias, False, 0.0, bn.eps).reshape(shape)
+        if self.activation:
+            x = torch.relu(x)
+        return x
+
+    def _forward_bf16(self, x: torch.Tensor) -> torch.Tensor:
+        """Eval in bf16, in flax's order (the module docstring)."""
+        if self.training:
+            refuse_bf16_training()
+        x = dense_bf16(x, self.dense)
+        bn = self.bn
+        if bn is not None:
+            mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
+            x = ((x - bn.running_mean) * mul + bn.bias).to(BF16)
         if self.activation:
             x = torch.relu(x)
         return x
@@ -98,14 +165,15 @@ class MLP(nn.Module):
     one a bare Dense (no BN, no ReLU), as the reference's heads."""
 
     def __init__(self, in_features: int, channels: Sequence[int], final_plain: bool = False,
-                 device=None):
+                 device=None, dtype=None):
         super().__init__()
         n = len(channels)
         widths = [in_features] + list(channels)
         for i in range(n):
             plain = final_plain and i == n - 1
             self.add_module(f"layer{i}", DenseBNRelu(widths[i], widths[i + 1], bn=not plain,
-                                                     activation=not plain, device=device))
+                                                     activation=not plain, device=device,
+                                                     dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.children():

@@ -7,6 +7,10 @@ points are embedded by a MiniPointNet; MLP heads regress the 4-DoF motion
 (gated by the static/dynamic classifier) and a refined previous box; stage
 2 moves the t0 points by the motion, canonicalizes around the stage-1 box
 and regresses a residual. The loss (m2track_loss) comes with training.
+
+`dtype=torch.bfloat16` (config `bf16: true`) computes the encoders and heads
+in bf16 (K1/K2 in their bf16 mode), with the f32 casts where JAX has them:
+the seg output, the motion / state / box heads; the rigid box math stays f32.
 """
 
 from __future__ import annotations
@@ -18,33 +22,34 @@ import torch
 import torch.nn as nn
 
 from open3dsot_tpu_torch.geometry import rigid
-from open3dsot_tpu_torch.models.layers import MLP, refuse_bf16, resolve_device
+from open3dsot_tpu_torch.models.layers import MLP, compute_dtype, resolve_device, to_f32
 from open3dsot_tpu_torch.models.pointnet import MiniPointNet, SegPointNet
 
 
 class M2TrackNet(nn.Module):
     def __init__(self, box_aware: bool = False, use_motion_cls: bool = True,
                  use_second_stage: bool = True, use_prev_refinement: bool = True,
-                 fused_eval: bool = True, device=None):
+                 fused_eval: bool = True, device=None, dtype=None):
         super().__init__()
         self.box_aware = box_aware
         self.use_motion_cls = use_motion_cls
         self.use_second_stage = use_second_stage
         self.use_prev_refinement = use_prev_refinement
         bc = 9 if box_aware else 0
+        kw = dict(device=device, dtype=dtype)
         self.seg_pointnet = SegPointNet(5 + bc, [64, 64, 64, 128, 1024], [512, 256, 128, 128],
-                                        2 + bc, fused_eval=fused_eval, device=device)
+                                        2 + bc, fused_eval=fused_eval, **kw)
         self.mini_pointnet = MiniPointNet(4 + bc, [64, 128, 256, 512], [512, 256],
-                                          fused_eval=fused_eval, device=device)
-        self.motion_mlp = MLP(256, [128, 128, 4], final_plain=True, device=device)
+                                          fused_eval=fused_eval, **kw)
+        self.motion_mlp = MLP(256, [128, 128, 4], final_plain=True, **kw)
         if use_motion_cls:
-            self.motion_state_mlp = MLP(256, [128, 128, 2], final_plain=True, device=device)
+            self.motion_state_mlp = MLP(256, [128, 128, 2], final_plain=True, **kw)
         if use_prev_refinement:
-            self.final_mlp = MLP(256, [128, 128, 4], final_plain=True, device=device)
+            self.final_mlp = MLP(256, [128, 128, 4], final_plain=True, **kw)
         if use_second_stage:
             self.mini_pointnet2 = MiniPointNet(3 + bc, [64, 128, 256, 512], [512, 256],
-                                               fused_eval=fused_eval, device=device)
-            self.box_mlp = MLP(256, [128, 128, 4], final_plain=True, device=device)
+                                               fused_eval=fused_eval, **kw)
+            self.box_mlp = MLP(256, [128, 128, 4], final_plain=True, **kw)
 
     def forward(self, points: torch.Tensor,
                 candidate_bc: Optional[torch.Tensor] = None) -> dict:
@@ -55,7 +60,7 @@ class M2TrackNet(nn.Module):
         N = x.shape[1]
 
         output = {}
-        seg_out = self.seg_pointnet(x)
+        seg_out = to_f32(self.seg_pointnet(x))
         seg_logits = seg_out[..., :2]
         pred_cls = torch.argmax(seg_logits, dim=-1, keepdim=True).to(x.dtype)
         mask_points = x[..., :4] * pred_cls
@@ -68,9 +73,10 @@ class M2TrackNet(nn.Module):
             output["pred_bc"] = pred_bc
 
         point_feature = self.mini_pointnet(mask_points)
-        motion_pred = self.motion_mlp(point_feature)
+        # heads regress boxes and logits: back to f32 for the rigid math
+        motion_pred = to_f32(self.motion_mlp(point_feature))
         if self.use_motion_cls:
-            motion_state_logits = self.motion_state_mlp(point_feature)
+            motion_state_logits = to_f32(self.motion_state_mlp(point_feature))
             motion_mask = torch.argmax(motion_state_logits, dim=-1, keepdim=True).to(motion_pred.dtype)
             motion_pred_masked = motion_pred * motion_mask
             output["motion_cls"] = motion_state_logits
@@ -78,7 +84,7 @@ class M2TrackNet(nn.Module):
             motion_pred_masked = motion_pred
 
         if self.use_prev_refinement:
-            prev_boxes = self.final_mlp(point_feature)
+            prev_boxes = to_f32(self.final_mlp(point_feature))
             output["estimation_boxes_prev"] = prev_boxes
         else:
             prev_boxes = torch.zeros_like(motion_pred)
@@ -93,7 +99,7 @@ class M2TrackNet(nn.Module):
             if self.box_aware:
                 mask_xyz_t01 = torch.cat([mask_xyz_t01, mask_pred_bc], dim=-1)
             stage2_feat = self.mini_pointnet2(mask_xyz_t01)
-            output_offset = self.box_mlp(stage2_feat)
+            output_offset = to_f32(self.box_mlp(stage2_feat))
             output["estimation_boxes"] = rigid.get_offset_box(aux_box, output_offset)
         else:
             output["estimation_boxes"] = aux_box
@@ -105,12 +111,12 @@ class M2TrackNet(nn.Module):
 class M2TrackModel:
     """Orchestration wrapper: the net on `device` (eval mode; the card unless
     the caller asks for the CPU) plus the host input building of the eval
-    loop (reference base_model.py:255-303)."""
+    loop (reference base_model.py:255-303). `bf16: true` computes in bf16
+    (m2track.py:266); parameters and statistics stay f32."""
 
     name = "m2track"
 
     def __init__(self, config, device="cuda", fused_eval: bool = True):
-        refuse_bf16(config)  # the JAX model would compute in bf16 (m2track.py:266)
         self.config = config
         self.device = resolve_device(device)
         self.net = M2TrackNet(
@@ -120,6 +126,7 @@ class M2TrackModel:
             use_prev_refinement=getattr(config, "use_prev_refinement", True),
             fused_eval=fused_eval,
             device=self.device,
+            dtype=compute_dtype(config),
         ).eval()
 
     def dummy_batch(self, batch_size: int = 2) -> dict:

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from open3dsot_tpu_torch.models.layers import computes_in_bf16, refuse_bf16_training
 from open3dsot_tpu_torch.models.losses import bce_with_logits, smooth_l1
 
 
@@ -75,7 +76,10 @@ class MatchingEvalMixin:
 
     def apply_train(self, batch: dict) -> dict:
         """Training forward (batch statistics, running statistics updated,
-        autograd on) on a `device_batch`; outputs stay on the device."""
+        autograd on) on a `device_batch`; outputs stay on the device. Refused
+        under bf16 compute."""
+        if computes_in_bf16(self.net):
+            refuse_bf16_training(f"{self.name} training")
         self.net.train()
         return self.net(*(batch[k] for k in self.input_keys))
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from open3dsot_tpu_torch.models.layers import refuse_bf16, resolve_device
+from open3dsot_tpu_torch.models.layers import compute_dtype, linear, resolve_device
 from open3dsot_tpu_torch.models.matching_base import (
     MatchingEvalMixin,
     matching_loss,
@@ -18,6 +18,7 @@ from open3dsot_tpu_torch.models.matching_base import (
 )
 from open3dsot_tpu_torch.models.pointnet import PointnetBackbone
 from open3dsot_tpu_torch.models.rpn import P2BVoteNetRPN
+from open3dsot_tpu_torch.ops.chain_fused import BF16, is_bf16
 from open3dsot_tpu_torch.models.xcorr import P2BXCorr
 
 
@@ -25,24 +26,24 @@ class P2BNet(nn.Module):
     def __init__(self, feature_channel: int = 256, hidden_channel: int = 256,
                  out_channel: int = 256, vote_channel: int = 256, num_proposal: int = 64,
                  use_fps: bool = False, normalize_xyz: bool = False, fused_eval: bool = True,
-                 fused_train: bool = True, device=None):
+                 fused_train: bool = True, device=None, dtype=None):
         super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.dtype = BF16 if is_bf16(dtype) else None
         self.backbone = PointnetBackbone(use_fps=use_fps, normalize_xyz=normalize_xyz,
-                                         fused_eval=fused_eval, fused_train=fused_train,
-                                         device=device)
+                                         fused_eval=fused_eval, fused_train=fused_train, **kw)
         self.conv_final = nn.Linear(PointnetBackbone.OUT_CHANNELS, feature_channel, device=device)
-        self.xcorr = P2BXCorr(feature_channel, hidden_channel, out_channel, device=device)
+        self.xcorr = P2BXCorr(feature_channel, hidden_channel, out_channel, **kw)
         self.rpn = P2BVoteNetRPN(out_channel, vote_channel, num_proposal,
-                                 normalize_xyz=normalize_xyz, fused_eval=fused_eval,
-                                 device=device)
+                                 normalize_xyz=normalize_xyz, fused_eval=fused_eval, **kw)
 
     def forward(self, template: torch.Tensor, search: torch.Tensor) -> dict:
         """template (B, M, 3), search (B, N, 3)."""
         M, N = template.shape[1], search.shape[1]
         template_xyz, template_feature, _ = self.backbone(template, [M // 2, M // 4, M // 8])
         search_xyz, search_feature, sample_idxs = self.backbone(search, [N // 2, N // 4, N // 8])
-        template_feature = self.conv_final(template_feature)
-        search_feature = self.conv_final(search_feature)
+        template_feature = linear(template_feature, self.conv_final, self.dtype)
+        search_feature = linear(search_feature, self.conv_final, self.dtype)
         fusion_feature = self.xcorr(template_feature, search_feature, template_xyz)
         estimation_boxes, estimation_cla, vote_xyz, center_xyzs = self.rpn(search_xyz,
                                                                            fusion_feature)
@@ -57,12 +58,12 @@ class P2BNet(nn.Module):
 
 class P2BModel(MatchingEvalMixin):
     """The net on `device` (the card unless the caller asks for the CPU) and
-    the matching input building; `fused_eval` and `fused_train` as BATModel's."""
+    the matching input building; `fused_eval`, `fused_train` and `bf16: true`
+    as BATModel's."""
 
     name = "p2b"
 
     def __init__(self, config, device="cuda", fused_eval: bool = True, fused_train: bool = True):
-        refuse_bf16(config)
         self.config = config
         self.device = resolve_device(device)
         self.net = P2BNet(
@@ -76,6 +77,7 @@ class P2BModel(MatchingEvalMixin):
             fused_eval=fused_eval,
             fused_train=fused_train,
             device=self.device,
+            dtype=compute_dtype(config),
         ).eval()
 
     def loss(self, batch: dict, output: dict) -> dict:

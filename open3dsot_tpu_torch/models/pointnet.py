@@ -20,6 +20,13 @@ featureless first one, the RPN's vote layer) runs the plain grid MLP with
 training BatchNorm under autograd, and `amax` over the K neighbours, whose
 gradient is split over ties as JAX's. FPS stays K3 when `fused_eval` is
 set; the M2 encoders have no training form here yet.
+
+`dtype=torch.bfloat16` is the bf16 compute mode of eval (JAX `dtype=`):
+K1/K2/K4 in their bf16 mode with `fused_eval`, the flax-order bf16 layers
+(models/layers.py) without; xyz, K3 and the ball query stay f32. The fold
+caches key on the mode as well as on the weights, so a module switched
+between modes (layers.py::set_compute_dtype) never reuses the other mode's
+packing.
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
-from open3dsot_tpu_torch.models.layers import MLP
+from open3dsot_tpu_torch.models.layers import MLP, linear, refuse_bf16_training
+from open3dsot_tpu_torch.ops.chain_fused import BF16, is_bf16
 from open3dsot_tpu_torch.ops.chain_fused import (
     FoldedChain,
     fused_pointnet_encoder,
@@ -56,7 +64,8 @@ def _fold_parts(value) -> tuple:
 
 
 class _FoldCache(nn.Module):
-    """Caches `self._fold()` until a parameter or buffer changes."""
+    """Caches `self._fold()` until a parameter or buffer, or the compute
+    dtype (`self.dtype`), changes."""
 
     _fold_buffers = None  # the buffers' names, inside `folds_as_buffers`
 
@@ -71,7 +80,7 @@ class _FoldCache(nn.Module):
                 parts.append(part.with_tensors(tensors[:n]))
                 tensors = tensors[n:]
             return tuple(parts) if type(self._fold_value) is tuple else parts[0]
-        key = weights_key(self)
+        key = (weights_key(self), self.dtype)
         if getattr(self, "_fold_key", None) != key:
             with torch.no_grad():
                 self._fold_value = self._fold()
@@ -109,26 +118,27 @@ class MiniPointNet(_FoldCache):
     """Per-point MLP -> global max-pool -> hidden MLP [-> fc]."""
 
     def __init__(self, in_channels: int, per_point_mlp: Sequence[int], hidden_mlp: Sequence[int],
-                 output_size: int = 0, fused_eval: bool = True, device=None):
+                 output_size: int = 0, fused_eval: bool = True, device=None, dtype=None):
         super().__init__()
-        self.per_point = MLP(in_channels, per_point_mlp, device=device)
-        self.hidden = MLP(per_point_mlp[-1], hidden_mlp, device=device)
+        self.per_point = MLP(in_channels, per_point_mlp, device=device, dtype=dtype)
+        self.hidden = MLP(per_point_mlp[-1], hidden_mlp, device=device, dtype=dtype)
         self.fc = (nn.Linear(hidden_mlp[-1], output_size, device=device)
                    if output_size > 0 else None)
         self.fused_eval = fused_eval
+        self.dtype = BF16 if is_bf16(dtype) else None
 
     def _fold(self):
-        return FoldedChain(self.per_point.folded())
+        return FoldedChain(self.per_point.folded(), dtype=self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, N, C) -> (B, hidden_mlp[-1] or output_size)."""
+        """x (B, N, C) -> (B, hidden_mlp[-1] or output_size); bf16 in the bf16 mode."""
         if self.fused_eval:
             _, x = fused_pointnet_encoder(x, self.folded_chains())
         else:
             x = self.per_point(x).amax(dim=1)
         x = self.hidden(x)
         if self.fc is not None:
-            x = self.fc(x)
+            x = linear(x, self.fc, self.dtype)
         return x
 
 
@@ -140,27 +150,30 @@ class SegPointNet(_FoldCache):
 
     def __init__(self, in_channels: int, per_point_mlp1: Sequence[int],
                  per_point_mlp2: Sequence[int], output_size: int,
-                 fused_eval: bool = True, device=None):
+                 fused_eval: bool = True, device=None, dtype=None):
         super().__init__()
         widths = [in_channels] + list(per_point_mlp1)
         for i, ch in enumerate(per_point_mlp1):
-            self.add_module(f"mlp1_{i}", MLP(widths[i], [ch], device=device))
+            self.add_module(f"mlp1_{i}", MLP(widths[i], [ch], device=device, dtype=dtype))
         c_tap, c_pool = per_point_mlp1[self.TAP_AT], per_point_mlp1[-1]
         widths = [c_tap + c_pool] + list(per_point_mlp2)
         for i, ch in enumerate(per_point_mlp2):
-            self.add_module(f"mlp2_{i}", MLP(widths[i], [ch], device=device))
+            self.add_module(f"mlp2_{i}", MLP(widths[i], [ch], device=device, dtype=dtype))
         self.fc = nn.Linear(per_point_mlp2[-1], output_size, device=device)
         self.n1, self.n2 = len(per_point_mlp1), len(per_point_mlp2)
         self.c_tap = c_tap
         self.fused_eval = fused_eval
+        self.dtype = BF16 if is_bf16(dtype) else None
 
     def _fold(self):
         mlp1 = [getattr(self, f"mlp1_{i}").layer0.folded() for i in range(self.n1)]
         mlp2 = [getattr(self, f"mlp2_{i}").layer0.folded() for i in range(self.n2)]
         head = (self.fc.weight.t().contiguous(), self.fc.bias)
-        return FoldedChain(mlp1), FoldedChain(mlp2 + [head], split=self.c_tap)
+        return (FoldedChain(mlp1, dtype=self.dtype),
+                FoldedChain(mlp2 + [head], split=self.c_tap, dtype=self.dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """-> (B, N, output_size): f32 from K2, bf16 from the plain bf16 stack."""
         if self.fused_eval:
             chain1, chain2 = self.folded_chains()
             tap, pooled = fused_pointnet_encoder(x, chain1, tap_at=self.TAP_AT)
@@ -174,7 +187,7 @@ class SegPointNet(_FoldCache):
         x = torch.cat([tap, pooled], dim=-1)
         for i in range(self.n2):
             x = getattr(self, f"mlp2_{i}")(x)
-        return self.fc(x)
+        return linear(x, self.fc, self.dtype)
 
 
 class SetAbstraction(_FoldCache):
@@ -188,21 +201,23 @@ class SetAbstraction(_FoldCache):
 
     def __init__(self, in_features: int, mlp: Sequence[int], radius: float, nsample: int,
                  use_xyz: bool = True, use_fps: bool = False, normalize_xyz: bool = False,
-                 fused_eval: bool = True, fused_train: bool = False, device=None):
+                 fused_eval: bool = True, fused_train: bool = False, device=None, dtype=None):
         super().__init__()
         c_in = in_features + 3 if (use_xyz or in_features == 0) else in_features
-        self.mlp_shared = MLP(c_in, mlp, device=device)
+        self.mlp_shared = MLP(c_in, mlp, device=device, dtype=dtype)
         self.radius, self.nsample = radius, nsample
         self.use_xyz, self.use_fps, self.normalize_xyz = use_xyz, use_fps, normalize_xyz
         self.fused_eval, self.fused_train = fused_eval, fused_train
+        self.dtype = BF16 if is_bf16(dtype) else None
 
     def _fold(self):
-        # on a CUDA device, packed for K4 here, once per change of the weights
-        return FoldedSA(self.mlp_shared.folded())
+        # on a CUDA device, packed for K4 here, once per change of the weights or mode
+        return FoldedSA(self.mlp_shared.folded(), dtype=self.dtype)
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor], npoint: int):
         """xyz (B, N, 3), features (B, N, C) or None -> (new_xyz (B, S, 3),
-        new_features (B, S, mlp[-1]), sample_idxs (B, S) int32)."""
+        new_features (B, S, mlp[-1]) (bf16 in the bf16 mode), sample_idxs (B, S)
+        int32)."""
         B = xyz.shape[0]
         xyz = xyz.contiguous()
         if self.use_fps:
@@ -214,6 +229,8 @@ class SetAbstraction(_FoldCache):
         new_xyz = gather_points(xyz, sample_idxs)
         kw = dict(radius=self.radius, normalize_xyz=self.normalize_xyz, use_xyz=self.use_xyz)
         if self.training:
+            if self.dtype is not None:
+                refuse_bf16_training()
             idx = ball_query(self.radius, self.nsample, xyz.detach(), new_xyz.detach())
             if (self.fused_train and features is not None
                     and len(list(self.mlp_shared.children())) == 3):
@@ -241,14 +258,14 @@ class PointnetBackbone(nn.Module):
 
     def __init__(self, use_fps: bool = False, normalize_xyz: bool = False,
                  input_channels: int = 0, fused_eval: bool = True, fused_train: bool = False,
-                 device=None):
+                 device=None, dtype=None):
         super().__init__()
         c = input_channels
         for i, (mlp, radius) in enumerate(self.SPECS):
             self.add_module(f"sa{i}", SetAbstraction(
                 c, mlp, radius, 32, use_xyz=True, use_fps=use_fps and i == 0,
                 normalize_xyz=normalize_xyz, fused_eval=fused_eval, fused_train=fused_train,
-                device=device))
+                device=device, dtype=dtype))
             c = mlp[-1]
 
     def forward(self, pointcloud: torch.Tensor, numpoints: Sequence[int]):

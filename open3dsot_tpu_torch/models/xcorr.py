@@ -7,7 +7,9 @@
   space, their xyz | BoxCloud | feature, shared MLP, max over k
   (head/xcorr.py:56-103).
 
-Plain PyTorch: the JAX package has no Pallas kernel here.
+Plain PyTorch: the JAX package has no Pallas kernel here. `dtype` is the
+compute dtype of their MLPs (JAX xcorr.py:55-101); the similarity, kNN and
+grouping stay f32 (torch.cat promotes bf16 features beside f32 xyz, as jnp).
 """
 
 from __future__ import annotations
@@ -21,11 +23,12 @@ from open3dsot_tpu_torch.ops.neighbors import knn
 
 
 class P2BXCorr(nn.Module):
-    def __init__(self, feature_channel: int, hidden_channel: int, out_channel: int, device=None):
+    def __init__(self, feature_channel: int, hidden_channel: int, out_channel: int, device=None,
+                 dtype=None):
         super().__init__()
         h = hidden_channel
-        self.mlp = MLP(4 + feature_channel, [h, h, h], device=device)
-        self.fea_layer = MLP(h, [h, out_channel], final_plain=True, device=device)
+        self.mlp = MLP(4 + feature_channel, [h, h, h], device=device, dtype=dtype)
+        self.fea_layer = MLP(h, [h, out_channel], final_plain=True, device=device, dtype=dtype)
 
     def forward(self, template_feature, search_feature, template_xyz):
         """(B, M, f), (B, N, f), (B, M, 3) -> (B, N, out_channel)."""
@@ -44,7 +47,7 @@ class P2BXCorr(nn.Module):
 class BoxAwareXCorr(nn.Module):
     def __init__(self, feature_channel: int, hidden_channel: int, out_channel: int, k: int = 4,
                  bc_channel: int = 9, use_search_bc: bool = False,
-                 use_search_feature: bool = False, device=None):
+                 use_search_feature: bool = False, device=None, dtype=None):
         super().__init__()
         self.k = k
         self.use_search_bc, self.use_search_feature = use_search_bc, use_search_feature
@@ -52,8 +55,8 @@ class BoxAwareXCorr(nn.Module):
         c_in += bc_channel if use_search_bc else 0
         c_in += feature_channel if use_search_feature else 0
         h = hidden_channel
-        self.mlp = MLP(c_in, [h, h, h], device=device)
-        self.fea_layer = MLP(h, [h, out_channel], final_plain=True, device=device)
+        self.mlp = MLP(c_in, [h, h, h], device=device, dtype=dtype)
+        self.fea_layer = MLP(h, [h, out_channel], final_plain=True, device=device, dtype=dtype)
 
     def forward(self, template_feature, search_feature, template_xyz, search_xyz,
                 template_bc, search_bc):

@@ -28,6 +28,15 @@ Folded weights are (in, out) float32, as `fold_dense_bn` gives them; the
 kernels take them packed by `FoldedChain`: transposed to (out, in),
 zero-padded to whole weight chunks and split into TF32 hi and lo parts for
 the 3xTF32 tensor-core products.
+
+The bf16 compute mode (`FoldedChain(..., dtype=torch.bfloat16)`, the JAX
+kernels' `dtype=jnp.bfloat16`): BatchNorm folds in f32 as in the f32 mode;
+each layer's product takes bf16 operands (the activations and W' rounded to
+nearest even) and accumulates in f32, then + b' (f32) and ReLU. The tap, the
+pooled vector and K2's logits stay f32. The weights are packed in bf16, one
+part; the plain versions round the operands and multiply in f32
+(`_dense`), which is exact bf16-operand / f32-accumulate arithmetic on the
+CPU and the card alike (TF32 off).
 """
 
 from __future__ import annotations
@@ -42,6 +51,8 @@ import torch.nn.functional as F
 from open3dsot_tpu_torch.ops._launch import check, direct, on_cuda, raise_on, stream_of
 
 BN_EPS = 1e-5  # models/layers.py::DenseBNRelu epsilon, as on the JAX side
+
+BF16 = torch.bfloat16
 
 # Tolerance of the kernels against f32: |k - ref| <= TOL * max|ref| + TOL * |ref|.
 # 3xTF32 drops a_lo * w_lo, about 2^-22 of each product, and the tensor
@@ -89,8 +100,36 @@ def split_tf32(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, tf32_rna(t.float() - hi)
 
 
+def is_bf16(dtype) -> bool:
+    """Whether a compute dtype is the bf16 mode (None and float32 are f32)."""
+    if dtype not in (None, torch.float32, BF16):
+        raise ValueError(f"compute dtype must be None, float32 or bfloat16, got {dtype}")
+    return dtype is BF16
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 (to nearest even), as f32."""
+    return t.to(BF16).float()
+
+
+def _dense(h: torch.Tensor, w: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """h @ w; in the bf16 mode with both rounded to bf16 and the sums in f32."""
+    if bf16:
+        return round_bf16(h) @ round_bf16(w)
+    return h @ w
+
+
 # The tensor cores' weight chunk: output x input channels (csrc/tf32_tc.cuh kCC, kKC)
 CHUNK_OUT, CHUNK_IN = 128, 32
+
+
+def _padded_t(w: torch.Tensor):
+    """W^T (out, in) zero-padded to whole chunks, and the chunk counts."""
+    k, c = w.shape
+    nc, nk = -(-round8(c) // CHUNK_OUT), -(-round8(k) // CHUNK_IN)
+    wt = w.new_zeros(nc * CHUNK_OUT, nk * CHUNK_IN)
+    wt[:c, :k] = w.t()
+    return wt, nc, nk
 
 
 def pack_chunks(w: torch.Tensor) -> torch.Tensor:
@@ -100,21 +139,30 @@ def pack_chunks(w: torch.Tensor) -> torch.Tensor:
     then W^T lo, each part in "core matrices" of 8 outputs x 4 inputs (128
     bytes), input-major within the chunk, as the tensor cores read B from
     shared memory."""
-    k, c = w.shape
-    nc, nk = -(-round8(c) // CHUNK_OUT), -(-round8(k) // CHUNK_IN)
-    wt = w.new_zeros(nc * CHUNK_OUT, nk * CHUNK_IN)
-    wt[:c, :k] = w.t()
+    wt, nc, nk = _padded_t(w)
     parts = [p.reshape(nc, CHUNK_OUT // 8, 8, nk, CHUNK_IN // 4, 4).permute(0, 3, 1, 4, 2, 5)
              for p in split_tf32(wt)]
     chunks = torch.stack(parts, dim=2)  # (out chunk, in chunk, hi/lo, 8s of out, 4s of in, 8, 4)
     return chunks.reshape(-1)
 
 
-def pack_layer(w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """One layer as K1/K2 read it: `pack_chunks(w)`, then b zero-padded to a
-    multiple of 8."""
+def pack_chunks_bf16(w: torch.Tensor) -> torch.Tensor:
+    """`pack_chunks` for the bf16 mode (csrc/bf16_tc.cuh): the same chunks, one
+    part of W^T rounded to bf16, in core matrices of 8 outputs x 8 inputs (128
+    bytes), input-major within the chunk; returned as the float32 view of
+    those bf16 values (half as many floats), so that a layer's weights and
+    bias share one f32 buffer."""
+    wt, nc, nk = _padded_t(w)
+    chunks = wt.to(BF16).reshape(nc, CHUNK_OUT // 8, 8, nk, CHUNK_IN // 8, 8)
+    return chunks.permute(0, 3, 1, 4, 2, 5).contiguous().reshape(-1).view(torch.float32)
+
+
+def pack_layer(w: torch.Tensor, b: torch.Tensor, dtype=None) -> torch.Tensor:
+    """One layer as K1/K2 read it: `pack_chunks(w)` (`pack_chunks_bf16` in the
+    bf16 mode), then b (f32) zero-padded to a multiple of 8."""
     c = w.shape[1]
-    return torch.cat([pack_chunks(w), F.pad(b.float(), (0, round8(c) - c))])
+    packed = pack_chunks_bf16(w) if is_bf16(dtype) else pack_chunks(w)
+    return torch.cat([packed, F.pad(b.float(), (0, round8(c) - c))])
 
 
 class FoldedChain:
@@ -123,18 +171,21 @@ class FoldedChain:
     `split` > 0 marks K2's first layer, whose input is concat(tap, pooled):
     its first `split` rows (W_tap) go into the packed buffer and the rest
     (W_pool, f32 (in, out)) into `w_pool`. The packed buffer holds each
-    layer as `pack_layer` lays it out, in the order `csrc/chain_fused.cu`
-    reads them.
+    layer as `pack_layer` lays it out for `dtype` (None: the 3xTF32 mode;
+    torch.bfloat16: the bf16 mode), in the order `csrc/chain_fused.cu` reads
+    them. The weights and biases themselves stay f32 in both modes.
     """
 
-    def __init__(self, layers: Sequence[Tuple[torch.Tensor, torch.Tensor]], split: int = 0):
+    def __init__(self, layers: Sequence[Tuple[torch.Tensor, torch.Tensor]], split: int = 0,
+                 dtype=None):
         self.weights = [w.detach().float().contiguous() for w, _ in layers]
         self.biases = [b.detach().float().contiguous() for _, b in layers]
         self.widths = [self.weights[0].shape[0]] + [w.shape[1] for w in self.weights]
         self.split = split
+        self.dtype = BF16 if is_bf16(dtype) else None
         first = self.weights[0][:split] if split else self.weights[0]
         self.w_pool = self.weights[0][split:].contiguous() if split else None
-        self.packed = torch.cat([pack_layer(w, b) for w, b in
+        self.packed = torch.cat([pack_layer(w, b, self.dtype) for w, b in
                                  zip([first] + self.weights[1:], self.biases)])
         self.packed_widths = [first.shape[0]] + self.widths[1:]
 
@@ -159,47 +210,50 @@ class FoldedChain:
 
 # --- plain versions -------------------------------------------------------
 
-def _encoder_layers(x: torch.Tensor, layers, tap_at: Optional[int]):
+def _encoder_layers(x: torch.Tensor, layers, tap_at: Optional[int], bf16: bool = False):
     h, tap = x, None
     for i, (w, b) in enumerate(layers):
-        h = torch.relu(h @ w + b)
+        h = torch.relu(_dense(h, w, bf16) + b)
         if i == tap_at:
             tap = h
     return tap, h.amax(dim=1)
 
 
-def _seg_head_layers(tap: torch.Tensor, pooled: torch.Tensor, layers) -> torch.Tensor:
+def _seg_head_layers(tap: torch.Tensor, pooled: torch.Tensor, layers,
+                     bf16: bool = False) -> torch.Tensor:
     B, N, _ = tap.shape
     h = torch.cat([tap, pooled[:, None, :].expand(B, N, pooled.shape[1])], dim=-1)
     for w, b in layers[:-1]:
-        h = torch.relu(h @ w + b)
+        h = torch.relu(_dense(h, w, bf16) + b)
     w, b = layers[-1]
-    return h @ w + b
+    return _dense(h, w, bf16) + b
 
 
 def pointnet_encoder_plain(x: torch.Tensor, chain: FoldedChain,
                            tap_at: Optional[int] = None
                            ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
-    """x (B, N, C) -> (tap (B, N, C_tap) or None, pooled (B, C_last))."""
-    return _encoder_layers(x, chain.layers, tap_at)
+    """x (B, N, C) -> (tap (B, N, C_tap) or None, pooled (B, C_last)), f32 in
+    both modes (chain.dtype)."""
+    return _encoder_layers(x, chain.layers, tap_at, is_bf16(chain.dtype))
 
 
 def seg_head_plain(tap: torch.Tensor, pooled: torch.Tensor, chain: FoldedChain) -> torch.Tensor:
-    """tap (B, N, C_tap), pooled (B, C_pool) -> (B, N, C_out); last layer plain."""
-    return _seg_head_layers(tap, pooled, chain.layers)
+    """tap (B, N, C_tap), pooled (B, C_pool) -> (B, N, C_out) f32; last layer plain."""
+    return _seg_head_layers(tap, pooled, chain.layers, is_bf16(chain.dtype))
 
 
 # --- the kernels' operators -----------------------------------------------
 # `widths` are a FoldedChain's `packed_widths`; tap_at -1 means no tap, and
-# K1 then returns a (B, N, 0) tap.
+# K1 then returns a (B, N, 0) tap; `bf16` the chain's mode (its packing).
+# Every output is f32 in both modes.
 
 def _c_widths(widths: Sequence[int]):
     return (ctypes.c_int * len(widths))(*widths), len(widths) - 1
 
 
-def _workspace(lib, widths, n_layers: int, B: int, N: int, dev, what: str):
+def _workspace(lib, widths, n_layers: int, B: int, N: int, bf16: bool, dev, what: str):
     """Device memory between the kernels' launches, as the C side plans them."""
-    n = lib.chain_fused_workspace(widths, n_layers, B, N)
+    n = lib.chain_fused_workspace(widths, n_layers, B, N, int(bf16))
     if n < 0:
         raise_on(n, what, _ERRORS)
     return torch.empty(max(n, 1), device=dev), n
@@ -208,21 +262,21 @@ def _workspace(lib, widths, n_layers: int, B: int, N: int, dev, what: str):
 @torch.library.custom_op("open3dsot::fused_pointnet_encoder", mutates_args=(),
                          device_types="cpu")
 def _k1_op(x: torch.Tensor, packed: torch.Tensor, weights: List[torch.Tensor],
-           biases: List[torch.Tensor], widths: List[int], tap_at: int
+           biases: List[torch.Tensor], widths: List[int], tap_at: int, bf16: bool = False
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 on the CPU: the plain version."""
-    tap, pooled = _encoder_layers(x, list(zip(weights, biases)), tap_at)
+    tap, pooled = _encoder_layers(x, list(zip(weights, biases)), tap_at, bf16)
     return (x.new_empty(x.shape[0], x.shape[1], 0) if tap is None else tap), pooled
 
 
 @_k1_op.register_fake
-def _k1_fake(x, packed, weights, biases, widths, tap_at):
+def _k1_fake(x, packed, weights, biases, widths, tap_at, bf16=False):
     B, N, _ = x.shape
     return x.new_empty(B, N, widths[tap_at + 1] if tap_at >= 0 else 0), x.new_empty(B, widths[-1])
 
 
 @_k1_op.register_kernel("cuda")
-def _k1_cuda(x, packed, weights, biases, widths, tap_at):
+def _k1_cuda(x, packed, weights, biases, widths, tap_at, bf16=False):
     from open3dsot_tpu_torch.ops._build import load_library
 
     B, N, _ = x.shape
@@ -233,11 +287,11 @@ def _k1_cuda(x, packed, weights, biases, widths, tap_at):
     pooled = torch.empty(B, widths[-1], device=dev)
     c_widths, n_layers = _c_widths(widths)
     lib = load_library("chain_fused").lib
-    ws, ws_n = _workspace(lib, c_widths, n_layers, B, N, dev, "K1 chain_fused_k1")
+    ws, ws_n = _workspace(lib, c_widths, n_layers, B, N, bf16, dev, "K1 chain_fused_k1")
     rc = lib.chain_fused_k1(
         x.data_ptr(), packed.data_ptr(), packed.numel(), c_widths, n_layers, B, N, tap_at,
         tap.data_ptr() if tap_at >= 0 else None, pooled.data_ptr(), ws.data_ptr(), ws_n,
-        stream_of(x))
+        int(bf16), stream_of(x))
     raise_on(rc, "K1 chain_fused_k1", _ERRORS)
     fused_pointnet_encoder.launches += 1
     return tap, pooled
@@ -245,19 +299,19 @@ def _k1_cuda(x, packed, weights, biases, widths, tap_at):
 
 @torch.library.custom_op("open3dsot::fused_seg_head", mutates_args=(), device_types="cpu")
 def _k2_op(tap: torch.Tensor, pooled: torch.Tensor, packed: torch.Tensor, w_pool: torch.Tensor,
-           weights: List[torch.Tensor], biases: List[torch.Tensor], widths: List[int]
-           ) -> torch.Tensor:
+           weights: List[torch.Tensor], biases: List[torch.Tensor], widths: List[int],
+           bf16: bool = False) -> torch.Tensor:
     """K2 on the CPU: the plain version (`weights[0]` is W_tap and W_pool stacked)."""
-    return _seg_head_layers(tap, pooled, list(zip(weights, biases)))
+    return _seg_head_layers(tap, pooled, list(zip(weights, biases)), bf16)
 
 
 @_k2_op.register_fake
-def _k2_fake(tap, pooled, packed, w_pool, weights, biases, widths):
+def _k2_fake(tap, pooled, packed, w_pool, weights, biases, widths, bf16=False):
     return tap.new_empty(tap.shape[0], tap.shape[1], widths[-1])
 
 
 @_k2_op.register_kernel("cuda")
-def _k2_cuda(tap, pooled, packed, w_pool, weights, biases, widths):
+def _k2_cuda(tap, pooled, packed, w_pool, weights, biases, widths, bf16=False):
     from open3dsot_tpu_torch.ops._build import load_library
 
     B, N, _ = tap.shape
@@ -270,11 +324,11 @@ def _k2_cuda(tap, pooled, packed, w_pool, weights, biases, widths):
     out = torch.empty(B, N, widths[-1], device=dev)
     c_widths, n_layers = _c_widths(widths)
     lib = load_library("chain_fused").lib
-    ws, ws_n = _workspace(lib, c_widths, n_layers, B, N, dev, "K2 chain_fused_k2")
+    ws, ws_n = _workspace(lib, c_widths, n_layers, B, N, bf16, dev, "K2 chain_fused_k2")
     rc = lib.chain_fused_k2(
         tap.data_ptr(), pooled.data_ptr(), w_pool.data_ptr(), packed.data_ptr(), packed.numel(),
         c_widths, n_layers, pooled.shape[1], B, N, g.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        ws_n, stream_of(tap))
+        ws_n, int(bf16), stream_of(tap))
     raise_on(rc, "K2 chain_fused_k2", _ERRORS)
     fused_seg_head.launches += 1
     return out
@@ -285,25 +339,30 @@ def _k2_cuda(tap, pooled, packed, w_pool, weights, biases, widths):
 def fused_pointnet_encoder(x: torch.Tensor, chain: FoldedChain, *,
                            tap_at: Optional[int] = None
                            ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
-    """K1: per-point folded chain + global max-pool.
+    """K1: per-point folded chain + global max-pool, in the chain's mode
+    (chain.dtype).
 
-    x (B, N, C) -> (tap (B, N, C_tap) or None, pooled (B, C_last)).
+    x (B, N, C) -> (tap (B, N, C_tap) or None, pooled (B, C_last)), f32; bf16
+    x is taken as f32 (exactly).
     """
     if x.dim() != 3 or x.shape[2] != chain.widths[0]:
         raise ValueError(f"x must be (B, N, {chain.widths[0]}), got {tuple(x.shape)}")
     if chain.split:
         raise ValueError("K1 takes a chain without a split first layer")
     on_cuda(x)  # a device with neither a kernel nor a plain version raises
+    if x.dtype == BF16:
+        x = x.float()
     tap, pooled = (_k1_cuda if direct(x) else _k1_op)(
         x, chain.packed, chain.weights, chain.biases, chain.packed_widths,
-        -1 if tap_at is None else tap_at)
+        -1 if tap_at is None else tap_at, is_bf16(chain.dtype))
     return (None if tap_at is None else tap), pooled
 
 
 def fused_seg_head(tap: torch.Tensor, pooled: torch.Tensor, chain: FoldedChain) -> torch.Tensor:
-    """K2: concat(tap, broadcast(pooled)) -> folded chain -> plain head.
+    """K2: concat(tap, broadcast(pooled)) -> folded chain -> plain head, in
+    the chain's mode (chain.dtype).
 
-    tap (B, N, C_tap), pooled (B, C_pool) -> (B, N, C_out). `chain` holds
+    tap (B, N, C_tap), pooled (B, C_pool) -> (B, N, C_out) f32. `chain` holds
     mlp2 and then the head as its last layer, split at C_tap.
     """
     if tap.dim() != 3 or pooled.dim() != 2 or pooled.shape[0] != tap.shape[0]:
@@ -315,7 +374,7 @@ def fused_seg_head(tap: torch.Tensor, pooled: torch.Tensor, chain: FoldedChain) 
     on_cuda(tap)
     return (_k2_cuda if direct(tap) else _k2_op)(
         tap, pooled, chain.packed, chain.w_pool, chain.weights, chain.biases,
-        chain.packed_widths)
+        chain.packed_widths, is_bf16(chain.dtype))
 
 
 fused_pointnet_encoder.launches = 0

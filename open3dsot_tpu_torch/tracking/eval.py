@@ -5,6 +5,9 @@ host around the previous prediction, runs one forward on the model's
 device, fetches the 4-DoF box to the host, converts it to a world box and
 scores overlap/accuracy against the ground truth (reference
 base_model.py:59-117). Sharding tracklets across processes comes later.
+Under bf16 compute (`bf16: true`) the forward's boxes still come back f32
+(the models cast their heads back, as JAX's do), so the host's box math and
+Success/Precision are computed as in f32.
 """
 
 from __future__ import annotations

@@ -28,6 +28,10 @@ Matching models online take reference_BB 'previous_result' only (the gt
 modes need per-frame ground truth, which does not exist at serving time);
 all four shape_aggregation modes run ('all' keeps its per-slot key
 reservoir as state).
+
+Both trackers run in float32: a bf16 model (`bf16: true`) is refused until
+the operators' fakes and the exported programs take the bf16 mode
+(ROADMAP.md, section 2, bf16 item 4); the scan trackers run it.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ import torch
 
 from open3dsot_tpu_torch.geometry import points_utils, rigid
 from open3dsot_tpu_torch.geometry.data_classes import PointCloud
-from open3dsot_tpu_torch.models.layers import refuse_bf16
+from open3dsot_tpu_torch.models.layers import computes_in_bf16
 from open3dsot_tpu_torch.ops import chain_fused, sa_fused, sampling
 from open3dsot_tpu_torch.tracking.scan_matching import (
     make_match_step,
@@ -103,6 +107,15 @@ class _SlotStepGraph(_CapturedStep):
         self.tracker._advance_body()
 
 
+def refuse_bf16_serving(config, model=None) -> None:
+    """The online trackers and their serving bundles run in float32."""
+    if getattr(config, "bf16", False) or (model is not None and computes_in_bf16(model.net)):
+        raise NotImplementedError(
+            "online tracking and serving bundles under bf16 compute are not ported yet "
+            "(ROADMAP.md, section 2, bf16 item 4: the operators' fakes and the exported "
+            "programs in the bf16 mode); the scan trackers run bf16")
+
+
 class _OnlineBase(_DeviceTracker):
     """The slot pool and device state shared by both model families.
 
@@ -114,6 +127,7 @@ class _OnlineBase(_DeviceTracker):
 
     def __init__(self, model, config, max_streams: int, max_points: int, transfer_dtype,
                  cuda_graph: bool, device=None):
+        refuse_bf16_serving(config)
         self.max_streams = int(max_streams)
         self.max_points = int(max_points)
         self._active = np.zeros((self.max_streams,), bool)
@@ -121,6 +135,10 @@ class _OnlineBase(_DeviceTracker):
         super().__init__(model, config, transfer_dtype, cuda_graph, device)
         self._inputs = input_buffers(self.max_streams, self.max_points, self.transfer_dtype,
                                      self.device)
+
+    def set_model(self, model) -> None:
+        refuse_bf16_serving(self.config, model)
+        super().set_model(model)
 
     def _make_step(self, model):
         advance = self._make_advance(model)
@@ -269,7 +287,6 @@ class OnlineMatchTracker(_OnlineBase):
     def __init__(self, model, config, max_streams: int = 8, max_points: int = 1024,
                  first_crop_points: int = 1024, transfer_dtype=None, template_pool: int = 4096,
                  cuda_graph: bool = True):
-        refuse_bf16(config)
         if parse_ref_mode(config.reference_BB) != "previous_result":
             raise ValueError(
                 f"online tracking requires reference_BB='previous_result' (got "

@@ -25,7 +25,9 @@ draws (utils/prng.py), so the port tracks as the JAX package does.
 On the card the frame loop replays one captured CUDA graph of the step per
 batch shape; the eager loop is what the graph is held to, and what the CPU
 runs. Host plumbing, scoring and the dataset loop are shared with the M2
-tracker (tracking/scan_tracker.py). Not ported yet: process sharding, the
+tracker (tracking/scan_tracker.py). A model made under `bf16: true` runs in
+its bf16 mode inside the graph as it does eagerly (the JAX tracker has no
+compute_dtype of its own here). Not ported yet: process sharding, the
 disk prep store and the results writer (ROADMAP.md §1).
 """
 
@@ -38,7 +40,6 @@ import numpy as np
 import torch
 
 from open3dsot_tpu_torch.geometry import points_utils, rigid
-from open3dsot_tpu_torch.models.layers import refuse_bf16
 from open3dsot_tpu_torch.tracking.scan_tracker import (
     LIMIT_BOX_KEY,
     _CapturedStep,
@@ -222,7 +223,6 @@ class MatchScanTracker(_ScanTracker):
     def __init__(self, model, config, max_points: int = 4096, first_crop_points: int = 1024,
                  frame_bucket: int = 16, transfer_dtype=None, template_pool: int = 4096,
                  cuda_graph: bool = True):
-        refuse_bf16(config)
         self._agg_mode = parse_agg_mode(config.shape_aggregation)
         self._ref_mode = parse_ref_mode(config.reference_BB)
         self.gt_inputs = self._ref_mode != "previous_result"

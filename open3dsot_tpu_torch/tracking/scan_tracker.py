@@ -24,12 +24,17 @@ bit on the device. Resampling is the deterministic `_select_fixed`, so
 trajectories differ from the host loop's seeded `np.random.choice` at the
 decimal level, as on the JAX side. `_ScanTracker` and `_CapturedStep` hold
 what this tracker shares with the matching one (tracking/scan_matching.py).
+`M2ScanTracker(compute_dtype=torch.bfloat16)` tracks with a copy of the net
+whose parameters and statistics are rounded to bf16 (JAX casts the whole
+variable tree, scan_tracker.py:365-374) and which computes in bf16; the
+step's batch goes in as bf16, and box composition and scoring stay f32.
 Not ported yet: process sharding, the disk prep store and the results
 writer (ROADMAP.md §1).
 """
 
 from __future__ import annotations
 
+import copy
 from collections import defaultdict, deque
 from typing import List, Optional, Sequence
 
@@ -40,7 +45,9 @@ from open3dsot_tpu_torch.geometry import rigid
 from open3dsot_tpu_torch.geometry.data_classes import Box
 from open3dsot_tpu_torch.geometry.iou import estimateAccuracy, estimateOverlap
 from open3dsot_tpu_torch.geometry.quaternion import Quaternion
+from open3dsot_tpu_torch.models.layers import set_compute_dtype, to_f32
 from open3dsot_tpu_torch.models.pointnet import weights_key
+from open3dsot_tpu_torch.ops.chain_fused import BF16, is_bf16
 from open3dsot_tpu_torch.utils import prng
 from open3dsot_tpu_torch.utils.quant import dequantize, quantize_per_sample
 
@@ -218,12 +225,11 @@ def make_m2_step(net, config, A, box_aware: bool, compute_dtype=None):
     prior-targetness, later ones the soft 0.8 / 0.2; it also keys the
     'uniform' limit-box redraw). Mirrors MotionBaseModel.build_input_dict +
     evaluate_one_sample (reference base_model.py:255-303, 44-57). `net` is
-    the M2TrackNet, called directly.
+    the M2TrackNet, called directly. `compute_dtype` bf16: the forward's
+    batch goes in as bf16 (JAX scan_tracker.py:321-323; `net` computes in
+    bf16, see `rounded_net`) and its boxes come back f32.
     """
-    if compute_dtype not in (None, torch.float32):
-        raise NotImplementedError(
-            "the scan tracker computes in float32: bf16 compute is not ported yet "
-            "(ROADMAP.md, section 1 item 4)")
+    cdt = BF16 if is_bf16(compute_dtype) else None
     resample = getattr(config, "scan_resample", "strided")
     n = config.point_sample_size
     scale, offset = float(config.bb_scale), float(config.bb_offset)
@@ -259,8 +265,11 @@ def make_m2_step(net, config, A, box_aware: bool, compute_dtype=None):
         if box_aware:
             bc_prev = rigid.box_cloud(prev_sel, canonical, wlh)  # (B, n, 9)
             bc = torch.cat([bc_prev, torch.zeros_like(bc_prev)], dim=1)
+        if cdt is not None:
+            points, bc = points.to(cdt), None if bc is None else bc.to(cdt)
         with torch.no_grad():
-            pred = net(points, bc)["estimation_boxes"]
+            # box composition stays f32 whatever the compute dtype
+            pred = to_f32(net(points, bc)["estimation_boxes"])
         if limit_box:  # reference points_utils.py:70-76
             # an overshooting x/y is redrawn from U(-1, 1) keyed on the step
             # ('uniform'), or set to 0 ('zero')
@@ -524,19 +533,41 @@ class _ScanTracker(_DeviceTracker):
                 for seq, boxes in zip(sequences, all_boxes)]
 
 
+def rounded_net(net: torch.nn.Module, dtype) -> torch.nn.Module:
+    """A copy of `net` in eval mode with its parameters and buffers rounded
+    to `dtype` (bf16), computing in it: JAX's scan tracker casts the whole
+    variable tree, BatchNorm statistics too."""
+    copied = copy.deepcopy(net).eval()
+    with torch.no_grad():
+        copied.to(dtype)
+    return set_compute_dtype(copied, dtype)
+
+
 class M2ScanTracker(_ScanTracker):
     """Batched tracker for M2-Track (B tracklets per batch) on the model's
     device. `cuda_graph` (the default) replays a captured step on the card;
-    False runs the eager loop there too. A capture that fails raises."""
+    False runs the eager loop there too. A capture that fails raises.
+    `compute_dtype` torch.bfloat16 tracks with `rounded_net(model.net)`,
+    made again whenever the model's weights change."""
 
     def __init__(self, model, config, max_points: int = 4096, frame_bucket: int = 16,
                  compute_dtype=None, transfer_dtype=None, cuda_graph: bool = True):
-        self.compute_dtype = compute_dtype
+        self.compute_dtype = BF16 if is_bf16(compute_dtype) else None
         self.box_aware = bool(getattr(config, "box_aware", False))
         super().__init__(model, config, max_points, frame_bucket, transfer_dtype, cuda_graph)
 
     def _make_step(self, model):
-        return make_m2_step(model.net, self.config, self._A, self.box_aware, self.compute_dtype)
+        net = model.net
+        if self.compute_dtype is not None:
+            self._rounded_key = weights_key(model.net)
+            net = rounded_net(model.net, self.compute_dtype)
+        return make_m2_step(net, self.config, self._A, self.box_aware, self.compute_dtype)
+
+    def _refresh_rounded(self) -> None:
+        """Round the weights again after the model's changed (the captured
+        graphs are dropped then too: they key on the same weights)."""
+        if self.compute_dtype is not None and weights_key(self.model.net) != self._rounded_key:
+            self._step = self._make_step(self.model)
 
     # --- the frame loop (device) --------------------------------------------
     def _graph_for(self, B: int, P: int) -> _StepGraph:
@@ -548,6 +579,7 @@ class M2ScanTracker(_ScanTracker):
         """pts (B, T, P, 3) f32, counts (B, T) int32 valid-prefix lengths,
         wlh (B, 3), init (B, 4), all on the device -> predicted world boxes
         (B, T - 1, 4) on the device. No host sync."""
+        self._refresh_rounded()
         B, T, P, _ = pts.shape
         boxes = pts.new_empty(B, T - 1, 4)
         steps = torch.arange(T - 1, device=pts.device)

@@ -51,6 +51,7 @@ from open3dsot_tpu_torch.tracking.online import (
     _OnlineBase,
     _dequantizing,
     input_buffers,
+    refuse_bf16_serving,
 )
 
 FORMAT_VERSION = 1
@@ -76,6 +77,7 @@ def save_serving_bundle(tracker: _OnlineBase, path) -> None:
     tracker runs on."""
     if tracker.model is None:
         raise ValueError("the tracker has no model (a loaded bundle): save from the live tracker")
+    refuse_bf16_serving(tracker.config, tracker.model)
     path = pathlib.Path(path)
     path.mkdir(parents=True, exist_ok=True)
     B, P, dev = tracker.max_streams, tracker.max_points, tracker.device

@@ -17,7 +17,9 @@ Each epoch's record also holds `data_wait_s`, the time the loop waited for
 the loader, against `time_s`, the epoch's time.
 
 Not ported yet (ROADMAP.md): resume, top-k checkpoints, the BN-momentum
-schedule, the on-device sampler (`device_sampler`), meshes.
+schedule, the on-device sampler (`device_sampler`), meshes, and training in
+bf16. A config that asks for one of them (`UNPORTED_KEYS`, `bf16: true`) is
+refused rather than trained as if it did not.
 """
 
 from __future__ import annotations
@@ -31,7 +33,28 @@ import numpy as np
 import torch
 
 from open3dsot_tpu_torch.data.loader import BatchLoader
+from open3dsot_tpu_torch.models.layers import computes_in_bf16, refuse_bf16_training
 from open3dsot_tpu_torch.train.optim import clip_gradients, make_optimizer
+
+
+# Config keys the JAX trainer honours and this one does not yet: key ->
+# (its default, the ROADMAP item that ports it). A value other than the
+# default is refused. bn_decay_step is off when falsy, as JAX reads it.
+UNPORTED_KEYS = {
+    "save_top_k": (-1, "ROADMAP.md, section 1 item 3: top-k checkpoints"),
+    "bn_decay_step": (None, "ROADMAP.md, section 1 item 3: the BN-momentum schedule"),
+    "device_sampler": (False, "ROADMAP.md, section 1 item 4: samples made on the device"),
+    "dp_shard_map": (False, "ROADMAP.md, section 1 item 6: multi-device runs"),
+    "mesh_shape": (None, "ROADMAP.md, section 1 item 6: multi-device runs"),
+}
+
+
+def refuse_unported_keys(config) -> None:
+    for key, (default, item) in UNPORTED_KEYS.items():
+        value = getattr(config, key, default)
+        if value != default and not (key == "bn_decay_step" and not value):
+            raise NotImplementedError(f"config.{key}={value!r} is not ported yet ({item}); "
+                                      f"leave it at {default!r}")
 
 
 def train_step(model, optimizer, batch: dict, scheduler=None, fetch: bool = False):
@@ -54,6 +77,7 @@ class Trainer:
     """Epoch loop, validation and checkpoints."""
 
     def __init__(self, model, config, work_dir: Optional[str] = None, log_every: int = 50):
+        refuse_unported_keys(config)
         self.model = model
         self.config = config
         self.work_dir = work_dir or getattr(config, "log_dir", None) or "./runs"
@@ -73,6 +97,8 @@ class Trainer:
         """Train for `epochs` (the config's by default) of at most
         `steps_per_epoch` steps (the loader's length by default); -> history."""
         cfg = self.config
+        if getattr(cfg, "bf16", False) or computes_in_bf16(self.model.net):
+            refuse_bf16_training("Trainer.fit")
         epochs = epochs if epochs is not None else cfg.epoch
         loader = BatchLoader(train_sampler, cfg.batch_size, shuffle=True, drop_last=True,
                              seed=cfg.seed, workers=getattr(cfg, "workers", 0) or 0)

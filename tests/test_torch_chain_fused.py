@@ -6,11 +6,22 @@ unfused flax modules, with the widths and tolerance of
 tests/test_chain_fused.py (atol 2e-5: f32 everywhere, the BN fold
 reassociates). The CUDA kernels themselves are compared with the plain
 versions on the card by chip_smoke.py.
+
+The bf16 mode (`dtype=torch.bfloat16`) against JAX's `dtype=jnp.bfloat16`,
+kernels and eager flax modules alike, at tests/_torch_port.py's bf16 limits:
+|port - jax| <= 2^-8 max|jax| at any element, one bf16 step at the top of
+the range, and <= 2^-15 max|jax| on average. Both sides round the same
+operands; their f32 sums run in another order (MKL, Eigen, the
+interpreter), which now and then moves a value across a bf16 rounding
+boundary, one step of one activation. Measured: equal, or within 5e-8 of
+max|jax| at any element. The f32 mode on the same inputs is held outside
+those limits (the control).
 """
 
 from __future__ import annotations
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -19,9 +30,11 @@ from open3dsot_tpu.models.pointnet import MiniPointNet as JMini
 from open3dsot_tpu.models.pointnet import SegPointNet as JSeg
 from open3dsot_tpu.ops.chain_fused import fused_pointnet_encoder as j_encoder
 from open3dsot_tpu.ops.chain_fused import fused_seg_head as j_head
+from open3dsot_tpu_torch.models.layers import computes_in_bf16, set_compute_dtype
 from open3dsot_tpu_torch.models.pointnet import MiniPointNet, SegPointNet
 from open3dsot_tpu_torch.ops import chain_fused as cf
-from tests._torch_port import load_into, randomize, t
+from tests._torch_port import (assert_close_bf16, assert_f32_fails_bf16, load_into, randomize,
+                               t)
 
 ATOL = 2e-5
 MLP1, MLP2 = [16, 16, 16, 32, 64], [32, 16, 16]
@@ -317,3 +330,165 @@ def test_training_mode_is_refused():
     with pytest.raises(NotImplementedError):
         port(t(x))
 
+
+# --- the bf16 mode ------------------------------------------------------------
+
+BF = torch.bfloat16
+
+
+def _f32(chain: cf.FoldedChain) -> cf.FoldedChain:
+    """The same folded layers packed for the f32 (3xTF32) mode."""
+    return cf.FoldedChain(chain.layers, split=chain.split)
+
+
+@pytest.mark.parametrize("n", [64, 50])
+def test_plain_k1_bf16_matches_jax_kernel(n):
+    x, _, v, port = _seg(n, seed=20 + n)
+    set_compute_dtype(port, BF)
+    p, st = v["params"], v["batch_stats"]
+    want_tap, want_pool = j_encoder(
+        x, [p[f"mlp1_{i}"]["layer0"] for i in range(5)],
+        [st[f"mlp1_{i}"]["layer0"] for i in range(5)], tap_at=1, dtype=jnp.bfloat16,
+        interpret=True)
+    chain1, _ = port.folded_chains()
+    assert chain1.dtype is BF
+    tap, pooled = cf.fused_pointnet_encoder(t(x), chain1, tap_at=1)
+    assert tap.dtype == pooled.dtype == torch.float32  # as JAX's out_shape
+    assert_close_bf16(tap, want_tap)
+    assert_close_bf16(pooled, want_pool)
+    f32_tap, f32_pool = cf.fused_pointnet_encoder(t(x), _f32(chain1), tap_at=1)
+    assert_f32_fails_bf16(f32_tap, want_tap)
+    assert_f32_fails_bf16(f32_pool, want_pool)
+    # a bf16 input is the same f32 input
+    _, again = cf.fused_pointnet_encoder(t(x).to(BF), chain1, tap_at=1)
+    _, direct = cf.fused_pointnet_encoder(t(x).to(BF).float(), chain1, tap_at=1)
+    assert torch.equal(again, direct)
+
+
+@pytest.mark.parametrize("c_in", [13, 4])
+def test_plain_k1_bf16_without_tap_matches_jax_kernel(c_in):
+    """13 (box_aware) and 4 input channels: the kernel's first k16 step
+    reaches past both (padded to 16 and 8)."""
+    x, _, v, port = _mini(48, seed=30 + c_in, c_in=c_in)
+    set_compute_dtype(port, BF)
+    p, st = v["params"]["per_point"], v["batch_stats"]["per_point"]
+    _, want = j_encoder(x, [p[f"layer{i}"] for i in range(3)],
+                        [st[f"layer{i}"] for i in range(3)], tap_at=None, dtype=jnp.bfloat16,
+                        interpret=True)
+    _, pooled = cf.fused_pointnet_encoder(t(x), port.folded_chains())
+    assert_close_bf16(pooled, want)
+    assert_f32_fails_bf16(cf.fused_pointnet_encoder(t(x), _f32(port.folded_chains()))[1], want)
+
+
+@pytest.mark.parametrize("n", [64, 50])
+def test_plain_k2_bf16_matches_jax_kernel(n):
+    x, _, v, port = _seg(n, seed=40 + n)
+    set_compute_dtype(port, BF)
+    p, st = v["params"], v["batch_stats"]
+    rng = np.random.default_rng(n)
+    tap = np.abs(rng.standard_normal((3, n, MLP1[1]))).astype(np.float32)
+    pooled = np.abs(rng.standard_normal((3, MLP1[-1]))).astype(np.float32)
+    want = j_head(tap, pooled, [p[f"mlp2_{i}"]["layer0"] for i in range(3)],
+                  [st[f"mlp2_{i}"]["layer0"] for i in range(3)], p["fc"], dtype=jnp.bfloat16,
+                  interpret=True)
+    _, chain2 = port.folded_chains()
+    got = cf.fused_seg_head(t(tap), t(pooled), chain2)
+    assert got.dtype == torch.float32
+    assert_close_bf16(got, want)
+    assert_f32_fails_bf16(cf.fused_seg_head(t(tap), t(pooled), _f32(chain2)), want)
+
+
+@pytest.mark.parametrize("fused_eval", [True, False])
+@pytest.mark.parametrize("which", ["seg", "mini"])
+def test_pointnets_match_flax_bf16(which, fused_eval):
+    rng = np.random.default_rng(3 + fused_eval)
+    if which == "seg":
+        x = rng.standard_normal((3, 50, 14)).astype(np.float32)
+        jkw = dict(per_point_mlp1=MLP1, per_point_mlp2=MLP2, output_size=11)
+        v = randomize(JSeg(**jkw).init(jax.random.PRNGKey(0), x), rng)
+        jm = JSeg(fused_eval=fused_eval, dtype=jnp.bfloat16, **jkw)
+        port = SegPointNet(14, MLP1, MLP2, 11, fused_eval=fused_eval, dtype=BF)
+    else:
+        x = rng.standard_normal((3, 48, 13)).astype(np.float32)
+        jkw = dict(per_point_mlp=MINI, hidden_mlp=[32, 16], output_size=-1)
+        v = randomize(JMini(**jkw).init(jax.random.PRNGKey(0), x), rng)
+        jm = JMini(fused_eval=fused_eval, dtype=jnp.bfloat16, **jkw)
+        port = MiniPointNet(13, MINI, [32, 16], output_size=-1, fused_eval=fused_eval, dtype=BF)
+    load_into(port, v)
+    want = jm.apply(v, x, train=False)
+    with torch.no_grad():
+        got = port(t(x))
+    # K2's logits are f32 (JAX's too); the plain bf16 stack and the hidden MLP give bf16
+    assert got.dtype == (torch.float32 if which == "seg" and fused_eval else BF)
+    assert got.dtype == {jnp.float32: torch.float32, jnp.bfloat16: BF}[jnp.dtype(want.dtype).type]
+    assert_close_bf16(got, want)
+    set_compute_dtype(port, None)
+    with torch.no_grad():
+        assert_f32_fails_bf16(port(t(x)), want)
+
+
+def test_switching_the_mode_refolds_and_keeps_the_weights():
+    """The fold caches key on the compute dtype: a net switched to bf16 and
+    back never reuses the other mode's packing, and its parameters and
+    statistics stay f32 throughout."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, 40, 14)).astype(np.float32)
+    jkw = dict(per_point_mlp1=MLP1, per_point_mlp2=MLP2, output_size=11)
+    port = load_into(SegPointNet(14, MLP1, MLP2, 11),
+                     randomize(JSeg(**jkw).init(jax.random.PRNGKey(0), x), rng))
+    with torch.no_grad():
+        f32 = port(t(x))
+        chains = port.folded_chains()
+        set_compute_dtype(port, BF)
+        assert computes_in_bf16(port)
+        bf = port(t(x))
+        bf_chains = port.folded_chains()
+        assert bf_chains[0] is not chains[0] and bf_chains[0].dtype is BF
+        assert bf_chains[0].packed.numel() < chains[0].packed.numel()  # one bf16 part, not hi + lo
+        set_compute_dtype(port, None)
+        assert port.folded_chains()[0].dtype is None
+        np.testing.assert_array_equal(port(t(x)).numpy(), f32.numpy())
+    assert not torch.equal(bf, f32)
+    assert all(p.dtype == torch.float32 for p in port.parameters())
+    assert all(b.dtype == torch.float32 for b in port.buffers() if b.is_floating_point())
+
+
+
+
+def _unpack_bf16(chain):
+    """[(W^T, b)] per layer from a bf16 packed buffer (bf16 values in f32
+    words), by csrc/chain_fused.cu::make_layout's rule in the bf16 mode:
+    whole chunks of CHUNK_OUT x CHUNK_IN channels, output-chunk major, one
+    part each, in core matrices of 8 x 8."""
+    co, ci = cf.CHUNK_OUT, cf.CHUNK_IN
+    w, off, out = chain.packed_widths, 0, []
+    for k, c in zip(w[:-1], w[1:]):
+        nc, nk = -(-_r8(c) // co), -(-_r8(k) // ci)
+        floats = nc * nk * co * ci // 2
+        wt = (chain.packed[off: off + floats].contiguous().view(BF)
+              .reshape(nc, nk, co // 8, ci // 8, 8, 8)
+              .permute(0, 2, 4, 1, 3, 5).reshape(nc * co, nk * ci))
+        out.append((wt, chain.packed[off + floats: off + floats + _r8(c)]))
+        off += floats + _r8(c)
+    assert off == chain.packed.numel()
+    return out
+
+
+@pytest.mark.parametrize("which", ["seg mlp1", "seg head", "mini"])
+def test_bf16_packing_unpacks_to_the_rounded_weights(which):
+    """bf16 mode: W^T rounded to bf16 (to nearest even) bit for bit,
+    zero-padded to whole chunks, and the biases f32 and exact."""
+    if which == "mini":
+        _, _, _, port = _mini(48, seed=14)
+        set_compute_dtype(port, BF)
+        chain = port.folded_chains()
+    else:
+        _, _, _, port = _seg(64, seed=15)
+        set_compute_dtype(port, BF)
+        chain = port.folded_chains()[which == "seg head"]
+    first = chain.weights[0][: chain.split] if chain.split else chain.weights[0]
+    for (wt, b), w, bias in zip(_unpack_bf16(chain), [first] + chain.weights[1:], chain.biases):
+        k, c = w.shape
+        assert torch.equal(wt[:c, :k], w.t().to(BF))
+        assert not wt[c:].float().any() and not wt[:, k:].float().any()
+        assert torch.equal(b[:c], bias) and not b[c:].any()

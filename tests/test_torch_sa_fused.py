@@ -8,11 +8,20 @@ unfused flax SetAbstraction at atol 1e-4, the tolerance of
 tests/test_sa_fused.py: f32 throughout, the BN fold and the A-form
 reassociate. The CUDA kernels are held to the plain version on the card by
 chip_smoke.py.
+
+The bf16 mode against JAX's `dtype=jnp.bfloat16` with `int8_gather=True`
+(its interpret mode then gathers bf16-rounded A rows, as the compiled TPU
+kernel and the port do), at tests/_torch_port.py's bf16 limits: |port -
+jax| <= 2^-8 max|jax| at any element, one bf16 step at the top of the
+range, for a rounding boundary crossed by another f32 sum order, and <=
+2^-15 max|jax| on average. Measured: equal. The f32 mode on the same inputs
+is held outside those limits (the control).
 """
 
 from __future__ import annotations
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -22,10 +31,12 @@ from open3dsot_tpu.ops import ball_query as j_ball_query
 from open3dsot_tpu.ops.sa_fused import a_form as j_a_form
 from open3dsot_tpu.ops.sa_fused import fold_dense_bn as j_fold
 from open3dsot_tpu.ops.sa_fused import fused_sa_apply as j_fused_sa_apply
+from open3dsot_tpu_torch.models.layers import set_compute_dtype
 from open3dsot_tpu_torch.models.pointnet import SetAbstraction
 from open3dsot_tpu_torch.ops import sa_fused
 from open3dsot_tpu_torch.ops.neighbors import ball_query
-from tests._torch_port import load_into, randomize, t
+from tests._torch_port import (assert_close_bf16, assert_f32_fails_bf16, load_into, randomize,
+                               t)
 
 ATOL = 1e-4
 B, N, S, K, C = 2, 64, 16, 8, 12
@@ -285,3 +296,90 @@ def test_c_signatures_match_the_sources():
             want = ["ptr" if "*" in a else "long long" if a.startswith("long long")
                     else a.rsplit(" ", 1)[0] for a in params]
             assert [kinds[t] for t in argtypes] == want, fn
+
+
+# --- the bf16 mode ------------------------------------------------------------
+
+BF = torch.bfloat16
+
+
+@pytest.mark.parametrize("with_features", [False, True])
+@pytest.mark.parametrize("fuse_bq", [True, False])
+def test_plain_bf16_matches_jax_int8_gather_kernel(fuse_bq, with_features):
+    """K4 (ball query fused) and K5 (idx given) in bf16."""
+    xyz, feats, _, v, port = _setup(9, with_features)
+    port.dtype = BF
+    new_xyz = xyz[:, :S]
+    kw = dict(radius=0.8, normalize_xyz=False, use_xyz=True)
+    idx = None if fuse_bq else ball_query(0.8, K, t(xyz), t(new_xyz))
+    want = j_fused_sa_apply(xyz, feats, new_xyz, None if idx is None else idx.numpy(), *_mlp(v),
+                            nsample=K if fuse_bq else None, interpret=True, dtype=jnp.bfloat16,
+                            int8_gather=True, **kw)
+    folded = port.folded_chains()
+    assert folded.dtype is BF
+    f = None if feats is None else t(feats)
+    got = sa_fused.fused_sa_apply(t(xyz), f, t(new_xyz), idx, folded,
+                                  nsample=K if fuse_bq else None, **kw)
+    assert got.dtype == BF and want.dtype == jnp.bfloat16
+    assert_close_bf16(got, want)
+    # bf16 features are the same features (a_form takes them as f32)
+    if feats is not None:
+        fb = t(feats).to(BF)
+        a = sa_fused.fused_sa_apply(t(xyz), fb, t(new_xyz), idx, folded,
+                                    nsample=K if fuse_bq else None, **kw)
+        b = sa_fused.fused_sa_apply(t(xyz), fb.float(), t(new_xyz), idx, folded,
+                                    nsample=K if fuse_bq else None, **kw)
+        assert torch.equal(a, b)
+    # the same layers folded for the f32 mode: f32 out, outside the bf16 limits
+    f32 = sa_fused.fused_sa_apply(t(xyz), f, t(new_xyz), idx, sa_fused.FoldedSA(folded),
+                                  nsample=K if fuse_bq else None, **kw)
+    assert f32.dtype == torch.float32
+    assert_f32_fails_bf16(f32, want)
+
+
+@pytest.mark.parametrize("fused_eval", [True, False])
+@pytest.mark.parametrize("with_features,use_fps", [(True, False), (False, True)])
+def test_set_abstraction_matches_flax_bf16(fused_eval, with_features, use_fps, monkeypatch):
+    """JAX's fused SA gathers bf16-rounded A rows on the TPU (its int8 byte
+    planes); its interpret mode does so with OPEN3DSOT_INT8_GATHER=1."""
+    monkeypatch.setenv("OPEN3DSOT_INT8_GATHER", "1")
+    rng = np.random.default_rng(5)
+    xyz = rng.standard_normal((2, 64, 3)).astype(np.float32)
+    feats = rng.standard_normal((2, 64, 12)).astype(np.float32) if with_features else None
+    kw = dict(mlp=[16, 16, 24], radius=0.8, nsample=8, use_fps=use_fps)
+    v = randomize(JSA(**kw).init(jax.random.PRNGKey(0), xyz, feats, 16, train=False), rng)
+    jsa = JSA(fused_eval=fused_eval, dtype=jnp.bfloat16, **kw)
+    port = load_into(SetAbstraction(12 if with_features else 0, [16, 16, 24], 0.8, 8,
+                                    use_fps=use_fps, fused_eval=fused_eval, dtype=BF), v)
+    want_xyz, want, want_idx = jsa.apply(v, xyz, feats, 16, train=False)
+    with torch.no_grad():
+        got_xyz, got, got_idx = port(t(xyz), None if feats is None else t(feats), 16)
+    assert got.dtype == BF and want.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(got_idx.numpy(), np.asarray(want_idx))
+    np.testing.assert_array_equal(got_xyz.numpy(), np.asarray(want_xyz))
+    assert_close_bf16(got, want)
+    set_compute_dtype(port, None)
+    with torch.no_grad():
+        assert_f32_fails_bf16(port(t(xyz), None if feats is None else t(feats), 16)[1], want)
+
+
+
+@pytest.mark.parametrize("mlp", [(64, 64, 128), (256, 256, 256), (16, 16, 24)])
+def test_bf16_packed_weights_unpack_to_the_rounded_weights(mlp):
+    """pack_sa in the bf16 mode: W2 and W3 as whole zero-padded chunks of
+    bf16(W^T), core matrices of 8 x 8 (csrc/sa_fused.cu::packed_floats with
+    bf16: half the floats of the TF32 mode's hi + lo, a quarter of its bytes
+    a part)."""
+    _, _, _, _, port = _setup(7, mlp=list(mlp))
+    folded = port.folded_chains()
+    packed = sa_fused.pack_sa(folded, BF)
+    (w1, b1), (w2, b2), (w3, b3) = folded
+    assert torch.equal(packed.w1x, w1[:3]) and torch.equal(packed.b2, b2)
+    for w, p in ((w2, packed.w2), (w3, packed.w3)):
+        k, c = w.shape
+        nc, nk = _cdiv(_cdiv(c, 8) * 8, CHUNK_OUT), _cdiv(_cdiv(k, 8) * 8, CHUNK_IN)
+        assert p.dtype == torch.float32 and p.numel() == nc * nk * CHUNK_OUT * CHUNK_IN // 2
+        wt = (p.view(BF).reshape(nc, nk, CHUNK_OUT // 8, CHUNK_IN // 8, 8, 8)
+              .permute(0, 2, 4, 1, 3, 5).reshape(nc * CHUNK_OUT, nk * CHUNK_IN))
+        assert torch.equal(wt[:c, :k], w.t().to(BF))
+        assert not wt[c:].float().any() and not wt[:, k:].float().any()

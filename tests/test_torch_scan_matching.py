@@ -325,10 +325,11 @@ def test_graphs_captured_again_on_new_weights(bat_pair, monkeypatch):
 
 def test_refusals(bat_pair):
     _, (port, pcfg) = bat_pair
-    bad = pcfg.copy()
-    bad.bf16 = True
-    with pytest.raises(NotImplementedError, match="bf16"):
-        psm.MatchScanTracker(port, bad)
+    # bf16 is no longer refused: the tracker runs the model it is given, a
+    # bf16 one too (tests/test_torch_bf16.py)
+    bf16 = pcfg.copy()
+    bf16.bf16 = True
+    assert psm.MatchScanTracker(port, bf16).model is port
     bad = pcfg.copy()
     bad.reference_BB = "next_gt"
     with pytest.raises(ValueError, match="reference_BB"):

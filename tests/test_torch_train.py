@@ -283,6 +283,29 @@ def test_cli_refuses_motion_training():
 
 @pytest.mark.parametrize("name", ["bat", "p2b"])
 def test_bf16_is_refused(name):
+    """bf16 now runs in eval; training under it is refused (K6's bf16 mode
+    comes with bf16 training)."""
     cfg = port_load_config(SYNTHETIC[name], dict(bf16=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(name)(cfg, device="cpu")
+    model = get_model(name)(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, section 2, bf16 item 3"):
+        model.apply_train(model.device_batch(model.dummy_batch(2)))
+
+
+@pytest.mark.parametrize("key,value", [("save_top_k", 3), ("bn_decay_step", 10),
+                                       ("device_sampler", True), ("dp_shard_map", True),
+                                       ("mesh_shape", [1])])
+def test_unported_config_keys_are_refused(key, value, tmp_path):
+    """Keys the JAX trainer honours and the port's does not yet: a value
+    other than the default is refused, naming the ROADMAP item that ports
+    it; the default trains as before."""
+    from open3dsot_tpu_torch.train.trainer import UNPORTED_KEYS, Trainer
+
+    cfg = port_load_config(SYNTHETIC["bat"], {key: value})
+    model = get_model("bat")(cfg, device="cpu")
+    item = UNPORTED_KEYS[key][1]
+    assert item.startswith("ROADMAP.md, section 1 item ")
+    with pytest.raises(NotImplementedError, match=f"config.{key}=.*{item}"):
+        Trainer(model, cfg, work_dir=str(tmp_path))
+    setattr(cfg, key, UNPORTED_KEYS[key][0])
+    cfg.tensorboard = False
+    Trainer(model, cfg, work_dir=str(tmp_path))
