@@ -11,6 +11,8 @@
     python3 chip_smoke.py --online-times  # phases 1, 2 and 17 only (online trackers), no result
     python3 chip_smoke.py --eager-rates   # phases 1, 2 and the eager paths' frames/s, no result
     python3 chip_smoke.py --bf16-times    # phases 1, 2 and 18 only (the bf16 mode), no result
+    python3 chip_smoke.py --k6-bf16-times # phases 1, 2 and 19 only (K6 in bf16), no result
+    python3 chip_smoke.py --train-times   # phases 1, 2 and 19-21 (bf16 and M2 training), no result
 
 Phases, one line or a few each; any failure exits non-zero:
   1. environment: torch / CUDA versions, the card's name and power limit;
@@ -60,9 +62,10 @@ Phases, one line or a few each; any failure exits non-zero:
      synthetic dataset at BAT_Car widths (both paths), a profiler window
      (K3's launches in it beside the profiler's records of them), and the
      CLI on cfgs/BAT_synthetic.yaml.
- 10. printed last, after phase 18: one JSON line of the kernels K1-K6 and
-     the probes P1/P2, then K1/K2/K4/K5 in the bf16 mode (each with its bound
-     from this run's shapes), the card line, then the result line.
+ 10. printed last, after phase 21: one JSON line of the kernels K1-K6 and
+     the probes P1/P2, then K1/K2/K4/K5 and K6 (forward, backward) in the
+     bf16 mode (each with its bound from this run's shapes), the card line,
+     then the result line.
  11. K6 (training-mode SA, 3xTF32 on the tensor cores) forward and backward
      against their plain versions at the four K6 calls of a BAT train step at
      BAT_Car widths, on the inputs that step gives them (B = 16 and 50, and a
@@ -161,6 +164,29 @@ Phases, one line or a few each; any failure exits non-zero:
      989 TFLOP/s dense bf16; M2ScanTracker(compute_dtype=bf16) and
      MatchScanTracker on a bf16 BAT at B = 8: graph == eager bit for bit,
      launches a replay, frames/s.
+ 19. K6 in the bf16 mode, forward and backward, against its plain bf16
+     version at the four K6 calls of a BAT train step (B = 16 and 50): each
+     output within 2^-6 (max) and 2^-14 (mean) of max|plain|, the f32 plain
+     version outside those limits (printed only for the batch statistics);
+     times beside the 3xTF32 K6 on the same inputs in this call, device
+     time by events behind a queued sleep, the bound at 989 TFLOP/s bf16;
+     the HMMA/HGMMA count of the six bf16 product kernels.
+ 20. training under bf16: a BAT bf16 train step (K6 in bf16; K3 2, K6 4 / 4
+     launches) and the plain bf16 path, both against the plain path in
+     float64 (B = 16), the f32 path's distance beside them; the K6 layers'
+     18 leaves of the kernel path within 2^-8 (max) / 2^-12 (mean) of the
+     plain bf16 K6 backward at the step's own K6 inputs, cotangents and
+     kernel-forward grids, the plain f32 K6 outside; parameters and
+     gradients f32; the B = 50 step's time against the f32 step's in this
+     call (wall, device busy, idle share); then Trainer.fit in bf16 (two
+     epochs of three steps, validation on the bf16 scan tracker) from launch
+     counts of 0: K6 bf16 24 / 24.
+ 21. M2-Track training at cfgs/M2_track_kitti.yaml's widths (1024 points,
+     box_aware) on the synthetic motion sampler, f32 and bf16: the B = 16
+     step against the plain path in float64 (f32 held: loss terms 1e-3,
+     gradients 5e-2; bf16 printed), the B = 100 step's time on a prebuilt
+     batch (wall, device busy, idle share), and Trainer.fit validating on
+     M2ScanTracker (steps/s, the loader's wait, train/acc_* logged).
 
 Weights are random, made with numpy from a seed in the JAX tree's shape
 (open3dsot_tpu_torch.weights). Needs one card; no network.
@@ -168,6 +194,7 @@ Weights are random, made with numpy from a seed in the JAX tree's shape
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -579,6 +606,8 @@ def main(argv=None) -> None:
     scan_only, match_only = "--scan-times" in args, "--match-scan-times" in args
     online_only, rates_only = "--online-times" in args, "--eager-rates" in args
     bf16_only = "--bf16-times" in args
+    k6_bf16_only = "--k6-bf16-times" in args
+    train_only = "--train-times" in args
     # --- 1. environment ---------------------------------------------------
     print(f"env: python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
@@ -598,7 +627,8 @@ def main(argv=None) -> None:
                           ["fps", "sa_fused"] if match_only else
                           ["chain_fused", "fps", "sa_fused"] if online_only or rates_only
                           or bf16_only else
-                          ["sa_fused_train"] if k6_only else
+                          ["sa_fused_train"] if k6_only or k6_bf16_only else
+                          ["chain_fused", "fps", "sa_fused", "sa_fused_train"] if train_only else
                           ["sa_fused"] if k4_only else ["fps", "fps_floor"] if k3_only else
                           ["chain_fused", "fps", "sa_fused", "sa_fused_train", "gather_probe",
                            "fps_floor"])
@@ -614,6 +644,14 @@ def main(argv=None) -> None:
     if k6_only:
         training_phases(card, libs["sa_fused_train"], k6_only=True)
         print("k6 times done: phases 1, 2 and 11 only", flush=True)
+        return
+    if k6_bf16_only or train_only:
+        check_k6_bf16(bat_k6_calls(), card, libs["sa_fused_train"])
+        if train_only:
+            bf16_train_phase(card)
+            m2_train_phase(card)
+        print(f"{'train' if train_only else 'k6 bf16'} times done: phases 1, 2 and "
+              f"{'19-21' if train_only else '19'} only", flush=True)
         return
     if k4_only:
         matching_phases(card, libs["sa_fused"], k4_only=True)
@@ -758,6 +796,18 @@ def main(argv=None) -> None:
 
     # --- 18. the bf16 compute mode of eval ------------------------------------
     bf16_kernels = bf16_phase(card)
+
+    # --- 19.-21. K6 in bf16, training under bf16, M2-Track training -----------
+    k6b = check_k6_bf16(bat_k6_calls(), card, libs["sa_fused_train"])
+    k6b_launches = bf16_train_phase(card)
+    m2_train_phase(card)
+    replaces = "open3dsot_tpu/ops/sa_fused_train.py:608-776 (cdt bfloat16)"
+    for what in ("fwd", "bwd"):
+        bf16_kernels.append(kernel_entry(
+            f"K6 fused_sa_train_apply ({'forward' if what == 'fwd' else 'backward'}, bf16)",
+            "sa_fused_train.cu", replaces, k6b_launches[what], k6b["errs"][what],
+            k6b["sums"][TRAIN_B][what], k6b["sums"][TRAIN_B][what + "_plain"],
+            k6b["work"][TRAIN_B][0 if what == "fwd" else 1], peak=PEAK_BF16_FLOPS))
 
     # --- 10. results ------------------------------------------------------
     kernels = [
@@ -1310,28 +1360,25 @@ def k6_calls(plain_model, batch) -> list:
     return calls
 
 
-def k6_work(B: int, N: int, S: int, K: int, c1: int, c2: int, c3: int):
+def k6_work(B: int, N: int, S: int, K: int, c1: int, c2: int, c3: int, bf16: bool = False):
     """((bytes, operations) forward, (bytes, operations) backward) of one K6
-    call. The forward writes the pre-BN grids y2, y3 that the backward reads;
-    both read a, ct and idx (y1 = a[idx] + ct is gathered where it is read)."""
+    call. The forward writes the grids that the backward reads (two of B * S *
+    K rows); both read a, ct and idx (y1 = a[idx] + ct is gathered where it is
+    read). In the bf16 mode the stored grids, W2, W3, the output and its
+    cotangent are bf16, 2 bytes a value, as JAX's bf16 kernel stores its grids
+    h1, h2, its weights and its output in cdt (sa_fused_train.py:338, :420,
+    :429); a, ct, the statistics and the gradients stay 4."""
+    e = 2 if bf16 else 4
     R, cs = B * S * K, c1 + c2 + c3
-    params = c1 * c2 + c2 + c2 * c3 + c3 + 2 * cs
-    inputs = B * N * c1 + B * S * c1 + B * S * K  # a, ct, idx
-    fwd = (4 * (inputs + params + B * S * c3 + 2 * cs + R * (c2 + c3)),
+    weights = e * (c1 * c2 + c2 * c3) + 4 * (c2 + c3 + 2 * cs)
+    inputs = 4 * (B * N * c1 + B * S * c1 + B * S * K)  # a, ct, idx
+    grids = e * R * (c2 + c3)
+    fwd = (inputs + weights + e * B * S * c3 + 4 * 2 * cs + grids,
            2 * R * (c1 * c2 + c2 * c3) + 6 * R * cs + R * (c1 + c3))
-    bwd = (4 * (B * S * c3 + inputs + R * (c2 + c3) + 2 * cs + params
-                + B * N * c1 + B * S * c1 + c1 * c2 + c2 * c3 + 2 * cs),
+    bwd = (e * B * S * c3 + inputs + grids + 4 * 2 * cs + weights
+           + 4 * (B * N * c1 + B * S * c1 + c1 * c2 + c2 * c3 + 2 * cs),
            4 * R * (c1 * c2 + c2 * c3) + 12 * R * cs)
     return fwd, bwd
-
-
-def k6_bwd_args(g, a, ct, idx, grids, stats, w2, w3, bn):
-    """The backward's arguments. A K6 whose forward keeps y1 among its grids
-    (the f32 CUDA-core version, timed by --k6-times on an older tree) takes the
-    grids and the point count in place of a and ct."""
-    if len(grids) == 3:
-        return g, idx, grids, stats, w2, w3, bn, a.shape[1]
-    return g, a, ct, idx, grids, stats, w2, w3, bn
 
 
 def check_k6(calls, card: str, lib, strict: bool = True):
@@ -1374,11 +1421,12 @@ def check_k6(calls, card: str, lib, strict: bool = True):
         N, S, K = xyz.shape[1], new.shape[1], idx.shape[2]
         c1, c2, c3 = a.shape[2], w2.shape[1], w3.shape[1]
         shape = f"{label} B={B} N={N} S={S} K={K} C={c1},{c2},{c3}"
-        out_k, st_k, _ = k6.sa_train_fwd_kernel(a, ct, idx, w2, b2, w3, b3, bn)
+        packs = k6.Packs(w2, w3, False)  # once, as the SA layer holds them
+        out_k, st_k, _ = k6.sa_train_fwd_kernel(a, ct, idx, w2, b2, w3, b3, bn, packs)
         out_p, st_p, grids = k6.sa_train_fwd_plain(a, ct, idx, w2, b2, w3, b3, bn)
         g = torch.randn(B, S, c3, device=a.device, generator=gen)
-        bargs = k6_bwd_args(g, a, ct, idx, grids, st_p, w2, w3, bn)
-        bwd_k = k6.sa_train_bwd_kernel(*bargs)
+        bargs = (g, a, ct, idx, grids, st_p, w2, w3, bn)
+        bwd_k = k6.sa_train_bwd_kernel(*bargs, packs)
         bwd_p = k6.sa_train_bwd_plain(*bargs)
         torch.cuda.synchronize()
         errs["fwd"] = max(errs["fwd"], compare(f"K6 fwd {shape} out", out_k, out_p))
@@ -1391,9 +1439,9 @@ def check_k6(calls, card: str, lib, strict: bool = True):
             errs["bwd"] = max(errs["bwd"], compare(f"K6 bwd {shape} {name}", x, y))
         if not timed:
             return
-        fns = (lambda: k6.sa_train_fwd_kernel(a, ct, idx, w2, b2, w3, b3, bn),
+        fns = (lambda: k6.sa_train_fwd_kernel(a, ct, idx, w2, b2, w3, b3, bn, packs),
                lambda: k6.sa_train_fwd_plain(a, ct, idx, w2, b2, w3, b3, bn),
-               lambda: k6.sa_train_bwd_kernel(*bargs),
+               lambda: k6.sa_train_bwd_kernel(*bargs, packs),
                lambda: k6.sa_train_bwd_plain(*bargs))
         if B == TRAIN_B:
             per_pass["forward"].append(fns[0])
@@ -1628,7 +1676,7 @@ def check_trainer(card: str) -> tuple:
 
     from open3dsot_tpu_torch.data import get_dataset
     from open3dsot_tpu_torch.train.optim import make_optimizer
-    from open3dsot_tpu_torch.train.trainer import Trainer, train_step
+    from open3dsot_tpu_torch.train.trainer import Trainer
 
     cfg = matching_cfg("bat", syn_num_tracklets=8, tensorboard=False)
     model, _ = make_model(cfg, fused_eval=True)
@@ -1636,26 +1684,12 @@ def check_trainer(card: str) -> tuple:
     t0 = time.perf_counter()
     host = train_batch(cfg, TRAIN_B, SEED)
     host_s = time.perf_counter() - t0
-    batch = model.device_batch(host)
     optimizer, scheduler = make_optimizer(cfg, model.net.parameters(), 100)
-    for _ in range(2):
-        train_step(model, optimizer, batch, scheduler)
-    torch.cuda.synchronize()
-    steps = 5
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        train_step(model, optimizer, batch, scheduler)
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / steps
-    rows = device_rows(lambda: [train_step(model, optimizer, batch, scheduler) for _ in range(3)])
-    busy_s = sum(dev_us(e) for e in rows) / 3 / 1e6
-    idle = f"{1 - busy_s / step_s:.3f}" if busy_s > 0 else "not measured"
-    print(f"train step B={TRAIN_B} at BAT_Car widths: {step_s * 1e3:.4f} ms per step "
-          f"({1 / step_s:.3f} steps/s, {TRAIN_B / step_s:.2f} samples/s) on a prebuilt batch; "
-          f"host sample building {host_s * 1e3:.4f} ms per batch of {TRAIN_B}; device busy "
-          f"{busy_s * 1e3:.4f} ms per step, idle share {idle} [{card}]", flush=True)
-    for e in sorted(rows, key=lambda e: -dev_us(e))[:8]:
-        print(f"  {dev_us(e) / 3:10.0f} us per step {e.count // 3:5d}x  {e.key[:80]}")
+    t = step_time(model, model.device_batch(host), optimizer, scheduler, card,
+                  f"B={TRAIN_B} at BAT_Car widths, prebuilt batch")
+    print(f"train step B={TRAIN_B} at BAT_Car widths: {TRAIN_B * 1e3 / t['ms']:.2f} samples/s "
+          f"on a prebuilt batch; host sample building {host_s * 1e3:.4f} ms per batch of "
+          f"{TRAIN_B} [{card}]", flush=True)
 
     val = get_dataset(matching_cfg("bat", syn_num_tracklets=1), "test", "test")
     work_dir = ROOT / "runs" / "chip_smoke_fit"
@@ -1692,6 +1726,14 @@ def check_trainer(card: str) -> tuple:
     if not np.isfinite(t_one["loss"]):
         fail("fit with workers 0: the loss is not finite")
     return launches
+
+
+def bat_k6_calls() -> list:
+    """k6_calls of a BAT_Car train step at B = TRAIN_B, on the plain path."""
+    cfg = matching_cfg("bat")
+    _, variables = make_model(cfg, fused_eval=True)
+    plain, _ = make_model(cfg, fused_eval=False, variables=variables)
+    return k6_calls(plain, train_batch(cfg, TRAIN_B, SEED))
 
 
 def training_phases(card: str, lib, k6_only: bool = False) -> list:
@@ -2772,10 +2814,11 @@ BF16_B = 8  # the scan trackers' batch in phase 18
 BF16_SLEEP = 40_000_000
 
 
-def compare_bf16(name: str, got, want, f32) -> float:
+def compare_bf16(name: str, got, want, f32, control: bool = True) -> float:
     """A bf16 kernel's output `got` against its plain bf16 version's `want`,
     within BF16_MAX_REL / BF16_MEAN_REL of max|want|; the f32 plain
-    version's `f32` on the same inputs must lie outside them."""
+    version's `f32` on the same inputs must lie outside them (printed only,
+    with control=False: a batch statistic averages the roundings away)."""
     import torch
 
     got, want, f32 = got.float(), want.float(), f32.float()
@@ -2793,15 +2836,16 @@ def compare_bf16(name: str, got, want, f32) -> float:
         return max_abs <= BF16_MAX_REL * scale and mean_abs <= BF16_MEAN_REL * scale
 
     (max_abs, mean_abs), (f32_max, f32_mean) = errs(got), errs(f32)
-    ok, control = within(max_abs, mean_abs), not within(f32_max, f32_mean)
+    ok, outside = within(max_abs, mean_abs), not within(f32_max, f32_mean)
     print(f"  {name}: max_abs_err {max_abs:.3e} ({max_abs / scale:.2e} of max|ref| {scale:.3e}), "
           f"mean {mean_abs / scale:.2e} of it {'ok' if ok else 'FAIL'}; f32 control max "
           f"{f32_max / scale:.2e} mean {f32_mean / scale:.2e} of it "
-          f"{'outside: ok' if control else 'inside: FAIL'}", flush=True)
+          f"{('outside: ok' if outside else 'inside: FAIL') if control else '(not held)'}",
+          flush=True)
     if not ok:
         fail(f"{name}: outside the bf16 tolerance (max {BF16_MAX_REL:.2e}, mean {BF16_MEAN_REL:.2e} "
              f"of max|ref|)")
-    if not control:
+    if control and not outside:
         fail(f"{name}: the f32 plain version is inside the bf16 tolerance, which then cannot "
              "tell bf16 from f32")
     return max_abs
@@ -3230,6 +3274,473 @@ def bf16_phase(card: str) -> list:
                      "open3dsot_tpu/ops/sa_fused.py:415", n["K5"], sa_errs["K5"], s1["k5"],
                      s1["plain"], s1["w5"], peak=PEAK_BF16_FLOPS),
     ]
+
+
+
+# --- phase 19: K6 in the bf16 mode ----------------------------------------------
+
+def check_k6_bf16(calls, card: str, lib) -> dict:
+    """K6's bf16 mode, forward and backward, against its plain bf16 version at
+    the four K6 calls of a BAT train step (B = 16 and TRAIN_B), each output
+    within BF16_MAX_REL / BF16_MEAN_REL of max|plain| and the f32 plain
+    version on the same inputs outside them (compare_bf16); the backward of
+    both takes the plain bf16 forward's grids and statistics and a
+    bf16-valued cotangent. Times by events and device time beside the 3xTF32
+    K6 on the same inputs in this call, and the bound at 989 TFLOP/s dense
+    bf16 and 3.35 TB/s (k6_work's bytes, bf16 grids). Device time is by events behind a
+    queued sleep (`queued_ms`): late in a whole run the profiler's traces of
+    these calls came back short (a third of their event time)."""
+    import torch
+
+    from open3dsot_tpu_torch.ops import sa_fused_train as k6
+    from open3dsot_tpu_torch.ops.neighbors import ball_query
+    from open3dsot_tpu_torch.ops.sa_fused import a_form
+
+    counts = sass_tensor_ops(lib.path)
+    bf = {fn: c for fn, c in counts.items()
+          if fn.startswith(("rowmm_kernel", "dw_kernel")) and fn.endswith(",1>")}
+    print(f"  sass: K6's bf16 product kernels: {bf}", flush=True)
+    if len(bf) != 6 or not all(bf.values()):
+        fail(f"K6's bf16 product kernels hold no tensor-core instruction: {bf}")
+    gen = torch.Generator(device=calls[0][2].device).manual_seed(SEED)
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    keys = ("fwd", "fwd_plain", "fwd_tf32", "bwd", "bwd_plain", "bwd_tf32")
+    sums = {B: dict.fromkeys(keys, 0.0) for B in K6_BATCHES}
+    dev = {B: dict.fromkeys(keys, 0.0) for B in K6_BATCHES}
+    work = {B: [[0, 0], [0, 0]] for B in K6_BATCHES}
+    with torch.no_grad():
+        for label, mod, xyz_all, feats_all, new_all in calls:
+            for B in K6_BATCHES:
+                xyz, feats, new = (x[:B].contiguous() for x in (xyz_all, feats_all, new_all))
+                layers = list(mod.mlp_shared.children())
+                w2, w3 = (l.dense.weight.detach().t().contiguous() for l in layers[1:])
+                b2, b3 = (l.dense.bias.detach() for l in layers[1:])
+                bn = [p.detach() for l in layers for p in (l.bn.weight, l.bn.bias)]
+                idx = ball_query(mod.radius, mod.nsample, xyz, new)
+                inv_r = 1.0 / mod.radius if mod.normalize_xyz else 1.0
+                a, ct = a_form(xyz, feats.float(), new, layers[0].dense.weight.detach().t(),
+                               layers[0].dense.bias.detach(), inv_r=inv_r, use_xyz=mod.use_xyz)
+                ab = a.to(torch.bfloat16).float()  # the rows rounded once, as the wrapper does
+                N, S, K = xyz.shape[1], new.shape[1], idx.shape[2]
+                c1, c2, c3 = a.shape[2], w2.shape[1], w3.shape[1]
+                shape = f"{label} B={B} N={N} S={S} K={K} C={c1},{c2},{c3}"
+                packs, packs32 = k6.Packs(w2, w3, True), k6.Packs(w2, w3, False)
+                fwd_k = lambda: k6.sa_train_fwd_kernel(ab, ct, idx, w2, b2, w3, b3, bn,
+                                                       packs)  # noqa: E731
+                fwd_p = lambda: k6.sa_train_fwd_plain(ab, ct, idx, w2, b2, w3, b3, bn, True)  # noqa: E731
+                fwd_t = lambda: k6.sa_train_fwd_kernel(a, ct, idx, w2, b2, w3, b3, bn,
+                                                       packs32)  # noqa: E731
+                out_k, st_k, _ = fwd_k()
+                out_p, st_p, grids = fwd_p()
+                out_f, st_f, grids_f = k6.sa_train_fwd_plain(a, ct, idx, w2, b2, w3, b3, bn)
+                g = torch.randn(B, S, c3, device=a.device, generator=gen).to(torch.bfloat16).float()
+                bwd_k = lambda: k6.sa_train_bwd_kernel(g, ab, ct, idx, grids, st_p, w2, w3, bn,
+                                                       packs)  # noqa: E731
+                bwd_p = lambda: k6.sa_train_bwd_plain(g, ab, ct, idx, grids, st_p, w2, w3, bn,
+                                                      True)  # noqa: E731
+                bwd_t = lambda: k6.sa_train_bwd_kernel(g, a, ct, idx, grids_f, st_f, w2, w3, bn,
+                                                       packs32)  # noqa: E731
+                gk, gp = bwd_k(), bwd_p()
+                gf = k6.sa_train_bwd_plain(g, a, ct, idx, grids_f, st_f, w2, w3, bn)
+                torch.cuda.synchronize()
+                errs["fwd"] = max(errs["fwd"], compare_bf16(f"K6 bf16 fwd {shape} out", out_k,
+                                                            out_p, out_f))
+                for i in range(6):  # y1's: the f32 mode's sums, of bf16 rows
+                    what = f"K6 bf16 fwd {shape} {('mean', 'var')[i % 2]}{i // 2 + 1}"
+                    errs["fwd"] = max(errs["fwd"], compare(what, st_k[i], st_p[i]) if i < 2 else
+                                      compare_bf16(what, st_k[i], st_p[i], st_f[i], control=False))
+                for i, name in enumerate(("da", "dct", "dW2", "dW3")):
+                    errs["bwd"] = max(errs["bwd"], compare_bf16(f"K6 bf16 bwd {shape} {name}",
+                                                                gk[i], gp[i], gf[i]))
+                errs["bwd"] = max(errs["bwd"], compare_bf16(
+                    f"K6 bf16 bwd {shape} dgamma,dbeta", torch.cat(gk[4]), torch.cat(gp[4]),
+                    torch.cat(gf[4])))
+                fns = dict(fwd=fwd_k, fwd_plain=fwd_p, fwd_tf32=fwd_t, bwd=bwd_k, bwd_plain=bwd_p,
+                           bwd_tf32=bwd_t)
+                t = {k: time_ms(f, iters=5, repeats=5) for k, f in fns.items()}
+                t2 = {k: time_ms(f, iters=5, repeats=5) for k, f in reversed(list(fns.items()))}
+                d = {k: queued_ms(f, iters=3, repeats=3, sleep=BF16_SLEEP) for k, f in fns.items()}
+                for k in keys:
+                    sums[B][k] += min(t[k], t2[k])
+                    dev[B][k] = None if d[k] is None or dev[B][k] is None else dev[B][k] + d[k]
+                for i, w in enumerate(k6_work(B, N, S, K, c1, c2, c3, bf16=True)):
+                    work[B][i][0] += w[0]
+                    work[B][i][1] += w[1]
+                print(f"  time K6 bf16 {shape}: fwd kernel {min(t['fwd'], t2['fwd']):.4f} ms "
+                      f"(3xTF32 {min(t['fwd_tf32'], t2['fwd_tf32']):.4f}, plain "
+                      f"{min(t['fwd_plain'], t2['fwd_plain']):.4f}), bwd kernel "
+                      f"{min(t['bwd'], t2['bwd']):.4f} ms (3xTF32 "
+                      f"{min(t['bwd_tf32'], t2['bwd_tf32']):.4f}, plain "
+                      f"{min(t['bwd_plain'], t2['bwd_plain']):.4f}); device fwd {fmt_ms(d['fwd'])} "
+                      f"/ {fmt_ms(d['fwd_tf32'])}, bwd {fmt_ms(d['bwd'])} / {fmt_ms(d['bwd_tf32'])} "
+                      f"[{card}]", flush=True)
+    for B in K6_BATCHES:
+        line = []
+        for i, what in ((0, "fwd"), (1, "bwd")):
+            bound, by = bf16_bound(work[B][i])
+            dk = dev[B][what]
+            share = "not measured" if dk is None else f"{bound / dk:.1%}"
+            line.append(f"{what} bf16 kernel {sums[B][what]:.4f} ms (device {fmt_ms(dk)}), 3xTF32 "
+                        f"{sums[B][what + '_tf32']:.4f} ms (device {fmt_ms(dev[B][what + '_tf32'])}), "
+                        f"plain bf16 {sums[B][what + '_plain']:.4f} ms; bound {bound:.4f} ms by {by} "
+                        f"at 989 TFLOP/s bf16 (device at {share} of it)")
+        print(f"  K6 bf16 over one BAT train step's 4 calls, B={B}: {'; '.join(line)} [{card}]",
+              flush=True)
+    print("phase 19 ok: K6 bf16 forward and backward within the bf16 tolerance at every K6 call "
+          "of a BAT train step, the f32 control outside it", flush=True)
+    return dict(errs=errs, sums=sums, work=work)
+
+
+
+# --- phases 20-21: training under bf16, and M2-Track training -------------------
+
+# A bf16 train step against float64. Both bf16 paths (K6 in bf16 and the plain
+# bf16 layers) round the same values at other places, and the argmax gates,
+# ball queries and maxima downstream amplify a flipped bf16 step, so they are
+# held to the plain path run in float64, not to each other: each loss term
+# within max(2x the plain bf16 path's relative distance, 2e-2), and the
+# gradients together within max(2x the plain bf16 path's, 0.2). The f32
+# path's distances are printed beside them.
+BF16_STEP_FACTOR, BF16_LOSS_FLOOR, BF16_GRAD_FLOOR = 2.0, 2e-2, 0.2
+# The gradients of this net are ill-conditioned (the f32 step sits 3e-3 from
+# float64), so those bounds hold the bf16 step only as a whole. The K6 layers'
+# leaves of the kernel path are held tightly instead: each within
+# K6_LEAF_MAX_REL of max|plain| at any element and K6_LEAF_MEAN_REL on
+# average of the sum, over the layer's K6 calls in that step, of the plain
+# bf16 K6 backward's VJP at the inputs and output cotangent the step gave
+# each call and at the grids and statistics of the kernel's forward on them
+# (two forwards that each round their own f32 sums to bf16 break near-ties
+# of the max apart, and the backward routes the gradient by them), with the
+# plain f32 K6 on the same inputs outside them (the control).
+K6_LEAF_MAX_REL, K6_LEAF_MEAN_REL = 2.0 ** -8, 2.0 ** -12
+M2_CFG = "cfgs/M2_track_kitti.yaml"
+M2_TRAIN_B = 100  # batch_size of cfgs/M2_track_kitti.yaml
+# M2 against float64 (B = 16): the f32 loss terms within 1e-3 of it and the
+# gradients together within 5e-2 (measured 2.491e-2: the seg argmax picks the
+# points the MiniPointNets see; a point near the boundary flips with the
+# rounding).
+M2_LOSS_RTOL, M2_GRAD_RTOL = 1e-3, 5e-2
+
+
+def step_time(model, batch, optimizer, scheduler, card: str, what: str) -> dict:
+    """A train step on a prebuilt batch: wall ms a step (events around 5), the
+    device busy ms a step (profiler, 3 steps) and the idle share."""
+    import torch
+
+    from open3dsot_tpu_torch.train.trainer import train_step
+
+    for _ in range(2):
+        train_step(model, optimizer, batch, scheduler)
+    torch.cuda.synchronize()
+    steps = 5
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        train_step(model, optimizer, batch, scheduler)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    rows = device_rows(lambda: [train_step(model, optimizer, batch, scheduler) for _ in range(3)])
+    busy_s = sum(dev_us(e) for e in rows) / 3 / 1e6
+    idle = f"{1 - busy_s / step_s:.3f}" if busy_s > 0 else "not measured"
+    print(f"  train step {what}: {step_s * 1e3:.4f} ms per step ({1 / step_s:.3f} steps/s); "
+          f"device busy {busy_s * 1e3:.4f} ms per step, idle share {idle} [{card}]", flush=True)
+    for e in sorted(rows, key=lambda e: -dev_us(e))[:6]:
+        print(f"    {dev_us(e) / 3:10.0f} us per step {e.count // 3:5d}x  {e.key[:80]}")
+    return dict(ms=step_s * 1e3, busy_ms=busy_s * 1e3)
+
+
+@contextlib.contextmanager
+def recording_k6(calls: list):
+    """Inside: each K6 call of the SA layers appended to `calls` with its
+    inputs, its SA layer's MLP and, after the backward, its output's cotangent."""
+    from open3dsot_tpu_torch.models import pointnet
+
+    real = pointnet.fused_sa_train_apply
+
+    def recording(xyz, features, new_xyz, idx, mlp, **kw):
+        out, stats = real(xyz, features, new_xyz, idx, mlp, **kw)
+        rec = dict(inputs=[x.detach().float().clone() for x in (xyz, features, new_xyz)],
+                   idx=idx.detach().int().clone(), mlp=mlp, kw=kw, out=out.detach().clone())
+        out.register_hook(lambda g: rec.__setitem__("g", g.detach().float().clone()))
+        calls.append(rec)
+        return out, stats
+
+    pointnet.fused_sa_train_apply = recording
+    try:
+        yield calls
+    finally:
+        pointnet.fused_sa_train_apply = real
+
+
+def k6_plain_leaf_grads(net, calls, bf16: bool) -> dict:
+    """{"grad <leaf>": the sum over its layer's K6 calls of the plain K6
+    backward's VJP (bf16 or f32) at each call's inputs and cotangent}, on the
+    card: the A-form under autograd for W1, the plain backward for the rest,
+    with a rounded to bf16 in the bf16 mode as the wrapper rounds it. In the
+    bf16 mode the backward takes the grids and statistics of the kernel's
+    forward on those inputs (checked to give the step's output bit for bit),
+    in f32 those of the plain f32 forward."""
+    import torch
+
+    from open3dsot_tpu_torch.ops import sa_fused_train as k6
+    from open3dsot_tpu_torch.ops.sa_fused import a_form
+
+    names = {id(m): n for n, m in net.named_modules()}
+    total = {}
+    for rec in calls:
+        layers = list(rec["mlp"].children())
+        w1 = layers[0].dense.weight.detach().clone().requires_grad_()
+        b1 = layers[0].dense.bias.detach().clone().requires_grad_()
+        kw = rec["kw"]
+        xyz, feats, new = rec["inputs"]
+        a, ct = a_form(xyz, feats, new, w1.t(), b1, use_xyz=kw["use_xyz"],
+                       inv_r=1.0 / kw["radius"] if kw["normalize_xyz"] else 1.0)
+        w2, w3 = (l.dense.weight.detach().t().contiguous() for l in layers[1:])
+        b2, b3 = (l.dense.bias.detach() for l in layers[1:])
+        bn = [p.detach() for l in layers for p in (l.bn.weight, l.bn.bias)]
+        a_in = a.detach().to(torch.bfloat16).float() if bf16 else a.detach()
+        if bf16:
+            out, stats, grids = k6.sa_train_fwd_kernel(a_in, ct.detach(), rec["idx"], w2, b2, w3,
+                                                       b3, bn, k6.Packs(w2, w3, True))
+            if not torch.equal(out.to(rec["out"].dtype), rec["out"]):
+                fail("K6 bf16 forward again on a step's inputs: not the step's output")
+        else:
+            _, stats, grids = k6.sa_train_fwd_plain(a_in, ct.detach(), rec["idx"], w2, b2, w3,
+                                                    b3, bn)
+        da, dct, dw2, dw3, dbn = k6.sa_train_bwd_plain(rec["g"], a_in, ct.detach(), rec["idx"],
+                                                       grids, stats, w2, w3, bn, bf16)
+        torch.autograd.backward([a, ct], [da, dct])
+        grads = {"layer0.dense.weight": w1.grad, "layer1.dense.weight": dw2.t(),
+                 "layer2.dense.weight": dw3.t()}
+        for i in range(3):
+            grads[f"layer{i}.bn.weight"], grads[f"layer{i}.bn.bias"] = dbn[2 * i], dbn[2 * i + 1]
+        for k, v in grads.items():
+            key = f"grad {names[id(rec['mlp'])]}.{k}"
+            total[key] = total.get(key, 0.0) + v.detach().double()
+    return total
+
+
+def loss_and_grad_errs(got: dict, truth: dict):
+    """({loss term: relative error}, relative error of all gradients together)."""
+    import torch
+
+    losses = {k: (abs(got[k].item() - truth[k].item()) / max(abs(truth[k].item()), 1e-6))
+              for k in truth if k.startswith("loss ")}
+    grads = [k for k in truth if k.startswith("grad ")]
+    g = rel_err(torch.cat([got[k].reshape(-1) for k in grads]),
+                torch.cat([truth[k].reshape(-1) for k in grads]))
+    return losses, g
+
+
+def fit_run(model, cfg, sampler, val, card: str, what: str, steps: int = 3) -> dict:
+    """Trainer.fit for two epochs of `steps` steps with validation; steps/s
+    of epoch 2 and the time it waited for the loader."""
+    import numpy as np
+    import torch
+
+    from open3dsot_tpu_torch.train.trainer import Trainer
+
+    work_dir = ROOT / "runs" / f"chip_smoke_fit_{what.replace(' ', '_')}"
+    history = Trainer(model, cfg, work_dir=str(work_dir)).fit(sampler, val, epochs=2,
+                                                               steps_per_epoch=steps)
+    torch.cuda.synchronize()
+    last = history[-1]
+    n2 = last["steps"] - history[0]["steps"]
+    print(f"fit {what}: {last['steps']} steps of B={cfg.batch_size}, losses "
+          f"{[h['loss'] for h in history]}; epoch 2: {n2 / last['time_s']:.3f} steps/s, "
+          f"{n2 * cfg.batch_size / last['time_s']:.2f} samples/s, waiting for the loader "
+          f"{last['data_wait_s']:.4f} of {last['time_s']:.4f} s; validation success "
+          f"{last['success']:.4f} precision {last['precision']:.4f} [{card}]", flush=True)
+    if not all(np.isfinite(h["loss"]) for h in history) or last["steps"] != 2 * steps:
+        fail(f"fit {what}: {history}")
+    scalars = (work_dir / "scalars.jsonl").read_text()
+    if cfg.net_model == "m2track" and '"train/acc_seg_foreground"' not in scalars:
+        fail(f"fit {what}: no train/acc_* scalars logged")
+    return last
+
+
+def bf16_train_phase(card: str) -> dict:
+    """Phase 20: a BAT bf16 train step (K6 in bf16) and the plain bf16 path,
+    both against the plain path in float64 (B = 16), the f32 path beside
+    them; the K6 layers' leaves held to the plain bf16 K6 backward at the
+    step's own K6 calls (K6_LEAF_MAX_REL, K6_LEAF_MEAN_REL); step time at B = TRAIN_B against the f32 step in this call; then
+    Trainer.fit in bf16 from launch counts of 0, validating on the bf16 scan
+    tracker; returns the fit's K6 bf16 launches."""
+    import torch
+
+    from open3dsot_tpu_torch.data import get_dataset
+    from open3dsot_tpu_torch.models.layers import computes_in_bf16
+    from open3dsot_tpu_torch.ops import sa_fused_train
+    from open3dsot_tpu_torch.train.optim import make_optimizer
+
+    t0 = time.perf_counter()
+    k6 = sa_fused_train.fused_sa_train_apply
+    cfg = matching_cfg("bat", bf16=True, tensorboard=False)
+    kern, variables = make_model(cfg, fused_eval=True)
+    if not computes_in_bf16(kern.net):
+        fail("bf16: the BAT net does not compute in bf16")
+    plain, _ = make_model(cfg, fused_eval=False, variables=variables)
+    plain32, _ = make_model(matching_cfg("bat"), fused_eval=False, variables=variables)
+    state = {k: v.clone() for k, v in kern.net.state_dict().items()}
+    batch = kern.device_batch(train_batch(cfg, 16, SEED))
+    reset_training_counts()
+    calls = []
+    with recording_k6(calls):
+        got = train_step_state(kern, batch, state)
+    launches = training_counts() + (k6.bf16_fwd_launches, k6.bf16_bwd_launches)
+    print(f"  BAT bf16 B=16: one train step launched K3 {launches[0]}, K6 forward {launches[1]} "
+          f"(bf16 {launches[4]}), backward {launches[2]} (bf16 {launches[5]}), K4 {launches[3]}",
+          flush=True)
+    if launches != (2, 4, 4, 0, 4, 4):
+        fail(f"BAT bf16 train step: launches {launches}, expected K3 2, K6 4 / 4 in bf16, K4 0")
+    if not all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
+               for p in kern.net.parameters()):
+        fail("BAT bf16 train step: a parameter or gradient is not float32")
+    ref = train_step_state(plain, batch, state)
+    f32 = train_step_state(plain32, batch, state)
+    plain32.net.double()
+    truth = train_step_state(plain32, {k: v.double() for k, v in batch.items()}, state)
+    plain32.net.float()
+    for k, v in got.items():
+        if not torch.isfinite(v).all():
+            fail(f"BAT bf16 train step: {k} not finite on the kernel path")
+    (lk, gk), (lp, gp), (lf, gf) = (loss_and_grad_errs(x, truth) for x in (got, ref, f32))
+    bad = []
+    for k in lk:
+        lim = max(BF16_STEP_FACTOR * lp[k], BF16_LOSS_FLOOR)
+        print(f"  BAT bf16 B=16 {k}: rel err vs float64 kernel path {lk[k]:.3e} plain bf16 "
+              f"{lp[k]:.3e} f32 {lf[k]:.3e} (limit {lim:.3e})")
+        if lk[k] > lim:
+            bad.append(k)
+    lim = max(BF16_STEP_FACTOR * gp, BF16_GRAD_FLOOR)
+    print(f"  BAT bf16 B=16: rel err vs float64 of all gradients together: kernel path {gk:.3e} "
+          f"plain bf16 {gp:.3e} f32 {gf:.3e} (limit {lim:.3e})", flush=True)
+    if bad or gk > lim:
+        fail(f"BAT bf16 train step: {bad or 'the gradients'} further from float64 than the bound")
+    if len(calls) != 4 or any("g" not in rec for rec in calls):
+        fail(f"BAT bf16 train step: {len(calls)} K6 calls recorded with their cotangents, "
+             f"expected 4")
+    plain16, plain32 = (k6_plain_leaf_grads(kern.net, calls, m) for m in (True, False))
+    worst = [0.0, 0.0]
+    for k, want in plain16.items():
+        if k.endswith("bn.bias") or k.endswith("bn.weight") or k.endswith("dense.weight"):
+            err = (got[k] - want).abs()
+            scale = want.abs().max().item()
+            e = (err.max().item() / scale, err.mean().item() / scale)
+            err32 = (plain32[k] - want).abs()
+            c = (err32.max().item() / scale, err32.mean().item() / scale)
+            ok = e[0] <= K6_LEAF_MAX_REL and e[1] <= K6_LEAF_MEAN_REL
+            control = c[0] > K6_LEAF_MAX_REL or c[1] > K6_LEAF_MEAN_REL
+            print(f"  BAT bf16 B=16 {k[5:]}: kernel path against the plain bf16 K6 backward at "
+                  f"the step's K6 inputs: max {e[0]:.2e} mean {e[1]:.2e} of max|plain| {scale:.3e} "
+                  f"{'ok' if ok else 'OUTSIDE'}; f32 control max {c[0]:.2e} mean {c[1]:.2e} "
+                  f"{'outside: ok' if control else 'INSIDE'}")
+            worst = [max(worst[0], e[0]), max(worst[1], e[1])]
+            if not (ok and control):
+                bad.append(k)
+    print(f"  BAT bf16 B=16: the K6 layers' 18 leaves within max {worst[0]:.2e} / mean "
+          f"{worst[1]:.2e} of max|plain| (limits {K6_LEAF_MAX_REL:.2e} / {K6_LEAF_MEAN_REL:.2e})",
+          flush=True)
+    if bad:
+        fail(f"BAT bf16 train step: K6 leaves {bad} not held to the plain bf16 K6")
+
+    host = kern.device_batch(train_batch(cfg, TRAIN_B, SEED))
+    kern32, _ = make_model(matching_cfg("bat"), fused_eval=True, variables=variables)
+    times = {}
+    for what, model in (("f32", kern32), ("bf16", kern), ("f32 again", kern32)):
+        opt, sch = make_optimizer(model.config, model.net.parameters(), 100)
+        times[what] = step_time(model, host, opt, sch, card, f"BAT B={TRAIN_B} {what}")
+    busy32 = min(times["f32"]["busy_ms"], times["f32 again"]["busy_ms"])
+    busy = f"{times['bf16']['busy_ms'] / busy32:.3f}x" if busy32 > 0 else "not measured"
+    print(f"  BAT bf16 step against the f32 step (same call): "
+          f"{times['bf16']['ms'] / min(times['f32']['ms'], times['f32 again']['ms']):.3f}x wall, "
+          f"{busy} device busy [{card}]", flush=True)
+    del kern32, plain, plain32
+
+    fcfg = matching_cfg("bat", bf16=True, syn_num_tracklets=8, tensorboard=False)
+    val = get_dataset(matching_cfg("bat", syn_num_tracklets=1), "test", "test")
+    sampler = get_dataset(fcfg, "train_siamese", "train")
+    reset_training_counts()
+    fit_run(kern, fcfg, sampler, val, card, "BAT bf16")
+    n = (k6.bf16_fwd_launches, k6.bf16_bwd_launches)
+    print(f"launches in the bf16 fit run: K6 bf16 forward {n[0]} backward {n[1]}", flush=True)
+    if n != (4 * 6, 4 * 6):
+        fail(f"bf16 fit: K6 bf16 launches {n}, expected 24 / 24 (4 a step)")
+    print(f"phase 20 ok in {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(fwd=n[0], bwd=n[1])
+
+
+def m2_train_state(model, batch, state) -> dict:
+    """Loss terms and gradients of one M2 train step from `state`."""
+    import torch
+
+    model.net.load_state_dict(state)
+    model.net.zero_grad(set_to_none=True)
+    losses = model.loss(batch, model.apply_train(batch))
+    losses["loss_total"].backward()
+    torch.cuda.synchronize()
+    out = {f"loss {k}": v.detach().double().reshape(1) for k, v in losses.items()
+           if not k.startswith("acc_")}
+    out.update({f"grad {k}": p.grad.detach().double() for k, p in model.net.named_parameters()})
+    return out
+
+
+def m2_train_phase(card: str) -> None:
+    """Phase 21: M2-Track training at cfgs/M2_track_kitti.yaml's widths on the
+    synthetic dataset, in f32 and in bf16: the B = 16 step against the
+    plain path in float64, the B = 100 step's time on a prebuilt batch, and
+    Trainer.fit validating on M2ScanTracker."""
+    import torch
+
+    from open3dsot_tpu_torch.config import load_config
+    from open3dsot_tpu_torch.data import get_dataset
+    from open3dsot_tpu_torch.data.loader import collate
+    from open3dsot_tpu_torch.train.optim import make_optimizer
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    over = dict(dataset="synthetic", syn_num_tracklets=8, syn_tracklet_len=16, seed=SEED,
+                category_name="Car", tensorboard=False)
+    cfg32 = load_config(str(ROOT / M2_CFG), over)
+    cfg16 = load_config(str(ROOT / M2_CFG), dict(over, bf16=True))
+    m32, variables = make_model(cfg32, fused_eval=True)
+    m16, _ = make_model(cfg16, fused_eval=True, variables=variables)
+    sampler = get_dataset(cfg32, "train_motion", "train")
+    np.random.seed(SEED)
+    t1 = time.perf_counter()
+    host = collate([sampler[i] for i in range(M2_TRAIN_B)])
+    host_s = time.perf_counter() - t1
+    print(f"  M2 motion samples: {M2_TRAIN_B} built in {host_s * 1e3:.1f} ms; points "
+          f"{host['points'].shape}", flush=True)
+    b16 = m32.device_batch({k: v[:16] for k, v in host.items()})
+    state = {k: v.clone() for k, v in m32.net.state_dict().items()}
+    got32 = m2_train_state(m32, b16, state)
+    got16 = m2_train_state(m16, b16, state)
+    m32.net.double()
+    truth = m2_train_state(m32, {k: v.double() if v.is_floating_point() else v
+                                 for k, v in b16.items()}, state)
+    m32.net.float()
+    m32.net.load_state_dict(state)
+    (l32, g32), (l16, g16) = (loss_and_grad_errs(x, truth) for x in (got32, got16))
+    for k in l32:
+        print(f"  M2 B=16 {k}: rel err vs float64 f32 {l32[k]:.3e} bf16 {l16[k]:.3e}")
+    print(f"  M2 B=16: rel err vs float64 of all gradients together: f32 {g32:.3e} bf16 "
+          f"{g16:.3e} (f32 limits: loss terms {M2_LOSS_RTOL}, gradients {M2_GRAD_RTOL})",
+          flush=True)
+    if max(l32.values()) > M2_LOSS_RTOL or g32 > M2_GRAD_RTOL:
+        fail("M2 f32 train step further from float64 than its bound")
+    for x in (got16, got32):
+        if not all(torch.isfinite(v).all() for v in x.values()):
+            fail("M2 train step: a loss term or gradient is not finite")
+    batch = m32.device_batch(host)
+    for what, model in (("f32", m32), ("bf16", m16)):
+        opt, sch = make_optimizer(model.config, model.net.parameters(), 100)
+        step_time(model, batch, opt, sch, card, f"M2 B={M2_TRAIN_B} {what}")
+    val = get_dataset(load_config(str(ROOT / M2_CFG), dict(over, syn_num_tracklets=1)), "test",
+                      "test")
+    for cfg, model, what in ((cfg32, m32, "M2 f32"), (cfg16, m16, "M2 bf16")):
+        fit_run(model, cfg, get_dataset(cfg, "train_motion", "train"), val, card, what)
+    print(f"phase 21 ok in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 if __name__ == "__main__":

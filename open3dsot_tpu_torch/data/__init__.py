@@ -1,8 +1,9 @@
 """Dataset factory (port of `open3dsot_tpu/data/__init__.py`).
 
-Only the synthetic dataset is ported so far, with the eval (`test`) and the
-siamese training (`train_siamese`) samplers; every other dataset or sampler
-type raises NotImplementedError.
+Only the synthetic dataset is ported so far, with the eval (`test`), the
+siamese training (`train_siamese`, BAT and P2B) and the motion training
+(`train_motion`, M2-Track) samplers; every other dataset or sampler type
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -15,9 +16,13 @@ def get_dataset(config, type: str = "test", split: str = "test", **kwargs):
     if name != "synthetic":
         raise NotImplementedError(f"dataset {name!r} is {_TODO}")
     type_l = type.lower()
-    if type_l not in ("test", "train_siamese"):
+    if type_l not in ("test", "train_siamese", "train_motion"):
         raise NotImplementedError(f"dataset type {type!r} is {_TODO}")
-    from open3dsot_tpu_torch.data.sampler import PointTrackingSampler, TestTrackingSampler
+    from open3dsot_tpu_torch.data.sampler import (
+        MotionTrackingSampler,
+        PointTrackingSampler,
+        TestTrackingSampler,
+    )
     from open3dsot_tpu_torch.data.synthetic import SyntheticDataset
 
     data = SyntheticDataset(
@@ -34,4 +39,6 @@ def get_dataset(config, type: str = "test", split: str = "test", **kwargs):
             sample_per_epoch=getattr(config, "sample_per_epoch", 10000),
             config=config,
         )
+    if type_l == "train_motion":
+        return MotionTrackingSampler(dataset=data, config=config)
     return TestTrackingSampler(dataset=data, config=config)

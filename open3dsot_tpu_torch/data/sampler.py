@@ -1,12 +1,13 @@
 """Training and eval samplers (host, numpy): copy of
-`open3dsot_tpu/data/sampler.py`'s `siamese_processing`,
-`PointTrackingSampler` and `TestTrackingSampler` (reference
-sampler.py:16-79, 183-259).
+`open3dsot_tpu/data/sampler.py`'s `siamese_processing`, `motion_processing`,
+`PointTrackingSampler`, `TestTrackingSampler` and `MotionTrackingSampler`
+(reference sampler.py:16-288).
 
-`siamese_processing` follows the reference statement for statement (the
-random draws for the offsets come in the same order), so the same numpy
-seed gives the same training pairs as the JAX package. The motion sampler
-of M2-Track training is not ported yet (ROADMAP.md, modules to port).
+`siamese_processing` and `motion_processing` follow the reference
+statement for statement (the random draws for the offsets come in the same
+order), so the same numpy seed gives the same training pairs and M2-Track
+motion samples as the JAX package; `MotionTrackingSampler` is its
+sequential motion sampler (reference sampler.py:262-288).
 """
 
 from __future__ import annotations
@@ -86,6 +87,92 @@ def siamese_processing(data, config, template_transform=None, search_transform=N
         data_dict.update(
             points2cc_dist_t=template_bc.astype("float32"),
             points2cc_dist_s=search_bc.astype("float32"),
+        )
+    return data_dict
+
+
+def motion_processing(data, config, template_transform=None, search_transform=None):
+    prev_frame = data["prev_frame"]
+    this_frame = data["this_frame"]
+    candidate_id = data["candidate_id"]
+    prev_pc, prev_box = prev_frame["pc"], prev_frame["3d_bbox"]
+    this_pc, this_box = this_frame["pc"], this_frame["3d_bbox"]
+
+    num_points_in_prev_box = points_utils.points_in_box(prev_box, prev_pc.points).sum()
+    assert num_points_in_prev_box > 10, "not enough target points"
+
+    if template_transform is not None:
+        prev_pc, prev_box = template_transform(prev_pc, prev_box)
+    if search_transform is not None:
+        this_pc, this_box = search_transform(this_pc, this_box)
+
+    if candidate_id == 0:
+        sample_offsets = np.zeros(3)
+    else:
+        sample_offsets = np.random.uniform(low=-0.3, high=0.3, size=3)
+        sample_offsets[2] = sample_offsets[2] * (5 if config.degrees else np.deg2rad(5))
+    ref_box = points_utils.getOffsetBB(
+        prev_box, sample_offsets, limit_box=config.data_limit_box, degrees=config.degrees
+    )
+    prev_frame_pc = points_utils.generate_subwindow(
+        prev_pc, ref_box, scale=config.bb_scale, offset=config.bb_offset
+    )
+    this_frame_pc = points_utils.generate_subwindow(
+        this_pc, ref_box, scale=config.bb_scale, offset=config.bb_offset
+    )
+    assert this_frame_pc.nbr_points() > 20, "not enough search points"
+
+    this_box = points_utils.transform_box(this_box, ref_box)
+    prev_box = points_utils.transform_box(prev_box, ref_box)
+    ref_box = points_utils.transform_box(ref_box, ref_box)
+    motion_box = points_utils.transform_box(this_box, prev_box)
+
+    n = config.point_sample_size
+    prev_points, _ = points_utils.regularize_pc(prev_frame_pc.points.T, n)
+    this_points, _ = points_utils.regularize_pc(this_frame_pc.points.T, n)
+
+    seg_label_this = points_utils.points_in_box(this_box, this_points.T, 1.25).astype(int)
+    seg_label_prev = points_utils.points_in_box(prev_box, prev_points.T, 1.25).astype(int)
+    seg_mask_prev = points_utils.points_in_box(ref_box, prev_points.T, 1.25).astype(float)
+    if candidate_id != 0:
+        # soft 0.2/0.8 prior-targetness when the ref box is perturbed
+        seg_mask_prev[seg_mask_prev == 0] = 0.2
+        seg_mask_prev[seg_mask_prev == 1] = 0.8
+    seg_mask_this = np.full(seg_mask_prev.shape, fill_value=0.5)
+
+    timestamp_prev = np.full((n, 1), fill_value=0.0)
+    timestamp_this = np.full((n, 1), fill_value=0.1)
+    prev_points = np.concatenate([prev_points, timestamp_prev, seg_mask_prev[:, None]], axis=-1)
+    this_points = np.concatenate([this_points, timestamp_this, seg_mask_this[:, None]], axis=-1)
+
+    stack_points = np.concatenate([prev_points, this_points], axis=0)
+    stack_seg_label = np.hstack([seg_label_prev, seg_label_this])
+    box_label = points_utils.box_to_params(this_box, degrees=config.degrees)
+    box_label_prev = points_utils.box_to_params(prev_box, degrees=config.degrees)
+    motion_label = points_utils.box_to_params(motion_box, degrees=config.degrees)
+    motion_state_label = (
+        np.sqrt(np.sum((this_box.center - prev_box.center) ** 2)) > config.motion_threshold
+    )
+
+    data_dict = {
+        "points": stack_points.astype("float32"),
+        "box_label": box_label,
+        "box_label_prev": box_label_prev,
+        "motion_label": motion_label,
+        "motion_state_label": np.int32(motion_state_label),
+        "bbox_size": this_box.wlh.astype("float32"),
+        "seg_label": stack_seg_label.astype("int32"),
+    }
+    if getattr(config, "box_aware", False):
+        prev_bc = points_utils.get_point_to_box_distance(stack_points[:n, :3], prev_box)
+        this_bc = points_utils.get_point_to_box_distance(stack_points[n:, :3], this_box)
+        candidate_bc_prev = points_utils.get_point_to_box_distance(stack_points[:n, :3], ref_box)
+        candidate_bc_this = np.zeros_like(candidate_bc_prev)
+        candidate_bc = np.concatenate([candidate_bc_prev, candidate_bc_this], axis=0)
+        data_dict.update(
+            prev_bc=prev_bc.astype("float32"),
+            this_bc=this_bc.astype("float32"),
+            candidate_bc=candidate_bc.astype("float32"),
         )
     return data_dict
 
@@ -183,3 +270,35 @@ class TestTrackingSampler:
         tracklet_annos = self.dataset.tracklet_anno_list[index]
         frame_ids = list(range(len(tracklet_annos)))
         return self.dataset.get_frames(index, frame_ids)
+
+
+class MotionTrackingSampler(PointTrackingSampler):
+    """Sequential-only motion sampler; augmentation on both frames
+    (sampler.py:262-288)."""
+
+    def __init__(self, dataset, config=None, **kwargs):
+        super().__init__(dataset, random_sample=False, config=config, **kwargs)
+        self.processing = motion_processing
+
+    def __getitem__(self, index):
+        anno_id = self.get_anno_index(index)
+        candidate_id = self.get_candidate_index(index)
+        try:
+            tracklet_id, frame_ids = self._locate(anno_id)
+            first_frame, prev_frame, this_frame = self.dataset.get_frames(
+                tracklet_id, frame_ids=frame_ids
+            )
+            data = {
+                "first_frame": first_frame,
+                "prev_frame": prev_frame,
+                "this_frame": this_frame,
+                "candidate_id": candidate_id,
+            }
+            return self.processing(
+                data,
+                self.config,
+                template_transform=self.transform,
+                search_transform=self.transform,
+            )
+        except AssertionError:
+            return self[int(np.random.randint(0, len(self)))]

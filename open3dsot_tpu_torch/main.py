@@ -13,15 +13,15 @@ model, or the batched device-resident scan tracker (`--tracker scan`:
 tracking/scan_tracker.py for M2-Track, tracking/scan_matching.py for BAT
 and P2B): on-device scoring by default, host scoring with
 `--host_metrics`, frame points shipped as int16 with `--transfer_quant
-int16`. `--bf16` (or `bf16: true` in the YAML) computes eval in bf16 on
-either path (the kernels in their bf16 mode); parameters and statistics stay
-f32. Not ported yet: process sharding, the disk prep cache
-(`--eval_prep_cache`) and `--save_results`.
-Training runs the matching trackers (BAT, P2B; `train_siamese`) through
-`train/trainer.py`, starting from random weights made from the seed
-(weights.random_variables); M2-Track training (`train_motion`) is not
-ported yet and is refused, as is training under `--bf16` (it needs K6's bf16
-mode, ROADMAP.md section 2). `--checkpoint` is a trainer checkpoint
+int16`. `--bf16` (or `bf16: true` in the YAML) computes in bf16, in eval on
+either path and in training (the kernels in their bf16 mode); parameters,
+gradients, the Adam state and the statistics stay f32. Not ported yet:
+process sharding, the disk prep cache (`--eval_prep_cache`) and
+`--save_results`.
+Training runs every model through `train/trainer.py`: M2-Track on the
+motion sampler (`train_motion`), BAT and P2B on the siamese one
+(`train_siamese`), starting from random weights made from the seed
+(weights.random_variables). `--checkpoint` is a trainer checkpoint
 (`ckpt_best.pt`, `ckpt_last.pt`) or a file written by
 `torch.save(model.net.state_dict(), path)`; without one the weights are
 random, made from the seed.
@@ -30,7 +30,6 @@ random, made from the seed.
 from __future__ import annotations
 
 import argparse
-import sys
 
 _OVERRIDES = ("epoch", "batch_size", "seed", "log_dir", "workers", "check_val_every_n_epoch",
               "transfer_quant", "bf16")
@@ -51,7 +50,7 @@ def parse_args(argv=None):
     parser.add_argument("--seed", type=int, default=None)
     parser.add_argument("--check_val_every_n_epoch", type=int, default=None)
     parser.add_argument("--bf16", action="store_true", default=None,
-                        help="bf16 compute (params/BN stats stay f32); eval only")
+                        help="bf16 compute (params/BN stats stay f32)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device (cuda or cpu)")
     parser.add_argument("--tracker", type=str, default="host", choices=["host", "scan"],
@@ -77,12 +76,6 @@ def main(argv=None):
 
     cfg = load_config(args.cfg, {k: getattr(args, k) for k in _OVERRIDES
                                  if getattr(args, k) is not None})
-    if not args.test and getattr(cfg, "train_type", "") != "train_siamese":
-        sys.exit(f"{cfg.net_model} ({getattr(cfg, 'train_type', None)}): training is not "
-                 "ported yet (ROADMAP.md, modules to port); the port trains BAT and P2B")
-    if not args.test and cfg.bf16:
-        sys.exit("training under bf16 compute is not ported yet (ROADMAP.md, section 2, bf16 "
-                 "item 3: K6's bf16 mode with bf16 training); bf16 runs with --test")
     model = get_model(cfg.net_model)(cfg, device=args.device)
     if args.checkpoint:
         from open3dsot_tpu_torch.train.trainer import state_dict_of_checkpoint
@@ -96,18 +89,9 @@ def main(argv=None):
 
     if args.test:
         test_sampler = get_dataset(cfg, "test", cfg.test_split)
-        if args.tracker == "scan" and cfg.net_model.lower() == "m2track":
-            from open3dsot_tpu_torch.tracking.scan_tracker import evaluate_dataset_scan
-
-            succ, prec = evaluate_dataset_scan(model, test_sampler, cfg,
-                                               max_tracklets=args.max_tracklets,
-                                               device_metrics=not args.host_metrics)
-        elif args.tracker == "scan":
-            from open3dsot_tpu_torch.tracking.scan_matching import evaluate_dataset_scan_matching
-
-            succ, prec = evaluate_dataset_scan_matching(model, test_sampler, cfg,
-                                                        max_tracklets=args.max_tracklets,
-                                                        device_metrics=not args.host_metrics)
+        if args.tracker == "scan":
+            succ, prec = model.evaluate_scan(test_sampler, cfg, max_tracklets=args.max_tracklets,
+                                             device_metrics=not args.host_metrics)
         else:
             from open3dsot_tpu_torch.tracking.eval import evaluate_dataset
 

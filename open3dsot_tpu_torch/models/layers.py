@@ -15,14 +15,17 @@ fold (models/pointnet.py::_FoldCache) is refolded before the next eval
 forward.
 
 bf16 compute (`dtype=torch.bfloat16`, JAX `dtype=jnp.bfloat16`) follows
-flax's rounding order in eval: `nn.Dense(dtype=bf16)` rounds its input,
-kernel and bias to bf16, multiplies with f32 sums and rounds the product to
-bf16, then adds the bias in bf16; `nn.BatchNorm(dtype=bf16)` computes
-(x - mean) * (rsqrt(var + eps) * scale) + bias in the statistics' type (f32,
-or bf16 where the statistics themselves are bf16) and rounds the result to
-bf16; ReLU keeps bf16. Parameters and statistics stay f32 (the scan tracker
-rounds a copy of them). Training in bf16 is refused: it needs K6's bf16
-mode (ROADMAP.md, section 2, bf16 item 3).
+flax's rounding order: `nn.Dense(dtype=bf16)` rounds its input, kernel and
+bias to bf16, multiplies with f32 sums and rounds the product to bf16, then
+adds the bias in bf16; `nn.BatchNorm(dtype=bf16)` computes (x - mean) *
+(rsqrt(var + eps) * scale) + bias in the statistics' type (f32, or bf16
+where the statistics themselves are bf16) and rounds the result to bf16;
+ReLU keeps bf16. In training the batch statistics are computed in f32 from
+the bf16 product (flax's `_compute_stats` promotes to f32) and blended into
+the f32 running statistics. Parameters, their gradients and the statistics
+stay f32 (the scan tracker rounds a copy of them): autograd through a
+`.to(bfloat16)` hands an f32 gradient back to the f32 parameter, as JAX's
+convert does.
 """
 
 from __future__ import annotations
@@ -48,14 +51,6 @@ def compute_dtype(config):
     """torch.bfloat16 under `bf16: true`, else None (float32), as JAX's
     models/matching_base.py::_compute_dtype."""
     return BF16 if getattr(config, "bf16", False) else None
-
-
-def refuse_bf16_training(what: str = "training") -> None:
-    """bf16 runs in eval only: training in bf16 needs K6's bf16 forward and
-    VJP, which come with bf16 training."""
-    raise NotImplementedError(f"{what} under bf16 compute is not ported yet (ROADMAP.md, "
-                              "section 2, bf16 item 3: K6's bf16 mode with bf16 training); "
-                              "train in float32")
 
 
 def set_compute_dtype(net: nn.Module, dtype) -> nn.Module:
@@ -106,7 +101,7 @@ def dense_bf16(x: torch.Tensor, dense: nn.Linear) -> torch.Tensor:
 
 class DenseBNRelu(nn.Module):
     """Dense -> BatchNorm -> ReLU over the last axis (any leading shape);
-    `dtype` None (float32) or torch.bfloat16 (eval only)."""
+    `dtype` None (float32) or torch.bfloat16."""
 
     def __init__(self, in_features: int, features: int, bn: bool = True,
                  activation: bool = True, device=None, dtype=None):
@@ -134,12 +129,14 @@ class DenseBNRelu(nn.Module):
         return x
 
     def _forward_bf16(self, x: torch.Tensor) -> torch.Tensor:
-        """Eval in bf16, in flax's order (the module docstring)."""
-        if self.training:
-            refuse_bf16_training()
+        """bf16 in flax's order (the module docstring), in eval and in training."""
         x = dense_bf16(x, self.dense)
         bn = self.bn
-        if bn is not None:
+        if bn is not None and self.training:
+            mean, var = batch_stats(x.float())  # f32 statistics of the bf16 product
+            self.update_batch_stats(mean, var)
+            x = ((x - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias).to(BF16)
+        elif bn is not None:
             mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
             x = ((x - bn.running_mean) * mul + bn.bias).to(BF16)
         if self.activation:

@@ -12,7 +12,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from open3dsot_tpu_torch.models.layers import computes_in_bf16, refuse_bf16_training
 from open3dsot_tpu_torch.models.losses import bce_with_logits, smooth_l1
 
 
@@ -76,12 +75,23 @@ class MatchingEvalMixin:
 
     def apply_train(self, batch: dict) -> dict:
         """Training forward (batch statistics, running statistics updated,
-        autograd on) on a `device_batch`; outputs stay on the device. Refused
-        under bf16 compute."""
-        if computes_in_bf16(self.net):
-            refuse_bf16_training(f"{self.name} training")
+        autograd on) on a `device_batch`; outputs stay on the device, f32 for
+        the loss in the bf16 mode too (JAX tests/test_bf16.py:42-53)."""
         self.net.train()
         return self.net(*(batch[k] for k in self.input_keys))
+
+    def scan_tracker(self, config, **kw):
+        """The batched on-device tracker of this model (tracking/scan_matching.py)."""
+        from open3dsot_tpu_torch.tracking.scan_matching import MatchScanTracker
+
+        return MatchScanTracker(self, config, **kw)
+
+    def evaluate_scan(self, test_sampler, config, **kw):
+        """(success, precision) on `test_sampler` through `scan_tracker`; keywords
+        as tracking/scan_matching.py::evaluate_dataset_scan_matching's."""
+        from open3dsot_tpu_torch.tracking.scan_matching import evaluate_dataset_scan_matching
+
+        return evaluate_dataset_scan_matching(self, test_sampler, config, **kw)
 
     def dummy_batch(self, batch_size: int = 2) -> dict:
         """A zero batch with the inputs and the training labels."""

@@ -19,11 +19,14 @@ JAX package selects it (pointnet.py:192-216); every other SA layer (the
 featureless first one, the RPN's vote layer) runs the plain grid MLP with
 training BatchNorm under autograd, and `amax` over the K neighbours, whose
 gradient is split over ties as JAX's. FPS stays K3 when `fused_eval` is
-set; the M2 encoders have no training form here yet.
+set. The M2 encoders (MiniPointNet, SegPointNet) train on the plain layers
+with training BatchNorm: K1/K2 are eval-only, in JAX too (pointnet.py:50,
+:86).
 
-`dtype=torch.bfloat16` is the bf16 compute mode of eval (JAX `dtype=`):
+`dtype=torch.bfloat16` is the bf16 compute mode (JAX `dtype=`): in eval
 K1/K2/K4 in their bf16 mode with `fused_eval`, the flax-order bf16 layers
-(models/layers.py) without; xyz, K3 and the ball query stay f32. The fold
+(models/layers.py) without; in training K6 in its bf16 mode and the
+flax-order bf16 layers elsewhere; xyz, K3 and the ball query stay f32. The fold
 caches key on the mode as well as on the weights, so a module switched
 between modes (layers.py::set_compute_dtype) never reuses the other mode's
 packing.
@@ -37,7 +40,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
-from open3dsot_tpu_torch.models.layers import MLP, linear, refuse_bf16_training
+from open3dsot_tpu_torch.models.layers import MLP, linear
 from open3dsot_tpu_torch.ops.chain_fused import BF16, is_bf16
 from open3dsot_tpu_torch.ops.chain_fused import (
     FoldedChain,
@@ -47,7 +50,7 @@ from open3dsot_tpu_torch.ops.chain_fused import (
 from open3dsot_tpu_torch.ops.grouping import gather_points
 from open3dsot_tpu_torch.ops.neighbors import ball_query
 from open3dsot_tpu_torch.ops.sa_fused import FoldedSA, fused_sa_apply, group_inputs
-from open3dsot_tpu_torch.ops.sa_fused_train import fused_sa_train_apply
+from open3dsot_tpu_torch.ops.sa_fused_train import Packs, fused_sa_train_apply
 from open3dsot_tpu_torch.ops.sampling import furthest_point_sample, furthest_point_sample_plain
 
 
@@ -69,6 +72,14 @@ class _FoldCache(nn.Module):
 
     _fold_buffers = None  # the buffers' names, inside `folds_as_buffers`
 
+    def _cached(self, name: str, key, build):
+        """build() (without autograd), held as `_<name>_value` until `key` changes."""
+        if getattr(self, f"_{name}_key", None) != key:
+            with torch.no_grad():
+                setattr(self, f"_{name}_value", build())
+            setattr(self, f"_{name}_key", key)
+        return getattr(self, f"_{name}_value")
+
     def folded_chains(self):
         if self.training:
             raise NotImplementedError("the fused chains are eval-only: call .eval()")
@@ -80,12 +91,7 @@ class _FoldCache(nn.Module):
                 parts.append(part.with_tensors(tensors[:n]))
                 tensors = tensors[n:]
             return tuple(parts) if type(self._fold_value) is tuple else parts[0]
-        key = (weights_key(self), self.dtype)
-        if getattr(self, "_fold_key", None) != key:
-            with torch.no_grad():
-                self._fold_value = self._fold()
-            self._fold_key = key
-        return self._fold_value
+        return self._cached("fold", (weights_key(self), self.dtype), self._fold)
 
 
 @contextlib.contextmanager
@@ -132,7 +138,7 @@ class MiniPointNet(_FoldCache):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, N, C) -> (B, hidden_mlp[-1] or output_size); bf16 in the bf16 mode."""
-        if self.fused_eval:
+        if self.fused_eval and not self.training:
             _, x = fused_pointnet_encoder(x, self.folded_chains())
         else:
             x = self.per_point(x).amax(dim=1)
@@ -174,7 +180,7 @@ class SegPointNet(_FoldCache):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """-> (B, N, output_size): f32 from K2, bf16 from the plain bf16 stack."""
-        if self.fused_eval:
+        if self.fused_eval and not self.training:
             chain1, chain2 = self.folded_chains()
             tap, pooled = fused_pointnet_encoder(x, chain1, tap_at=self.TAP_AT)
             return fused_seg_head(tap, pooled, chain2)
@@ -214,6 +220,17 @@ class SetAbstraction(_FoldCache):
         # on a CUDA device, packed for K4 here, once per change of the weights or mode
         return FoldedSA(self.mlp_shared.folded(), dtype=self.dtype)
 
+    def train_packs(self) -> Packs:
+        """K6's packed W2, W3 in this layer's mode, held as the folds are. The
+        key is the Dense layers 2-3 and the mode: every training forward
+        writes the BatchNorms' running statistics, so `weights_key(self)`
+        would pack again between the template's and the search's calls of
+        one step."""
+        dense = [layer.dense for layer in list(self.mlp_shared.children())[1:]]
+        key = (tuple(weights_key(d) for d in dense), self.dtype)
+        return self._cached("k6_packs", key, lambda: Packs(
+            dense[0].weight.t(), dense[1].weight.t(), self.dtype is not None))
+
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor], npoint: int):
         """xyz (B, N, 3), features (B, N, C) or None -> (new_xyz (B, S, 3),
         new_features (B, S, mlp[-1]) (bf16 in the bf16 mode), sample_idxs (B, S)
@@ -229,13 +246,12 @@ class SetAbstraction(_FoldCache):
         new_xyz = gather_points(xyz, sample_idxs)
         kw = dict(radius=self.radius, normalize_xyz=self.normalize_xyz, use_xyz=self.use_xyz)
         if self.training:
-            if self.dtype is not None:
-                refuse_bf16_training()
             idx = ball_query(self.radius, self.nsample, xyz.detach(), new_xyz.detach())
             if (self.fused_train and features is not None
                     and len(list(self.mlp_shared.children())) == 3):
+                packs = self.train_packs() if xyz.is_cuda else None
                 out, stats = fused_sa_train_apply(xyz, features, new_xyz, idx, self.mlp_shared,
-                                                  **kw)
+                                                  packs=packs, **kw)
                 self.mlp_shared.update_batch_stats(stats)
                 return new_xyz, out, sample_idxs
             grouped = group_inputs(xyz, features, new_xyz, idx, **kw)

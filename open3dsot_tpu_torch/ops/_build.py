@@ -59,10 +59,10 @@ SIGNATURES = {
         "sa_fused_k4": [_P] * 8 + [_LL, _P, _P, _LL, _P, _P] + [_I] * 7 + [_F, _F, _I, _I, _P],
     },
     "sa_fused_train": {
-        "sa_train_workspace": ([_I] * 8, _LL),
-        "sa_train_packed_floats": ([_I, _I], _LL),
-        "sa_train_fwd": [_P] * 4 + [_LL, _P, _P, _LL] + [_P] * 7 + [_I] * 7 + [_P],
-        "sa_train_bwd": [_P] * 8 + [_LL, _P, _LL] + [_P] * 7 + [_I] * 7 + [_P],
+        "sa_train_workspace": ([_I] * 9, _LL),
+        "sa_train_packed_floats": ([_I] * 3, _LL),
+        "sa_train_fwd": [_P] * 4 + [_LL, _P, _P, _LL] + [_P] * 7 + [_I] * 8 + [_P],
+        "sa_train_bwd": [_P] * 8 + [_LL, _P, _LL] + [_P] * 7 + [_I] * 8 + [_P],
     },
 }
 

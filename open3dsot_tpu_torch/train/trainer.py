@@ -1,5 +1,7 @@
-"""Training loop, port of `open3dsot_tpu/train/trainer.py` for the matching
-trackers (BAT, P2B) on one device.
+"""Training loop, port of `open3dsot_tpu/train/trainer.py`, for M2-Track and
+the matching trackers (BAT, P2B) on one device, in f32 or in bf16 compute
+(`bf16: true`: the model's layers compute in bf16; parameters, gradients and
+the Adam state stay f32).
 
 - `train_step`: the training forward, the model's loss, backward, the
   optimizer and schedule steps. The loss terms come back as floats only
@@ -7,19 +9,22 @@ trackers (BAT, P2B) on one device.
 - `Trainer.fit`: batches from `data/loader.py::BatchLoader`, whose
   background thread builds the next batches on the host while the device
   trains; validation every `check_val_every_n_epoch` epochs on the scan
-  tracker (`tracking/scan_matching.py`), or on the host eval loop
-  (`tracking/eval.py`) with `val_tracker: host`;
+  tracker (`tracking/scan_tracker.py::M2ScanTracker` for M2-Track,
+  `tracking/scan_matching.py::MatchScanTracker` for BAT and P2B), or on the
+  host eval loop (`tracking/eval.py`) with `val_tracker: host`;
   `ckpt_best.pt` (best validation precision), `ckpt_last.pt`,
   `ckpt_meta.json` and `history.jsonl` in the work directory.
 
-`config.tensorboard: false` keeps the scalars in `scalars.jsonl` only.
+`config.tensorboard: false` keeps the scalars in `scalars.jsonl` only. The
+loss terms are logged under `loss/`, the accuracies (`acc_*`, M2-Track's)
+under `train/`, as the JAX trainer logs them.
 Each epoch's record also holds `data_wait_s`, the time the loop waited for
 the loader, against `time_s`, the epoch's time.
 
 Not ported yet (ROADMAP.md): resume, top-k checkpoints, the BN-momentum
-schedule, the on-device sampler (`device_sampler`), meshes, and training in
-bf16. A config that asks for one of them (`UNPORTED_KEYS`, `bf16: true`) is
-refused rather than trained as if it did not.
+schedule, the on-device sampler (`device_sampler`) and meshes. A config that
+asks for one of them (`UNPORTED_KEYS`) is refused rather than trained as if
+it did not.
 """
 
 from __future__ import annotations
@@ -33,7 +38,6 @@ import numpy as np
 import torch
 
 from open3dsot_tpu_torch.data.loader import BatchLoader
-from open3dsot_tpu_torch.models.layers import computes_in_bf16, refuse_bf16_training
 from open3dsot_tpu_torch.train.optim import clip_gradients, make_optimizer
 
 
@@ -97,8 +101,6 @@ class Trainer:
         """Train for `epochs` (the config's by default) of at most
         `steps_per_epoch` steps (the loader's length by default); -> history."""
         cfg = self.config
-        if getattr(cfg, "bf16", False) or computes_in_bf16(self.model.net):
-            refuse_bf16_training("Trainer.fit")
         epochs = epochs if epochs is not None else cfg.epoch
         loader = BatchLoader(train_sampler, cfg.batch_size, shuffle=True, drop_last=True,
                              seed=cfg.seed, workers=getattr(cfg, "workers", 0) or 0)
@@ -122,7 +124,11 @@ class Trainer:
                 step += 1
                 if scalars is not None:
                     losses.append(scalars["loss_total"])
-                    self.logger.log_scalars(scalars, step=step, prefix="loss/")
+                    accs = {k: v for k, v in scalars.items() if k.startswith("acc_")}
+                    self.logger.log_scalars({k: v for k, v in scalars.items() if k not in accs},
+                                            step=step, prefix="loss/")
+                    if accs:
+                        self.logger.log_scalars(accs, step=step, prefix="train/")
             batches.close()  # ends the loader's background thread
             if self.model.device.type == "cuda":
                 torch.cuda.synchronize(self.model.device)
@@ -150,7 +156,8 @@ class Trainer:
 
         `config.val_tracker` 'host' runs the host eval loop
         (tracking/eval.py); 'auto' (the default) and 'scan' run the batched
-        scan tracker (tracking/scan_matching.py), built on the first call and
+        scan tracker (the model's `scan_tracker`: tracking/scan_tracker.py for
+        M2-Track, tracking/scan_matching.py for BAT and P2B), built on the first call and
         kept with its captured graphs, which it captures again when the
         weights have changed, and with its prep cache of the padded batches,
         kept while the sampler is the same object (`val_prep_cache: false`
@@ -166,20 +173,14 @@ class Trainer:
                 from open3dsot_tpu_torch.tracking.eval import evaluate_dataset
 
                 return evaluate_dataset(self.model, val_sampler, cfg)
-            from open3dsot_tpu_torch.tracking.scan_matching import (
-                MatchScanTracker,
-                evaluate_dataset_scan_matching,
-            )
-
             if self._val_scan is None:
-                self._val_scan = MatchScanTracker(self.model, cfg)
+                self._val_scan = self.model.scan_tracker(cfg)
             if getattr(cfg, "val_prep_cache", True) is False:
                 self._val_prep_cache = None  # large validation splits: pad every time
             elif self._val_prep_cache_for is not val_sampler:
                 self._val_prep_cache, self._val_prep_cache_for = {}, val_sampler
-            return evaluate_dataset_scan_matching(self.model, val_sampler, cfg,
-                                                  tracker=self._val_scan,
-                                                  prep_cache=self._val_prep_cache)
+            return self.model.evaluate_scan(val_sampler, cfg, tracker=self._val_scan,
+                                            prep_cache=self._val_prep_cache)
         finally:
             self.model.net.train()
 

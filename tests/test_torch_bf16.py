@@ -229,22 +229,6 @@ def test_cli_test_bf16(cfg, capsys):
     assert last.startswith("success/test:") and "precision/test:" in last
 
 
-@pytest.mark.parametrize("name", ["bat", "p2b"])
-def test_bf16_training_is_refused(name, tmp_path):
-    from open3dsot_tpu_torch.train.trainer import Trainer
-
-    path = {"bat": "cfgs/BAT_synthetic.yaml", "p2b": "cfgs/P2B_synthetic.yaml"}[name]
-    cfg = load_config(path, dict(bf16=True, tensorboard=False))
-    model = get_model(name)(cfg, device="cpu")
-    batch = model.device_batch(model.dummy_batch(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, section 2, bf16 item 3"):
-        model.apply_train(batch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, section 2, bf16 item 3"):
-        Trainer(model, cfg, work_dir=str(tmp_path)).fit([], epochs=1)
-    with pytest.raises(SystemExit, match="section 2, bf16 item 3"):
-        port_main.main(["--cfg", path, "--bf16", "--device", "cpu", "--log_dir", str(tmp_path)])
-
-
 @pytest.mark.parametrize("name", ["m2track", "bat"])
 def test_online_trackers_and_bundles_refuse_bf16(name, tmp_path):
     from open3dsot_tpu_torch.tracking import online, serving_export

@@ -20,6 +20,8 @@ those limits (the control).
 
 from __future__ import annotations
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -325,10 +327,16 @@ def test_wrappers_check_their_inputs():
 
 
 def test_training_mode_is_refused():
+    """The fused chains are eval-only: folding in training mode is refused,
+    and a training forward runs the plain layers with batch statistics
+    (as JAX's, whose fused chain is eval-only too)."""
     x, _, _, port = _seg(64, seed=11)
     port.train()
     with pytest.raises(NotImplementedError):
-        port(t(x))
+        port.folded_chains()
+    plain = copy.deepcopy(port)
+    plain.fused_eval = False
+    torch.testing.assert_close(port(t(x)), plain(t(x)), rtol=0, atol=0)
 
 
 # --- the bf16 mode ------------------------------------------------------------

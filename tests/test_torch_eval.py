@@ -140,10 +140,3 @@ def test_cli_eval_matching(cfg_path, capsys):
     assert np.isfinite(want).all()
     last = capsys.readouterr().out.strip().splitlines()[-1]
     assert last == f"success/test: {want[0]:.2f}  precision/test: {want[1]:.2f}"
-
-
-def test_cli_refuses_training():
-    from open3dsot_tpu_torch import main as port_main
-
-    with pytest.raises(SystemExit, match="training is not ported"):
-        port_main.main(["--cfg", CFG])

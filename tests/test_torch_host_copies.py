@@ -185,8 +185,8 @@ def test_synthetic_dataset_and_test_sampler_copy():
 
 
 def test_unported_datasets_and_models_are_refused():
-    """What the port does not run yet raises: the real datasets, the motion
-    training sampler, an unknown model. The siamese training sampler runs."""
+    """What the port does not run yet raises: the real datasets, an unknown
+    model. The siamese and the motion training samplers run."""
     from open3dsot_tpu_torch.models import get_model
 
     for name in ("kitti", "nuscenes", "waymo"):
@@ -194,8 +194,7 @@ def test_unported_datasets_and_models_are_refused():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             p_get_dataset(cfg, "test", "test")
     cfg = p_config.make_config({"dataset": "synthetic"})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p_get_dataset(cfg, "train_motion", "train")
+    assert len(p_get_dataset(cfg, "train_motion", "train")) > 0
     assert len(p_get_dataset(cfg, "train_siamese", "train")) > 0
     with pytest.raises(ValueError, match="unknown model"):
         get_model("votenet")
@@ -230,6 +229,30 @@ def test_siamese_sampler_copy(cfg_path, monkeypatch):
         np.random.seed(100 + i)
         want = js[i]
         np.random.seed(100 + i)
+        got = ps[i]
+        assert set(got) == set(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("augment", [False, True])
+def test_motion_sampler_copy(augment, monkeypatch):
+    """M2-Track's motion samples (motion_processing, MotionTrackingSampler):
+    the same numpy seed gives the same perturbed reference box, crops,
+    labels, motion-state label and BoxClouds, with the augmentation of both
+    frames too."""
+    monkeypatch.setenv("OPEN3DSOT_TPU_NATIVE", "0")
+    over = dict(syn_num_tracklets=2, syn_tracklet_len=4, seed=8, use_augmentation=augment,
+                point_sample_size=64)
+    js = j_get_dataset(j_config.load_config("cfgs/M2_track_synthetic.yaml", over),
+                       "train_motion", "train")
+    ps = p_get_dataset(p_config.load_config("cfgs/M2_track_synthetic.yaml", over),
+                       "train_motion", "train")
+    assert type(ps).__name__ == "MotionTrackingSampler" and len(js) == len(ps) == 16
+    for i in (0, 1, 5, 14):
+        np.random.seed(200 + i)
+        want = js[i]
+        np.random.seed(200 + i)
         got = ps[i]
         assert set(got) == set(want)
         for k in want:

@@ -274,23 +274,6 @@ def test_loader_thread_ends_when_the_consumer_stops():
     loader.close()
 
 
-def test_cli_refuses_motion_training():
-    from open3dsot_tpu_torch import main as port_main
-
-    with pytest.raises(SystemExit, match="M2-Track|m2track|train_motion"):
-        port_main.main(["--cfg", "cfgs/M2_track_synthetic.yaml", "--device", "cpu"])
-
-
-@pytest.mark.parametrize("name", ["bat", "p2b"])
-def test_bf16_is_refused(name):
-    """bf16 now runs in eval; training under it is refused (K6's bf16 mode
-    comes with bf16 training)."""
-    cfg = port_load_config(SYNTHETIC[name], dict(bf16=True))
-    model = get_model(name)(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, section 2, bf16 item 3"):
-        model.apply_train(model.device_batch(model.dummy_batch(2)))
-
-
 @pytest.mark.parametrize("key,value", [("save_top_k", 3), ("bn_decay_step", 10),
                                        ("device_sampler", True), ("dp_shard_map", True),
                                        ("mesh_shape", [1])])
