@@ -164,13 +164,17 @@ Phases, one line or a few each; any failure exits non-zero:
      989 TFLOP/s dense bf16; M2ScanTracker(compute_dtype=bf16) and
      MatchScanTracker on a bf16 BAT at B = 8: graph == eager bit for bit,
      launches a replay, frames/s.
- 19. K6 in the bf16 mode, forward and backward, against its plain bf16
-     version at the four K6 calls of a BAT train step (B = 16 and 50): each
-     output within 2^-6 (max) and 2^-14 (mean) of max|plain|, the f32 plain
-     version outside those limits (printed only for the batch statistics);
-     times beside the 3xTF32 K6 on the same inputs in this call, device
-     time by events behind a queued sleep, the bound at 989 TFLOP/s bf16;
-     the HMMA/HGMMA count of the six bf16 product kernels.
+ 19. K6 in the bf16 mode (csrc/sa_fused_train_bf16.cu), forward and
+     backward, against its plain bf16 version at the four K6 calls of a BAT
+     train step (B = 16 and 50) and at one SA layer 3 cut to widths 512 (B =
+     16): each output and the grids h1, h2 within 2^-6 (max) and 2^-14
+     (mean) of max|plain|, the f32 plain version outside those limits
+     (printed only for the batch statistics), the backward of both at the
+     kernel forward's grids; times beside the 3xTF32 K6 on the same inputs
+     in this call and the same products as cuBLAS bf16 GEMMs, device time by
+     events behind a queued sleep, the bound at 989 TFLOP/s bf16; device
+     time by kernel of each pass of both modes at B = 50; the HMMA and
+     HGMMA counts of the 17 bf16 product kernels (wgmma alone).
  20. training under bf16: a BAT bf16 train step (K6 in bf16; K3 2, K6 4 / 4
      launches) and the plain bf16 path, both against the plain path in
      float64 (B = 16), the f32 path's distance beside them; the K6 layers'
@@ -431,8 +435,9 @@ def kernel_name(mangled: str) -> str:
     return mangled
 
 
-def sass_tensor_ops(lib_path) -> dict:
-    """Tensor-core instructions (HMMA, HGMMA) per kernel in a library's SASS."""
+def sass_tensor_ops(lib_path, split: bool = False) -> dict:
+    """Tensor-core instructions (HMMA and HGMMA together, or with split a
+    pair (HMMA, HGMMA): mma.sync and wgmma) per kernel in a library's SASS."""
     import re
 
     cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
@@ -445,10 +450,10 @@ def sass_tensor_ops(lib_path) -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = kernel_name(m.group(1))
-            counts[fn] = 0
+            counts[fn] = [0, 0]
         elif fn is not None and re.search(r"\bHG?MMA\b", line):
-            counts[fn] += 1
-    return counts
+            counts[fn][1 if re.search(r"\bHGMMA\b", line) else 0] += 1
+    return {fn: tuple(c) if split else sum(c) for fn, c in counts.items()}
 
 
 def time_call(kernel, plain, work, card: str, what: str) -> dict:
@@ -627,11 +632,13 @@ def main(argv=None) -> None:
                           ["fps", "sa_fused"] if match_only else
                           ["chain_fused", "fps", "sa_fused"] if online_only or rates_only
                           or bf16_only else
-                          ["sa_fused_train"] if k6_only or k6_bf16_only else
-                          ["chain_fused", "fps", "sa_fused", "sa_fused_train"] if train_only else
+                          ["sa_fused_train"] if k6_only else
+                          ["sa_fused_train", "sa_fused_train_bf16"] if k6_bf16_only else
+                          ["chain_fused", "fps", "sa_fused", "sa_fused_train",
+                           "sa_fused_train_bf16"] if train_only else
                           ["sa_fused"] if k4_only else ["fps", "fps_floor"] if k3_only else
-                          ["chain_fused", "fps", "sa_fused", "sa_fused_train", "gather_probe",
-                           "fps_floor"])
+                          ["chain_fused", "fps", "sa_fused", "sa_fused_train",
+                           "sa_fused_train_bf16", "gather_probe", "fps_floor"])
     print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
     for lib in libs.values():
         print(f"  {lib.path.relative_to(ROOT)} in {lib.build_seconds:.1f} s "
@@ -646,7 +653,7 @@ def main(argv=None) -> None:
         print("k6 times done: phases 1, 2 and 11 only", flush=True)
         return
     if k6_bf16_only or train_only:
-        check_k6_bf16(bat_k6_calls(), card, libs["sa_fused_train"])
+        check_k6_bf16(bat_k6_calls(), card, libs["sa_fused_train_bf16"])
         if train_only:
             bf16_train_phase(card)
             m2_train_phase(card)
@@ -798,16 +805,17 @@ def main(argv=None) -> None:
     bf16_kernels = bf16_phase(card)
 
     # --- 19.-21. K6 in bf16, training under bf16, M2-Track training -----------
-    k6b = check_k6_bf16(bat_k6_calls(), card, libs["sa_fused_train"])
+    k6b = check_k6_bf16(bat_k6_calls(), card, libs["sa_fused_train_bf16"])
     k6b_launches = bf16_train_phase(card)
     m2_train_phase(card)
     replaces = "open3dsot_tpu/ops/sa_fused_train.py:608-776 (cdt bfloat16)"
     for what in ("fwd", "bwd"):
         bf16_kernels.append(kernel_entry(
             f"K6 fused_sa_train_apply ({'forward' if what == 'fwd' else 'backward'}, bf16)",
-            "sa_fused_train.cu", replaces, k6b_launches[what], k6b["errs"][what],
+            "sa_fused_train_bf16.cu", replaces, k6b_launches[what], k6b["errs"][what],
             k6b["sums"][TRAIN_B][what], k6b["sums"][TRAIN_B][what + "_plain"],
-            k6b["work"][TRAIN_B][0 if what == "fwd" else 1], peak=PEAK_BF16_FLOPS))
+            k6b["work"][TRAIN_B][0 if what == "fwd" else 1],
+            library_ms=k6b["sums"][TRAIN_B][what + "_cublas"], peak=PEAK_BF16_FLOPS))
 
     # --- 10. results ------------------------------------------------------
     kernels = [
@@ -1360,19 +1368,35 @@ def k6_calls(plain_model, batch) -> list:
     return calls
 
 
+def pass_breakdown(what: str, fns, card: str) -> float:
+    """Device time by kernel name of fns run once each back to back (a
+    profiler window opened on a sleep kernel), the passes of a K6 call in
+    the order of their time; returns the total in ms."""
+    rows = device_rows(lambda: [f() for f in fns])
+    total = sum(dev_us(e) for e in rows)
+    print(f"  {what}, the four calls at B={TRAIN_B}, device time by kernel: "
+          f"{total / 1e3:.4f} ms in all [{card}]", flush=True)
+    for e in sorted(rows, key=lambda e: -dev_us(e)):
+        name = e.key.replace("(anonymous namespace)::", "")
+        print(f"    {dev_us(e) / 1e3:9.4f} ms {e.count:4d}x  {name[:100]}")
+    return total / 1e3
+
+
 def k6_work(B: int, N: int, S: int, K: int, c1: int, c2: int, c3: int, bf16: bool = False):
     """((bytes, operations) forward, (bytes, operations) backward) of one K6
     call. The forward writes the grids that the backward reads (two of B * S *
     K rows); both read a, ct and idx (y1 = a[idx] + ct is gathered where it is
-    read). In the bf16 mode the stored grids, W2, W3, the output and its
-    cotangent are bf16, 2 bytes a value, as JAX's bf16 kernel stores its grids
-    h1, h2, its weights and its output in cdt (sa_fused_train.py:338, :420,
-    :429); a, ct, the statistics and the gradients stay 4."""
+    read). The f32 mode's grids are y2, y3 (C2 + C3 channels a row, 4 bytes a
+    value). The bf16 mode's are h1, h2 (C1 + C2 channels a row), and its W2,
+    W3, output and output cotangent are bf16 too, 2 bytes a value, as JAX's
+    bf16 kernel stores its grids, its weights and its output in cdt
+    (sa_fused_train.py:338, :420, :429); a, ct, the statistics and the
+    gradients stay 4."""
     e = 2 if bf16 else 4
     R, cs = B * S * K, c1 + c2 + c3
     weights = e * (c1 * c2 + c2 * c3) + 4 * (c2 + c3 + 2 * cs)
     inputs = 4 * (B * N * c1 + B * S * c1 + B * S * K)  # a, ct, idx
-    grids = e * R * (c2 + c3)
+    grids = e * R * (c1 + c2 if bf16 else c2 + c3)
     fwd = (inputs + weights + e * B * S * c3 + 4 * 2 * cs + grids,
            2 * R * (c1 * c2 + c2 * c3) + 6 * R * cs + R * (c1 + c3))
     bwd = (e * B * S * c3 + inputs + grids + 4 * 2 * cs + weights
@@ -1425,7 +1449,7 @@ def check_k6(calls, card: str, lib, strict: bool = True):
         out_k, st_k, _ = k6.sa_train_fwd_kernel(a, ct, idx, w2, b2, w3, b3, bn, packs)
         out_p, st_p, grids = k6.sa_train_fwd_plain(a, ct, idx, w2, b2, w3, b3, bn)
         g = torch.randn(B, S, c3, device=a.device, generator=gen)
-        bargs = (g, a, ct, idx, grids, st_p, w2, w3, bn)
+        bargs = (g, a, ct, idx, grids, st_p, w2, b2, w3, b3, bn)
         bwd_k = k6.sa_train_bwd_kernel(*bargs, packs)
         bwd_p = k6.sa_train_bwd_plain(*bargs)
         torch.cuda.synchronize()
@@ -1475,13 +1499,7 @@ def check_k6(calls, card: str, lib, strict: bool = True):
             one(f"{label} ragged", mod, xyz[:1].contiguous(), feats[:1].contiguous(),
                 new[:1, :new.shape[1] - 5].contiguous(), 1, timed=False, k_cut=k_cut)
         for what, fns in per_pass.items():
-            rows = device_rows(lambda: [f() for f in fns])
-            total = sum(dev_us(e) for e in rows)
-            print(f"  K6 {what}, the four calls at B={TRAIN_B}, device time by kernel: "
-                  f"{total / 1e3:.4f} ms in all [{card}]", flush=True)
-            for e in sorted(rows, key=lambda e: -dev_us(e)):
-                name = e.key.replace("(anonymous namespace)::", "")
-                print(f"    {dev_us(e) / 1e3:9.4f} ms {e.count:4d}x  {name[:100]}")
+            pass_breakdown(f"K6 {what}", fns, card)
     for B in K6_BATCHES:
         line = []
         for i, what in ((0, "fwd"), (2, "bwd")):
@@ -3279,116 +3297,249 @@ def bf16_phase(card: str) -> list:
 
 # --- phase 19: K6 in the bf16 mode ----------------------------------------------
 
-def check_k6_bf16(calls, card: str, lib) -> dict:
-    """K6's bf16 mode, forward and backward, against its plain bf16 version at
-    the four K6 calls of a BAT train step (B = 16 and TRAIN_B), each output
-    within BF16_MAX_REL / BF16_MEAN_REL of max|plain| and the f32 plain
-    version on the same inputs outside them (compare_bf16); the backward of
-    both takes the plain bf16 forward's grids and statistics and a
-    bf16-valued cotangent. Times by events and device time beside the 3xTF32
-    K6 on the same inputs in this call, and the bound at 989 TFLOP/s dense
-    bf16 and 3.35 TB/s (k6_work's bytes, bf16 grids). Device time is by events behind a
-    queued sleep (`queued_ms`): late in a whole run the profiler's traces of
-    these calls came back short (a third of their event time)."""
+# Phase 19's cases beside the four calls: SA layer 3 of the search cloud with
+# random weights at other widths and K, (C1, C2, C3), K or None (the layer's
+# 32), what. Width 512: every weight resident at 64-channel slices. Widths
+# that are multiples of 4 but not of 8 or 64, at a K that is not a power of
+# two: the grids' padded rows, partial 64-input k-blocks, slices that a width
+# ends inside, dW tiles of fewer than 128 channels, and the max over K taken
+# by scan_kernel. Widths 1540/1028/1284: the passes with 1540 inputs and B3
+# (1284 + 1540) stream their weights with the A k-blocks, the others keep
+# them resident.
+K6_BF16_CUT = (((512, 512, 512), None, "width 512"),
+               ((100, 36, 68), 20, "widths 100,36,68 and K 20"),
+               ((1540, 1028, 1284), None, "widths 1540,1028,1284"))
+# The y3 the max pass keeps, against h2 W3 + b3 from the kernel's own h2 in
+# f32 (the same bf16 operands and f32 sums, summed in another order): within
+# K6_Y3_REL[0] of max|y3| at any element and K6_Y3_REL[1] on average
+# (measured at most 2^-19.6 and 2^-23.9 at the seven shapes); a y3 rounded to
+# bf16 would sit near 2^-9, a wrong tile or bias near 1.
+K6_Y3_REL = (2.0 ** -16, 2.0 ** -20)
+
+
+def compare_y3(name: str, got, want) -> float:
+    """The kernel's kept y3 against h2 W3 + b3 within K6_Y3_REL."""
     import torch
 
-    from open3dsot_tpu_torch.ops import sa_fused_train as k6
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        fail(f"{name}: shape {tuple(got.shape)} (want {tuple(want.shape)}) or non-finite values")
+    scale = max(want.abs().max().item(), 1e-30)
+    err = (got - want).abs()
+    max_abs, mean_abs = err.max().item(), err.mean().item()
+    ok = max_abs <= K6_Y3_REL[0] * scale and mean_abs <= K6_Y3_REL[1] * scale
+    print(f"  {name}: max_abs_err {max_abs:.3e} ({max_abs / scale:.2e} of max|ref| {scale:.3e}), "
+          f"mean {mean_abs / scale:.2e} of it {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"{name}: outside (max {K6_Y3_REL[0]:.2e}, mean {K6_Y3_REL[1]:.2e} of max|ref|)")
+    return max_abs
+
+
+def k6_bf16_inputs(mod, xyz, feats, new, gen, widths=None, nsample=None):
+    """The inputs of one K6 bf16 call: the layer's weights, or (widths) random
+    ones of those widths made from `gen` (an SA layer cut to other widths),
+    the ball query (of `nsample` neighbours where given, else the layer's)
+    and the A-form -> dict."""
+    import torch
+
     from open3dsot_tpu_torch.ops.neighbors import ball_query
     from open3dsot_tpu_torch.ops.sa_fused import a_form
 
-    counts = sass_tensor_ops(lib.path)
-    bf = {fn: c for fn, c in counts.items()
-          if fn.startswith(("rowmm_kernel", "dw_kernel")) and fn.endswith(",1>")}
-    print(f"  sass: K6's bf16 product kernels: {bf}", flush=True)
-    if len(bf) != 6 or not all(bf.values()):
-        fail(f"K6's bf16 product kernels hold no tensor-core instruction: {bf}")
+    layers = list(mod.mlp_shared.children())
+    if widths is None:
+        w1, b1 = layers[0].dense.weight.detach().t(), layers[0].dense.bias.detach()
+        w2, w3 = (l.dense.weight.detach().t().contiguous() for l in layers[1:])
+        b2, b3 = (l.dense.bias.detach() for l in layers[1:])
+        bn = [p.detach() for l in layers for p in (l.bn.weight, l.bn.bias)]
+    else:
+        dev = xyz.device
+        c_in = 3 + feats.shape[2]
+
+        def rnd(*shape, scale=1.0):
+            return torch.randn(*shape, device=dev, generator=gen) * scale
+
+        w1, b1 = rnd(c_in, widths[0], scale=c_in ** -0.5), rnd(widths[0], scale=0.1)
+        w2, b2 = rnd(widths[0], widths[1], scale=widths[0] ** -0.5), rnd(widths[1], scale=0.1)
+        w3, b3 = rnd(widths[1], widths[2], scale=widths[1] ** -0.5), rnd(widths[2], scale=0.1)
+        bn = [1.0 + rnd(c, scale=0.1) if i == 0 else rnd(c, scale=0.1)
+              for c in widths for i in range(2)]
+    idx = ball_query(mod.radius, nsample or mod.nsample, xyz, new)
+    inv_r = 1.0 / mod.radius if mod.normalize_xyz else 1.0
+    a, ct = a_form(xyz, feats.float(), new, w1, b1, inv_r=inv_r, use_xyz=mod.use_xyz)
+    return dict(a=a, ab=a.to(torch.bfloat16).float(), ct=ct, idx=idx, w2=w2, b2=b2, w3=w3,
+                b3=b3, bn=bn)
+
+
+def k6_cublas_ms(B, S, K, c1, c2, c3, gen) -> tuple:
+    """(forward, backward) ms of the same call's products as cuBLAS bf16
+    GEMMs, torch.matmul on bf16 operands: y2 = h1 W2, y3 = h2 W3; dh2 = dy3
+    W3^T, dW3 = h2^T dy3, dh1 = dy2 W2^T, dW2 = h1^T dy2. The yardstick of
+    K6 bf16's rows in PERF.md; nothing in the port calls it."""
+    import torch
+
+    R = B * S * K
+    bf = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(bf)
+
+    h1, h2, dy3, dy2 = rnd(R, c1), rnd(R, c2), rnd(R, c3), rnd(R, c2)
+    w2, w3 = rnd(c1, c2), rnd(c2, c3)
+    fwd = lambda: (h1 @ w2, h2 @ w3)  # noqa: E731
+    bwd = lambda: (dy3 @ w3.t(), h2.t() @ dy3, dy2 @ w2.t(), h1.t() @ dy2)  # noqa: E731
+    return (queued_ms(fwd, iters=3, repeats=3, sleep=BF16_SLEEP),
+            queued_ms(bwd, iters=3, repeats=3, sleep=BF16_SLEEP))
+
+
+def check_k6_bf16(calls, card: str, lib) -> dict:
+    """K6's bf16 mode (csrc/sa_fused_train_bf16.cu), forward and backward,
+    against its plain bf16 version at the four K6 calls of a BAT train step
+    (B = 16 and TRAIN_B) and, at B = 16 with random weights, at K6_BF16_CUT:
+    each output and the forward's grids h1, h2 within BF16_MAX_REL /
+    BF16_MEAN_REL of max|plain|, and the f32 plain version on the same inputs
+    outside them (compare_bf16); the backward of both takes the kernel
+    forward's own grids and statistics and a bf16-valued cotangent, the plain
+    one with the y3 that the kernel's max pass took its maxima on (kept for
+    the check, and held to h2 W3 + b3 from the kernel's h2 within K6_Y3_REL):
+    the kernel's backward computes y3 again, and must get it bit for bit, or
+    the ties it routes the gradient by are not its forward's; cuBLAS's y3 at
+    the same h2 breaks near-ties of the max another way. The forward without
+    the kept y3 must give the same mxt bit for bit. Times by
+    events and device time beside the 3xTF32 K6 on the same inputs in this
+    call, the same products as cuBLAS bf16 GEMMs, the bound at 989 TFLOP/s
+    dense bf16 and 3.35 TB/s (k6_work's bytes, bf16 grids); device time by
+    kernel of each pass at B = TRAIN_B, both modes. Device time is by events
+    behind a queued sleep (`queued_ms`): late in a whole run the profiler's
+    traces of these calls came back short (a third of their event time)."""
+    import torch
+
+    from open3dsot_tpu_torch.ops import sa_fused_train as k6
+
+    counts = sass_tensor_ops(lib.path, split=True)
+    bf = {fn: c for fn, c in counts.items() if fn.startswith(("rp_kernel", "dw_kernel"))}
+    print(f"  sass: K6 bf16's product kernels (HMMA, HGMMA): {bf}", flush=True)
+    if len(bf) != 17 or not all(c[1] and not c[0] for c in bf.values()):
+        fail(f"K6 bf16's product kernels: not all on wgmma (HGMMA) alone: {bf}")
     gen = torch.Generator(device=calls[0][2].device).manual_seed(SEED)
     errs = {"fwd": 0.0, "bwd": 0.0}
-    keys = ("fwd", "fwd_plain", "fwd_tf32", "bwd", "bwd_plain", "bwd_tf32")
+    keys = ("fwd", "fwd_plain", "fwd_tf32", "bwd", "bwd_plain", "bwd_tf32", "fwd_cublas",
+            "bwd_cublas")
     sums = {B: dict.fromkeys(keys, 0.0) for B in K6_BATCHES}
     dev = {B: dict.fromkeys(keys, 0.0) for B in K6_BATCHES}
     work = {B: [[0, 0], [0, 0]] for B in K6_BATCHES}
+    per_pass = {k: [] for k in ("fwd", "fwd_tf32", "bwd", "bwd_tf32")}  # the calls at TRAIN_B
+
+    def one(label, mod, xyz, feats, new, B, widths=None, nsample=None):
+        x = k6_bf16_inputs(mod, xyz, feats, new, gen, widths, nsample)
+        a, ab, ct, idx, bn = x["a"], x["ab"], x["ct"], x["idx"], x["bn"]
+        w2, b2, w3, b3 = x["w2"], x["b2"], x["w3"], x["b3"]
+        N, S, K = xyz.shape[1], new.shape[1], idx.shape[2]
+        c1, c2, c3 = a.shape[2], w2.shape[1], w3.shape[1]
+        shape = f"{label} B={B} N={N} S={S} K={K} C={c1},{c2},{c3}"
+        packs, packs32 = k6.Packs(w2, w3, True), k6.Packs(w2, w3, False)
+        wb = (w2, b2, w3, b3, bn)
+        fwd_k = lambda: k6.sa_train_fwd_kernel(a, ct, idx, *wb, packs)  # noqa: E731
+        fwd_p = lambda: k6.sa_train_fwd_plain(ab, ct, idx, *wb, True)  # noqa: E731
+        fwd_t = lambda: k6.sa_train_fwd_kernel(a, ct, idx, *wb, packs32)  # noqa: E731
+        y3_k = torch.empty(B, S, K, c3, device=a.device)
+        out_k, st_k, grids_k = k6.sa_train_fwd_kernel(a, ct, idx, *wb, packs, y3_out=y3_k)
+        mxt_again = fwd_k()[2][2]
+        out_p, st_p, grids_p = fwd_p()
+        out_f, st_f, grids_f = k6.sa_train_fwd_plain(a, ct, idx, *wb)
+        g = torch.randn(B, S, c3, device=a.device, generator=gen).to(torch.bfloat16).float()
+        bwd_k = lambda: k6.sa_train_bwd_kernel(g, a, ct, idx, grids_k, st_k, *wb, packs)  # noqa: E731
+        bwd_p = lambda: k6.sa_train_bwd_plain(g, ab, ct, idx, grids_k, st_k, *wb, True,  # noqa: E731
+                                              y3=y3_k)
+        bwd_t = lambda: k6.sa_train_bwd_kernel(g, a, ct, idx, grids_t, st_t, *wb, packs32)  # noqa: E731
+        gk, gp = bwd_k(), bwd_p()
+        gf = k6.sa_train_bwd_plain(g, a, ct, idx, grids_f, st_f, *wb)
+        torch.cuda.synchronize()
+        if not torch.equal(mxt_again, grids_k[2]):
+            fail(f"K6 bf16 fwd {shape}: mxt without the kept y3 is not the same bit for bit")
+        errs["fwd"] = max(errs["fwd"], compare_bf16(f"K6 bf16 fwd {shape} out", out_k, out_p,
+                                                    out_f))
+        y3_h2 = grids_k[1][..., :c2].float() @ w3.to(torch.bfloat16).float() + b3
+        errs["fwd"] = max(errs["fwd"], compare_y3(f"K6 bf16 fwd {shape} y3 of the max pass", y3_k,
+                                                  y3_h2))
+        for i in range(6):  # y1's: the f32 mode's sums, of bf16 rows
+            what = f"K6 bf16 fwd {shape} {('mean', 'var')[i % 2]}{i // 2 + 1}"
+            errs["fwd"] = max(errs["fwd"], compare(what, st_k[i], st_p[i]) if i < 2 else
+                              compare_bf16(what, st_k[i], st_p[i], st_f[i], control=False))
+        # the grids: h1 from y1 and its statistics (no product), h2 from y2
+        s1 = [k6._fold(st_f[0], st_f[1], bn[0], bn[1])]
+        h1_f = k6._relu_fold(k6._y1(a, ct, idx), *s1[0][:2])
+        h2_f = k6._relu_fold(grids_f[0], *k6._fold(st_f[2], st_f[3], bn[2], bn[3])[:2])
+        for name, got, want, f32, c in (("h1", grids_k[0], grids_p[0], h1_f, c1),
+                                        ("h2", grids_k[1], grids_p[1], h2_f, c2)):
+            errs["fwd"] = max(errs["fwd"], compare_bf16(f"K6 bf16 fwd {shape} grid {name}",
+                                                        got[..., :c], want, f32))
+        for i, name in enumerate(("da", "dct", "dW2", "dW3")):
+            errs["bwd"] = max(errs["bwd"], compare_bf16(f"K6 bf16 bwd {shape} {name}",
+                                                        gk[i], gp[i], gf[i]))
+        errs["bwd"] = max(errs["bwd"], compare_bf16(
+            f"K6 bf16 bwd {shape} dgamma,dbeta", torch.cat(gk[4]), torch.cat(gp[4]),
+            torch.cat(gf[4])))
+        if widths is not None:  # the cut cases are checked, not timed
+            return
+        _, st_t, grids_t = fwd_t()
+        fns = dict(fwd=fwd_k, fwd_plain=fwd_p, fwd_tf32=fwd_t, bwd=bwd_k, bwd_plain=bwd_p,
+                   bwd_tf32=bwd_t)
+        if B == TRAIN_B:
+            for k in ("fwd", "fwd_tf32", "bwd", "bwd_tf32"):
+                per_pass[k].append(fns[k])
+        t = {k: time_ms(f, iters=5, repeats=5) for k, f in fns.items()}
+        t2 = {k: time_ms(f, iters=5, repeats=5) for k, f in reversed(list(fns.items()))}
+        d = {k: queued_ms(f, iters=3, repeats=3, sleep=BF16_SLEEP) for k, f in fns.items()}
+        d["fwd_cublas"], d["bwd_cublas"] = k6_cublas_ms(B, S, K, c1, c2, c3, gen)
+        t["fwd_cublas"], t["bwd_cublas"] = d["fwd_cublas"], d["bwd_cublas"]
+        for k in keys:
+            sums[B][k] += min(t[k], t2.get(k, t[k]))
+            dev[B][k] = None if d[k] is None or dev[B][k] is None else dev[B][k] + d[k]
+        for i, w in enumerate(k6_work(B, N, S, K, c1, c2, c3, bf16=True)):
+            work[B][i][0] += w[0]
+            work[B][i][1] += w[1]
+        print(f"  time K6 bf16 {shape}: fwd kernel {min(t['fwd'], t2['fwd']):.4f} ms "
+              f"(3xTF32 {min(t['fwd_tf32'], t2['fwd_tf32']):.4f}, plain "
+              f"{min(t['fwd_plain'], t2['fwd_plain']):.4f}), bwd kernel "
+              f"{min(t['bwd'], t2['bwd']):.4f} ms (3xTF32 "
+              f"{min(t['bwd_tf32'], t2['bwd_tf32']):.4f}, plain "
+              f"{min(t['bwd_plain'], t2['bwd_plain']):.4f}); device fwd {fmt_ms(d['fwd'])} "
+              f"/ {fmt_ms(d['fwd_tf32'])}, bwd {fmt_ms(d['bwd'])} / {fmt_ms(d['bwd_tf32'])}; "
+              f"cuBLAS bf16 products fwd {fmt_ms(d['fwd_cublas'])}, bwd "
+              f"{fmt_ms(d['bwd_cublas'])} [{card}]", flush=True)
+
     with torch.no_grad():
         for label, mod, xyz_all, feats_all, new_all in calls:
             for B in K6_BATCHES:
-                xyz, feats, new = (x[:B].contiguous() for x in (xyz_all, feats_all, new_all))
-                layers = list(mod.mlp_shared.children())
-                w2, w3 = (l.dense.weight.detach().t().contiguous() for l in layers[1:])
-                b2, b3 = (l.dense.bias.detach() for l in layers[1:])
-                bn = [p.detach() for l in layers for p in (l.bn.weight, l.bn.bias)]
-                idx = ball_query(mod.radius, mod.nsample, xyz, new)
-                inv_r = 1.0 / mod.radius if mod.normalize_xyz else 1.0
-                a, ct = a_form(xyz, feats.float(), new, layers[0].dense.weight.detach().t(),
-                               layers[0].dense.bias.detach(), inv_r=inv_r, use_xyz=mod.use_xyz)
-                ab = a.to(torch.bfloat16).float()  # the rows rounded once, as the wrapper does
-                N, S, K = xyz.shape[1], new.shape[1], idx.shape[2]
-                c1, c2, c3 = a.shape[2], w2.shape[1], w3.shape[1]
-                shape = f"{label} B={B} N={N} S={S} K={K} C={c1},{c2},{c3}"
-                packs, packs32 = k6.Packs(w2, w3, True), k6.Packs(w2, w3, False)
-                fwd_k = lambda: k6.sa_train_fwd_kernel(ab, ct, idx, w2, b2, w3, b3, bn,
-                                                       packs)  # noqa: E731
-                fwd_p = lambda: k6.sa_train_fwd_plain(ab, ct, idx, w2, b2, w3, b3, bn, True)  # noqa: E731
-                fwd_t = lambda: k6.sa_train_fwd_kernel(a, ct, idx, w2, b2, w3, b3, bn,
-                                                       packs32)  # noqa: E731
-                out_k, st_k, _ = fwd_k()
-                out_p, st_p, grids = fwd_p()
-                out_f, st_f, grids_f = k6.sa_train_fwd_plain(a, ct, idx, w2, b2, w3, b3, bn)
-                g = torch.randn(B, S, c3, device=a.device, generator=gen).to(torch.bfloat16).float()
-                bwd_k = lambda: k6.sa_train_bwd_kernel(g, ab, ct, idx, grids, st_p, w2, w3, bn,
-                                                       packs)  # noqa: E731
-                bwd_p = lambda: k6.sa_train_bwd_plain(g, ab, ct, idx, grids, st_p, w2, w3, bn,
-                                                      True)  # noqa: E731
-                bwd_t = lambda: k6.sa_train_bwd_kernel(g, a, ct, idx, grids_f, st_f, w2, w3, bn,
-                                                       packs32)  # noqa: E731
-                gk, gp = bwd_k(), bwd_p()
-                gf = k6.sa_train_bwd_plain(g, a, ct, idx, grids_f, st_f, w2, w3, bn)
-                torch.cuda.synchronize()
-                errs["fwd"] = max(errs["fwd"], compare_bf16(f"K6 bf16 fwd {shape} out", out_k,
-                                                            out_p, out_f))
-                for i in range(6):  # y1's: the f32 mode's sums, of bf16 rows
-                    what = f"K6 bf16 fwd {shape} {('mean', 'var')[i % 2]}{i // 2 + 1}"
-                    errs["fwd"] = max(errs["fwd"], compare(what, st_k[i], st_p[i]) if i < 2 else
-                                      compare_bf16(what, st_k[i], st_p[i], st_f[i], control=False))
-                for i, name in enumerate(("da", "dct", "dW2", "dW3")):
-                    errs["bwd"] = max(errs["bwd"], compare_bf16(f"K6 bf16 bwd {shape} {name}",
-                                                                gk[i], gp[i], gf[i]))
-                errs["bwd"] = max(errs["bwd"], compare_bf16(
-                    f"K6 bf16 bwd {shape} dgamma,dbeta", torch.cat(gk[4]), torch.cat(gp[4]),
-                    torch.cat(gf[4])))
-                fns = dict(fwd=fwd_k, fwd_plain=fwd_p, fwd_tf32=fwd_t, bwd=bwd_k, bwd_plain=bwd_p,
-                           bwd_tf32=bwd_t)
-                t = {k: time_ms(f, iters=5, repeats=5) for k, f in fns.items()}
-                t2 = {k: time_ms(f, iters=5, repeats=5) for k, f in reversed(list(fns.items()))}
-                d = {k: queued_ms(f, iters=3, repeats=3, sleep=BF16_SLEEP) for k, f in fns.items()}
-                for k in keys:
-                    sums[B][k] += min(t[k], t2[k])
-                    dev[B][k] = None if d[k] is None or dev[B][k] is None else dev[B][k] + d[k]
-                for i, w in enumerate(k6_work(B, N, S, K, c1, c2, c3, bf16=True)):
-                    work[B][i][0] += w[0]
-                    work[B][i][1] += w[1]
-                print(f"  time K6 bf16 {shape}: fwd kernel {min(t['fwd'], t2['fwd']):.4f} ms "
-                      f"(3xTF32 {min(t['fwd_tf32'], t2['fwd_tf32']):.4f}, plain "
-                      f"{min(t['fwd_plain'], t2['fwd_plain']):.4f}), bwd kernel "
-                      f"{min(t['bwd'], t2['bwd']):.4f} ms (3xTF32 "
-                      f"{min(t['bwd_tf32'], t2['bwd_tf32']):.4f}, plain "
-                      f"{min(t['bwd_plain'], t2['bwd_plain']):.4f}); device fwd {fmt_ms(d['fwd'])} "
-                      f"/ {fmt_ms(d['fwd_tf32'])}, bwd {fmt_ms(d['bwd'])} / {fmt_ms(d['bwd_tf32'])} "
-                      f"[{card}]", flush=True)
+                one(label, mod, *(x[:B].contiguous() for x in (xyz_all, feats_all, new_all)), B)
+        # SA layer 3 of the search cloud at other widths and K (random weights)
+        label, mod, xyz, feats, new = calls[3]
+        B = K6_BATCHES[0]
+        for widths, nsample, what in K6_BF16_CUT:
+            one(f"{label} at {what}", mod, *(x[:B].contiguous() for x in (xyz, feats, new)), B,
+                widths=widths, nsample=nsample)
+        for what, fns in per_pass.items():
+            pass_breakdown(f"K6 {'3xTF32' if what.endswith('tf32') else 'bf16'} "
+                           f"{'forward' if what.startswith('fwd') else 'backward'}", fns, card)
     for B in K6_BATCHES:
         line = []
         for i, what in ((0, "fwd"), (1, "bwd")):
             bound, by = bf16_bound(work[B][i])
             dk = dev[B][what]
             share = "not measured" if dk is None else f"{bound / dk:.1%}"
-            line.append(f"{what} bf16 kernel {sums[B][what]:.4f} ms (device {fmt_ms(dk)}), 3xTF32 "
-                        f"{sums[B][what + '_tf32']:.4f} ms (device {fmt_ms(dev[B][what + '_tf32'])}), "
-                        f"plain bf16 {sums[B][what + '_plain']:.4f} ms; bound {bound:.4f} ms by {by} "
-                        f"at 989 TFLOP/s bf16 (device at {share} of it)")
+            ratio = ("not measured" if dk is None or not dev[B][what + "_tf32"]
+                     else f"{dk / dev[B][what + '_tf32']:.2f}x")
+            line.append(f"{what} bf16 kernel {sums[B][what]:.4f} ms (device {fmt_ms(dk)}, {ratio} "
+                        f"of 3xTF32), 3xTF32 {sums[B][what + '_tf32']:.4f} ms (device "
+                        f"{fmt_ms(dev[B][what + '_tf32'])}), plain bf16 "
+                        f"{sums[B][what + '_plain']:.4f} ms, cuBLAS bf16 products "
+                        f"{fmt_ms(dev[B][what + '_cublas'])}; bound {bound:.4f} ms by {by} at 989 "
+                        f"TFLOP/s bf16 (device at {share} of it)")
         print(f"  K6 bf16 over one BAT train step's 4 calls, B={B}: {'; '.join(line)} [{card}]",
               flush=True)
     print("phase 19 ok: K6 bf16 forward and backward within the bf16 tolerance at every K6 call "
-          "of a BAT train step, the f32 control outside it", flush=True)
-    return dict(errs=errs, sums=sums, work=work)
+          "of a BAT train step and at " + ", ".join(c[2] for c in K6_BF16_CUT) + ", the f32 "
+          "control outside it", flush=True)
+    return dict(errs=errs, sums=sums, dev=dev, work=work)
 
 
 
@@ -3477,8 +3628,8 @@ def k6_plain_leaf_grads(net, calls, bf16: bool) -> dict:
     card: the A-form under autograd for W1, the plain backward for the rest,
     with a rounded to bf16 in the bf16 mode as the wrapper rounds it. In the
     bf16 mode the backward takes the grids and statistics of the kernel's
-    forward on those inputs (checked to give the step's output bit for bit),
-    in f32 those of the plain f32 forward."""
+    forward on those inputs (checked to give the step's output bit for bit)
+    and the y3 its max pass took, in f32 those of the plain f32 forward."""
     import torch
 
     from open3dsot_tpu_torch.ops import sa_fused_train as k6
@@ -3498,16 +3649,20 @@ def k6_plain_leaf_grads(net, calls, bf16: bool) -> dict:
         b2, b3 = (l.dense.bias.detach() for l in layers[1:])
         bn = [p.detach() for l in layers for p in (l.bn.weight, l.bn.bias)]
         a_in = a.detach().to(torch.bfloat16).float() if bf16 else a.detach()
-        if bf16:
-            out, stats, grids = k6.sa_train_fwd_kernel(a_in, ct.detach(), rec["idx"], w2, b2, w3,
-                                                       b3, bn, k6.Packs(w2, w3, True))
+        y3 = None
+        if bf16:  # the kernel rounds a as it reads it
+            y3 = torch.empty(*rec["idx"].shape, w3.shape[1], device=a.device)
+            out, stats, grids = k6.sa_train_fwd_kernel(a.detach(), ct.detach(), rec["idx"], w2, b2,
+                                                       w3, b3, bn, k6.Packs(w2, w3, True),
+                                                       y3_out=y3)
             if not torch.equal(out.to(rec["out"].dtype), rec["out"]):
                 fail("K6 bf16 forward again on a step's inputs: not the step's output")
         else:
             _, stats, grids = k6.sa_train_fwd_plain(a_in, ct.detach(), rec["idx"], w2, b2, w3,
                                                     b3, bn)
         da, dct, dw2, dw3, dbn = k6.sa_train_bwd_plain(rec["g"], a_in, ct.detach(), rec["idx"],
-                                                       grids, stats, w2, w3, bn, bf16)
+                                                       grids, stats, w2, b2, w3, b3, bn, bf16,
+                                                       y3=y3)
         torch.autograd.backward([a, ct], [da, dct])
         grads = {"layer0.dense.weight": w1.grad, "layer1.dense.weight": dw2.t(),
                  "layer2.dense.weight": dw3.t()}

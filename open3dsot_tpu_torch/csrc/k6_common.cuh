@@ -1,0 +1,262 @@
+// What both modes of K6 (sa_fused_train.cu, 3xTF32; sa_fused_train_bf16.cu,
+// bf16) share: the grid's dimensions, the BatchNorm arithmetic with its
+// rounding pinned, y1's statistics, and the fixed-order reductions of the
+// per-block partial sums.
+//
+// Rounding pinned where a decision depends on it: relu(y * s + t) with
+// __fmul_rn/__fadd_rn, s and t from 1 / sqrt(var + eps) rounded as IEEE
+// division and square root. The plain version (ops/sa_fused_train.py)
+// computes them in the same order, so on the same grids the max masks, ties
+// and ReLU masks agree bit for bit. Every partial sum is a double, and the
+// finalize kernels reduce the partials in a fixed order: the statistics are
+// the same from run to run.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "bf16_tc.cuh"  // round_bf16
+
+namespace {
+
+constexpr float kEps = 1e-5f;
+constexpr int kStatRows = 512;  // rows of one partial of y1's sums
+constexpr int kFinWarps = 32;   // finalize: warps over the partials of a block
+constexpr int kFinSlices = 16;  // finalize: blocks over the partials of 32 channels
+
+struct Dims {
+  long long R;  // B * S * K
+  int B, N, S, K, C1, C2, C3;
+};
+
+__device__ __forceinline__ float fold_relu(float y, float s, float t) {
+  return fmaxf(__fadd_rn(__fmul_rn(y, s), t), 0.f);
+}
+__device__ __forceinline__ float yhat_of(float y, float mu, float inv) {
+  return __fmul_rn(__fsub_rn(y, mu), inv);
+}
+// the BN-training backward of one value: s * ((dz - c1) - yhat * c2)
+__device__ __forceinline__ float bn_bwd(float dz, float yh, float s, float c1, float c2) {
+  return __fmul_rn(s, __fsub_rn(__fsub_rn(dz, c1), __fmul_rn(yh, c2)));
+}
+
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float2 ldg2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+
+// s = gamma / sqrt(var + eps), t = beta - mean * s, inv = 1 / sqrt(var + eps)
+__device__ __forceinline__ void fold_of(float mean, float var, float gamma, float beta, float* s,
+                                        float* t, float* inv) {
+  const float iv = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, kEps)));
+  const float sc = __fmul_rn(gamma, iv);
+  *s = sc;
+  *t = __fsub_rn(beta, __fmul_rn(mean, sc));
+  *inv = iv;
+}
+
+// Rows are below 2^31 (each entry's check), so their centroid comes from a
+// 32-bit division.
+__device__ __forceinline__ unsigned centroid_of(const Dims& d, int r) {
+  return static_cast<unsigned>(r) / static_cast<unsigned>(d.K);
+}
+
+// ---- y1's (sum, sum of squares), one partial per kStatRows rows --------------
+// y1 = a[b, idx[r]] + ct[b, s], RA: a rounded to bf16 as it is read (the bf16
+// mode). Block (32, 8): 32 channels, 8 row lanes; grid (C1 / 32, partials).
+// The rows' gather offsets are computed once per block; an index outside [0, N)
+// gives a NaN row.
+template <bool RA>
+__global__ void y1_stats_kernel(const float* __restrict__ a, const float* __restrict__ ct,
+                                const int* __restrict__ idx, const Dims d,
+                                double* __restrict__ part) {
+  __shared__ double sh[2][8][33];
+  __shared__ long long off_a[kStatRows], off_c[kStatRows];  // off_a -1: index outside [0, N)
+  const int tx = threadIdx.x, ty = threadIdx.y, C = d.C1;
+  const int r0 = blockIdx.y * kStatRows, n = min(static_cast<int>(d.R) - r0, kStatRows);
+  for (int i = ty * 32 + tx; i < n; i += 256) {
+    const unsigned bs = centroid_of(d, r0 + i), b = bs / static_cast<unsigned>(d.S);
+    const int j = __ldg(idx + r0 + i);
+    off_a[i] = (j >= 0 && j < d.N) ? (static_cast<long long>(b) * d.N + j) * C : -1;
+    off_c[i] = static_cast<long long>(bs) * C;
+  }
+  __syncthreads();
+  const int c = blockIdx.x * 32 + tx;
+  double s1 = 0.0, s2 = 0.0;
+  if (c < C) {
+    for (int i = ty; i < n; i += 8) {
+      float av = off_a[i] < 0 ? __int_as_float(0x7fc00000) : __ldg(a + off_a[i] + c);
+      if (RA) av = round_bf16(av);
+      const float v = __fadd_rn(av, __ldg(ct + off_c[i] + c));
+      s1 += v;
+      s2 += static_cast<double>(v) * static_cast<double>(v);
+    }
+  }
+  sh[0][ty][tx] = s1;
+  sh[1][ty][tx] = s2;
+  __syncthreads();
+  if (ty == 0 && c < C) {
+    double s = 0.0, q = 0.0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      s += sh[0][i][tx];
+      q += sh[1][i][tx];
+    }
+    part[(static_cast<long long>(blockIdx.y) * 2) * C + c] = s;
+    part[(static_cast<long long>(blockIdx.y) * 2 + 1) * C + c] = q;
+  }
+}
+
+// Sum the P partials (P x 2 x C doubles) of channels blockIdx.x * 32 + lane in
+// a fixed order, in two levels: block (x, y) sums slice y of the partials (warp
+// w takes w, w + kFinWarps, ...; warp 0 adds the warps' sums) into part2; the
+// last block of x to finish (count) adds the slices in order and returns
+// true, with the result in its warp 0. Block of 32 x kFinWarps threads, grid
+// (C / 32, slices).
+__device__ __forceinline__ bool reduce_partials(const double* part, int P, int C, double* part2,
+                                                unsigned* count, double* s1, double* s2) {
+  __shared__ double sh[2][kFinWarps][33];
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane, G = gridDim.y;
+  const int p0 = static_cast<int>(static_cast<long long>(P) * blockIdx.y / G);
+  const int p1 = static_cast<int>(static_cast<long long>(P) * (blockIdx.y + 1) / G);
+  double a = 0.0, b = 0.0;
+  if (c < C) {
+    for (int p = p0 + w; p < p1; p += kFinWarps) {
+      a += part[(static_cast<long long>(p) * 2) * C + c];
+      b += part[(static_cast<long long>(p) * 2 + 1) * C + c];
+    }
+  }
+  sh[0][w][lane] = a;
+  sh[1][w][lane] = b;
+  __syncthreads();
+  if (w == 0 && c < C) {
+    a = b = 0.0;
+    for (int i = 0; i < kFinWarps; ++i) {
+      a += sh[0][i][lane];
+      b += sh[1][i][lane];
+    }
+    part2[(blockIdx.y * 2) * C + c] = a;
+    part2[(blockIdx.y * 2 + 1) * C + c] = b;
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(count + blockIdx.x, 1u) == static_cast<unsigned>(G - 1);
+  __syncthreads();
+  if (!last) return false;
+  __threadfence();
+  a = b = 0.0;
+  if (w == 0 && c < C) {
+    for (int y = 0; y < G; ++y) {
+      a += __ldcg(part2 + (y * 2) * C + c);
+      b += __ldcg(part2 + (y * 2 + 1) * C + c);
+    }
+  }
+  if (threadIdx.x == 0) count[blockIdx.x] = 0;  // ready for the next finalize
+  *s1 = a;
+  *s2 = b;
+  return true;
+}
+
+// Forward: mean, biased var -> stats; fold (s, t, inv) for the next pass.
+__global__ void finalize_fwd_kernel(const double* __restrict__ part, int P, int C, double M,
+                                    double* part2, unsigned* count,
+                                    const float* __restrict__ gamma,
+                                    const float* __restrict__ beta, float* __restrict__ mean,
+                                    float* __restrict__ var, float* __restrict__ fold) {
+  double s1, s2;
+  if (!reduce_partials(part, P, C, part2, count, &s1, &s2)) return;
+  const int c = blockIdx.x * 32 + (threadIdx.x & 31);
+  if (threadIdx.x < 32 && c < C) {
+    const double md = s1 / M;
+    const float mu = static_cast<float>(md), v = static_cast<float>(s2 / M - md * md);
+    mean[c] = mu;
+    var[c] = v;
+    fold_of(mu, v, gamma[c], beta[c], fold + c, fold + C + c, fold + 2 * C + c);
+  }
+}
+
+// Backward: dbeta = sum dz, dgamma = sum dz * yhat; coef = (sum dz / M, sum dz yhat / M).
+__global__ void finalize_bwd_kernel(const double* __restrict__ part, int P, int C, double M,
+                                    double* part2, unsigned* count, float* __restrict__ dgamma,
+                                    float* __restrict__ dbeta, float* __restrict__ coef) {
+  double s1, s2;
+  if (!reduce_partials(part, P, C, part2, count, &s1, &s2)) return;
+  const int c = blockIdx.x * 32 + (threadIdx.x & 31);
+  if (threadIdx.x < 32 && c < C) {
+    const float sdz = static_cast<float>(s1), sdzy = static_cast<float>(s2);
+    dbeta[c] = sdz;
+    dgamma[c] = sdzy;
+    coef[c] = __fdiv_rn(sdz, static_cast<float>(M));
+    coef[C + c] = __fdiv_rn(sdzy, static_cast<float>(M));
+  }
+}
+
+// Backward: the fold of each layer again from the saved statistics.
+__global__ void fold_kernel(const float* __restrict__ mean, const float* __restrict__ var,
+                            const float* __restrict__ gamma, const float* __restrict__ beta,
+                            float* __restrict__ fold, int C) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c < C) fold_of(mean[c], var[c], gamma[c], beta[c], fold + c, fold + C + c, fold + 2 * C + c);
+}
+
+// dW[e] = sum_p part[p][e], p in order.
+__global__ void sum_partials_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                    int P, long long E) {
+  const long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (e >= E) return;
+  float s = 0.f;
+  for (int p = 0; p < P; ++p) s += part[p * E + e];
+  out[e] = s;
+}
+
+// ---- host side ---------------------------------------------------------------
+inline long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
+inline size_t align256(size_t n) { return (n + 255) / 256 * 256; }
+
+// The finalize kernels' scratch: the slices' sums and the per-block counters
+// (zeroed once per entry; each finalize leaves them zero).
+struct Fin {
+  double* part2;
+  unsigned* count;
+};
+
+inline dim3 fin_grid(long long P, int C) {
+  const long long slices = P < kFinSlices ? P : kFinSlices;
+  return dim3(static_cast<unsigned>(cdiv(C, 32)), static_cast<unsigned>(slices));
+}
+
+inline int finalize_fwd(const double* part, long long P, int C, const Dims& d, const Fin& f,
+                        const float* gamma, const float* beta, float* mean, float* var,
+                        float* fold, cudaStream_t st) {
+  finalize_fwd_kernel<<<fin_grid(P, C), 32 * kFinWarps, 0, st>>>(
+      part, static_cast<int>(P), C, static_cast<double>(d.R), f.part2, f.count, gamma, beta,
+      mean, var, fold);
+  return static_cast<int>(cudaGetLastError());
+}
+
+inline int finalize_bwd(const double* part, long long P, int C, const Dims& d, const Fin& f,
+                        float* dgamma, float* dbeta, float* coef, cudaStream_t st) {
+  finalize_bwd_kernel<<<fin_grid(P, C), 32 * kFinWarps, 0, st>>>(
+      part, static_cast<int>(P), C, static_cast<double>(d.R), f.part2, f.count, dgamma, dbeta,
+      coef);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#define LAUNCH_CHECK()                                  \
+  do {                                                  \
+    const cudaError_t e_ = cudaGetLastError();          \
+    if (e_ != cudaSuccess) return static_cast<int>(e_); \
+  } while (0)
+
+#define RUN(expr)           \
+  do {                      \
+    const int rc_ = (expr); \
+    if (rc_) return rc_;    \
+  } while (0)
+
+}  // namespace

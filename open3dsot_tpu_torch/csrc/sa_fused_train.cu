@@ -96,23 +96,8 @@
 //    plain version (ops/sa_fused_train.py) computes them in the same order,
 //    so on the same grids the max masks, ties and ReLU masks agree bit for bit.
 //
-// The bf16 mode (template flag BF; the JAX kernels' cdt = bfloat16,
-// open3dsot_tpu/ops/sa_fused_train.py:281-338, :407-528). The caller rounds
-// the A-form rows to bf16 once (the TPU gathers them as bf16) and keeps them
-// in f32, so the gathers are the f32 mode's. Every operand of a product is
-// rounded to bf16 as it is stored for the tensor cores: h1, h2 and dy3, dy2 in
-// the row products (one wgmma m64n64k16 pass per 64 outputs and k16 step, A
-// from registers, loaded from a row-major bf16 stage; weights packed in bf16
-// by ops/chain_fused.py::pack_chunks_bf16, 8 KB chunks), and h, dy in dW
-// (mma.sync m16n8k16, fragments packed from the f32 tile as they load).
-// y2 and y3 stay f32 (the JAX kernel recomputes them from the bf16 h1, h2: the
-// same values), and so do the statistics and the folds. The dz grids dz2, dz1
-// are stored in bf16 (half the bytes), their BN sums taken from the unrounded
-// values in the epilogue, as the JAX passes sum before they store; dz3 is
-// rounded as dW3 and dh2 rebuild it. The scatter adds dy1 rounded to bf16
-// into da (the JAX one-hot product's bf16 operand) and the unrounded dy1 into
-// dct. Widths stay multiples of 4: every bf16 access moves four channels (8
-// bytes) and the k16 steps run over zero-padded 32-wide chunks.
+// The bf16 mode lives in sa_fused_train_bf16.cu; what both modes share is in
+// k6_common.cuh.
 //
 // Interface: plain C, loaded with ctypes; pointers are device pointers and
 // the stream is PyTorch's current stream. The caller allocates outputs and
@@ -123,7 +108,7 @@
 #include <stdint.h>
 
 #include "tf32_tc.cuh"  // kCC x kKC weight chunks, the TF32 split, mma.sync, wgmma, TMA
-#include "bf16_tc.cuh"  // the bf16 mode's weight chunks, fragments and wgmma
+#include "k6_common.cuh"  // Dims, the BatchNorm arithmetic, y1's statistics, the finalizes
 
 namespace {
 
@@ -131,24 +116,15 @@ constexpr int kErrArgs = -1;   // B, N, S, K or widths not accepted
 constexpr int kErrWidth = -2;  // a width is not a multiple of 4
 constexpr int kErrPacked = -3;  // a packed weight has the wrong size
 constexpr int kErrWide = -4;    // a width too large for the products' shared memory
-constexpr float kEps = 1e-5f;
 constexpr int kThreads = 256;
-constexpr int kStatRows = 512;     // rows of one partial of y1's sums
 constexpr int kTile = 128;         // rows of a row-product block: two warpgroups of 64
 constexpr int kCent = 64;          // centroids of one partial of the max gradient pass
 constexpr int kDwT = 128;          // dW block tile, I x J
 constexpr int kDwRows = 32;        // rows of one dW step, its products summed apart
 constexpr int kDwStride = kDwT + 8;  // floats between rows of a dW operand tile
 constexpr int kWantBlocks = 264;   // dW: about two blocks per SM over the tiles
-constexpr int kFinWarps = 32;      // finalize: warps over the partials of a block
-constexpr int kFinSlices = 16;     // finalize: blocks over the partials of 32 channels
 
 constexpr int kSmemMax = 232448;   // 227 KB, the most a block may take
-
-struct Dims {
-  long long R;  // B * S * K
-  int B, N, S, K, C1, C2, C3;
-};
 
 // What a pass reads besides its own operands; per-channel vectors of layer l
 // (width C_l) at [l].
@@ -159,7 +135,7 @@ struct Ctx {
   const int* idx;     // (B, S, K)
   const float* y2;    // (R, C2)
   const float* y3;    // (R, C3)
-  const void* dz2;    // (R, C2), f32 (bf16 in the bf16 mode)
+  const float* dz2;   // (R, C2)
   const float* mx3;   // (B * S, C3): max_k relu(BN3(y3))
   const float* sh3;   // (B * S, C3): g / number of tied maxima
   const float* fold[3];  // s, t, inv = 1 / sqrt(var + eps), each C_l
@@ -167,43 +143,9 @@ struct Ctx {
   const float* coef[3];  // sum dz / M, sum dz * yhat / M, each C_l
 };
 
-__device__ __forceinline__ float fold_relu(float y, float s, float t) {
-  return fmaxf(__fadd_rn(__fmul_rn(y, s), t), 0.f);
-}
-__device__ __forceinline__ float yhat_of(float y, float mu, float inv) {
-  return __fmul_rn(__fsub_rn(y, mu), inv);
-}
-// the BN-training backward of one value: s * ((dz - c1) - yhat * c2)
-__device__ __forceinline__ float bn_bwd(float dz, float yh, float s, float c1, float c2) {
-  return __fmul_rn(s, __fsub_rn(__fsub_rn(dz, c1), __fmul_rn(yh, c2)));
-}
-
-__device__ __forceinline__ float4 ldg4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float2 ldg2(const float* p) {
-  return __ldg(reinterpret_cast<const float2*>(p));
-}
 __device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
 __device__ __forceinline__ float& el(float4& v, int j) { return (&v.x)[j]; }
 __device__ __forceinline__ float el(const float4& v, int j) { return (&v.x)[j]; }
-
-// s = gamma / sqrt(var + eps), t = beta - mean * s, inv = 1 / sqrt(var + eps)
-__device__ __forceinline__ void fold_of(float mean, float var, float gamma, float beta, float* s,
-                                        float* t, float* inv) {
-  const float iv = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, kEps)));
-  const float sc = __fmul_rn(gamma, iv);
-  *s = sc;
-  *t = __fsub_rn(beta, __fmul_rn(mean, sc));
-  *inv = iv;
-}
-
-// ---- rows --------------------------------------------------------------------
-// Rows are below 2^31 (check()), so their centroid and batch element come
-// from 32-bit divisions.
-__device__ __forceinline__ unsigned centroid_of(const Dims& d, int r) {
-  return static_cast<unsigned>(r) / static_cast<unsigned>(d.K);
-}
 
 // ---- what the products load ---------------------------------------------------
 // A product's operand rows are fetched raw, 16 bytes at a time, by cp.async
@@ -277,19 +219,13 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-// 8 bytes (four bf16), zero-filled where !ok
-__device__ __forceinline__ void cp_async8(float* dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
-               ::"r"(smem_addr(dst)), "l"(src), "r"(ok ? 8 : 0) : "memory");
-}
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Fetch channels c..c+3 of a row into raw arrays dst, dst + stride, ... at offset o.
-// BF: dz2 is bf16 (its four values in the first 8 bytes of the slot).
-template <int L, bool BF>
+template <int L>
 __device__ __forceinline__ void fetch_raw(const Ctx& x, float* dst, int stride, int o,
                                           long long ref, int c, bool ok) {
   const float* base = x.a;  // a valid address for the zero-filling copies
@@ -300,11 +236,7 @@ __device__ __forceinline__ void fetch_raw(const Ctx& x, float* dst, int stride, 
   } else if constexpr (L == kLoadDy3) {
     cp_async16(dst + o, ok ? x.y3 + ref + c : base, ok);
   } else {
-    if constexpr (BF)
-      cp_async8(dst + o, ok ? static_cast<const void*>(static_cast<const uint16_t*>(x.dz2) + ref + c)
-                            : static_cast<const void*>(base), ok);
-    else
-      cp_async16(dst + o, ok ? static_cast<const float*>(x.dz2) + ref + c : base, ok);
+    cp_async16(dst + o, ok ? x.dz2 + ref + c : base, ok);
     cp_async16(dst + stride + o, ok ? x.y2 + ref + c : base, ok);
   }
 }
@@ -374,9 +306,8 @@ __device__ __forceinline__ Aux aux_raw(const float* src, int stride, int o) {
 }
 
 // The operand from the raw arrays at offset o, vec (n_vec x Cv) at channel cl
-// and aux from aux_at. BF: dz3 and dz2 are taken as bf16 (the JAX kernel's
-// B2 and B3 read the dz grids it stored as bf16); the caller rounds the result.
-template <int L, bool BF>
+// and aux from aux_at.
+template <int L>
 __device__ __forceinline__ float4 transform(const float* src, int stride, int o, const float* vec,
                                             int Cv, int cl, const Aux& aux) {
   const float4 s = *reinterpret_cast<const float4*>(vec + cl);
@@ -401,15 +332,9 @@ __device__ __forceinline__ float4 transform(const float* src, int stride, int o,
       for (int j = 0; j < 4; ++j) {
         const float h = fold_relu(el(y, j), el(s, j), el(t, j));
         el(dz, j) = (h == el(aux.a, j) && h > 0.f) ? el(aux.b, j) : 0.f;
-        if constexpr (BF) el(dz, j) = round_bf16(el(dz, j));
       }
     } else {
-      if constexpr (BF) {
-        const uint2 w = *reinterpret_cast<const uint2*>(src + o);
-        dz = make_float4(bf16_lo(w.x), bf16_hi(w.x), bf16_lo(w.y), bf16_hi(w.y));
-      } else {
-        dz = u;
-      }
+      dz = u;
       y = *reinterpret_cast<const float4*>(src + stride + o);
     }
 #pragma unroll
@@ -420,140 +345,6 @@ __device__ __forceinline__ float4 transform(const float* src, int stride, int o,
   return out;
 }
 
-// ---- F1: y1's (sum, sum of squares), one partial per kStatRows rows -----------
-// Block (32, 8): 32 channels, 8 row lanes; grid (C1 / 32, partials). The rows'
-// gather offsets are computed once per block.
-__global__ void y1_stats_kernel(const Ctx x, double* __restrict__ part) {
-  __shared__ double sh[2][8][33];
-  __shared__ long long off_a[kStatRows], off_c[kStatRows];  // off_a -1: index outside [0, N)
-  const int tx = threadIdx.x, ty = threadIdx.y, C = x.d.C1;
-  const int r0 = blockIdx.y * kStatRows, n = min(static_cast<int>(x.d.R) - r0, kStatRows);
-  for (int i = ty * 32 + tx; i < n; i += 256) {
-    const unsigned bs = centroid_of(x.d, r0 + i), b = bs / static_cast<unsigned>(x.d.S);
-    const int j = __ldg(x.idx + r0 + i);
-    off_a[i] = (j >= 0 && j < x.d.N) ? (static_cast<long long>(b) * x.d.N + j) * C : -1;
-    off_c[i] = static_cast<long long>(bs) * C;
-  }
-  __syncthreads();
-  const int c = blockIdx.x * 32 + tx;
-  double s1 = 0.0, s2 = 0.0;
-  if (c < C) {
-    for (int i = ty; i < n; i += 8) {
-      const float v = off_a[i] < 0
-                          ? __int_as_float(0x7fc00000)
-                          : __fadd_rn(__ldg(x.a + off_a[i] + c), __ldg(x.ct + off_c[i] + c));
-      s1 += v;
-      s2 += static_cast<double>(v) * static_cast<double>(v);
-    }
-  }
-  sh[0][ty][tx] = s1;
-  sh[1][ty][tx] = s2;
-  __syncthreads();
-  if (ty == 0 && c < C) {
-    double a = 0.0, b = 0.0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      a += sh[0][i][tx];
-      b += sh[1][i][tx];
-    }
-    part[(static_cast<long long>(blockIdx.y) * 2) * C + c] = a;
-    part[(static_cast<long long>(blockIdx.y) * 2 + 1) * C + c] = b;
-  }
-}
-
-// Sum the P partials of channels blockIdx.x * 32 + lane in a fixed order, in
-// two levels: block (x, y) sums slice y of the partials (warp w takes w, w +
-// kFinWarps, ...; warp 0 adds the warps' sums) into part2; the last block of
-// x to finish (count) adds the slices in order and returns true, with the
-// result in its warp 0. Block of 32 x kFinWarps threads, grid (C / 32, slices).
-__device__ __forceinline__ bool reduce_partials(const double* part, int P, int C, double* part2,
-                                                unsigned* count, double* s1, double* s2) {
-  __shared__ double sh[2][kFinWarps][33];
-  __shared__ bool last;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int c = blockIdx.x * 32 + lane, G = gridDim.y;
-  const int p0 = static_cast<int>(static_cast<long long>(P) * blockIdx.y / G);
-  const int p1 = static_cast<int>(static_cast<long long>(P) * (blockIdx.y + 1) / G);
-  double a = 0.0, b = 0.0;
-  if (c < C) {
-    for (int p = p0 + w; p < p1; p += kFinWarps) {
-      a += part[(static_cast<long long>(p) * 2) * C + c];
-      b += part[(static_cast<long long>(p) * 2 + 1) * C + c];
-    }
-  }
-  sh[0][w][lane] = a;
-  sh[1][w][lane] = b;
-  __syncthreads();
-  if (w == 0 && c < C) {
-    a = b = 0.0;
-    for (int i = 0; i < kFinWarps; ++i) {
-      a += sh[0][i][lane];
-      b += sh[1][i][lane];
-    }
-    part2[(blockIdx.y * 2) * C + c] = a;
-    part2[(blockIdx.y * 2 + 1) * C + c] = b;
-  }
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(count + blockIdx.x, 1u) == static_cast<unsigned>(G - 1);
-  __syncthreads();
-  if (!last) return false;
-  __threadfence();
-  a = b = 0.0;
-  if (w == 0 && c < C) {
-    for (int y = 0; y < G; ++y) {
-      a += __ldcg(part2 + (y * 2) * C + c);
-      b += __ldcg(part2 + (y * 2 + 1) * C + c);
-    }
-  }
-  if (threadIdx.x == 0) count[blockIdx.x] = 0;  // ready for the next finalize
-  *s1 = a;
-  *s2 = b;
-  return true;
-}
-
-// Forward: mean, biased var -> stats; fold (s, t, inv) for the next pass.
-__global__ void finalize_fwd_kernel(const double* __restrict__ part, int P, int C, double M,
-                                    double* part2, unsigned* count,
-                                    const float* __restrict__ gamma,
-                                    const float* __restrict__ beta, float* __restrict__ mean,
-                                    float* __restrict__ var, float* __restrict__ fold) {
-  double s1, s2;
-  if (!reduce_partials(part, P, C, part2, count, &s1, &s2)) return;
-  const int c = blockIdx.x * 32 + (threadIdx.x & 31);
-  if (threadIdx.x < 32 && c < C) {
-    const double md = s1 / M;
-    const float mu = static_cast<float>(md), v = static_cast<float>(s2 / M - md * md);
-    mean[c] = mu;
-    var[c] = v;
-    fold_of(mu, v, gamma[c], beta[c], fold + c, fold + C + c, fold + 2 * C + c);
-  }
-}
-
-// Backward: dbeta = sum dz, dgamma = sum dz * yhat; coef = (sum dz / M, sum dz yhat / M).
-__global__ void finalize_bwd_kernel(const double* __restrict__ part, int P, int C, double M,
-                                    double* part2, unsigned* count, float* __restrict__ dgamma,
-                                    float* __restrict__ dbeta, float* __restrict__ coef) {
-  double s1, s2;
-  if (!reduce_partials(part, P, C, part2, count, &s1, &s2)) return;
-  const int c = blockIdx.x * 32 + (threadIdx.x & 31);
-  if (threadIdx.x < 32 && c < C) {
-    const float sdz = static_cast<float>(s1), sdzy = static_cast<float>(s2);
-    dbeta[c] = sdz;
-    dgamma[c] = sdzy;
-    coef[c] = __fdiv_rn(sdz, static_cast<float>(M));
-    coef[C + c] = __fdiv_rn(sdzy, static_cast<float>(M));
-  }
-}
-
-// Backward: the fold of each layer again from the saved statistics.
-__global__ void fold_kernel(const float* __restrict__ mean, const float* __restrict__ var,
-                            const float* __restrict__ gamma, const float* __restrict__ beta,
-                            float* __restrict__ fold, int C) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c < C) fold_of(mean[c], var[c], gamma[c], beta[c], fold + c, fold + C + c, fold + 2 * C + c);
-}
-
 // ---- row products on the tensor cores --------------------------------------
 enum Epi { kEpiBias, kEpiMaskY2, kEpiMaskY1 };
 
@@ -561,7 +352,7 @@ struct RowArgs {
   Ctx x;
   const float* w;     // the product's weight, packed (ops/chain_fused.py::pack_chunks)
   const float* bias;  // kEpiBias: (nout)
-  void* out;          // (R, nout), f32 (the masked epilogues: bf16 in the bf16 mode)
+  float* out;         // (R, nout)
   double* part;       // (tiles, 2, nout): the epilogue's sums
   int kin, nout, nk, nc;  // widths; input and output chunks
   int kinp, noutp;        // widths padded to whole chunks
@@ -570,9 +361,6 @@ struct RowArgs {
 
 constexpr int kAStage = 2 * kTile * kKC;  // floats of one A chunk in shared memory: hi, then lo
 constexpr int kAPart = kTile * kKC;
-// The bf16 mode's A chunk: rows of kKC bf16, kA16Stride apart (20 words: the
-// fragment loads of a warp's rows g and inputs 2q hit 32 banks); fits in kAStage.
-constexpr int kA16Stride = kKC + 8;
 constexpr int kRaw = kTile * kKC;         // floats of one raw array of an A chunk
 constexpr int kRed = 8 * kCC * 2 * 2;     // floats of the epilogue's sums: 8 warps x 128 x 2 doubles
 constexpr int kConsumerWarps = 8;       // two warpgroups of wgmma
@@ -612,8 +400,7 @@ __device__ __forceinline__ void halve(double (&vs)[16], bool up, int mask) {
 // gathered), else 0, sums (out, out * yhat). The sums are doubles, taken four
 // column blocks nt at a time, reduced over the warp's 8 row groups by halving
 // and over the 8 consumer warps in order: one partial per tile.
-// BF: the masked grids (dz2, dz1) are stored as bf16, their sums taken unrounded.
-template <int E, bool BF>
+template <int E>
 __device__ __forceinline__ void row_epilogue(const RowArgs& p, const float (&acc)[16][4], int tile,
                                              int cb, double* red, const float* evec) {
   const Ctx& x = p.x;
@@ -684,10 +471,7 @@ __device__ __forceinline__ void row_epilogue(const RowArgs& p, const float (&acc
           w[1] = yhat_of(yv.y, e[3 * P + 1], e[2 * P + 1]);
         }
         const long long oe = static_cast<long long>(r) * p.nout + n;
-        if constexpr (BF && E != kEpiBias)
-          static_cast<uint32_t*>(p.out)[oe >> 1] = pack_bf16(v[0], v[1]);
-        else
-          *reinterpret_cast<float2*>(static_cast<float*>(p.out) + oe) = make_float2(v[0], v[1]);
+        *reinterpret_cast<float2*>(p.out + oe) = make_float2(v[0], v[1]);
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           vs[m * 2 + j] += v[j];
@@ -730,13 +514,7 @@ __device__ __forceinline__ void row_epilogue(const RowArgs& p, const float (&acc
 // memory), add them to their sums and run the epilogues. Full and empty
 // mbarriers of each stage pass it between them. Consumer warp w holds tile
 // rows 16 w + g and + 8 (warpgroup w / 4 owns 64 of them).
-//
-// BF, the bf16 mode: the producers round each transformed operand to bf16 and
-// store it row-major (kA16Stride); the weight chunks are bf16 (kWStage16
-// floats); each consumer warp loads its 16 rows' A fragments from shared
-// memory and runs wgmma m64n64k16 (A from registers) twice a k16 step, one for
-// each 64 output channels of the chunk: two k16 steps a chunk, one pass each.
-template <int L, int E, bool BF>
+template <int L, int E>
 __global__ void __launch_bounds__(kRowThreads, 1) rowmm_kernel(const RowArgs p) {
   constexpr int NR = n_raw<L>();
   extern __shared__ float4 smem4[];
@@ -753,7 +531,6 @@ __global__ void __launch_bounds__(kRowThreads, 1) rowmm_kernel(const RowArgs p) 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int per_tile = p.nc * p.nk;
   const int U = (p.tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x * per_tile;
-  constexpr int kWst = BF ? kWStage16 : kWStage;  // floats of a weight chunk in device memory
 
   if (tid == 0) {
     for (int i = 0; i < 2; ++i) {
@@ -811,7 +588,7 @@ __global__ void __launch_bounds__(kRowThreads, 1) rowmm_kernel(const RowArgs p) 
         const int c = f_kb * kKC + ec;
 #pragma unroll
         for (int i = 0; i < kPE; ++i)
-          fetch_raw<L, BF>(x, st, kRaw, (pt + kProducerThreads * i) * 4, ref[i], c,
+          fetch_raw<L>(x, st, kRaw, (pt + kProducerThreads * i) * 4, ref[i], c,
                            ((okm >> i) & 1) && c < Cin);
         if (++f_kb == p.nk) f_kb = 0;
         if (++f_in_tile == per_tile) {
@@ -838,8 +615,7 @@ __global__ void __launch_bounds__(kRowThreads, 1) rowmm_kernel(const RowArgs p) 
         if (pt == 0) mbar_wait(&wempty[s], ((v - 2) >> 1) & 1);
       }
       if (pt == 0)
-        bulk_load(wsm + s * kWStage, p.w + static_cast<long long>(t_in_tile) * kWst, &wfull[s],
-                  kWst * sizeof(float));
+        bulk_load(wsm + s * kWStage, p.w + static_cast<long long>(t_in_tile) * kWStage, &wfull[s]);
       cp_async_wait<1>();  // this thread's copies of chunk v have landed
       const float* st = raw0 + s * NR * kRaw;
       float* ah = asm0 + s * kAStage;
@@ -847,21 +623,16 @@ __global__ void __launch_bounds__(kRowThreads, 1) rowmm_kernel(const RowArgs p) 
 #pragma unroll 4
       for (int i = 0; i < kPE; ++i) {
         const int row = rl + kRowStep * i;
-        const float4 a = transform<L, BF>(st, kRaw, (pt + kProducerThreads * i) * 4, vec, p.kinp,
-                                          cl, aux_at<L>(x, cent[i], cl));
-        if constexpr (BF) {
-          *reinterpret_cast<uint2*>(reinterpret_cast<uint16_t*>(ah) + row * kA16Stride + ec) =
-              make_uint2(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w));
-        } else {
-          uint32_t h[4], l[4];
+        const float4 a = transform<L>(st, kRaw, (pt + kProducerThreads * i) * 4, vec, p.kinp,
+                                      cl, aux_at<L>(x, cent[i], cl));
+        uint32_t h[4], l[4];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) split_tf32(el(a, j), h[j], l[j]);
-          const int o = wofs(row, ec);
-          st4(ah + o, make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
-                                  __uint_as_float(h[2]), __uint_as_float(h[3])));
-          st4(ah + kAPart + o, make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
-                                           __uint_as_float(l[2]), __uint_as_float(l[3])));
-        }
+        for (int j = 0; j < 4; ++j) split_tf32(el(a, j), h[j], l[j]);
+        const int o = wofs(row, ec);
+        st4(ah + o, make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                                __uint_as_float(h[2]), __uint_as_float(h[3])));
+        st4(ah + kAPart + o, make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                                         __uint_as_float(l[2]), __uint_as_float(l[3])));
       }
       fence_proxy_async();  // the stores are seen by the tensor cores
       mbar_arrive(&afull[s]);
@@ -890,34 +661,7 @@ __global__ void __launch_bounds__(kRowThreads, 1) rowmm_kernel(const RowArgs p) 
     mbar_wait(&wfull[s], (u >> 1) & 1);
     const float* wh = wsm + s * kWStage;
     float part[16][4];
-    if constexpr (BF) {
-      // this warp's rows 16 warp + g (+ 8), inputs ks * 16 + 2q (+ 1, + 8, + 9)
-      const uint16_t* a16 = reinterpret_cast<const uint16_t*>(asm0 + s * kAStage) +
-                            (16 * warp + (lane >> 2)) * kA16Stride + 2 * (lane & 3);
-      const uint16_t* w16 = reinterpret_cast<const uint16_t*>(wh);
-      float(&plo)[8][4] = *reinterpret_cast<float(*)[8][4]>(&part[0][0]);
-      float(&phi)[8][4] = *reinterpret_cast<float(*)[8][4]>(&part[8][0]);
-      uint32_t af[kKC / 16][4];
-#pragma unroll
-      for (int ks = 0; ks < kKC / 16; ++ks) {
-        const uint16_t* r0 = a16 + ks * 16;
-        af[ks][0] = *reinterpret_cast<const uint32_t*>(r0);
-        af[ks][1] = *reinterpret_cast<const uint32_t*>(r0 + 8 * kA16Stride);
-        af[ks][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
-        af[ks][3] = *reinterpret_cast<const uint32_t*>(r0 + 8 * kA16Stride + 8);
-      }
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < kKC / 16; ++ks) {
-        if (ks == 0) {
-          wgmma_m64n64k16_bf16<0>(plo, af[ks], smem_desc16(w16 + wofs16(0, 0)));
-          wgmma_m64n64k16_bf16<0>(phi, af[ks], smem_desc16(w16 + wofs16(64, 0)));
-        } else {
-          wgmma_m64n64k16_bf16<1>(plo, af[ks], smem_desc16(w16 + wofs16(0, ks * 16)));
-          wgmma_m64n64k16_bf16<1>(phi, af[ks], smem_desc16(w16 + wofs16(64, ks * 16)));
-        }
-      }
-    } else {
+    {
       const float* as = asm0 + s * kAStage + wofs(64 * (warp >> 2), 0);
       wgmma_fence();
 #pragma unroll
@@ -947,7 +691,7 @@ __global__ void __launch_bounds__(kRowThreads, 1) rowmm_kernel(const RowArgs p) 
         acc[nt][i] += part[nt][i];  // the chunk's sum added on the CUDA cores
       }
     if (++kb == p.nk) {
-      row_epilogue<E, BF>(p, acc, tile, cb, red, evec);
+      row_epilogue<E>(p, acc, tile, cb, red, evec);
 #pragma unroll
       for (int nt = 0; nt < 16; ++nt)
 #pragma unroll
@@ -984,13 +728,8 @@ constexpr long long dw_smem_floats() {
          (n_vec<LX>() + n_vec<LD>()) * kDwT;
 }
 
-// BF: the value rounded to bf16, kept as f32 in hi (lo unused).
-template <bool BF>
+// The value split hi/lo (TF32) into hi + o and lo + o.
 __device__ __forceinline__ void store_split(float* hi, float* lo, int o, float4 v) {
-  if constexpr (BF) {
-    st4(hi + o, make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z), round_bf16(v.w)));
-    return;
-  }
   uint32_t h[4], l[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) split_tf32(el(v, j), h[j], l[j]);
@@ -1004,11 +743,8 @@ __device__ __forceinline__ void store_split(float* hi, float* lo, int o, float4 
 // of 32 rows, the raw operands of step s + 2 loading while step s multiplies;
 // X = h (loader LX, I wide), D = dy (loader LD, J wide), both row-major, split
 // hi/lo as they are stored. Warp (wi, wj) = (warp / 4, warp % 4) owns rows
-// i0 + 64 wi .. and columns j0 + 32 wj .. of the tile. BF, the bf16 mode: the
-// operands are rounded to bf16 as they are stored (kept as f32 values), and
-// each step is two k16 passes of mma.sync m16n8k16, whose fragments pack the
-// two rows k, k + 1 of a column into one word as they are loaded.
-template <int LX, int LD, bool BF>
+// i0 + 64 wi .. and columns j0 + 32 wj .. of the tile.
+template <int LX, int LD>
 __global__ void __launch_bounds__(kThreads, 1) dw_kernel(const DwArgs p) {
   // a raw stage: X's arrays, X's per-centroid ones, D's, D's per-centroid ones
   constexpr int NX = n_raw<LX>(), AX = NX + n_aux<LX>(), ND = AX + n_raw<LD>();
@@ -1051,10 +787,10 @@ __global__ void __launch_bounds__(kThreads, 1) dw_kernel(const DwArgs p) {
         const int r = r0 + s * kDwRows + er + 8 * i;
         const int o = (er + 8 * i) * kDwT + ec, j = jq[i];
         const bool in = r < r1, inx = in && i0 + ec < p.I, ind = in && j0 + ec < p.J;
-        fetch_raw<LX, BF>(x, st, kDwRaw, o, row_ref<LX>(x, r, j), i0 + ec,
+        fetch_raw<LX>(x, st, kDwRaw, o, row_ref<LX>(x, r, j), i0 + ec,
                           inx && (LX != kLoadH1 || (j >= 0 && j < x.d.N)));
         fetch_aux<LX>(x, st + NX * kDwRaw, kDwRaw, o, aux_cent<LX>(x.d, r), i0 + ec, inx);
-        fetch_raw<LD, BF>(x, st + AX * kDwRaw, kDwRaw, o, row_ref<LD>(x, r, 0), j0 + ec, ind);
+        fetch_raw<LD>(x, st + AX * kDwRaw, kDwRaw, o, row_ref<LD>(x, r, 0), j0 + ec, ind);
         fetch_aux<LD>(x, st + ND * kDwRaw, kDwRaw, o, aux_cent<LD>(x.d, r), j0 + ec, ind);
       }
       if constexpr (LX == kLoadH1) load_idx(s + 1);
@@ -1084,10 +820,9 @@ __global__ void __launch_bounds__(kThreads, 1) dw_kernel(const DwArgs p) {
         const Aux ad = aux_raw<LD>(st + ND * kDwRaw, kDwRaw, o);
         // a zero-filled row does not transform to zero
         const bool in = r0 + s * kDwRows + er + 8 * i < r1;
-        store_split<BF>(xh, xl, ot, in ? transform<LX, BF>(st, kDwRaw, o, vx, kDwT, ec, ax) : zero);
-        store_split<BF>(dh, dl, ot,
-                        in ? transform<LD, BF>(st + AX * kDwRaw, kDwRaw, o, vd, kDwT, ec, ad)
-                           : zero);
+        store_split(xh, xl, ot, in ? transform<LX>(st, kDwRaw, o, vx, kDwT, ec, ax) : zero);
+        store_split(dh, dl, ot,
+                    in ? transform<LD>(st + AX * kDwRaw, kDwRaw, o, vd, kDwT, ec, ad) : zero);
       }
     }
     __syncthreads();
@@ -1099,31 +834,6 @@ __global__ void __launch_bounds__(kThreads, 1) dw_kernel(const DwArgs p) {
       for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
         for (int i = 0; i < 4; ++i) part[mt][nt][i] = 0.f;
-    if constexpr (BF) {
-#pragma unroll
-      for (int ks = 0; ks < kDwRows / 16; ++ks) {
-        // rows k = ks * 16 + 2q, + 1 (k0, k1) and + 8, + 9 (k8, k9)
-        const int k0 = (ks * 16 + 2 * q) * kDwStride, k1 = k0 + kDwStride;
-        const int k8 = k0 + 8 * kDwStride, k9 = k8 + kDwStride;
-        uint32_t b[4][2];
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {  // B[k][n] = D[row k][n]
-          const int n = nj + nt * 8 + g;
-          b[nt][0] = pack_bf16(dh[k0 + n], dh[k1 + n]);
-          b[nt][1] = pack_bf16(dh[k8 + n], dh[k9 + n]);
-        }
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {  // A[m][k] = X[row k][m]
-          const int m = mi + mt * 16 + g;
-          const uint32_t a[4] = {pack_bf16(xh[k0 + m], xh[k1 + m]),
-                                 pack_bf16(xh[k0 + m + 8], xh[k1 + m + 8]),
-                                 pack_bf16(xh[k8 + m], xh[k9 + m]),
-                                 pack_bf16(xh[k8 + m + 8], xh[k9 + m + 8])};
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) mma_bf16(part[mt][nt], a, b[nt][0], b[nt][1]);
-        }
-      }
-    } else {
 #pragma unroll
     for (int ks = 0; ks < kDwRows / 8; ++ks) {
       const int k0 = (ks * 8 + q) * kDwStride, k4 = k0 + 4 * kDwStride;
@@ -1151,7 +861,6 @@ __global__ void __launch_bounds__(kThreads, 1) dw_kernel(const DwArgs p) {
         }
       }
     }
-    }
 #pragma unroll
     for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
@@ -1173,16 +882,6 @@ __global__ void __launch_bounds__(kThreads, 1) dw_kernel(const DwArgs p) {
           *reinterpret_cast<float2*>(out + static_cast<long long>(m) * p.J + n) =
               make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
       }
-}
-
-// dW[e] = sum_p part[p][e], p in order.
-__global__ void sum_partials_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                    int P, long long E) {
-  const long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (e >= E) return;
-  float s = 0.f;
-  for (int p = 0; p < P; ++p) s += part[p * E + e];
-  out[e] = s;
 }
 
 // ---- F4: out[bs, c] = max_k relu(y3 * s3 + t3) ----------------------------
@@ -1248,10 +947,7 @@ __global__ void maxgrad_kernel(const Ctx x, const float* __restrict__ g, float* 
 }
 
 // ---- B4: dy1 = BN backward of dz1; da[b, idx[r]] += dy1[r]; dct[bs] = sum_k dy1
-// BF: dz1 is bf16, and da sums dy1 rounded to bf16 (the JAX kernel's bf16
-// one-hot product), dct the unrounded dy1.
-template <bool BF>
-__global__ void scatter_kernel(const Ctx x, const void* __restrict__ dz1, float* __restrict__ da,
+__global__ void scatter_kernel(const Ctx x, const float* __restrict__ dz1, float* __restrict__ da,
                                float* __restrict__ dct) {
   const Dims& d = x.d;
   const long long BS = static_cast<long long>(d.B) * d.S;
@@ -1270,20 +966,14 @@ __global__ void scatter_kernel(const Ctx x, const void* __restrict__ dz1, float*
     const bool in = j >= 0 && j < d.N;
     const long long row = (b * d.N + j) * d.C1 + c;
     const float y1 = in ? __fadd_rn(__ldg(x.a + row), ctv) : __int_as_float(0x7fc00000);
-    const long long e1 = r * d.C1 + c;
-    const float dz = BF ? __uint_as_float(static_cast<uint32_t>(
-                              static_cast<const uint16_t*>(dz1)[e1]) << 16)
-                        : static_cast<const float*>(dz1)[e1];
-    const float v = bn_bwd(dz, yhat_of(y1, mu, inv), s, c1, c2);
+    const float v = bn_bwd(dz1[r * d.C1 + c], yhat_of(y1, mu, inv), s, c1, c2);
     acc += v;
-    if (in) atomicAdd(da + row, BF ? round_bf16(v) : v);
+    if (in) atomicAdd(da + row, v);
   }
   dct[e] = acc;
 }
 
 // ---- host side ---------------------------------------------------------------
-inline long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
-inline size_t align256(size_t n) { return (n + 255) / 256 * 256; }
 inline int round8(int n) { return (n + 7) & ~7; }
 
 int cmax(const Dims& d) { return d.C1 > d.C2 ? (d.C1 > d.C3 ? d.C1 : d.C3) : (d.C2 > d.C3 ? d.C2 : d.C3); }
@@ -1293,9 +983,9 @@ long long stat_chunks(const Dims& d) { return cdiv(d.R, kStatRows); }
 long long cent_chunks(const Dims& d) { return cdiv(centroids(d), kCent); }
 
 // Floats of a weight (k_in x n_out) packed as whole kCC x kKC chunks, hi and
-// lo (3xTF32), or one bf16 part (bf16: half a float a value).
-long long packed_floats(int k_in, int n_out, bool bf16) {
-  return cdiv(round8(n_out), kCC) * cdiv(round8(k_in), kKC) * (bf16 ? kWStage16 : kWStage);
+// lo (3xTF32).
+long long packed_floats(int k_in, int n_out) {
+  return cdiv(round8(n_out), kCC) * cdiv(round8(k_in), kKC) * kWStage;
 }
 
 // Bytes of shared memory of a row product kin -> nout with loader L.
@@ -1319,7 +1009,7 @@ struct Workspace {  // byte offsets into one buffer
   size_t part, part2, count, fold, coef, mx, sh, dwpart, dz2, dz1, total;
 };
 
-Workspace layout(const Dims& d, bool backward, bool bf16) {
+Workspace layout(const Dims& d, bool backward) {
   Workspace w{};
   const size_t C = static_cast<size_t>(cmax(d));
   long long P = row_tiles(d);
@@ -1346,9 +1036,8 @@ Workspace layout(const Dims& d, bool backward, bool bf16) {
     dw_split(d, d.C1, d.C2, &P2, &ch);
     const size_t e3 = static_cast<size_t>(P3) * d.C2 * d.C3, e2 = static_cast<size_t>(P2) * d.C1 * d.C2;
     w.dwpart = take((e3 > e2 ? e3 : e2) * sizeof(float));
-    const size_t grid = bf16 ? sizeof(uint16_t) : sizeof(float);  // the dz grids' values
-    w.dz2 = take(static_cast<size_t>(d.R) * d.C2 * grid);
-    w.dz1 = take(static_cast<size_t>(d.R) * d.C1 * grid);
+    w.dz2 = take(static_cast<size_t>(d.R) * d.C2 * sizeof(float));
+    w.dz1 = take(static_cast<size_t>(d.R) * d.C1 * sizeof(float));
   }
   w.total = off;
   return w;
@@ -1371,18 +1060,6 @@ int check(int B, int N, int S, int K, int C1, int C2, int C3, Dims* d) {
   return 0;
 }
 
-#define LAUNCH_CHECK()                                  \
-  do {                                                  \
-    const cudaError_t e_ = cudaGetLastError();          \
-    if (e_ != cudaSuccess) return static_cast<int>(e_); \
-  } while (0)
-
-#define RUN(expr)           \
-  do {                      \
-    const int rc_ = (expr); \
-    if (rc_) return rc_;    \
-  } while (0)
-
 // The SM count and the kernels' shared-memory limit, once per process.
 struct DeviceInfo {
   int sms;
@@ -1396,18 +1073,12 @@ const DeviceInfo& device_info() {
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
     const void* kernels[] = {
-        reinterpret_cast<const void*>(rowmm_kernel<kLoadH1, kEpiBias, false>),
-        reinterpret_cast<const void*>(rowmm_kernel<kLoadH2, kEpiBias, false>),
-        reinterpret_cast<const void*>(rowmm_kernel<kLoadDy3, kEpiMaskY2, false>),
-        reinterpret_cast<const void*>(rowmm_kernel<kLoadDy2, kEpiMaskY1, false>),
-        reinterpret_cast<const void*>(dw_kernel<kLoadH2, kLoadDy3, false>),
-        reinterpret_cast<const void*>(dw_kernel<kLoadH1, kLoadDy2, false>),
-        reinterpret_cast<const void*>(rowmm_kernel<kLoadH1, kEpiBias, true>),
-        reinterpret_cast<const void*>(rowmm_kernel<kLoadH2, kEpiBias, true>),
-        reinterpret_cast<const void*>(rowmm_kernel<kLoadDy3, kEpiMaskY2, true>),
-        reinterpret_cast<const void*>(rowmm_kernel<kLoadDy2, kEpiMaskY1, true>),
-        reinterpret_cast<const void*>(dw_kernel<kLoadH2, kLoadDy3, true>),
-        reinterpret_cast<const void*>(dw_kernel<kLoadH1, kLoadDy2, true>)};
+        reinterpret_cast<const void*>(rowmm_kernel<kLoadH1, kEpiBias>),
+        reinterpret_cast<const void*>(rowmm_kernel<kLoadH2, kEpiBias>),
+        reinterpret_cast<const void*>(rowmm_kernel<kLoadDy3, kEpiMaskY2>),
+        reinterpret_cast<const void*>(rowmm_kernel<kLoadDy2, kEpiMaskY1>),
+        reinterpret_cast<const void*>(dw_kernel<kLoadH2, kLoadDy3>),
+        reinterpret_cast<const void*>(dw_kernel<kLoadH1, kLoadDy2>)};
     for (const void* k : kernels)
       if (e == cudaSuccess)
         e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
@@ -1417,8 +1088,8 @@ const DeviceInfo& device_info() {
   return info;
 }
 
-template <int L, int E, bool BF>
-int rowmm(const Ctx& x, const float* w, const float* bias, void* out, double* part, int kin,
+template <int L, int E>
+int rowmm(const Ctx& x, const float* w, const float* bias, float* out, double* part, int kin,
           int nout, cudaStream_t st) {
   const int nk = static_cast<int>(cdiv(round8(kin), kKC));
   const int nc = static_cast<int>(cdiv(round8(nout), kCC));
@@ -1427,18 +1098,18 @@ int rowmm(const Ctx& x, const float* w, const float* bias, void* out, double* pa
   const int sms = device_info().sms;
   const unsigned blocks = static_cast<unsigned>(p.tiles < sms ? p.tiles : sms);
   const size_t smem = static_cast<size_t>(row_smem<L>(kin, nout));
-  rowmm_kernel<L, E, BF><<<blocks, kRowThreads, smem, st>>>(p);
+  rowmm_kernel<L, E><<<blocks, kRowThreads, smem, st>>>(p);
   LAUNCH_CHECK();
   return 0;
 }
 
-template <int LX, int LD, bool BF>
+template <int LX, int LD>
 int dw(const Ctx& x, float* part, float* out, int I, int J, cudaStream_t st) {
   int P;
   long long chunk;
   dw_split(x.d, I, J, &P, &chunk);
   const size_t smem = 4 * dw_smem_floats<LX, LD>();
-  dw_kernel<LX, LD, BF><<<dim3(cdiv(I, kDwT), cdiv(J, kDwT), P), kThreads, smem, st>>>(
+  dw_kernel<LX, LD><<<dim3(cdiv(I, kDwT), cdiv(J, kDwT), P), kThreads, smem, st>>>(
       DwArgs{x, part, I, J, static_cast<int>(chunk)});
   LAUNCH_CHECK();
   const long long E = static_cast<long long>(I) * J;
@@ -1447,75 +1118,38 @@ int dw(const Ctx& x, float* part, float* out, int I, int J, cudaStream_t st) {
   return 0;
 }
 
-// The finalize kernels' scratch: the slices' sums and the per-block counters
-// (zeroed once per entry; each finalize leaves them zero).
-struct Fin {
-  double* part2;
-  unsigned* count;
-};
-
-dim3 fin_grid(long long P, int C) {
-  const long long slices = P < kFinSlices ? P : kFinSlices;
-  return dim3(static_cast<unsigned>(cdiv(C, 32)), static_cast<unsigned>(slices));
-}
-
-int finalize_fwd(const double* part, long long P, int C, const Dims& d, const Fin& f,
-                 const float* gamma, const float* beta, float* mean, float* var, float* fold,
-                 cudaStream_t st) {
-  finalize_fwd_kernel<<<fin_grid(P, C), 32 * kFinWarps, 0, st>>>(
-      part, static_cast<int>(P), C, static_cast<double>(d.R), f.part2, f.count, gamma, beta,
-      mean, var, fold);
-  LAUNCH_CHECK();
-  return 0;
-}
-
-int finalize_bwd(const double* part, long long P, int C, const Dims& d, const Fin& f,
-                 float* dgamma, float* dbeta, float* coef, cudaStream_t st) {
-  finalize_bwd_kernel<<<fin_grid(P, C), 32 * kFinWarps, 0, st>>>(
-      part, static_cast<int>(P), C, static_cast<double>(d.R), f.part2, f.count, dgamma, dbeta,
-      coef);
-  LAUNCH_CHECK();
-  return 0;
-}
-
 }  // namespace
 
-// Bytes of workspace that sa_train_fwd (backward = 0) or sa_train_bwd (1) needs
-// in the mode bf16 (0 or 1).
+// Bytes of workspace that sa_train_fwd (backward = 0) or sa_train_bwd (1) needs.
 extern "C" long long sa_train_workspace(int B, int N, int S, int K, int C1, int C2, int C3,
-                                        int backward, int bf16) {
+                                        int backward) {
   Dims d;
   const int rc = check(B, N, S, K, C1, C2, C3, &d);
   if (rc) return rc;
-  if (bf16 < 0 || bf16 > 1) return kErrArgs;
-  return static_cast<long long>(layout(d, backward != 0, bf16 != 0).total);
+  return static_cast<long long>(layout(d, backward != 0).total);
 }
 
-// Floats of a k_in x n_out weight packed by ops/chain_fused.py::pack_chunks
-// (bf16 = 1: pack_chunks_bf16).
-extern "C" long long sa_train_packed_floats(int k_in, int n_out, int bf16) {
-  if (k_in < 1 || n_out < 1 || bf16 < 0 || bf16 > 1) return kErrArgs;
-  return packed_floats(k_in, n_out, bf16 != 0);
+// Floats of a k_in x n_out weight packed by ops/chain_fused.py::pack_chunks.
+extern "C" long long sa_train_packed_floats(int k_in, int n_out) {
+  if (k_in < 1 || n_out < 1) return kErrArgs;
+  return packed_floats(k_in, n_out);
 }
 
 // Forward F1-F4. w2p, w3p: W2 (C1 x C2) and W3 (C2 x C3) packed (n2, n3
 // floats); bn = [g1, bt1 (C1), g2, bt2 (C2), g3, bt3 (C3)]; stats (out) =
 // [mean1, var1, mean2, var2, mean3, var3]; y2/y3 (out) the pre-BN grids (R x
-// C2, C3) that the backward reads; out (B, S, C3). bf16 = 1: the bf16 mode
-// (a rounded to bf16 by the caller, w2p/w3p packed in bf16); all f32 here.
+// C2, C3) that the backward reads; out (B, S, C3).
 extern "C" int sa_train_fwd(const float* a, const float* ct, const int* idx, const float* w2p,
                             long long n2, const float* b2, const float* w3p, long long n3,
                             const float* b3, const float* bn, float* y2, float* y3, float* out,
                             float* stats, void* ws, int B, int N, int S, int K, int C1, int C2,
-                            int C3, int bf16, void* stream) {
+                            int C3, void* stream) {
   Dims d;
   RUN(check(B, N, S, K, C1, C2, C3, &d));
-  if (bf16 < 0 || bf16 > 1) return kErrArgs;
-  const bool bf = bf16 != 0;
-  if (n2 != packed_floats(C1, C2, bf) || n3 != packed_floats(C2, C3, bf)) return kErrPacked;
+  if (n2 != packed_floats(C1, C2) || n3 != packed_floats(C2, C3)) return kErrPacked;
   RUN(device_info().err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Workspace w = layout(d, false, bf);
+  const Workspace w = layout(d, false);
   char* base = static_cast<char*>(ws);
   double* part = reinterpret_cast<double*>(base + w.part);
   float* fold = reinterpret_cast<float*>(base + w.fold);
@@ -1540,15 +1174,14 @@ extern "C" int sa_train_fwd(const float* a, const float* ct, const int* idx, con
   x.mean[2] = mu3;
 
   // F1: y1's statistics, gathered
-  y1_stats_kernel<<<dim3(cdiv(C1, 32), stat_chunks(d)), dim3(32, 8), 0, st>>>(x, part);
+  y1_stats_kernel<false><<<dim3(cdiv(C1, 32), stat_chunks(d)), dim3(32, 8), 0, st>>>(a, ct, idx, d,
+                                                                                      part);
   LAUNCH_CHECK();
   RUN(finalize_fwd(part, stat_chunks(d), C1, d, fin, g1, bt1, mu1, v1, fold, st));
   // F2, F3: the products, their statistics from the epilogues
-  RUN((bf ? rowmm<kLoadH1, kEpiBias, true>(x, w2p, b2, y2, part, C1, C2, st)
-         : rowmm<kLoadH1, kEpiBias, false>(x, w2p, b2, y2, part, C1, C2, st)));
+  RUN((rowmm<kLoadH1, kEpiBias>(x, w2p, b2, y2, part, C1, C2, st)));
   RUN(finalize_fwd(part, row_tiles(d), C2, d, fin, g2, bt2, mu2, v2, fold + 3 * Cm, st));
-  RUN((bf ? rowmm<kLoadH2, kEpiBias, true>(x, w3p, b3, y3, part, C2, C3, st)
-         : rowmm<kLoadH2, kEpiBias, false>(x, w3p, b3, y3, part, C2, C3, st)));
+  RUN((rowmm<kLoadH2, kEpiBias>(x, w3p, b3, y3, part, C2, C3, st)));
   RUN(finalize_fwd(part, row_tiles(d), C3, d, fin, g3, bt3, mu3, v3, fold + 6 * Cm, st));
   // F4
   const long long BS = centroids(d);
@@ -1561,21 +1194,19 @@ extern "C" int sa_train_fwd(const float* a, const float* ct, const int* idx, con
 // statistics, and the output's cotangent g (B, S, C3). w2tp (n2 floats) and
 // w3tp (n3) are W2^T (C2 x C1) and W3^T (C3 x C2) packed. Writes da (B, N,
 // C1), dct (B, S, C1), dw2 (C1 x C2), dw3 (C2 x C3) and dbn = [dg1, dbt1, dg2,
-// dbt2, dg3, dbt3]. bf16 = 1: the bf16 mode, as sa_train_fwd's.
+// dbt2, dg3, dbt3].
 extern "C" int sa_train_bwd(const float* g, const float* a, const float* ct, const int* idx,
                             const float* y2, const float* y3, const float* stats,
                             const float* w2tp, long long n2, const float* w3tp, long long n3,
                             const float* bn, float* da, float* dct, float* dw2, float* dw3,
                             float* dbn, void* ws, int B, int N, int S, int K, int C1, int C2,
-                            int C3, int bf16, void* stream) {
+                            int C3, void* stream) {
   Dims d;
   RUN(check(B, N, S, K, C1, C2, C3, &d));
-  if (bf16 < 0 || bf16 > 1) return kErrArgs;
-  const bool bf = bf16 != 0;
-  if (n2 != packed_floats(C2, C1, bf) || n3 != packed_floats(C3, C2, bf)) return kErrPacked;
+  if (n2 != packed_floats(C2, C1) || n3 != packed_floats(C3, C2)) return kErrPacked;
   RUN(device_info().err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Workspace w = layout(d, true, bf);
+  const Workspace w = layout(d, true);
   char* base = static_cast<char*>(ws);
   double* part = reinterpret_cast<double*>(base + w.part);
   float* fold = reinterpret_cast<float*>(base + w.fold);
@@ -1587,8 +1218,8 @@ extern "C" int sa_train_bwd(const float* g, const float* a, const float* ct, con
   float* mx = reinterpret_cast<float*>(base + w.mx);
   float* sh = reinterpret_cast<float*>(base + w.sh);
   float* dwpart = reinterpret_cast<float*>(base + w.dwpart);
-  void* dz2 = base + w.dz2;
-  void* dz1 = base + w.dz1;
+  float* dz2 = reinterpret_cast<float*>(base + w.dz2);
+  float* dz1 = reinterpret_cast<float*>(base + w.dz1);
   const int Cm = cmax(d);
   const int Cs[3] = {C1, C2, C3};
   float* dbn_l[3] = {dbn, dbn + 2 * C1, dbn + 2 * (C1 + C2)};  // (dgamma, dbeta) of each layer
@@ -1620,24 +1251,17 @@ extern "C" int sa_train_bwd(const float* g, const float* a, const float* ct, con
   LAUNCH_CHECK();
   RUN(finalize_bwd(part, cent_chunks(d), C3, d, fin, dbn_l[2], dbn_l[2] + C3, coef_l[2], st));
   // B2: dW3 = h2^T dy3; dz2 = (dy3 W3^T) * relu'(h2) and its sums; dy3 from y3 as it loads
-  RUN((bf ? dw<kLoadH2, kLoadDy3, true>(x, dwpart, dw3, C2, C3, st)
-         : dw<kLoadH2, kLoadDy3, false>(x, dwpart, dw3, C2, C3, st)));
-  RUN((bf ? rowmm<kLoadDy3, kEpiMaskY2, true>(x, w3tp, nullptr, dz2, part, C3, C2, st)
-         : rowmm<kLoadDy3, kEpiMaskY2, false>(x, w3tp, nullptr, dz2, part, C3, C2, st)));
+  RUN((dw<kLoadH2, kLoadDy3>(x, dwpart, dw3, C2, C3, st)));
+  RUN((rowmm<kLoadDy3, kEpiMaskY2>(x, w3tp, nullptr, dz2, part, C3, C2, st)));
   RUN(finalize_bwd(part, row_tiles(d), C2, d, fin, dbn_l[1], dbn_l[1] + C2, coef_l[1], st));
   // B3: dW2 = h1^T dy2; dz1 = (dy2 W2^T) * relu'(h1) and its sums; dy2 from dz2 as it loads
-  RUN((bf ? dw<kLoadH1, kLoadDy2, true>(x, dwpart, dw2, C1, C2, st)
-         : dw<kLoadH1, kLoadDy2, false>(x, dwpart, dw2, C1, C2, st)));
-  RUN((bf ? rowmm<kLoadDy2, kEpiMaskY1, true>(x, w2tp, nullptr, dz1, part, C2, C1, st)
-         : rowmm<kLoadDy2, kEpiMaskY1, false>(x, w2tp, nullptr, dz1, part, C2, C1, st)));
+  RUN((dw<kLoadH1, kLoadDy2>(x, dwpart, dw2, C1, C2, st)));
+  RUN((rowmm<kLoadDy2, kEpiMaskY1>(x, w2tp, nullptr, dz1, part, C2, C1, st)));
   RUN(finalize_bwd(part, row_tiles(d), C1, d, fin, dbn_l[0], dbn_l[0] + C1, coef_l[0], st));
   // B4: da (zeroed here) += dy1 at idx; dct = sum_k dy1
   e = cudaMemsetAsync(da, 0, static_cast<size_t>(B) * N * C1 * sizeof(float), st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (bf)
-    scatter_kernel<true><<<cdiv(centroids(d) * C1, kThreads), kThreads, 0, st>>>(x, dz1, da, dct);
-  else
-    scatter_kernel<false><<<cdiv(centroids(d) * C1, kThreads), kThreads, 0, st>>>(x, dz1, da, dct);
+  scatter_kernel<<<cdiv(centroids(d) * C1, kThreads), kThreads, 0, st>>>(x, dz1, da, dct);
   LAUNCH_CHECK();
   return 0;
 }

@@ -20,18 +20,18 @@ them in (models/layers.py::MLP.update_batch_stats).
 `sa_train_fwd_plain` / `sa_train_bwd_plain` are the plain PyTorch version:
 the whole-grid form of the JAX package's `_ref_fwd` and `_manual_vjp_math`.
 `_SATrainFunction` (a torch.autograd.Function) runs them for CPU tensors and
-launches the kernel (csrc/sa_fused_train.cu, entries `sa_train_fwd` and
-`sa_train_bwd`; the design note is there) for CUDA tensors, or raises.
-Launches are counted in `fused_sa_train_apply.fwd_launches` and
+launches the kernels for CUDA tensors, or raises: csrc/sa_fused_train.cu
+(entries `sa_train_fwd`, `sa_train_bwd`; 3xTF32 on the tensor cores) in the
+f32 mode, csrc/sa_fused_train_bf16.cu (`sa_train_bf16_fwd`,
+`sa_train_bf16_bwd`; bf16 wgmma) in the bf16 mode; the design notes are
+there. Launches are counted in `fused_sa_train_apply.fwd_launches` and
 `.bwd_launches` (either mode), and those of the bf16 mode in
-`.bf16_fwd_launches` and `.bf16_bwd_launches` too. The kernel computes its grid products in 3xTF32 on the
-tensor cores (in the bf16 mode in bf16) from W2, W3 (forward) and W2^T,
-W3^T (backward) packed for them by `Packs` (`ops/chain_fused.py::pack_chunks`,
-`pack_chunks_bf16`); the kernel wrappers take the packs from their caller,
-and the SA layer holds them in its fold cache, packed again only when a
-weight or the mode changes (models/pointnet.py::SetAbstraction.train_packs).
+`.bf16_fwd_launches` and `.bf16_bwd_launches` too. The kernels take W2, W3
+(forward) and W2^T, W3^T (backward) in the form their products read, built
+by `Packs`; the SA layer holds them in its fold cache, built again only when
+a weight or the mode changes (models/pointnet.py::SetAbstraction.train_packs).
 
-The forward keeps the pre-BN grids y2, y3 (B, S, K, C) for the backward;
+The f32 mode keeps the pre-BN grids y2, y3 (B, S, K, C) for the backward;
 y1 = a[idx] + ct is gathered again from the inputs a, ct and idx, which
 the backward takes in its place (one f32 add: the same values). The plain
 version computes the folds and masks with the kernel's rounding (relu(y *
@@ -43,18 +43,20 @@ JAX `fused_sa_train_apply(dtype=jnp.bfloat16)`) rounds where the JAX
 package's Pallas passes round (`_kf1`-`_kf4`, `_kb1`-`_kb4`; its `impl='ref'`
 ignores the dtype). The A-form rows are gathered as bf16, as the compiled
 TPU kernel gathers them (`i8g`, `int8_gather_default`: the exact bf16 byte
-planes): `a` is rounded once, by `_SATrainFunction`, and the kernel and the
-plain version both take that copy, so y1 = bf16(a)[idx] + ct in f32, and so
-are its statistics. h1 and h2 are rounded to bf16 and the products take
-bf16 operands (h, W) with f32 sums; the statistics, the folds and the
-pre-BN grids y2, y3 stay f32 (the TPU kernel recomputes y2 and y3 from the
-bf16 h1, h2 and weights: the same values); the output is returned as bf16.
-Backward: the dz grids are used as bf16 (the sums of the BN backward take
-dz unrounded, as the Pallas passes sum it before they store it), dW and dh
-take bf16 operands (h, dy, W^T), the ReLU masks compare in f32, da
-scatter-sums bf16-rounded dy1 with f32 sums and dct sums dy1 in f32. The
-mode comes from the MLP's layers (`DenseBNRelu.dtype`), as K4's from
-`FoldedSA.dtype`.
+planes): y1 = bf16(a)[idx] + ct in f32, and so are its statistics; the
+plain path rounds `a` once in `_SATrainFunction`, the kernel as it reads it.
+The forward keeps the grids JAX's bf16 kernel keeps: h1 = bf16(relu(BN1(y1)))
+and h2 = bf16(relu(BN2(y2))), (B, S, K, C) in bf16, and the backward computes
+y2 = h1 W2 + b2 and y3 = h2 W3 + b3 again from them (bf16 operands, f32
+sums); the statistics and the folds stay f32, the output is returned as
+bf16. The kernel's forward keeps `mxt` (3, B, S, C3) too: the output (max_k
+h3) in f32, the number of its ties and the sum of yhat3 over them, which its
+backward reads. Backward: the dz grids are used as bf16 (the sums of the BN
+backward take dz unrounded, as the Pallas passes sum it before they store
+it), dW and dh take bf16 operands (h, dy, W^T), the ReLU masks are h > 0 of
+the stored bf16 h, da scatter-sums bf16-rounded dy1 with f32 sums and dct
+sums dy1 in f32. The mode comes from the MLP's layers (`DenseBNRelu.dtype`),
+as K4's from `FoldedSA.dtype`.
 """
 
 from __future__ import annotations
@@ -65,15 +67,16 @@ import torch
 import torch.nn as nn
 
 from open3dsot_tpu_torch.ops._launch import check, on_cuda, raise_on, stream_of
-from open3dsot_tpu_torch.ops.chain_fused import BF16, is_bf16, pack_chunks, pack_chunks_bf16
+from open3dsot_tpu_torch.ops.chain_fused import BF16, is_bf16, pack_chunks
 from open3dsot_tpu_torch.ops.grouping import group_points
 from open3dsot_tpu_torch.ops.sa_fused import a_form
 
 BN_EPS = 1e-5
-_ERRORS = {-1: "B, N, S, K or the mode not accepted (B * S * K <= 33,553,920 rows)",
+_ERRORS = {-1: "B, N, S or K not accepted (B * S * K below 2^31 rows)",
            -2: "a width C1, C2 or C3 is not a multiple of 4 (in either mode)",
            -3: "a packed weight has the wrong size",
-           -4: "a width too large for the tensor-core products' shared memory"}
+           -4: "a width too large for the 3xTF32 products' shared memory (the f32 mode)",
+           -6: "the CUDA driver refused a TMA tensor map of the bf16 mode"}
 
 Stats = Tuple[torch.Tensor, ...]  # (mean1, var1, mean2, var2, mean3, var3)
 
@@ -113,20 +116,24 @@ def sa_train_fwd_plain(a, ct, idx, w2, b2, w3, b3, bn: Sequence[torch.Tensor],
                        bf16: bool = False):
     """The plain forward: a (B, N, C1), ct (B, S, C1), idx (B, S, K), w2 (C1,
     C2), w3 (C2, C3), bn = (g1, bt1, g2, bt2, g3, bt3) -> (out (B, S, C3),
-    stats, grids (y2, y3)). `bf16`: the bf16 mode, with `a` already rounded
+    stats, grids): in f32 the pre-BN grids (y2, y3), in bf16 the activations
+    (h1, h2) as bf16 tensors. `bf16`: the bf16 mode, with `a` already rounded
     to bf16 (`_SATrainFunction` rounds it); out is returned in a's dtype."""
     r = _rounder(bf16)
     y1 = _y1(a, ct, idx)
     m1, v1 = _stats(y1)
     s1, t1, _ = _fold(m1, v1, bn[0], bn[1])
-    y2 = r(_relu_fold(y1, s1, t1)) @ r(w2) + b2
+    h1 = r(_relu_fold(y1, s1, t1))
+    y2 = h1 @ r(w2) + b2
     m2, v2 = _stats(y2)
     s2, t2, _ = _fold(m2, v2, bn[2], bn[3])
-    y3 = r(_relu_fold(y2, s2, t2)) @ r(w3) + b3
+    h2 = r(_relu_fold(y2, s2, t2))
+    y3 = h2 @ r(w3) + b3
     m3, v3 = _stats(y3)
     s3, t3, _ = _fold(m3, v3, bn[4], bn[5])
     out = _relu_fold(y3, s3, t3).amax(dim=2)
-    return out, (m1, v1, m2, v2, m3, v3), (y2, y3)
+    grids = (h1.to(BF16), h2.to(BF16)) if bf16 else (y2, y3)
+    return out, (m1, v1, m2, v2, m3, v3), grids
 
 
 def _bn_bwd(dz, yh, s, M: float, r):
@@ -138,21 +145,33 @@ def _bn_bwd(dz, yh, s, M: float, r):
     return s * (r(dz) - dbeta / M - yh * (dgamma / M)), dgamma, dbeta
 
 
-def sa_train_bwd_plain(g_out, a, ct, idx, grids, stats: Stats, w2, w3,
-                       bn: Sequence[torch.Tensor], bf16: bool = False):
-    """The plain backward from the forward's inputs a, ct, idx, its grids
-    (y2, y3) and statistics, and the cotangent g_out (B, S, C3) -> (da (B, N,
-    C1), dct (B, S, C1), dw2, dw3, (dg1, dbt1, dg2, dbt2, dg3, dbt3)).
-    `bf16`: the bf16 mode (the module docstring), `a` as the forward took it."""
+def sa_train_bwd_plain(g_out, a, ct, idx, grids, stats: Stats, w2, b2, w3, b3,
+                       bn: Sequence[torch.Tensor], bf16: bool = False,
+                       y3: Optional[torch.Tensor] = None):
+    """The plain backward from the forward's inputs a, ct, idx, its grids and
+    statistics, and the cotangent g_out (B, S, C3) -> (da (B, N, C1), dct (B,
+    S, C1), dw2, dw3, (dg1, dbt1, dg2, dbt2, dg3, dbt3)). The grids are the
+    forward's: (y2, y3) in f32; in bf16 (h1, h2), or the kernel forward's (h1,
+    h2, mxt), from which y2 and y3 are computed again (b2, b3 are read only
+    then). `y3` (bf16): the y3 of the kernel's max pass (`sa_train_fwd_kernel`'s
+    `y3_out`), taken in place of h2 W3 + b3, so that the maxima and their ties
+    are the kernel's. `bf16`: the bf16 mode (the module docstring), `a` as the
+    forward took it."""
     r = _rounder(bf16)
-    grids = (_y1(a, ct, idx), *grids)
-    B, S, K, C1 = grids[0].shape
+    y1 = _y1(a, ct, idx)
+    B, S, K, C1 = y1.shape
     n_points = a.shape[1]
     M = float(B * S * K)
     folds = [_fold(stats[2 * i], stats[2 * i + 1], bn[2 * i], bn[2 * i + 1]) for i in range(3)]
-    h1, h2, h3 = (_relu_fold(y, s, t) for y, (s, t, _) in zip(grids, folds))
-    h1, h2 = r(h1), r(h2)  # the activations the products take
-    yh1, yh2, yh3 = ((y - stats[2 * i]) * folds[i][2] for i, y in enumerate(grids))
+    if bf16:
+        h1, h2 = (h[..., :c].to(a.dtype) for h, c in zip(grids[:2], (C1, w2.shape[1])))
+        y2 = h1 @ r(w2) + b2
+        y3 = h2 @ r(w3) + b3 if y3 is None else y3
+    else:
+        y2, y3 = grids[:2]
+        h1, h2 = (_relu_fold(y, s, t) for y, (s, t, _) in zip((y1, y2), folds))
+    h3 = _relu_fold(y3, *folds[2][:2])
+    yh1, yh2, yh3 = ((y - stats[2 * i]) * folds[i][2] for i, y in enumerate((y1, y2, y3)))
 
     # B1: the max gradient, split over tied maxima, times relu'
     mask = (h3 == h3.amax(dim=2, keepdim=True)).to(h3.dtype)
@@ -173,10 +192,10 @@ def sa_train_bwd_plain(g_out, a, ct, idx, grids, stats: Stats, w2, w3,
             (dg1, dbt1, dg2, dbt2, dg3, dbt3))
 
 
-def _library():
+def _library(bf16: bool):
     from open3dsot_tpu_torch.ops._build import load_library
 
-    return load_library("sa_fused_train").lib
+    return load_library("sa_fused_train_bf16" if bf16 else "sa_fused_train").lib
 
 
 def _dims(idx, n_points, c1, c2, c3):
@@ -185,34 +204,66 @@ def _dims(idx, n_points, c1, c2, c3):
 
 
 def _workspace(dims, backward: bool, bf16: bool, device) -> torch.Tensor:
-    nbytes = _library().sa_train_workspace(*dims, int(backward), int(bf16))
-    raise_on(min(nbytes, 0), "K6 sa_train_workspace", _ERRORS)
+    lib = _library(bf16)
+    query = lib.sa_train_bf16_workspace if bf16 else lib.sa_train_workspace
+    nbytes = query(*dims, int(backward))
+    raise_on(min(nbytes, 0), "K6 workspace", _ERRORS)
     return torch.empty(nbytes, dtype=torch.uint8, device=device)
 
 
+def _round8(n: int) -> int:
+    return (n + 7) // 8 * 8
+
+
+def bf16_rows(w: torch.Tensor) -> torch.Tensor:
+    """w (n, k) as the bf16 mode's kernels read a weight: bf16, n rows of k
+    inputs, the rows padded with zeros to a multiple of 8 (16 bytes, as TMA
+    takes a row stride)."""
+    n, k = w.shape
+    out = torch.zeros(n, _round8(k), dtype=BF16, device=w.device)
+    out[:, :k] = w
+    return out
+
+
 class Packs:
-    """W2, W3 (the forward's) and W2^T, W3^T (the backward's), packed for the
-    tensor cores in one mode's form; the mode of the kernel calls that take
-    them."""
+    """W2, W3 (the forward's) and W2^T, W3^T (the backward's) in the form
+    one mode's kernels read them; the mode of the kernel calls that take
+    them. 3xTF32: chunks split hi/lo (`pack_chunks`). bf16: each product's
+    B operand K-major (`bf16_rows`): the forward's W2, W3 as the rows of
+    W2^T, W3^T, the backward's W2^T, W3^T as the rows of W2, W3."""
 
     def __init__(self, w2: torch.Tensor, w3: torch.Tensor, bf16: bool):
-        pack = pack_chunks_bf16 if bf16 else pack_chunks
         with torch.no_grad():
             w2, w3 = w2.detach().float(), w3.detach().float()
-            self.w2, self.w3, self.w2t, self.w3t = (pack(w) for w in (w2, w3, w2.t(), w3.t()))
+            if bf16:
+                self.w2, self.w3, self.w2t, self.w3t = (bf16_rows(w) for w in (w2.t(), w3.t(), w2, w3))
+            else:
+                self.w2, self.w3, self.w2t, self.w3t = (pack_chunks(w) for w in (w2, w3, w2.t(), w3.t()))
         self.bf16 = bf16
 
     def check(self, *weights: Tuple[str, torch.Tensor, int, int]) -> None:
-        """Each packed weight's size against the C side's rule."""
+        """Each packed weight (k_in inputs, n_out outputs) against the form
+        the kernels read."""
         for name, p, k_in, n_out in weights:
-            n = _library().sa_train_packed_floats(k_in, n_out, int(self.bf16))
+            if self.bf16:
+                if p.dtype != BF16 or tuple(p.shape) != (n_out, _round8(k_in)):
+                    raise RuntimeError(f"K6: {name} held as {p.dtype} {tuple(p.shape)}, the bf16 "
+                                       f"kernels read bf16 ({n_out}, {_round8(k_in)})")
+                continue
+            n = _library(False).sa_train_packed_floats(k_in, n_out)
             if p.numel() != n:
                 raise RuntimeError(f"K6: {name} packed to {p.numel()} floats, the kernel reads {n}")
 
 
-def sa_train_fwd_kernel(a, ct, idx, w2, b2, w3, b3, bn: Sequence[torch.Tensor], packs: Packs):
+def sa_train_fwd_kernel(a, ct, idx, w2, b2, w3, b3, bn: Sequence[torch.Tensor], packs: Packs,
+                        y3_out: Optional[torch.Tensor] = None):
     """K6 forward on the card: the same function as `sa_train_fwd_plain` in
-    the mode of `packs` (W2, W3 packed)."""
+    the mode of `packs` (`a` taken unrounded in the bf16 mode: the kernel
+    rounds it). Its grids: (y2, y3) f32 in the f32 mode; (h1, h2, mxt) in
+    bf16, h1 and h2 with their channels padded to a multiple of 8, out a
+    view of mxt[0]. `y3_out` (bf16 mode; (B, S, K, C3) f32): where the max
+    pass writes the y3 it took the maxima on, for a check that holds the
+    plain backward (its `y3`) to the kernel's maxima and ties."""
     B, N, C1 = a.shape
     S, K = idx.shape[1], idx.shape[2]
     C2, C3 = w2.shape[1], w3.shape[1]
@@ -227,46 +278,70 @@ def sa_train_fwd_kernel(a, ct, idx, w2, b2, w3, b3, bn: Sequence[torch.Tensor], 
     check("bn", bn_flat, dev, (2 * (C1 + C2 + C3),))
     dims = _dims(idx, N, C1, C2, C3)
     bf16 = packs.bf16
+    if y3_out is not None:
+        if not bf16:
+            raise ValueError("y3_out is the bf16 mode's (the f32 mode keeps y3 among its grids)")
+        check("y3_out", y3_out, dev, (B, S, K, C3))
     packs.check(("W2", packs.w2, C1, C2), ("W3", packs.w3, C2, C3))
-    grids = tuple(torch.empty(B, S, K, c, device=dev) for c in (C2, C3))
-    out = torch.empty(B, S, C3, device=dev)
     stats = torch.empty(2 * (C1 + C2 + C3), device=dev)
     ws = _workspace(dims, False, bf16, dev)
-    rc = _library().sa_train_fwd(
-        a.data_ptr(), ct.data_ptr(), idx.data_ptr(), packs.w2.data_ptr(), packs.w2.numel(),
-        b2.data_ptr(), packs.w3.data_ptr(), packs.w3.numel(), b3.data_ptr(), bn_flat.data_ptr(),
-        grids[0].data_ptr(), grids[1].data_ptr(), out.data_ptr(), stats.data_ptr(),
-        ws.data_ptr(), *dims, int(bf16), stream_of(a))
-    raise_on(rc, "K6 sa_train_fwd", _ERRORS)
+    if bf16:
+        h1, h2 = (torch.empty(B, S, K, _round8(c), dtype=BF16, device=dev) for c in (C1, C2))
+        mxt = torch.empty(3, B, S, C3, device=dev)
+        rc = _library(True).sa_train_bf16_fwd(
+            a.data_ptr(), ct.data_ptr(), idx.data_ptr(), packs.w2.data_ptr(), b2.data_ptr(),
+            packs.w3.data_ptr(), b3.data_ptr(), bn_flat.data_ptr(), h1.data_ptr(), h2.data_ptr(),
+            mxt.data_ptr(), None if y3_out is None else y3_out.data_ptr(), stats.data_ptr(),
+            ws.data_ptr(), *dims, stream_of(a))
+        raise_on(rc, "K6 sa_train_bf16_fwd", _ERRORS)
+        out, grids = mxt[0], (h1, h2, mxt)
+    else:
+        grids = tuple(torch.empty(B, S, K, c, device=dev) for c in (C2, C3))
+        out = torch.empty(B, S, C3, device=dev)
+        rc = _library(False).sa_train_fwd(
+            a.data_ptr(), ct.data_ptr(), idx.data_ptr(), packs.w2.data_ptr(), packs.w2.numel(),
+            b2.data_ptr(), packs.w3.data_ptr(), packs.w3.numel(), b3.data_ptr(), bn_flat.data_ptr(),
+            grids[0].data_ptr(), grids[1].data_ptr(), out.data_ptr(), stats.data_ptr(),
+            ws.data_ptr(), *dims, stream_of(a))
+        raise_on(rc, "K6 sa_train_fwd", _ERRORS)
     fused_sa_train_apply.fwd_launches += 1
     fused_sa_train_apply.bf16_fwd_launches += int(bf16)
     return out, tuple(torch.split(stats, [C1, C1, C2, C2, C3, C3])), grids
 
 
-def sa_train_bwd_kernel(g_out, a, ct, idx, grids, stats: Stats, w2, w3,
+def sa_train_bwd_kernel(g_out, a, ct, idx, grids, stats: Stats, w2, b2, w3, b3,
                         bn: Sequence[torch.Tensor], packs: Packs):
     """K6 backward on the card: the same function as `sa_train_bwd_plain` in
-    the mode of `packs` (W2^T, W3^T packed)."""
-    y2, y3 = grids
+    the mode of `packs`, from the grids of `sa_train_fwd_kernel` in that mode."""
     B, N, C1 = a.shape
     S, K = idx.shape[1], idx.shape[2]
-    C2, C3 = y2.shape[3], y3.shape[3]
+    C2, C3 = w2.shape[1], w3.shape[1]
     dev = a.device
+    bf16 = packs.bf16
     check("g_out", g_out, dev, (B, S, C3))
     check("a", a, dev, (B, N, C1))
     check("ct", ct, dev, (B, S, C1))
     check("idx", idx, dev, (B, S, K), dtype=torch.int32)
-    for name, t, c in (("y2", y2, C2), ("y3", y3, C3)):
-        check(name, t, dev, (B, S, K, c))
-    if tuple(w2.shape) != (C1, C2) or tuple(w3.shape) != (C2, C3):
-        raise ValueError(f"w2, w3 must be ({C1}, {C2}), ({C2}, {C3}), got "
-                         f"{tuple(w2.shape)}, {tuple(w3.shape)}")
+    if bf16:
+        if len(grids) != 3:
+            raise ValueError("K6's bf16 backward takes its kernel forward's grids (h1, h2, mxt)")
+        h1, h2, mxt = grids[:3]
+        for name, t, c in (("h1", h1, C1), ("h2", h2, C2)):
+            check(name, t, dev, (B, S, K, _round8(c)), dtype=BF16)
+        check("mxt", mxt, dev, (3, B, S, C3))
+    else:
+        y2, y3 = grids
+        for name, t, c in (("y2", y2, C2), ("y3", y3, C3)):
+            check(name, t, dev, (B, S, K, c))
+    for name, t, shape in (("w2", w2, (C1, C2)), ("b2", b2, (C2,)), ("w3", w3, (C2, C3)),
+                           ("b3", b3, (C3,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
     stats_flat = torch.cat([s.reshape(-1) for s in stats])
     bn_flat = torch.cat([p.reshape(-1) for p in bn])
     check("stats", stats_flat, dev, (2 * (C1 + C2 + C3),))
     check("bn", bn_flat, dev, (2 * (C1 + C2 + C3),))
     dims = _dims(idx, N, C1, C2, C3)
-    bf16 = packs.bf16
     packs.check(("W2^T", packs.w2t, C2, C1), ("W3^T", packs.w3t, C3, C2))
     da = torch.empty(B, N, C1, device=dev)
     dct = torch.empty(B, S, C1, device=dev)
@@ -274,13 +349,25 @@ def sa_train_bwd_kernel(g_out, a, ct, idx, grids, stats: Stats, w2, w3,
     dw3 = torch.empty(C2, C3, device=dev)
     dbn = torch.empty(2 * (C1 + C2 + C3), device=dev)
     ws = _workspace(dims, True, bf16, dev)
-    rc = _library().sa_train_bwd(
-        g_out.data_ptr(), a.data_ptr(), ct.data_ptr(), idx.data_ptr(), y2.data_ptr(),
-        y3.data_ptr(), stats_flat.data_ptr(), packs.w2t.data_ptr(), packs.w2t.numel(),
-        packs.w3t.data_ptr(), packs.w3t.numel(), bn_flat.data_ptr(), da.data_ptr(),
-        dct.data_ptr(), dw2.data_ptr(), dw3.data_ptr(), dbn.data_ptr(), ws.data_ptr(), *dims,
-        int(bf16), stream_of(g_out))
-    raise_on(rc, "K6 sa_train_bwd", _ERRORS)
+    if bf16:
+        b2, b3 = b2.detach().float().contiguous(), b3.detach().float().contiguous()
+        check("b2", b2, dev, (C2,))
+        check("b3", b3, dev, (C3,))
+        rc = _library(True).sa_train_bf16_bwd(
+            g_out.data_ptr(), a.data_ptr(), ct.data_ptr(), idx.data_ptr(), h1.data_ptr(),
+            h2.data_ptr(), mxt.data_ptr(), stats_flat.data_ptr(), packs.w2.data_ptr(),
+            packs.w3.data_ptr(), packs.w2t.data_ptr(), packs.w3t.data_ptr(), b2.data_ptr(),
+            b3.data_ptr(), bn_flat.data_ptr(), da.data_ptr(), dct.data_ptr(), dw2.data_ptr(),
+            dw3.data_ptr(), dbn.data_ptr(), ws.data_ptr(), *dims, stream_of(g_out))
+        raise_on(rc, "K6 sa_train_bf16_bwd", _ERRORS)
+    else:
+        rc = _library(False).sa_train_bwd(
+            g_out.data_ptr(), a.data_ptr(), ct.data_ptr(), idx.data_ptr(), y2.data_ptr(),
+            y3.data_ptr(), stats_flat.data_ptr(), packs.w2t.data_ptr(), packs.w2t.numel(),
+            packs.w3t.data_ptr(), packs.w3t.numel(), bn_flat.data_ptr(), da.data_ptr(),
+            dct.data_ptr(), dw2.data_ptr(), dw3.data_ptr(), dbn.data_ptr(), ws.data_ptr(), *dims,
+            stream_of(g_out))
+        raise_on(rc, "K6 sa_train_bwd", _ERRORS)
     fused_sa_train_apply.bwd_launches += 1
     fused_sa_train_apply.bf16_bwd_launches += int(bf16)
     return da, dct, dw2, dw3, tuple(torch.split(dbn, [C1, C1, C2, C2, C3, C3]))
@@ -289,36 +376,36 @@ def sa_train_bwd_kernel(g_out, a, ct, idx, grids, stats: Stats, w2, w3,
 class _SATrainFunction(torch.autograd.Function):
     """(a, ct, w2, b2, w3, b3, g1, bt1, g2, bt2, g3, bt3, idx, bf16, packs) ->
     (out, *stats); the stats carry no gradient. In the bf16 mode `a` is
-    rounded to bf16 here, and its gradient passes the rounding unchanged, as
-    JAX's custom VJP passes it."""
+    rounded to bf16 (on the plain path here, by the kernel on the card), and
+    its gradient passes the rounding unchanged, as JAX's custom VJP passes it."""
 
     @staticmethod
     def forward(ctx, a, ct, w2, b2, w3, b3, g1, bt1, g2, bt2, g3, bt3, idx, bf16, packs):
         bn = (g1, bt1, g2, bt2, g3, bt3)
-        if bf16:
-            a = a.to(BF16).to(a.dtype)
         if on_cuda(a):
             if packs is None or packs.bf16 != bf16:
                 raise ValueError("K6 on the card takes the layer's packed weights of its mode")
             out, stats, grids = sa_train_fwd_kernel(a, ct, idx, w2.contiguous(), b2,
                                                     w3.contiguous(), b3, bn, packs)
         else:
+            if bf16:
+                a = a.to(BF16).to(a.dtype)
             out, stats, grids = sa_train_fwd_plain(a, ct, idx, w2, b2, w3, b3, bn, bf16)
-        ctx.save_for_backward(a, ct, idx, w2, w3, *bn)
+        ctx.save_for_backward(a, ct, idx, w2, b2, w3, b3, *bn)
         ctx.grids, ctx.stats, ctx.bf16, ctx.packs = grids, stats, bf16, packs
         ctx.mark_non_differentiable(*stats)
         return (out, *stats)
 
     @staticmethod
     def backward(ctx, g_out, *_):
-        a, ct, idx, w2, w3, *bn = ctx.saved_tensors
+        a, ct, idx, w2, b2, w3, b3, *bn = ctx.saved_tensors
         g_out = g_out.contiguous()
         if on_cuda(g_out):
             da, dct, dw2, dw3, dbn = sa_train_bwd_kernel(g_out, a, ct, idx, ctx.grids, ctx.stats,
-                                                         w2, w3, bn, ctx.packs)
+                                                         w2, b2, w3, b3, bn, ctx.packs)
         else:
             da, dct, dw2, dw3, dbn = sa_train_bwd_plain(g_out, a, ct, idx, ctx.grids, ctx.stats,
-                                                        w2, w3, bn, ctx.bf16)
+                                                        w2, b2, w3, b3, bn, ctx.bf16)
         # the Dense biases feeding a BatchNorm: exactly 0
         db2, db3 = w2.new_zeros(w2.shape[1]), w3.new_zeros(w3.shape[1])
         return (da, dct, dw2, db2, dw3, db3, *dbn, None, None, None)

@@ -281,7 +281,7 @@ def test_3xtf32_emulation_of_k6_within_bound_of_float64():
     out64, stats64, grids64 = sa_fused_train.sa_train_fwd_plain(
         d(a), d(ct), idx, d(w2), d(b2), d(w3), d(b3), [d(p) for p in bn])
     da, dct, dw2, dw3, dbn = sa_fused_train.sa_train_bwd_plain(
-        d(g), d(a), d(ct), idx, grids64, stats64, d(w2), d(w3), [d(p) for p in bn])
+        d(g), d(a), d(ct), idx, grids64, stats64, d(w2), d(b2), d(w3), d(b3), [d(p) for p in bn])
     want = {"out": out64, "stats": torch.cat(stats64), "da": da, "dct": dct, "dW2": dw2,
             "dW3": dw3, "dgamma,dbeta": torch.cat(dbn)}
 

@@ -16,6 +16,10 @@ boundary (one step, 2^-8 of it). Tolerances:
   dgamma, dbeta): `tests/_torch_port.py::assert_close_bf16`, 2^-8 of
   max|jax| at any element and 2^-15 on average. The control: the port's f32
   mode on the same inputs must fail that check (`assert_f32_fails_bf16`).
+- the grids the plain bf16 forward keeps (h1, h2, bf16, as JAX's bf16
+  kernel stores them) against JAX's `_pallas_fwd` grids: assert_close_bf16
+  (h1 has no product: only the statistics' sum order can move a value one
+  bf16 step; h2 takes y2's too), the unrounded activations outside;
 - SetAbstraction(fused_train=True) in bf16 against flax's unfused bf16 SA:
   JAX's own bounds for its bf16 kernel against that path
   (tests/test_sa_fused_train.py::test_pallas_bf16_close_to_unfused_bf16):
@@ -63,15 +67,16 @@ BF = torch.bfloat16
 GRAD_MAX_REL, GRAD_MEAN_REL = 2.0 ** -8, 2.0 ** -11
 
 
-def _core_inputs(seed):
+def _core_inputs(seed, k=K, widths=MLP_W):
     """a, ct, idx, the layer weights and a bf16 cotangent, from the A-form of
-    tests/test_sa_fused_train.py::_setup's MLP."""
+    tests/test_sa_fused_train.py::_setup's MLP (at K = k neighbours and MLP
+    widths `widths`)."""
     rng = np.random.default_rng(seed)
     xyz = rng.standard_normal((B, N, 3)).astype(np.float32)
     feats = rng.standard_normal((B, N, C)).astype(np.float32)
     new_xyz = xyz[:, :S]
-    idx = np.asarray(j_ball_query(0.8 if seed % 2 == 0 else 0.3, K, xyz, new_xyz))
-    v = JMLP(list(MLP_W)).init(jax.random.PRNGKey(1), jnp.zeros((B, S, K, 3 + C)), train=True)
+    idx = np.asarray(j_ball_query(0.8 if seed % 2 == 0 else 0.3, k, xyz, new_xyz))
+    v = JMLP(list(widths)).init(jax.random.PRNGKey(1), jnp.zeros((B, S, k, 3 + C)), train=True)
     p = jax.tree_util.tree_map(
         lambda x: np.asarray(x) + rng.standard_normal(x.shape).astype(np.float32) * 0.3,
         v["params"])
@@ -81,7 +86,7 @@ def _core_inputs(seed):
     ct = np.asarray(layer[0]["dense"]["bias"]) - new_xyz @ w1[:3]
     w = [np.asarray(layer[i]["dense"][k], np.float32) for i in (1, 2) for k in ("kernel", "bias")]
     bn = [np.asarray(layer[i]["bn"][k], np.float32) for i in range(3) for k in ("scale", "bias")]
-    g = rng.standard_normal((B, S, MLP_W[-1])).astype(np.float32)
+    g = rng.standard_normal((B, S, widths[-1])).astype(np.float32)
     g = np.asarray(jnp.asarray(g, jnp.bfloat16).astype(jnp.float32))  # a bf16 output's cotangent
     return a.astype(np.float32), ct.astype(np.float32), idx, w, bn, g
 
@@ -89,8 +94,8 @@ def _core_inputs(seed):
 def _jax_core(a, ct, idx, w, bn, g):
     """JAX's bf16 Pallas K6 (interpret mode, bf16 row gather): out, stats and
     the VJP in (a, ct, w2, w3, g1, bt1, g2, bt2, g3, bt3)."""
-    cfg = jft._SACfg(B=B, N=N, S=S, K=K, C1=MLP_W[0], C2=MLP_W[1], C3=MLP_W[2],
-                     cdt="bfloat16", interpret=True, impl="pallas", i8g=True)
+    cfg = jft._SACfg(B=B, N=N, S=S, K=idx.shape[2], C1=w[0].shape[0], C2=w[0].shape[1],
+                     C3=w[2].shape[1], cdt="bfloat16", interpret=True, impl="pallas", i8g=True)
 
     def f(a, ct, w2, w3, *bn_):
         return jft._core(cfg, a, ct, w2, w[1], w3, w[3], *bn_, idx)
@@ -110,18 +115,14 @@ def _port(a, ct, idx, w, bn, g, bf16):
     out, stats, grids = sa_fused_train.sa_train_fwd_plain(ta, t(ct), ti, tw[0], tw[1], tw[2],
                                                           tw[3], tbn, bf16)
     da, dct, dw2, dw3, dbn = sa_fused_train.sa_train_bwd_plain(t(g), ta, t(ct), ti, grids, stats,
-                                                               tw[0], tw[2], tbn, bf16)
+                                                               *tw, tbn, bf16)
     return out, list(stats), [da, dct, dw2, dw3, *dbn]
 
 
 GRAD_NAMES = ("da", "dct", "dW2", "dW3", "dg1", "dbt1", "dg2", "dbt2", "dg3", "dbt3")
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_plain_bf16_matches_jax_pallas_bf16(seed):
-    """Seed 1 takes radius 0.3: most balls hold fewer than K points, so the
-    pad-with-first indices repeat and the max over K has exact ties."""
-    args = _core_inputs(seed)
+def _check_plain_bf16_against_jax(args):
     want_out, want_stats, want_grads = _jax_core(*args)
     out, stats, grads = _port(*args, bf16=True)
     out32, stats32, grads32 = _port(*args, bf16=False)
@@ -137,6 +138,136 @@ def test_plain_bf16_matches_jax_pallas_bf16(seed):
     # the control on the products' gradients: an f32 backward is outside
     for i in (0, 2, 3):
         assert_f32_fails_bf16(grads32[i], want_grads[i])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_bf16_matches_jax_pallas_bf16(seed):
+    """Seed 1 takes radius 0.3: most balls hold fewer than K points, so the
+    pad-with-first indices repeat and the max over K has exact ties."""
+    _check_plain_bf16_against_jax(_core_inputs(seed))
+
+
+@pytest.mark.parametrize("k", [6, 12])
+def test_plain_bf16_matches_jax_pallas_bf16_at_other_k_and_widths(k):
+    """The same at a K that is not a power of two (the kernel's max then
+    comes from scan_kernel, not from within a 64-row tile) and at widths
+    that are multiples of 4 but not of 8 (the kernel pads the grids' rows);
+    radius 0.3 (seed 1), so the max has exact ties."""
+    _check_plain_bf16_against_jax(_core_inputs(1, k=k, widths=(12, 20, 28)))
+
+
+def test_plain_bf16_backward_takes_the_kernels_y3():
+    """`sa_train_bwd_plain(y3=)` routes the max gradient by the y3 it is
+    given: the y3 of h2 W3 + b3 gives the backward without it bit for bit;
+    a y3 whose maxima moved routes dz3 to the new maxima."""
+    a, ct, idx, w, bn, g = _core_inputs(1)
+    ta, ti = t(a).to(BF).float(), torch.from_numpy(idx.astype(np.int32))
+    tw, tbn = [t(x) for x in w], [t(x) for x in bn]
+    _, stats, grids = sa_fused_train.sa_train_fwd_plain(ta, t(ct), ti, *tw, tbn, True)
+    want = sa_fused_train.sa_train_bwd_plain(t(g), ta, t(ct), ti, grids, stats, *tw, tbn, True)
+    y3 = grids[1].float() @ tw[2].to(BF).float() + tw[3]
+    got = sa_fused_train.sa_train_bwd_plain(t(g), ta, t(ct), ti, grids, stats, *tw, tbn, True,
+                                            y3=y3)
+    for x, y in zip(got[:4] + tuple(got[4]), want[:4] + tuple(want[4])):
+        assert torch.equal(x, y)
+    moved = y3.clone()
+    moved[:, :, 0] += 100.0 * y3.abs().max()  # neighbour 0 is every centroid's only maximum
+    got = sa_fused_train.sa_train_bwd_plain(t(g), ta, t(ct), ti, grids, stats, *tw, tbn, True,
+                                            y3=moved)
+    assert not torch.equal(got[3], want[3])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_bf16_grids_match_jax_pallas_grids(seed):
+    """The grids the plain bf16 forward keeps for its backward, h1 and h2 in
+    bf16, against the h1, h2 that JAX's bf16 Pallas forward stores; the
+    activations before their rounding to bf16 are the control."""
+    a, ct, idx, w, bn, _ = _core_inputs(seed)
+    cfg = jft._SACfg(B=B, N=N, S=S, K=K, C1=MLP_W[0], C2=MLP_W[1], C3=MLP_W[2],
+                     cdt="bfloat16", interpret=True, impl="pallas", i8g=True)
+    _, _, (_, j_h1, j_h2) = jft._pallas_fwd(cfg, a, ct, w[0], w[1], w[2], w[3], *bn,
+                                            jnp.asarray(idx, jnp.int32))
+    want = [np.asarray(h.astype(jnp.float32)).reshape(B, S, K, -1) for h in (j_h1, j_h2)]
+    ta, ti = t(a).to(BF).float(), torch.from_numpy(idx.astype(np.int32))
+    tw, tbn = [t(x) for x in w], [t(x) for x in bn]
+    _, stats, grids = sa_fused_train.sa_train_fwd_plain(ta, t(ct), ti, *tw, tbn, True)
+    assert all(h.dtype == BF for h in grids)
+    s1, t1, _ = sa_fused_train._fold(stats[0], stats[1], tbn[0], tbn[1])
+    s2, t2, _ = sa_fused_train._fold(stats[2], stats[3], tbn[2], tbn[3])
+    h1_f32 = sa_fused_train._relu_fold(sa_fused_train._y1(ta, t(ct), ti), s1, t1)
+    h2_f32 = sa_fused_train._relu_fold(grids[0].float() @ tw[0].to(BF).float() + tw[1], s2, t2)
+    for got, f32, jax_grid in zip(grids, (h1_f32, h2_f32), want):
+        assert_close_bf16(got.float(), jax_grid)
+        assert_f32_fails_bf16(f32, jax_grid)
+
+
+@pytest.mark.parametrize("widths", [(16, 16, 24), (12, 20, 28)])
+def test_bf16_packs_are_the_kernels_operands(widths):
+    """The bf16 mode's packs: each product's B operand K-major in bf16 (the
+    forward's W2, W3 as the rows of W2^T, W3^T; the backward's W2^T, W3^T as
+    the rows of W2, W3), rows zero-padded to a multiple of 8 inputs;
+    `Packs.check` refuses another form."""
+    c1, c2, c3 = widths
+    rng = np.random.default_rng(c1)
+    w2, w3 = t(rng.standard_normal((c1, c2))), t(rng.standard_normal((c2, c3)))
+    packs = sa_fused_train.Packs(w2, w3, True)
+    for got, want in ((packs.w2, w2.t()), (packs.w3, w3.t()), (packs.w2t, w2), (packs.w3t, w3)):
+        n, k = want.shape
+        assert got.dtype == BF and tuple(got.shape) == (n, -(-k // 8) * 8)
+        assert torch.equal(got[:, :k], want.to(BF)) and not got[:, k:].any()
+    packs.check(("W2", packs.w2, c1, c2), ("W3^T", packs.w3t, c3, c2))
+    with pytest.raises(RuntimeError, match="bf16"):
+        packs.check(("W2", packs.w2.float(), c1, c2))
+    with pytest.raises(RuntimeError, match="bf16"):
+        packs.check(("W3", packs.w2, c2, c3))
+
+
+def _bf16_call(c1=12):
+    """A bf16 K6 call at widths (c1, 16, 24) and its plain forward, CPU tensors."""
+    rng = np.random.default_rng(7)
+    f = lambda *sh: t(rng.standard_normal(sh))  # noqa: E731
+    a, ct = f(B, N, c1), f(B, S, c1)
+    idx = torch.from_numpy(rng.integers(0, N, (B, S, K)).astype(np.int32))
+    w2, b2, w3, b3 = f(c1, 16), f(16), f(16, 24), f(24)
+    bn = [f(c) for c in (c1, 16, 24) for _ in range(2)]
+    out, stats, grids = sa_fused_train.sa_train_fwd_plain(a.to(BF).float(), ct, idx, w2, b2, w3,
+                                                          b3, bn, True)
+    return a, ct, idx, (w2, b2, w3, b3, bn), stats, grids, out
+
+
+@pytest.mark.parametrize("case", ["plain grids", "unpadded h1", "mxt shape", "f32 packs",
+                                  "four grids", "y3_out shape", "y3_out in f32"])
+def test_bf16_kernel_wrappers_refuse_before_launching(case):
+    """The bf16 kernels' wrappers check the grids their forward keeps (h1, h2
+    padded to a multiple of 8 channels, mxt (3, B, S, C3): three, no y3
+    among them), the packs' mode and the forward's y3_out ((B, S, K, C3)
+    f32, the bf16 mode's only) before they reach the library, and count no
+    launch then."""
+    a, ct, idx, (w2, b2, w3, b3, bn), stats, grids, out = _bf16_call()
+    h1, h2 = grids
+    pad = lambda h: torch.nn.functional.pad(h, (0, (-h.shape[-1]) % 8))  # noqa: E731
+    mxt = torch.stack([out, out, out])
+    y3 = torch.zeros(B, S, K, 24)
+    kernel_grids = {"plain grids": grids, "unpadded h1": (h1, pad(h2), mxt),
+                    "mxt shape": (pad(h1), pad(h2), mxt[:2]),
+                    "four grids": (pad(h1), pad(h2), mxt, y3)}.get(case)
+    packs = sa_fused_train.Packs(w2, w3, case not in ("f32 packs", "y3_out in f32"))
+    g = torch.ones_like(out)
+    sa_fused_train.reset_launch_counts()
+    with pytest.raises((ValueError, TypeError, RuntimeError)) as err:
+        if case == "f32 packs":
+            packs.bf16 = True  # a 3xTF32 pack taken as the bf16 mode's
+            sa_fused_train.sa_train_fwd_kernel(a, ct, idx, w2, b2, w3, b3, bn, packs)
+        elif case.startswith("y3_out"):
+            sa_fused_train.sa_train_fwd_kernel(a, ct, idx, w2, b2, w3, b3, bn, packs,
+                                               y3_out=y3[..., :-4] if "shape" in case else y3)
+        else:
+            sa_fused_train.sa_train_bwd_kernel(g, a, ct, idx, kernel_grids, stats, w2, b2, w3, b3,
+                                               bn, packs)
+    assert "nvcc" not in str(err.value)
+    counts = sa_fused_train.fused_sa_train_apply
+    assert (counts.fwd_launches, counts.bwd_launches, counts.bf16_fwd_launches,
+            counts.bf16_bwd_launches) == (0, 0, 0, 0)
 
 
 def test_fused_sa_train_apply_bf16_takes_the_layers_mode():
@@ -247,7 +378,9 @@ def test_packs_are_cached_per_weights_and_mode():
     assert sa.train_packs() is first
     set_compute_dtype(sa, torch.bfloat16)
     bf = sa.train_packs()
-    assert bf is not first and bf.bf16 and bf.w2.numel() * 4 == first.w2.numel()  # no lo part, 2 bytes
+    # the bf16 kernels' form: W2^T's rows in bf16, as their products read the weight
+    assert bf is not first and bf.bf16 and bf.w2.dtype == BF
+    assert torch.equal(bf.w2, mlp.layer1.dense.weight.detach().to(BF))
     with torch.no_grad():
         mlp.layer1.dense.weight.add_(1.0)
     assert sa.train_packs() is not bf
