@@ -11,6 +11,7 @@
     python3 chip_smoke.py --online-times  # phases 1, 2 and 17 only (online trackers), no result
     python3 chip_smoke.py --eager-rates   # phases 1, 2 and the eager paths' frames/s, no result
     python3 chip_smoke.py --bf16-times    # phases 1, 2 and 18 only (the bf16 mode), no result
+    python3 chip_smoke.py --bf16-breakdown  # phases 1, 2, the bf16 K1/K2/K4 breakdown, no result
     python3 chip_smoke.py --k6-bf16-times # phases 1, 2 and 19 only (K6 in bf16), no result
     python3 chip_smoke.py --train-times   # phases 1, 2 and 19-21 (bf16 and M2 training), no result
 
@@ -536,7 +537,6 @@ def check_chains(model, card: str, lib, strict: bool = True) -> dict:
         calls = [r for (name, b), r in rows.items() if b == B]
         tot = {k: None if any(r[k] is None for r in calls) else sum(r[k] for r in calls)
                for k in ("ms", "plain_ms", "dev_ms", "plain_dev_ms", "library_ms")}
-        BF16_F32_ROWS[("chains", B)] = tot["ms"]
         b32 = sum(bound_of(*r["work"])[0] for r in calls)
         btc = sum(tc_bound_of(*r["work"])[0] for r in calls)
         print(f"  one M2 forward's four K1/K2 calls, B={B} N={n}: kernel ev {tot['ms']:.4f} ms dev "
@@ -611,6 +611,7 @@ def main(argv=None) -> None:
     scan_only, match_only = "--scan-times" in args, "--match-scan-times" in args
     online_only, rates_only = "--online-times" in args, "--eager-rates" in args
     bf16_only = "--bf16-times" in args
+    breakdown_only = "--bf16-breakdown" in args
     k6_bf16_only = "--k6-bf16-times" in args
     train_only = "--train-times" in args
     # --- 1. environment ---------------------------------------------------
@@ -624,21 +625,22 @@ def main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, str(ROOT))
     from open3dsot_tpu_torch.ops import chain_fused as cf
-    from open3dsot_tpu_torch.ops._build import load_libraries
+    from open3dsot_tpu_torch.ops._build import SIGNATURES, load_libraries
 
     # --- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
+    bf16_eval = ["chain_fused", "chain_fused_bf16", "fps", "sa_fused", "sa_fused_bf16"]
     libs = load_libraries(["chain_fused"] if chain_only or scan_only else
                           ["fps", "sa_fused"] if match_only else
-                          ["chain_fused", "fps", "sa_fused"] if online_only or rates_only
-                          or bf16_only else
+                          ["chain_fused", "fps", "sa_fused"] if online_only or rates_only else
+                          bf16_eval if bf16_only else
+                          [n for n in bf16_eval if n in SIGNATURES] if breakdown_only else
                           ["sa_fused_train"] if k6_only else
                           ["sa_fused_train", "sa_fused_train_bf16"] if k6_bf16_only else
-                          ["chain_fused", "fps", "sa_fused", "sa_fused_train",
-                           "sa_fused_train_bf16"] if train_only else
+                          bf16_eval + ["sa_fused_train", "sa_fused_train_bf16"] if train_only else
                           ["sa_fused"] if k4_only else ["fps", "fps_floor"] if k3_only else
-                          ["chain_fused", "fps", "sa_fused", "sa_fused_train",
-                           "sa_fused_train_bf16", "gather_probe", "fps_floor"])
+                          bf16_eval + ["sa_fused_train", "sa_fused_train_bf16", "gather_probe",
+                                       "fps_floor"])
     print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
     for lib in libs.values():
         print(f"  {lib.path.relative_to(ROOT)} in {lib.build_seconds:.1f} s "
@@ -687,6 +689,10 @@ def main(argv=None) -> None:
     if bf16_only:
         bf16_phase(card)
         print("bf16 times done: phases 1, 2 and 18 only", flush=True)
+        return
+    if breakdown_only:
+        bf16_breakdown(card)
+        print("bf16 breakdown done: phases 1, 2 and the bf16 kernels' breakdown only", flush=True)
         return
 
     # --- 3. kernels vs plain at the main path's shapes --------------------
@@ -1132,7 +1138,6 @@ def check_k4_k5(calls, card: str, lib, strict: bool = True):
     for B in batches:
         t_4, t_5, t_p = sums[B]
         d_4, d_5, d_p = dev_sums[B]
-        BF16_F32_ROWS[("sa", B)] = t_4
         print(f"  time of one BAT forward's 7 SA calls, B={B}: K4 {t_4:.4f} ms K5 {t_5:.4f} ms "
               f"plain {t_p:.4f} ms; device time K4 {fmt_ms(d_4)} K5 {fmt_ms(d_5)} plain "
               f"{fmt_ms(d_p)} [{card}]", flush=True)
@@ -2974,6 +2979,8 @@ def check_chains_bf16(model, card: str) -> dict:
                 lambda: cf.pointnet_encoder_plain(x, chain, tap_at), lambda: lib(x, tap_at),
                 bf16_chain_work(chain, B, n, B * chain.widths[-1], tap_elems), card,
                 f"{name} B={B} N={n}")
+            rows[(name, B)]["f32_ms"] = time_ms(
+                lambda: cf.fused_pointnet_encoder(x, f32[id(chain)], tap_at=tap_at))
         k_out = cf.fused_seg_head(tap, pooled, chain2)
         p_out = cf.seg_head_plain(tap, pooled, chain2)
         f_out = cf.seg_head_plain(tap, pooled, f32[id(chain2)])
@@ -2990,17 +2997,19 @@ def check_chains_bf16(model, card: str) -> dict:
             lambda: cf.seg_head_plain(tap, pooled, chain2), lambda: lib(tap, pooled),
             bf16_chain_work(chain2, B, n, p_out.numel(), pooled_in=pooled.numel(),
                             c_in=chain2.split), card, f"K2 seg head B={B} N={n}")
+        rows[("K2 seg head", B)]["f32_ms"] = time_ms(
+            lambda: cf.fused_seg_head(tap, pooled, f32[id(chain2)]))
     for B in (1, 16):
         calls = [r for (name, b), r in rows.items() if b == B]
         ev = sum(r["ms"] for r in calls)
         dev = None if any(r["dev_ms"] is None for r in calls) else sum(r["dev_ms"] for r in calls)
         bound = sum(bf16_bound(r["work"])[0] for r in calls)
-        f32_rows = BF16_F32_ROWS.get(("chains", B))
+        share = "not measured" if dev is None else f"{bound / dev:.1%}"
         print(f"  bf16: one M2 forward's four K1/K2 calls, B={B}: kernel ev {ev:.4f} ms dev "
               f"{fmt_ms(dev)}; plain ev {sum(r['plain_ms'] for r in calls):.4f} ms; cuBLAS bf16 "
-              f"stack ev {sum(r['library_ms'] for r in calls):.4f} ms; bound {bound:.5f} ms"
-              + ("" if f32_rows is None else f"; the 3xTF32 kernels in this run ev {f32_rows:.4f} ms")
-              + f" [{card}]", flush=True)
+              f"stack ev {sum(r['library_ms'] for r in calls):.4f} ms; bound {bound:.5f} ms "
+              f"(device time at {share}); the 3xTF32 kernels on the same inputs ev "
+              f"{sum(r['f32_ms'] for r in calls):.4f} ms [{card}]", flush=True)
     print("phase 18a ok: K1/K2 bf16 within tolerance of their plain versions", flush=True)
     return {"errs": errs, "rows": rows}
 
@@ -3028,13 +3037,15 @@ def check_sa_bf16(calls, card: str) -> tuple:
     from open3dsot_tpu_torch.ops.neighbors import ball_query
 
     errs = {"K4": 0.0, "K5": 0.0}
-    sums = {B: dict(k4=0.0, k5=0.0, plain=0.0, k4_dev=0.0, w4=[0, 0], w5=[0, 0]) for B in (1, 16)}
-    forward = {1: [], 16: []}
+    sums = {B: dict(k4=0.0, k5=0.0, plain=0.0, lib=0.0, f32=0.0, k4_dev=None, w4=[0, 0], w5=[0, 0])
+            for B in (1, 16)}
+    forward, forward32 = {1: [], 16: []}, {1: [], 16: []}
     for label, mod, xyz16, feats16, new16 in calls:
         kw = dict(radius=mod.radius, normalize_xyz=mod.normalize_xyz, use_xyz=mod.use_xyz)
         K, folded = mod.nsample, mod.folded_chains()
         if folded.dtype is not torch.bfloat16:
             fail(f"bf16 {label}: the SA layer is not packed for the bf16 mode")
+        folded32 = saf.FoldedSA(list(folded))  # the same folded layers, packed for 3xTF32
         for B in (1, 16):
             xyz, new = xyz16[:B].contiguous(), new16[:B].contiguous()
             feats = None if feats16 is None else feats16[:B].contiguous()
@@ -3061,35 +3072,388 @@ def check_sa_bf16(calls, card: str) -> tuple:
             nbytes, flops = bf16_sa_work(xyz, feats, new, folded, K, 0)
             w4 = (nbytes, flops + 8 * bq_walked(xyz, new, mod.radius, K))
             w5 = (nbytes + 4 * B * new.shape[1] * K, flops)
-            r4 = time_bf16(k4, plain, None, w4, card, f"K4 {shape}")
+            lib = cublas_bf16_sa(xyz, feats, new, idx, folded, **kw)
+            feats32 = None if feats is None else feats.float()
+
+            def k4_32(xyz=xyz, feats=feats32, new=new, folded=folded32, K=K, kw=kw):
+                return saf.fused_sa_apply(xyz, feats, new, None, folded, nsample=K, **kw)
+
+            # the two modes timed alike: twice each, alternating, the least kept
+            t32 = time_ms(k4_32)
+            r4 = time_bf16(k4, plain, lib, w4, card, f"K4 {shape}")
             t5 = time_ms(k5)
+            t32 = min(t32, time_ms(k4_32))
+            t16 = min(r4["ms"], time_ms(k4))
             s = sums[B]
-            s["k4"] += r4["ms"]
+            s["k4"] += t16
             s["k5"] += t5
             s["plain"] += r4["plain_ms"]
-            s["k4_dev"] = None if r4["dev_ms"] is None or s["k4_dev"] is None else s["k4_dev"] + r4["dev_ms"]
+            s["lib"] += r4["library_ms"]
+            s["f32"] += t32
             for i in range(2):
                 s["w4"][i] += w4[i]
                 s["w5"][i] += w5[i]
             forward[B].append(k4)
+            forward32[B].append(k4_32)
     for B in (1, 16):
         s = sums[B]
-        total = queued_ms(lambda: [f() for f in forward[B]], iters=10, sleep=BF16_SLEEP)
+        run, run32 = (lambda: [f() for f in forward[B]]), (lambda: [f() for f in forward32[B]])
+        t32 = queued_ms(run32, iters=10, sleep=BF16_SLEEP)
+        total = queued_ms(run, iters=10, sleep=BF16_SLEEP)
+        t32 = min(t32, queued_ms(run32, iters=10, sleep=BF16_SLEEP))
+        total = min(total, queued_ms(run, iters=10, sleep=BF16_SLEEP))
         bound, by = bf16_bound(s["w4"])
         share = f"{bound / total:.1%}" if total > 0 else "not measured"
-        f32 = BF16_F32_ROWS.get(("sa", B))
-        print(f"  bf16: one BAT forward's 7 SA calls, B={B}: K4 ev {s['k4']:.4f} ms (summed), "
-              f"back to back device {fmt_ms(total if total > 0 else None)}; K5 ev {s['k5']:.4f} ms; "
-              f"plain ev {s['plain']:.4f} ms; bound {bound:.5f} ms by {by} (device time at {share})"
-              + ("" if f32 is None else f"; the 3xTF32 K4 in this run ev {f32:.4f} ms") + f" [{card}]",
+        s["k4_dev"] = total if total > 0 else None
+        print(f"  bf16: one BAT forward's 7 SA calls, B={B}: K4 ev {s['k4']:.4f} ms (summed, the "
+              f"least of two a call, as the 3xTF32 K4's), back to back device {fmt_ms(s['k4_dev'])} "
+              f"(the least of two windows, as the 3xTF32 K4's); K5 ev {s['k5']:.4f} ms; "
+              f"plain ev {s['plain']:.4f} ms; cuBLAS bf16 yardstick ev {s['lib']:.4f} ms (summed); "
+              f"bound {bound:.5f} ms by {by} (device time at {share}); the 3xTF32 K4 on the same "
+              f"inputs ev {s['f32']:.4f} ms (summed), back to back device {t32:.4f} ms [{card}]",
               flush=True)
     print("phase 18b ok: K4/K5 bf16 within tolerance at every SA call of the BAT path", flush=True)
     return errs, sums
 
 
-# event times of the 3xTF32 kernels in this run, for the bf16 lines: ("chains", B): one M2
-# forward's four K1/K2 calls; ("sa", B): one BAT forward's seven K4 calls (summed)
-BF16_F32_ROWS: dict = {}
+# --- phase 18: the bf16 kernels' cut cases, yardstick and breakdown --------------
+
+# Phase 18's cut cases (random weights): widths the shipped configs never give
+# the bf16 kernels, at B = 16 unless `Bs` says more. SA: C1/C2/C3 24/36/68
+# (multiples of 4 but not of 8, each inside one 64-wide k-block or chunk) at K
+# = 20 (three centroids a tile, four empty rows) on S = 101 centroids (a
+# ragged last tile), 21 input features. Then the widths where the tiles stop
+# fitting in shared memory beside a ring of panels, one case for each plan
+# after the first of sa_fused_bf16.cu::choose_plan (the breakdown's
+# sa_bf16_plan prints which each takes): 640/640/640 at K = 64 (one
+# warpgroup) and at K = 16 (a ring of two panels), 704/704/704 at K = 20 and
+# 768/768/768 at K = 64 (h1 streamed), and 8/1376/68, the widest h2 the
+# earlier design took (streamed). K1: a chain 13-24-40-1028 with its tap at
+# 24 over N = 2000 points (a ragged last tile; 1028 ends inside a 64-channel
+# chunk); a 2048-input layer mid-chain (too wide for shared memory: streamed,
+# then stored for the next stage); a pooled output of 60000 channels (its
+# biases do not fit: streamed). K2: M2's seg head widths at a tap of 72 (72 +
+# 1028 -> 512 -> 256 -> 128 -> 128 -> 11); a tap of 1600 (layer 0 streamed,
+# its g read from device memory) into a 2048-input last layer (streamed
+# logits).
+BF16_CUT_SA = (dict(c_in=21, widths=(24, 36, 68), K=20, S=101, N=512, radius=0.3, Bs=(16,)),
+               dict(c_in=61, widths=(640, 640, 640), K=64, S=64, N=1024, radius=0.3, Bs=(1, 16)),
+               dict(c_in=61, widths=(640, 640, 640), K=16, S=128, N=1024, radius=0.3, Bs=(16,)),
+               dict(c_in=61, widths=(704, 704, 704), K=20, S=101, N=1024, radius=0.3, Bs=(16,)),
+               dict(c_in=61, widths=(768, 768, 768), K=64, S=64, N=1024, radius=0.3, Bs=(1, 16)),
+               dict(c_in=5, widths=(8, 1376, 68), K=64, S=64, N=1024, radius=0.3, Bs=(16,)))
+BF16_CUT_K1 = (dict(widths=(13, 24, 40, 1028), tap_at=0, N=2000, Bs=(16,)),
+               dict(widths=(13, 64, 2048, 256, 128), tap_at=0, N=2000, Bs=(1, 16)),
+               dict(widths=(13, 64, 60000), tap_at=0, N=256, Bs=(16,)))
+BF16_CUT_K2 = (dict(tap=72, widths=(72 + 1028, 512, 256, 128, 128, 11), N=2000, Bs=(16,)),
+               dict(tap=1600, widths=(1600 + 64, 128, 2048, 11), N=500, Bs=(1, 16)))
+
+
+def random_layers(widths, gen, dev):
+    """Dense layers (W (in, out), b) of these widths, He-scaled, on dev."""
+    import torch
+
+    return [(torch.randn(k, c, generator=gen, device=dev) * (2.0 / k) ** 0.5,
+             0.1 * torch.randn(c, generator=gen, device=dev))
+            for k, c in zip(widths[:-1], widths[1:])]
+
+
+def bf16_cut_cases(card: str) -> dict:
+    """The new bf16 kernels at the cut cases' widths (BF16_CUT_*) against
+    their plain bf16 versions, the f32 control outside."""
+    import torch
+
+    from open3dsot_tpu_torch.ops import chain_fused as cf
+    from open3dsot_tpu_torch.ops import sa_fused as saf
+    from open3dsot_tpu_torch.ops.neighbors import ball_query
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 180)
+    errs = {"K1": 0.0, "K2": 0.0, "K4": 0.0, "K5": 0.0}
+    for c in BF16_CUT_SA:
+        layers = random_layers((3 + c["c_in"],) + c["widths"], gen, dev)
+        folded, f32 = saf.FoldedSA(layers, dtype=torch.bfloat16), saf.FoldedSA(layers)
+        for B in c["Bs"]:
+            xyz = torch.rand(B, c["N"], 3, generator=gen, device=dev)
+            feats = torch.relu(torch.randn(B, c["N"], c["c_in"], generator=gen,
+                                           device=dev)).to(torch.bfloat16)
+            new = xyz[:, :c["S"]].contiguous()
+            kw = dict(radius=c["radius"], normalize_xyz=False, use_xyz=True)
+            idx = ball_query(c["radius"], c["K"], xyz, new)
+            what = f"cut SA C1/C2/C3 {'/'.join(map(str, c['widths']))} K={c['K']} S={c['S']} B={B}"
+            want = saf.sa_eval_plain(xyz, feats, new, None, folded, nsample=c["K"],
+                                     dtype=torch.bfloat16, **kw)
+            control = saf.sa_eval_plain(xyz, feats, new, idx, f32, **kw)
+            got4 = saf.fused_sa_apply(xyz, feats, new, None, folded, nsample=c["K"], **kw)
+            got5 = saf.fused_sa_apply(xyz, feats, new, idx, folded, **kw)
+            torch.cuda.synchronize()
+            errs["K4"] = max(errs["K4"], compare_bf16(f"bf16 K4 {what}", got4, want, control))
+            errs["K5"] = max(errs["K5"], compare_bf16(f"bf16 K5 {what}", got5, want, control))
+            del want, control, got4, got5
+
+    for c in BF16_CUT_K1:
+        layers = random_layers(c["widths"], gen, dev)
+        chain, chain32 = cf.FoldedChain(layers, dtype=torch.bfloat16), cf.FoldedChain(layers)
+        for B in c["Bs"]:
+            x = torch.randn(B, c["N"], c["widths"][0], generator=gen, device=dev)
+            k_tap, k_pool = cf.fused_pointnet_encoder(x, chain, tap_at=c["tap_at"])
+            p_tap, p_pool = cf.pointnet_encoder_plain(x, chain, c["tap_at"])
+            f_tap, f_pool = cf.pointnet_encoder_plain(x, chain32, c["tap_at"])
+            torch.cuda.synchronize()
+            what = f"cut K1 {'-'.join(map(str, c['widths']))} N={c['N']} B={B}"
+            errs["K1"] = max(errs["K1"], compare_bf16(f"bf16 {what} pooled", k_pool, p_pool, f_pool),
+                             compare_bf16(f"bf16 {what} tap", k_tap, p_tap, f_tap))
+
+    for c in BF16_CUT_K2:
+        layers = random_layers(c["widths"], gen, dev)
+        chain = cf.FoldedChain(layers, split=c["tap"], dtype=torch.bfloat16)
+        chain32 = cf.FoldedChain(layers, split=c["tap"])
+        for B in c["Bs"]:
+            tap = torch.relu(torch.randn(B, c["N"], c["tap"], generator=gen, device=dev))
+            pooled = torch.relu(torch.randn(B, c["widths"][0] - c["tap"], generator=gen, device=dev))
+            k_out = cf.fused_seg_head(tap, pooled, chain)
+            p_out = cf.seg_head_plain(tap, pooled, chain)
+            f_out = cf.seg_head_plain(tap, pooled, chain32)
+            torch.cuda.synchronize()
+            errs["K2"] = max(errs["K2"], compare_bf16(
+                f"bf16 cut K2 tap {c['tap']} widths {'-'.join(map(str, c['widths']))} N={c['N']} "
+                f"B={B}", k_out, p_out, f_out))
+    print(f"phase 18e ok: the bf16 kernels at the cut cases [{card}]", flush=True)
+    return errs
+
+
+def cublas_bf16_sa(xyz, feats, new, idx, folded, radius: float, normalize_xyz: bool,
+                   use_xyz: bool):
+    """K4 bf16's yardstick, timed only here: the A-form rows in bf16 gathered
+    at idx (the ball query's indices, given) + ct, then the two products as
+    cuBLAS bf16 GEMMs (bf16 in, bf16 out) and the max over K."""
+    import torch
+
+    from open3dsot_tpu_torch.ops import sa_fused as saf
+
+    (w1, b1), (w2, b2), (w3, b3) = folded
+    bf = torch.bfloat16
+    w2b, b2b, w3b, b3b = w2.to(bf), b2.to(bf), w3.to(bf), b3.to(bf)
+    f = None if feats is None else feats.float()
+    B, S, K = idx.shape
+    rows = (torch.arange(B, device=idx.device)[:, None] * xyz.shape[1] + idx.reshape(B, -1)).reshape(-1)
+
+    def run():
+        a, ct = saf.a_form(xyz, f, new, w1, b1, inv_r=1.0 / radius if normalize_xyz else 1.0,
+                           use_xyz=use_xyz)
+        h = a.to(bf).reshape(-1, a.shape[2]).index_select(0, rows).reshape(B, S, K, -1)
+        h = torch.relu(h + ct.to(bf)[:, :, None, :])
+        h = torch.relu(h @ w2b + b2b)
+        return torch.relu(h @ w3b + b3b).amax(dim=2)
+
+    return run
+
+
+BF16_PHASE_NAMES = {
+    "sa_fused_bf16": ("indices and ct", "gather to h1", "layer-2 products", "layer-2 epilogue",
+                      "layer-3 products", "layer-3 staging", "max over K", "waits on full"),
+    "chain_fused_bf16": ("input tile", "products", "epilogue (next layer, tap, store)",
+                         "epilogue (pool, logits)", "waits on full"),
+}
+BF16_PHASE_ENTRY = {"sa_fused_bf16": "sa_bf16_phases", "chain_fused_bf16": "chain_bf16_phases"}
+
+
+def phase_build(name: str):
+    """csrc/<name>.cu built with -DBF16_PHASES (the clock64() counters of each
+    phase of a tile, bf16_layers.cuh) into _build/phases/, loaded with <name>'s
+    signatures; None where the source has no counters (an older tree). Only
+    this script loads such a build."""
+    from open3dsot_tpu_torch.ops import _build
+
+    src = _build.CSRC / f"{name}.cu"
+    if not src.is_file() or "BF16_PHASES" not in src.read_text():
+        return None
+    out = _build.BUILD_DIR / "phases" / f"lib{name}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DBF16_PHASES", "-o", str(out),
+                           str(src)], capture_output=True, text=True, timeout=900)
+    if proc.returncode:
+        fail(f"the phase build of {src} failed:\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    return _build.KernelLibrary(name, out, 0.0, proc.stdout + proc.stderr)
+
+
+@contextlib.contextmanager
+def library_swapped(lib):
+    """The wrappers load `lib` in place of the library of its name."""
+    from open3dsot_tpu_torch.ops import _build
+
+    real = _build.load_library
+    _build.load_library = lambda name: lib if name == lib.name else real(name)
+    try:
+        yield
+    finally:
+        _build.load_library = real
+
+
+def phase_cycles(lib, fn, n: int = 10) -> list:
+    """Cycles by phase (summed over the consumer warpgroups' tiles) of n calls
+    of fn through the phase build `lib`."""
+    import ctypes
+
+    import torch
+
+    read = getattr(lib.lib, BF16_PHASE_ENTRY[lib.name])
+    read.argtypes, read.restype = [ctypes.c_void_p], ctypes.c_int
+    buf = (ctypes.c_ulonglong * 8)()
+    with library_swapped(lib):
+        fn()
+        torch.cuda.synchronize()
+        if read(ctypes.cast(buf, ctypes.c_void_p)):
+            fail(f"{lib.name}: reading the phase counters failed")
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    if read(ctypes.cast(buf, ctypes.c_void_p)):
+        fail(f"{lib.name}: reading the phase counters failed")
+    return [v / n for v in buf]
+
+
+def print_breakdown(what: str, fn, card: str, phase_lib=None) -> None:
+    """One call's device time by kernel (profiler, a window opened on a sleep
+    kernel) and, with a phase build, its cycles by phase."""
+    rows = sorted(device_rows(lambda: [fn() for _ in range(5)]), key=dev_us, reverse=True)
+    total = sum(dev_us(e) for e in rows) / 5
+    parts = "; ".join(f"{e.key[:48]} {dev_us(e) / 5:.2f} us x{e.count // 5}" for e in rows)
+    print(f"  breakdown {what}: device {total:.2f} us a call: {parts} [{card}]", flush=True)
+    if phase_lib is not None:
+        cyc = phase_cycles(phase_lib, fn)
+        names = BF16_PHASE_NAMES[phase_lib.name]
+        spent = sum(cyc[:len(names) - 1])  # the last counter ("waits on full") is within the others
+        shares = ", ".join(f"{n} {v / max(spent, 1):.1%}" for n, v in zip(names, cyc))
+        print(f"    phases {what}: {spent / 1e6:.3f} Mcycles of warpgroup time a call: {shares}",
+              flush=True)
+
+
+def earlier_sa_bf16_fits(K: int, C1: int, C2: int) -> bool:
+    """Whether the earlier K4/K5 bf16 design (sa_tc_kernel<F, true>,
+    csrc/sa_fused.cu::make_plan at 9d57012) planned this shape: its shared
+    memory in floats, a ring of two 8 KB chunks at least; C3 took none."""
+    if C1 % 8 or C2 % 4:
+        return False
+    ts, nk2, nk3 = 64 // K, -(-((C1 + 7) // 8 * 8) // 32), -(-((C2 + 7) // 8 * 8) // 32)
+    s1, s2 = nk2 * 32 + 8, nk3 * 32 + 8
+    o_w = (max(32 * s1, 64 * 136) + 32 * s2 + ts * nk2 * 32 + 64 + ts + 31) & ~31
+    return (o_w + 2 * 2048 + 2 * 4) * 4 <= 232448
+
+
+def bf16_plans(sa_lib, chain_lib, card: str) -> None:
+    """The plans of the phase build's sa_bf16_plan / chain_bf16_plan: each
+    cut case's (BF16_CUT_*), then every shape the earlier bf16 K4 design
+    planned, swept (K 1-64; C1 the least multiple of 8 of each 64-wide
+    k-block up to 1664; C2 each multiple of 64 up to that design's widest and
+    the widest itself; C3 64 and 68, the two chunk widths; the plan does not
+    depend on B or S, nor within a k-block on the widths), must plan here."""
+    import ctypes
+
+    sa = sa_lib.lib.sa_bf16_plan
+    sa.argtypes, sa.restype = [ctypes.c_int] * 6 + [ctypes.c_void_p], ctypes.c_int
+    ch = chain_lib.lib.chain_bf16_plan
+    ch.argtypes, ch.restype = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_void_p], ctypes.c_int
+    out = (ctypes.c_int * 40)()
+    ptr = ctypes.cast(out, ctypes.c_void_p)
+    for c in BF16_CUT_SA:
+        for B in c["Bs"]:
+            rc = sa(B, c["S"], c["K"], *c["widths"], ptr)
+            print(f"  plan bf16 K4 {'/'.join(map(str, c['widths']))} K={c['K']} S={c['S']} B={B}: "
+                  f"rc {rc}, {out[0]} consumer warpgroup(s), h1 {'streamed' if out[1] else 'whole'}, "
+                  f"{out[2]} stages{' resident' if out[3] else ''}, {out[4]} B of shared memory",
+                  flush=True)
+    for name, cases in (("K1", BF16_CUT_K1), ("K2", BF16_CUT_K2)):
+        for c in cases:
+            widths = (c["tap"],) + c["widths"][1:] if name == "K2" else c["widths"]
+            w = (ctypes.c_int * len(widths))(*widths)
+            for B in c["Bs"]:
+                rc = ch(ctypes.cast(w, ctypes.c_void_p), len(widths) - 1, B, c["N"], ptr)
+                stages = ", ".join(f"layers {out[1 + 4 * i]}-{out[2 + 4 * i] - 1} on {out[3 + 4 * i]}"
+                                   f"{' streamed' if out[4 + 4 * i] else ''}" for i in range(out[0]))
+                print(f"  plan bf16 {name} {'-'.join(map(str, widths))} N={c['N']} B={B}: rc {rc}; "
+                      f"{stages}", flush=True)
+    t0, checked, missed, tiers = time.perf_counter(), 0, [], {}
+    for K in range(1, 65):
+        for ka1 in range(64, 1729, 64):
+            C1 = ka1 - 56
+            widest = max([c2 for c2 in range(4, 2049, 4) if earlier_sa_bf16_fits(K, C1, c2)], default=0)
+            for C2 in sorted({*range(64, widest + 1, 64), widest} - {0}):
+                for C3 in (64, 68):
+                    rc = sa(1, 1, K, C1, C2, C3, ptr)
+                    checked += 1
+                    if rc:
+                        missed.append((K, C1, C2, C3, rc))
+                    key = (out[0], out[1], out[2] if not out[3] else "resident")
+                    tiers[key] = tiers.get(key, 0) + 1
+    print(f"  plan sweep: {checked} shapes the earlier bf16 K4 design planned, {len(missed)} refused "
+          f"here {missed[:5]}; plans (warpgroups, h1 streamed, stages): "
+          f"{dict(sorted(tiers.items(), key=str))} ({time.perf_counter() - t0:.1f} s) [{card}]",
+          flush=True)
+    if missed:
+        fail(f"the bf16 K4 plan refuses {len(missed)} shapes the earlier design took: {missed[:5]}")
+
+
+def bf16_breakdown(card: str) -> None:
+    """Where a bf16 K1/K2/K4 call's time goes: BAT's search SA0 and SA2 (K4)
+    and M2's seg mlp1 with its tap (K1) and seg head (K2), at B = 1 and 16:
+    the profiler's device time by kernel, the wrapper's own launches around
+    K4 at B = 1 timed alone by events behind a queued sleep (the features'
+    f32 copy, a_rows, and the A rows' bf16 cast the earlier design's wrapper made);
+    with the phase counters' build (this tree's csrc/ has them), cycles by
+    phase. It runs on an older tree too (copy this script there)."""
+    import numpy as np
+    import torch
+
+    from open3dsot_tpu_torch.data import get_dataset
+    from open3dsot_tpu_torch.ops import chain_fused as cf
+    from open3dsot_tpu_torch.ops import sa_fused as saf
+
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(2) as pool:
+        sa_lib, chain_lib = pool.map(phase_build, ["sa_fused_bf16", "chain_fused_bf16"])
+    if sa_lib is not None and hasattr(sa_lib.lib, "sa_bf16_plan"):
+        bf16_plans(sa_lib, chain_lib, card)
+    bcfg = matching_cfg("bat", bf16=True)
+    bat, bvars = make_model(bcfg, fused_eval=True)
+    bat_plain, _ = make_model(bcfg, fused_eval=False, variables=bvars)
+    frames = matching_frames(bat, get_dataset(bcfg, "test", "test"), 16)
+    batch = {k: np.concatenate([f[k] for f in frames]) for k in frames[0]}
+    calls = {label: rest for label, *rest in sa_calls(bat_plain, batch)}
+    for label in ("search SA0", "search SA2"):
+        mod, xyz16, feats16, new16 = calls[label]
+        folded = mod.folded_chains()
+        kw = dict(radius=mod.radius, normalize_xyz=mod.normalize_xyz, use_xyz=mod.use_xyz)
+        for B in (1, 16):
+            xyz, new = xyz16[:B].contiguous(), new16[:B].contiguous()
+            feats = None if feats16 is None else feats16[:B].contiguous()
+            print_breakdown(f"K4 bf16 {label} B={B}", lambda: saf.fused_sa_apply(
+                xyz, feats, new, None, folded, nsample=mod.nsample, **kw), card, sa_lib)
+            if B == 1 and feats is not None:
+                f32 = feats.float()
+                inv_r = 1.0 / mod.radius if mod.normalize_xyz else 1.0
+                a = saf.a_rows(xyz, f32, folded[0][0], inv_r=inv_r, use_xyz=mod.use_xyz)
+                t = {"features.float()": queued_ms(lambda: feats.float(), sleep=BF16_SLEEP),
+                     "a_rows": queued_ms(lambda: saf.a_rows(xyz, f32, folded[0][0], inv_r=inv_r,
+                                                            use_xyz=mod.use_xyz), sleep=BF16_SLEEP),
+                     "a.to(bf16)": queued_ms(lambda: a.to(torch.bfloat16), sleep=BF16_SLEEP),
+                     "the whole call": queued_ms(lambda: saf.fused_sa_apply(
+                         xyz, feats, new, None, folded, nsample=mod.nsample, **kw),
+                         sleep=BF16_SLEEP)}
+                print(f"  wrapper launches around K4 bf16 {label} B=1 (queued events): "
+                      + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in t.items()) + f" [{card}]",
+                      flush=True)
+    model, _ = make_model(bench_cfg(bf16=True), fused_eval=True)
+    chain1, chain2 = model.net.seg_pointnet.folded_chains()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 181)
+    for B in (1, 16):
+        x = torch.randn(B, 2 * N_POINTS, chain1.widths[0], generator=gen, device="cuda")
+        tap, pooled = cf.fused_pointnet_encoder(x, chain1, tap_at=1)
+        print_breakdown(f"K1 bf16 seg mlp1 B={B}",
+                        lambda: cf.fused_pointnet_encoder(x, chain1, tap_at=1), card, chain_lib)
+        print_breakdown(f"K2 bf16 seg head B={B}", lambda: cf.fused_seg_head(tap, pooled, chain2),
+                        card, chain_lib)
 
 
 def no_worse_than_plain(what: str, got, plain, truth) -> None:
@@ -3274,21 +3638,26 @@ def bf16_phase(card: str) -> list:
     loops = bf16_host_loops(card)
     chains = check_chains_bf16(loops["m2"], card)
     sa_errs, sa_sums = check_sa_bf16(loops["sa_calls"], card)
+    cut = bf16_cut_cases(card)
+    for k in ("K1", "K2"):
+        chains["errs"][k] = max(chains["errs"][k], cut[k])
+    for k in ("K4", "K5"):
+        sa_errs[k] = max(sa_errs[k], cut[k])
     bf16_scans(card)
     print(f"phase 18 ok in {time.perf_counter() - t0:.1f} s", flush=True)
     n = loops["launches"]
     s1 = sa_sums[1]
     return [
-        kernel_entry("K1 fused_pointnet_encoder (bf16)", "chain_fused.cu",
+        kernel_entry("K1 fused_pointnet_encoder (bf16)", "chain_fused_bf16.cu",
                      "open3dsot_tpu/ops/chain_fused.py:150", n["K1"], chains["errs"]["K1"],
                      **chains["rows"][("K1 seg mlp1 tap", 1)]),
-        kernel_entry("K2 fused_seg_head (bf16)", "chain_fused.cu",
+        kernel_entry("K2 fused_seg_head (bf16)", "chain_fused_bf16.cu",
                      "open3dsot_tpu/ops/chain_fused.py:217", n["K2"], chains["errs"]["K2"],
                      **chains["rows"][("K2 seg head", 1)]),
-        kernel_entry("K4 fused_sa_apply (ball query, bf16)", "sa_fused.cu",
+        kernel_entry("K4 fused_sa_apply (ball query, bf16)", "sa_fused_bf16.cu",
                      "open3dsot_tpu/ops/sa_fused.py:384", n["K4"], sa_errs["K4"], s1["k4"],
-                     s1["plain"], s1["w4"], peak=PEAK_BF16_FLOPS),
-        kernel_entry("K5 fused_sa_apply (idx given, bf16)", "sa_fused.cu",
+                     s1["plain"], s1["w4"], library_ms=s1["lib"], peak=PEAK_BF16_FLOPS),
+        kernel_entry("K5 fused_sa_apply (idx given, bf16)", "sa_fused_bf16.cu",
                      "open3dsot_tpu/ops/sa_fused.py:415", n["K5"], sa_errs["K5"], s1["k5"],
                      s1["plain"], s1["w5"], peak=PEAK_BF16_FLOPS),
     ]

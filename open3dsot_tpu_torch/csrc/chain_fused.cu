@@ -76,22 +76,7 @@
 //  - Host work per launch is the plan and the launches: the device's SM count
 //    and the kernels' shared-memory limit are set once per process.
 //
-// The bf16 mode (chain_tc_kernel<TP, true>; the JAX kernels' cdt = bfloat16,
-// open3dsot_tpu/ops/chain_fused.py:51-93). Every product takes bf16 operands
-// and accumulates in f32; the bias, ReLU, tap, pool and K2's logits stay f32.
-// One tensor-core pass a multiply-add at 989 TFLOP/s dense bf16, so the bound
-// is FLOP / 989 TFLOP/s: six times below the 3xTF32 mode's. The same plan,
-// stages and chunks of 128 x 32 channels (8 KB in bf16, bf16_tc.cuh): at TP =
-// 64 each warpgroup runs two wgmma m64n64k16 a chunk (A from registers), at
-// TP = 16 / 32 mma.sync m16n8k16. The activations stay f32 in shared memory
-// and in the stages' buffers, and are rounded to bf16 (cvt.rn.bf16x2.f32) as
-// each A fragment is loaded: the same values the JAX kernel's
-// h.astype(bf16) feeds its dots. A k16 step reaches past a width that is a
-// multiple of 8 but not of 16 (the inputs 13, 14 -> 16; the 4 of M2 without
-// box_aware -> 8): those A pairs are zeros, the packed weights there are zero
-// too. Each chunk's two products are summed on the tensor cores and added to
-// the accumulators on the CUDA cores, as in the TF32 mode. K2's pool_bias
-// rounds pooled and W_pool to bf16 before its f32 sums.
+// The bf16 mode is chain_fused_bf16.cu.
 //
 // Interface: plain C, loaded with ctypes. Pointers are device pointers; the
 // stream is PyTorch's current stream. Each entry returns 0, a CUDA error code,
@@ -100,7 +85,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bf16_tc.cuh"  // the bf16 mode's chunks, mma.sync and wgmma
 #include "tf32_tc.cuh"  // kCC x kKC weight chunks, the TF32 split, mma.sync, wgmma, TMA
 
 namespace {
@@ -122,8 +106,6 @@ enum Mode { kStore = 0, kPool = 1, kPlain = 2 };
 
 struct Chain {
   int n_layers;
-  int bf;                          // 1: the bf16 mode (bf16 weight chunks)
-  int wst;                         // floats of one weight chunk: kWStage, or kWStage16 in bf16
   int c[kMaxLayers + 1];           // real widths
   int kp[kMaxLayers], cp[kMaxLayers];  // input / output widths padded to 8
   int nk[kMaxLayers];              // input chunks of kKC channels
@@ -148,16 +130,13 @@ inline int round8(int n) { return (n + 7) & ~7; }
 // Offsets of each layer's weight chunks and b in the packed buffer. A layer
 // is ceil(cp / kCC) x nk chunks, output chunk major; a chunk is kWStage
 // contiguous floats, W^T hi then W^T lo of kCC output x kKC input channels,
-// zero-padded, each in the order of wofs() (tf32_tc.cuh), or in the bf16 mode
-// kWStage16 floats of W^T in bf16, in the order of wofs16() (bf16_tc.cuh): one
-// bulk copy brings a chunk into shared memory as the tensor cores read it. The
-// Python side (open3dsot_tpu_torch/ops/chain_fused.py::pack_layer) packs by the
-// same rule. n_params < 0 skips the size check.
-int make_layout(const int* widths, int n_layers, long long n_params, int bf, Chain* ch) {
-  if (n_layers < 1 || n_layers > kMaxLayers || bf < 0 || bf > 1) return kErrLayout;
+// zero-padded, each in the order of wofs() (tf32_tc.cuh): one bulk copy brings
+// a chunk into shared memory as the tensor cores read it. The Python side
+// (open3dsot_tpu_torch/ops/chain_fused.py::pack_layer) packs by the same rule.
+// n_params < 0 skips the size check.
+int make_layout(const int* widths, int n_layers, long long n_params, Chain* ch) {
+  if (n_layers < 1 || n_layers > kMaxLayers) return kErrLayout;
   ch->n_layers = n_layers;
-  ch->bf = bf;
-  ch->wst = bf ? kWStage16 : kWStage;
   for (int l = 0; l <= n_layers; ++l) {
     if (widths[l] < 1) return kErrLayout;
     ch->c[l] = widths[l];
@@ -168,7 +147,7 @@ int make_layout(const int* widths, int n_layers, long long n_params, int bf, Cha
     ch->cp[l] = round8(ch->c[l + 1]);
     ch->nk[l] = (ch->kp[l] + kKC - 1) / kKC;
     ch->w[l] = off;
-    off += static_cast<long long>((ch->cp[l] + kCC - 1) / kCC) * ch->nk[l] * ch->wst;
+    off += static_cast<long long>((ch->cp[l] + kCC - 1) / kCC) * ch->nk[l] * kWStage;
     ch->bias[l] = off;
     off += ch->cp[l];
   }
@@ -189,7 +168,7 @@ __device__ __forceinline__ void chunk_range(const StageArgs& a, int l, int& c0, 
 
 // Weight chunk (layer l, output chunk cb, input chunk kb) in device memory.
 __device__ __forceinline__ const float* chunk_src(const StageArgs& a, int l, int cb, int kb) {
-  return a.params + a.ch.w[l] + (static_cast<long long>(cb) * a.ch.nk[l] + kb) * a.ch.wst;
+  return a.params + a.ch.w[l] + (static_cast<long long>(cb) * a.ch.nk[l] + kb) * kWStage;
 }
 
 // The chunk after (l, cb, kb) in this block's order; false past the stage's end.
@@ -206,12 +185,9 @@ __device__ __forceinline__ bool next_chunk(const StageArgs& a, int& l, int& cb, 
 
 // TP = 64: two warpgroups, each wgmma m64n64 on half of a 128-channel chunk
 // (warp w of a warpgroup holds rows 16w..16w+15 of the D fragment). TP = 16,
-// 32: eight warps side by side over the chunk's channels, mma.sync m16n8k8
-// (m16n8k16 in bf16), for the small point tiles that wgmma's 64 rows would
-// leave mostly empty. BF: the bf16 mode, one bf16 product a multiply-add where
-// 3xTF32 takes three; the activations stay f32 in shared memory and are
-// rounded to bf16 as each A fragment is loaded.
-template <int TP, bool BF>
+// 32: eight warps side by side over the chunk's channels, mma.sync m16n8k8,
+// for the small point tiles that wgmma's 64 rows would leave mostly empty.
+template <int TP>
 __global__ void __launch_bounds__(kThreads) chain_tc_kernel(const StageArgs a) {
   constexpr bool WG = TP == 64;
   constexpr int WN = WG ? 2 : kWarps;  // warp columns over a chunk
@@ -224,8 +200,6 @@ __global__ void __launch_bounds__(kThreads) chain_tc_kernel(const StageArgs a) {
   float* sm = reinterpret_cast<float*>(smem4);
   float* wsm = sm + a.wbase;
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm + a.bars);  // one per weight stage
-  constexpr int WST = BF ? kWStage16 : kWStage;  // floats of a weight chunk
-  constexpr uint32_t kChunkBytes = WST * sizeof(float);
 
   const int b = blockIdx.y;
   const int p0 = blockIdx.x * TP;
@@ -243,7 +217,7 @@ __global__ void __launch_bounds__(kThreads) chain_tc_kernel(const StageArgs a) {
     for (int st = 0; st < kStages; ++st) mbar_init(&bars[st]);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     for (int st = 0; st < kAhead && more; ++st) {
-      bulk_load(wsm + st * WST, chunk_src(a, pl, pcb, pkb), &bars[st], kChunkBytes);
+      bulk_load(wsm + st * kWStage, chunk_src(a, pl, pcb, pkb), &bars[st]);
       more = next_chunk(a, pl, pcb, pkb);
     }
   }
@@ -299,10 +273,10 @@ __global__ void __launch_bounds__(kThreads) chain_tc_kernel(const StageArgs a) {
         __syncthreads();  // every warp is done with chunk t - 1 and its stage
         if (tid == 0 && more) {  // refill chunk t - 1's stage, kAhead chunks ahead, across layers
           const int st = (t + kAhead) % kStages;
-          bulk_load(wsm + st * WST, chunk_src(a, pl, pcb, pkb), &bars[st], kChunkBytes);
+          bulk_load(wsm + st * kWStage, chunk_src(a, pl, pcb, pkb), &bars[st]);
           more = next_chunk(a, pl, pcb, pkb);
         }
-        const float* wh = wsm + (t % kStages) * WST;
+        const float* wh = wsm + (t % kStages) * kWStage;
         const float* wl = wh + kWPart;
         const int ks_n = min(kKC, kp - kb * kKC) / 8;
         // The tensor cores do not round their f32 sums to nearest, and over
@@ -318,60 +292,7 @@ __global__ void __launch_bounds__(kThreads) chain_tc_kernel(const StageArgs a) {
           for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
             for (int i = 0; i < 4; ++i) big[mt][nt][i] = small[mt][nt][i] = 0.f;
-        if constexpr (BF) {
-          // bf16: a chunk is two k16 steps. An A pair past kp is zero: the
-          // padded row holds 4 more floats, then the next row, and kp is a
-          // multiple of 8, so a pair is wholly in or out
-          const uint16_t* wb = reinterpret_cast<const uint16_t*>(wh);
-          const int k0 = kb * kKC + 2 * q;
-          const auto pair = [&](int r, int k) -> uint32_t {
-            if (k >= kp) return 0u;
-            const float2 v = *reinterpret_cast<const float2*>(hin + r * sin + k);
-            return pack_bf16(v.x, v.y);
-          };
-          if constexpr (WG) {
-            uint32_t af[2][4];
-#pragma unroll
-            for (int ks = 0; ks < 2; ++ks) {
-              const int r = rbase + g, k = k0 + ks * 16;
-              af[ks][0] = pair(r, k);
-              af[ks][1] = pair(r + 8, k);
-              af[ks][2] = pair(r, k + 8);
-              af[ks][3] = pair(r + 8, k + 8);
-            }
-            wgmma_fence();
-            wgmma_m64n64k16_bf16<0>(big[0], af[0], smem_desc16(wb + wofs16(cbase, 0)));
-            wgmma_m64n64k16_bf16<1>(big[0], af[1], smem_desc16(wb + wofs16(cbase, 16)));
-            wgmma_commit();
-            wgmma_wait<0>();  // chunk t's products are in before its stage is refilled
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-              for (int i = 0; i < 4; ++i) fence_operand(big[0][nt][i]);
-          } else {
-#pragma unroll
-            for (int ks = 0; ks < 2; ++ks) {
-              if (kb * kKC + ks * 16 < kp) {
-                uint32_t bw[NT][2];
-#pragma unroll
-                for (int nt = 0; nt < NT; ++nt) {
-                  const int off = wofs16(cbase + nt * 8 + g, ks * 16 + 2 * q);
-                  bw[nt][0] = *reinterpret_cast<const uint32_t*>(wb + off);
-                  bw[nt][1] = *reinterpret_cast<const uint32_t*>(wb + off + 64);
-                }
-#pragma unroll
-                for (int mt = 0; mt < MT; ++mt) {
-                  const int r = rbase + mt * 16 + g, k = k0 + ks * 16;
-                  const uint32_t af[4] = {pair(r, k), pair(r + 8, k), pair(r, k + 8),
-                                          pair(r + 8, k + 8)};
-#pragma unroll
-                  for (int nt = 0; nt < NT; ++nt)
-                    if (cbase + nt * 8 < cw) mma_bf16(big[mt][nt], af, bw[nt][0], bw[nt][1]);
-                }
-              }
-            }
-          }
-        } else if constexpr (WG) {
+        if constexpr (WG) {
           // no branch around wgmma (ptxas would serialise them all): past kp
           // the A fragments are zeros, past cw the chunk's weights are
           uint32_t ah[kKC / 8][4], al[kKC / 8][4];
@@ -523,12 +444,9 @@ __global__ void __launch_bounds__(kThreads) chain_tc_kernel(const StageArgs a) {
 }
 
 // g[b, o] = b0[o] + sum_k pooled[b, k] * w_pool[k, o]; 32 outputs x 8 slices of k per block.
-// BF: both factors rounded to bf16 (the products of K2's first layer in the
-// bf16 mode), the sum in f32.
 constexpr int kGemvO = 32;
 constexpr int kGemvK = kThreads / kGemvO;
 
-template <bool BF>
 __global__ void __launch_bounds__(kThreads) pool_bias_kernel(
     const float* pooled, const float* w_pool, const float* b0, float* g, int Cp, int C) {
   __shared__ float part[kGemvK][kGemvO];
@@ -540,7 +458,7 @@ __global__ void __launch_bounds__(kThreads) pool_bias_kernel(
   if (o < C)
     for (int k = kg; k < Cp; k += kGemvK) {
       const float p = pv[k], w = __ldg(w_pool + static_cast<size_t>(k) * C + o);
-      acc = BF ? fmaf(round_bf16(p), round_bf16(w), acc) : fmaf(p, w, acc);
+      acc = fmaf(p, w, acc);
     }
   part[kg][lo] = acc;
   __syncthreads();
@@ -564,12 +482,9 @@ const DeviceInfo& device_info() {
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
-    const void* kernels[] = {reinterpret_cast<const void*>(chain_tc_kernel<16, false>),
-                             reinterpret_cast<const void*>(chain_tc_kernel<32, false>),
-                             reinterpret_cast<const void*>(chain_tc_kernel<64, false>),
-                             reinterpret_cast<const void*>(chain_tc_kernel<16, true>),
-                             reinterpret_cast<const void*>(chain_tc_kernel<32, true>),
-                             reinterpret_cast<const void*>(chain_tc_kernel<64, true>)};
+    const void* kernels[] = {reinterpret_cast<const void*>(chain_tc_kernel<16>),
+                             reinterpret_cast<const void*>(chain_tc_kernel<32>),
+                             reinterpret_cast<const void*>(chain_tc_kernel<64>)};
     for (const void* k : kernels)
       if (e == cudaSuccess)
         e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
@@ -600,7 +515,7 @@ bool stage_fits(const Chain& ch, int l0, int l1, int tp, Stage* st) {
     if (f > w[i]) w[i] = f;
   }
   const long long wbase = (w[0] + w[1] + 31) & ~31LL;  // 128-byte aligned weight stages
-  const long long bars = wbase + static_cast<long long>(kStages) * ch.wst;
+  const long long bars = wbase + static_cast<long long>(kStages) * kWStage;
   const long long floats = bars + 2 * kStages;
   if (floats * 4 > kSmemMax) return false;
   st->l0 = l0;
@@ -679,15 +594,9 @@ int run_plan(StageArgs a, int final_mode, float* final_out, float* ws, long long
     a.mode = final_stage ? final_mode : kStore;
     a.out = final_stage ? final_out : ws + (i & 1) * half;
     const dim3 grid((a.N + st.tp - 1) / st.tp, a.B, st.nz);
-    if (a.ch.bf) {
-      if (st.tp == 64) chain_tc_kernel<64, true><<<grid, kThreads, st.smem, stream>>>(a);
-      else if (st.tp == 32) chain_tc_kernel<32, true><<<grid, kThreads, st.smem, stream>>>(a);
-      else chain_tc_kernel<16, true><<<grid, kThreads, st.smem, stream>>>(a);
-    } else {
-      if (st.tp == 64) chain_tc_kernel<64, false><<<grid, kThreads, st.smem, stream>>>(a);
-      else if (st.tp == 32) chain_tc_kernel<32, false><<<grid, kThreads, st.smem, stream>>>(a);
-      else chain_tc_kernel<16, false><<<grid, kThreads, st.smem, stream>>>(a);
-    }
+    if (st.tp == 64) chain_tc_kernel<64><<<grid, kThreads, st.smem, stream>>>(a);
+    else if (st.tp == 32) chain_tc_kernel<32><<<grid, kThreads, st.smem, stream>>>(a);
+    else chain_tc_kernel<16><<<grid, kThreads, st.smem, stream>>>(a);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
     a.in = a.out;
@@ -698,13 +607,11 @@ int run_plan(StageArgs a, int final_mode, float* final_out, float* ws, long long
 
 }  // namespace
 
-// Floats of workspace that chain_fused_k1 / _k2 need for this chain, mode
-// (bf16: 0 f32, 1 bf16) and shape (0 when the chain runs as one launch), or a
-// negative error code.
-extern "C" long long chain_fused_workspace(const int* widths, int n_layers, int B, int N,
-                                           int bf16) {
+// Floats of workspace that chain_fused_k1 / _k2 need for this chain and shape
+// (0 when the chain runs as one launch), or a negative error code.
+extern "C" long long chain_fused_workspace(const int* widths, int n_layers, int B, int N) {
   Chain ch;
-  int err = make_layout(widths, n_layers, -1, bf16, &ch);
+  int err = make_layout(widths, n_layers, -1, &ch);
   if (err) return err;
   if (B < 1 || N < 1) return kErrLayout;
   const DeviceInfo& dev = device_info();
@@ -714,14 +621,12 @@ extern "C" long long chain_fused_workspace(const int* widths, int n_layers, int 
   return plan_workspace(ch, plan, B, N);
 }
 
-// bf16: 1 for the bf16 mode (params packed by pack_layer with dtype bf16),
-// 0 for 3xTF32. x, tap and pooled are f32 in both.
 extern "C" int chain_fused_k1(const float* x, const float* params, long long n_params,
                               const int* widths, int n_layers, int B, int N, int tap_at,
                               float* tap, float* pooled, float* ws, long long ws_floats,
-                              int bf16, void* stream) {
+                              void* stream) {
   StageArgs a{};
-  int err = make_layout(widths, n_layers, n_params, bf16, &a.ch);
+  int err = make_layout(widths, n_layers, n_params, &a.ch);
   if (err) return err;
   if (tap_at >= n_layers - 1 || (tap_at >= 0 && !tap) || B < 1 || N < 1) return kErrLayout;
   if (tap_at >= 0 && a.ch.c[tap_at + 1] % 8) return kErrWidth;
@@ -740,22 +645,20 @@ extern "C" int chain_fused_k1(const float* x, const float* params, long long n_p
 }
 
 // widths = [C_tap, C1, ..., C_out]; params packs W_tap (C_tap x C1) and b'_0
-// as layer 0; w_pool is (C_pool x C1) row-major f32 (rounded to bf16 in the
-// kernel in the bf16 mode); g is scratch of (B, C1).
+// as layer 0; w_pool is (C_pool x C1) row-major f32; g is scratch of (B, C1).
 extern "C" int chain_fused_k2(const float* tap, const float* pooled, const float* w_pool,
                               const float* params, long long n_params, const int* widths,
                               int n_layers, int c_pool, int B, int N, float* g, float* out,
-                              float* ws, long long ws_floats, int bf16, void* stream) {
+                              float* ws, long long ws_floats, void* stream) {
   StageArgs a{};
-  int err = make_layout(widths, n_layers, n_params, bf16, &a.ch);
+  int err = make_layout(widths, n_layers, n_params, &a.ch);
   if (err) return err;
   if (n_layers < 2 || c_pool < 1 || B < 1 || N < 1) return kErrLayout;
   if (a.ch.c[1] % 8) return kErrWidth;  // g's rows are read as the padded bias of layer 0
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int c1 = a.ch.c[1];
   const dim3 grid((c1 + kGemvO - 1) / kGemvO, B);
-  if (bf16) pool_bias_kernel<true><<<grid, kThreads, 0, s>>>(pooled, w_pool, params + a.ch.bias[0], g, c_pool, c1);
-  else pool_bias_kernel<false><<<grid, kThreads, 0, s>>>(pooled, w_pool, params + a.ch.bias[0], g, c_pool, c1);
+  pool_bias_kernel<<<grid, kThreads, 0, s>>>(pooled, w_pool, params + a.ch.bias[0], g, c_pool, c1);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   a.in = tap;

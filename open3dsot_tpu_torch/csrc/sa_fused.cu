@@ -90,19 +90,7 @@
 //    them, and they stay out of the max and the output. An index outside
 //    [0, N) in K5's idx reads nothing; its centroid's output is NaN.
 //
-// The bf16 mode (sa_tc_kernel<F, true>; the JAX kernels' cdt = bfloat16,
-// open3dsot_tpu/ops/sa_fused.py:276-420). The A-form rows are rounded to bf16
-// once, outside (the compiled TPU kernel gathers them as bf16: its od = bf16
-// operand, or the int8 byte planes that are bit-identical to it), so the
-// gather moves half the bytes: the port's form of the P2 probe's exact bf16
-// row gather, with the same two copy forms (16 bytes are 8 values). Then
-// relu(g + ct) in f32, rounded to bf16 as layer 2 loads its A fragments;
-// layer 2's output is stored in shared memory as bf16 (the JAX kernel rounds
-// it to bf16 before layer 3's dot); layers 2-3 are one wgmma m64n64k16 pass
-// a k16 step (bf16 operands, f32 accumulate) on weights packed in bf16 (8 KB
-// chunks, bf16_tc.cuh), and the max over K is written as bf16. The bound is
-// FLOP / 989 TFLOP/s dense bf16, six times below 3xTF32's. C1 must be a
-// multiple of 8 (16-byte rows of bf16).
+// The bf16 mode is sa_fused_bf16.cu; the ball query is ball_query.cuh.
 //
 // Interface: plain C, loaded with ctypes; pointers are device pointers and the
 // stream is PyTorch's current stream. Returns 0, a CUDA error code, or a
@@ -111,10 +99,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
-#include "bf16_tc.cuh"  // the bf16 mode's chunks and wgmma
-#include "tf32_tc.cuh"  // kCC x kKC weight chunks, the TF32 split, wgmma, TMA
+#include "ball_query.cuh"  // bq_kernel
+#include "tf32_tc.cuh"     // kCC x kKC weight chunks, the TF32 split, wgmma, TMA
 
 namespace {
 
@@ -124,10 +110,9 @@ constexpr int kThreads = kConsumers + 32;  // and a producer warp that streams t
 constexpr int kMaxStages = 4;        // weight chunks in shared memory
 constexpr int kRedStride = kCC + 8;  // floats between rows of layer 3's staged chunk
 constexpr int kSmemMax = 232448;     // 227 KB, the most a block may take
-constexpr int kBqThreads = 256;      // ball query: a warp per centroid
 
 constexpr int kErrArgs = -1;    // B, N, S, K or widths not accepted
-constexpr int kErrWidth = -2;   // a width is not a multiple of 4 (C1 of 8 in bf16)
+constexpr int kErrWidth = -2;   // a width is not a multiple of 4
 constexpr int kErrSmem = -3;    // two weight stages do not fit beside the tile
 constexpr int kErrPacked = -4;  // a packed weight has the wrong size
 
@@ -138,14 +123,14 @@ enum Gather { kLdg = 0, kCpAsync = 1 };
 struct SAArgs {
   const float* centers;  // (B, S, 3)
   const int* idx;        // (B, S, K)
-  const void* a;         // (B, N, C1) A-form rows, f32 (bf16 in the bf16 mode)
+  const float* a;        // (B, N, C1) A-form rows
   const float* w1x;      // (3, C1): layer 1's rows for xyz, or nullptr (ct = b1)
   const float* b1;       // (C1)
   const float* w2;       // packed (ops/chain_fused.py::pack_chunks)
   const float* b2;       // (C2)
   const float* w3;       // packed
   const float* b3;       // (C3)
-  void* out;             // (B, S, C3), f32 (bf16 in the bf16 mode)
+  float* out;            // (B, S, C3)
   int B, N, S, K, C1, C2, C3;
   float inv_r;
   int ts;                // centroids per tile: kTile / K
@@ -153,45 +138,12 @@ struct SAArgs {
   int nc2, nc3;          // output chunks of layers 2 and 3
   int cz;                // layer-3 output chunks per block: blockIdx.z takes [z cz, z cz + cz)
   int nst;               // weight stages
-  int wst;               // floats of a weight chunk: kWStage, or kWStage16 in bf16
   int s1, s2;            // row strides (elements) of the gathered rows and of layer 2
   int o_h2, o_ct, o_idx, o_w, o_bar;  // shared-memory offsets in floats
 };
 
 __host__ __device__ constexpr int round8(int n) { return (n + 7) & ~7; }
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-__device__ __forceinline__ float sqdist(float ax, float ay, float az, float bx, float by,
-                                        float bz) {
-  const float dx = __fsub_rn(ax, bx), dy = __fsub_rn(ay, by), dz = __fsub_rn(az, bz);
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-}
-
-// K4's ball query: warp w of block x takes centroid x * 8 + w of batch element y.
-__global__ void __launch_bounds__(kBqThreads) bq_kernel(const float* __restrict__ xyz,
-                                                        const float* __restrict__ centers,
-                                                        int* __restrict__ idx, int N, int S, int K,
-                                                        float r2) {
-  const int b = blockIdx.y, lane = threadIdx.x & 31;
-  const int s = blockIdx.x * (kBqThreads / 32) + (threadIdx.x >> 5);
-  if (s >= S) return;  // the whole warp
-  const float* c = centers + (static_cast<long long>(b) * S + s) * 3;
-  const float cx = c[0], cy = c[1], cz = c[2];
-  const float* x = xyz + static_cast<long long>(b) * N * 3;
-  int* slots = idx + (static_cast<long long>(b) * S + s) * K;
-  int count = 0, first = 0;
-  for (int base = 0; base < N && count < K; base += 32) {
-    const int j = base + lane;
-    bool in_ball = false;
-    if (j < N) in_ball = sqdist(cx, cy, cz, x[3 * j], x[3 * j + 1], x[3 * j + 2]) < r2;
-    const unsigned m = __ballot_sync(0xffffffffu, in_ball);
-    if (count == 0 && m) first = base + __ffs(m) - 1;
-    const int pos = count + __popc(m & ((1u << lane) - 1u));
-    if (in_ball && pos < K) slots[pos] = j;
-    count += __popc(m);
-  }
-  for (int k = min(count, K) + lane; k < K; k += 32) slots[k] = first;
-}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
@@ -202,8 +154,8 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 // output chunks [c30, ...) with their input chunks.
 __device__ __forceinline__ const float* chunk_src(const SAArgs& p, int u, int c30) {
   const int u2 = p.nc2 * p.nk2;
-  return u < u2 ? p.w2 + static_cast<long long>(u) * p.wst
-                : p.w3 + (static_cast<long long>(c30) * p.nk3 + (u - u2)) * p.wst;
+  return u < u2 ? p.w2 + static_cast<long long>(u) * kWStage
+                : p.w3 + (static_cast<long long>(c30) * p.nk3 + (u - u2)) * kWStage;
 }
 
 // The consumer warps' barrier (named barrier 1; the producer warp goes on).
@@ -212,15 +164,14 @@ __device__ __forceinline__ void consumer_sync() {
 }
 
 // One weight chunk's products into acc: chunk t (stage t % nst) times the 32
-// input channels [kb * kKC, +32) of the row tile hin (stride sin elements;
-// f32, or bf16 in the bf16 mode BF). kCt: the rows are raw A-form rows, so
-// each value is relu(v + ct) of its row's centroid (ct0, ct1 for the thread's
-// rows g and g + 8). full[s]: stage s holds its chunk; empty[s]: the eight
-// consumer warps are done with it. 3xTF32: 12 products; bf16: 2 (k16).
-template <bool kCt, bool BF>
+// input channels [kb * kKC, +32) of the row tile hin (stride sin floats). kCt:
+// the rows are raw A-form rows, so each value is relu(v + ct) of its row's
+// centroid (ct0, ct1 for the thread's rows g and g + 8). full[s]: stage s holds
+// its chunk; empty[s]: the eight consumer warps are done with it.
+template <bool kCt>
 __device__ __forceinline__ void chunk_products(const SAArgs& p, float (&acc)[8][4], int t,
                                                float* wsm, uint64_t* full, uint64_t* empty,
-                                               const void* hin, int sin, int kb, const float* ct0,
+                                               const float* hin, int sin, int kb, const float* ct0,
                                                const float* ct1) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
   const int rbase = (warp & 3) * 16, cbase = (warp >> 2) * 64;
@@ -229,62 +180,32 @@ __device__ __forceinline__ void chunk_products(const SAArgs& p, float (&acc)[8][
   // the chunk's products queue on the tensor cores back to back, summed there
   // (32 inputs), and the chunk's sum is added to acc on the CUDA cores
   float part[8][4];
-  if constexpr (BF) {
-    // rows g and g + 8, inputs k, k + 1 and k + 8, k + 9 of each k16 step:
-    // one 32-bit word each (bf16_tc.cuh's A fragment)
-    const uint16_t* wb = reinterpret_cast<const uint16_t*>(wsm + st * kWStage16);
-    uint32_t af[2][4];
+  const float* wh = wsm + st * kWStage;
+  const float* wl = wh + kWPart;
+  uint32_t ah[kKC / 8][4], al[kKC / 8][4];
 #pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      const int k = kb * kKC + ks * 16 + 2 * q;
-      const uint16_t* r0 = static_cast<const uint16_t*>(hin) + (rbase + g) * sin + k;
-      const uint16_t* r1 = r0 + 8 * sin;
-      const uint32_t w[4] = {*reinterpret_cast<const uint32_t*>(r0),
-                             *reinterpret_cast<const uint32_t*>(r1),
-                             *reinterpret_cast<const uint32_t*>(r0 + 8),
-                             *reinterpret_cast<const uint32_t*>(r1 + 8)};
-      if constexpr (kCt) {  // relu(g + ct) in f32, then bf16: the JAX kernel's order
-        const float* cts[4] = {ct0 + k, ct1 + k, ct0 + k + 8, ct1 + k + 8};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          af[ks][i] = pack_bf16(fmaxf(bf16_lo(w[i]) + cts[i][0], 0.f),
-                                fmaxf(bf16_hi(w[i]) + cts[i][1], 0.f));
-      } else {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) af[ks][i] = w[i];
-      }
+  for (int ks = 0; ks < kKC / 8; ++ks) {
+    const int k = kb * kKC + ks * 8 + q;
+    const float* pa = hin + (rbase + g) * sin + k;
+    float v[4] = {pa[0], pa[8 * sin], pa[4], pa[8 * sin + 4]};
+    if constexpr (kCt) {
+      v[0] = fmaxf(v[0] + ct0[k], 0.f);
+      v[1] = fmaxf(v[1] + ct1[k], 0.f);
+      v[2] = fmaxf(v[2] + ct0[k + 4], 0.f);
+      v[3] = fmaxf(v[3] + ct1[k + 4], 0.f);
     }
-    wgmma_fence();
-    wgmma_m64n64k16_bf16<0>(part, af[0], smem_desc16(wb + wofs16(cbase, 0)));
-    wgmma_m64n64k16_bf16<1>(part, af[1], smem_desc16(wb + wofs16(cbase, 16)));
-  } else {
-    const float* wh = wsm + st * kWStage;
-    const float* wl = wh + kWPart;
-    uint32_t ah[kKC / 8][4], al[kKC / 8][4];
 #pragma unroll
-    for (int ks = 0; ks < kKC / 8; ++ks) {
-      const int k = kb * kKC + ks * 8 + q;
-      const float* pa = static_cast<const float*>(hin) + (rbase + g) * sin + k;
-      float v[4] = {pa[0], pa[8 * sin], pa[4], pa[8 * sin + 4]};
-      if constexpr (kCt) {
-        v[0] = fmaxf(v[0] + ct0[k], 0.f);
-        v[1] = fmaxf(v[1] + ct1[k], 0.f);
-        v[2] = fmaxf(v[2] + ct0[k + 4], 0.f);
-        v[3] = fmaxf(v[3] + ct1[k + 4], 0.f);
-      }
+    for (int i = 0; i < 4; ++i) split_tf32(v[i], ah[ks][i], al[ks][i]);
+  }
+  wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) split_tf32(v[i], ah[ks][i], al[ks][i]);
-    }
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < kKC / 8; ++ks) {
-      const uint64_t dh = smem_desc(wh + wofs(cbase, ks * 8));
-      const uint64_t dl = smem_desc(wl + wofs(cbase, ks * 8));
-      if (ks == 0) wgmma_m64n64k8<0>(part, al[ks], dh);
-      else wgmma_m64n64k8<1>(part, al[ks], dh);
-      wgmma_m64n64k8<1>(part, ah[ks], dl);
-      wgmma_m64n64k8<1>(part, ah[ks], dh);
-    }
+  for (int ks = 0; ks < kKC / 8; ++ks) {
+    const uint64_t dh = smem_desc(wh + wofs(cbase, ks * 8));
+    const uint64_t dl = smem_desc(wl + wofs(cbase, ks * 8));
+    if (ks == 0) wgmma_m64n64k8<0>(part, al[ks], dh);
+    else wgmma_m64n64k8<1>(part, al[ks], dh);
+    wgmma_m64n64k8<1>(part, ah[ks], dl);
+    wgmma_m64n64k8<1>(part, ah[ks], dh);
   }
   wgmma_commit();
   wgmma_wait<0>();  // all of the chunk's products are in before its stage is refilled
@@ -312,17 +233,15 @@ __device__ __forceinline__ void init_bias(float (&acc)[8][4], const float* bias,
 }
 
 // Block (x, y, z): tile x of batch element y (centroids [x ts, x ts + ts)),
-// layer 3's output chunks [z cz, z cz + cz); the rows gathered in form F. BF:
-// the bf16 mode (A rows, h2 and the output in bf16; layers 2-3 in bf16).
-template <int F, bool BF>
+// layer 3's output chunks [z cz, z cz + cz); the rows gathered in form F.
+template <int F>
 __global__ void __launch_bounds__(kThreads, 1) sa_tc_kernel(const SAArgs p) {
-  using Act = typename std::conditional<BF, uint16_t, float>::type;  // a stored activation
-  constexpr int kVec = 16 / sizeof(Act);  // activations a 16-byte copy
+  constexpr int kVec = 4;  // floats a 16-byte copy
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  Act* h1 = reinterpret_cast<Act*>(sm);  // the gathered rows (kTile x s1); then layer 3's
-  float* y3 = sm;                        // chunk (kTile x kRedStride, f32)
-  Act* h2 = reinterpret_cast<Act*>(sm + p.o_h2);  // kTile x s2
+  float* h1 = sm;  // the gathered rows (kTile x s1); then layer 3's
+  float* y3 = sm;  // chunk (kTile x kRedStride)
+  float* h2 = sm + p.o_h2;  // kTile x s2
   float* cts = sm + p.o_ct;  // ts x (nk2 * kKC)
   int* sidx = reinterpret_cast<int*>(sm + p.o_idx);  // kTile
   int* bad = sidx + kTile;   // ts: the centroid has an index outside [0, N)
@@ -345,7 +264,7 @@ __global__ void __launch_bounds__(kThreads, 1) sa_tc_kernel(const SAArgs p) {
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     for (int u = 0; u < p.nst && u < U; ++u)
-      bulk_load(wsm + u * p.wst, chunk_src(p, u, c30), &full[u], p.wst * sizeof(float));
+      bulk_load(wsm + u * kWStage, chunk_src(p, u, c30), &full[u]);
   }
   // the tile's indices (-1 past its rows), flags and ct = b1 - (c * inv_r) W1_xyz
   for (int r = tid; r < kTile; r += kThreads)
@@ -371,12 +290,12 @@ __global__ void __launch_bounds__(kThreads, 1) sa_tc_kernel(const SAArgs p) {
 
   {  // gather the tile's A-form rows raw; zeros past C1, for rows past the tile and bad indices
     const int c4 = w1 / kVec;  // 16-byte copies a padded row
-    const Act* ab = static_cast<const Act*>(p.a) + static_cast<long long>(b) * p.N * p.C1;
+    const float* ab = p.a + static_cast<long long>(b) * p.N * p.C1;
     if constexpr (F == kCpAsync) {
       for (int e = tid; e < kTile * c4; e += kThreads) {
         const int r = e / c4, c = (e - r * c4) * kVec;
         const int j = sidx[r];
-        Act* dst = h1 + r * p.s1 + c;
+        float* dst = h1 + r * p.s1 + c;
         const bool ok = j >= 0 && j < p.N;
         if (ok && c < p.C1) {
           cp_async16(dst, ab + static_cast<long long>(j) * p.C1 + c);
@@ -415,8 +334,7 @@ __global__ void __launch_bounds__(kThreads, 1) sa_tc_kernel(const SAArgs p) {
     if (lane == 0)
       for (int u = p.nst; u < U; ++u) {
         mbar_wait(&empty[u % p.nst], ((u - p.nst) / p.nst) & 1);
-        bulk_load(wsm + (u % p.nst) * p.wst, chunk_src(p, u, c30), &full[u % p.nst],
-                  p.wst * sizeof(float));
+        bulk_load(wsm + (u % p.nst) * kWStage, chunk_src(p, u, c30), &full[u % p.nst]);
       }
     return;
   }
@@ -432,7 +350,7 @@ __global__ void __launch_bounds__(kThreads, 1) sa_tc_kernel(const SAArgs p) {
   for (int cb = 0; cb < p.nc2; ++cb) {
     init_bias(acc, p.b2, p.C2, cb);
     for (int kb = 0; kb < p.nk2; ++kb, ++t)
-      chunk_products<true, BF>(p, acc, t, wsm, full, empty, h1, p.s1, kb, ct0, ct1);
+      chunk_products<true>(p, acc, t, wsm, full, empty, h1, p.s1, kb, ct0, ct1);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
       const int n = cb * kCC + cbase + nt * 8 + 2 * q;
@@ -440,9 +358,7 @@ __global__ void __launch_bounds__(kThreads, 1) sa_tc_kernel(const SAArgs p) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const float v0 = fmaxf(acc[nt][2 * h], 0.f), v1 = fmaxf(acc[nt][2 * h + 1], 0.f);
-        Act* dst = h2 + (rbase + g + 8 * h) * p.s2 + n;
-        if constexpr (BF) *reinterpret_cast<uint32_t*>(dst) = pack_bf16(v0, v1);
-        else *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+        *reinterpret_cast<float2*>(h2 + (rbase + g + 8 * h) * p.s2 + n) = make_float2(v0, v1);
       }
     }
   }
@@ -452,7 +368,7 @@ __global__ void __launch_bounds__(kThreads, 1) sa_tc_kernel(const SAArgs p) {
   for (int cb = c30; cb < c31; ++cb) {
     init_bias(acc, p.b3, p.C3, cb);
     for (int kb = 0; kb < p.nk3; ++kb, ++t)
-      chunk_products<false, BF>(p, acc, t, wsm, full, empty, h2, p.s2, kb, nullptr, nullptr);
+      chunk_products<false>(p, acc, t, wsm, full, empty, h2, p.s2, kb, nullptr, nullptr);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
       const int c = cbase + nt * 8 + 2 * q;
@@ -469,8 +385,7 @@ __global__ void __launch_bounds__(kThreads, 1) sa_tc_kernel(const SAArgs p) {
       const float* col = y3 + tc * K * kRedStride + c;
       for (int k = 0; k < K; ++k) m = fmaxf(m, col[k * kRedStride]);
       const long long o = (static_cast<long long>(b) * p.S + s0 + tc) * p.C3 + n;
-      if constexpr (BF) static_cast<uint16_t*>(p.out)[o] = bad[tc] ? uint16_t{0x7fc0} : bf16_bits(m);
-      else static_cast<float*>(p.out)[o] = bad[tc] ? __int_as_float(0x7fc00000) : m;
+      p.out[o] = bad[tc] ? __int_as_float(0x7fc00000) : m;
     }
     consumer_sync();  // y3 is read before the next chunk writes it
   }
@@ -489,10 +404,8 @@ const DeviceInfo& device_info() {
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
-    const void* kernels[] = {reinterpret_cast<const void*>(sa_tc_kernel<kLdg, false>),
-                             reinterpret_cast<const void*>(sa_tc_kernel<kCpAsync, false>),
-                             reinterpret_cast<const void*>(sa_tc_kernel<kLdg, true>),
-                             reinterpret_cast<const void*>(sa_tc_kernel<kCpAsync, true>)};
+    const void* kernels[] = {reinterpret_cast<const void*>(sa_tc_kernel<kLdg>),
+                             reinterpret_cast<const void*>(sa_tc_kernel<kCpAsync>)};
     for (const void* k : kernels)
       if (e == cudaSuccess)
         e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
@@ -502,31 +415,27 @@ const DeviceInfo& device_info() {
   return info;
 }
 
-long long packed_floats(int k, int c, int bf) {
-  return static_cast<long long>(cdiv(round8(c), kCC)) * cdiv(round8(k), kKC) *
-         (bf ? kWStage16 : kWStage);
+long long packed_floats(int k, int c) {
+  return static_cast<long long>(cdiv(round8(c), kCC)) * cdiv(round8(k), kKC) * kWStage;
 }
 
 // Widths, shared-memory layout, weight stages and the grid (tiles, B, nz). Rows
-// of f32 are padded by 4 floats, of bf16 by 8 values (4 words): each keeps the
-// fragment loads of a warp on 32 banks and a row's start on 16 bytes.
-int make_plan(SAArgs* p, int bf, int sms, dim3* grid, size_t* smem) {
+// are padded by 4 floats: the fragment loads of a warp hit 32 banks.
+int make_plan(SAArgs* p, int sms, dim3* grid, size_t* smem) {
   p->ts = kTile / p->K;
   p->nk2 = cdiv(round8(p->C1), kKC);
   p->nk3 = cdiv(round8(p->C2), kKC);
   p->nc2 = cdiv(round8(p->C2), kCC);
   p->nc3 = cdiv(round8(p->C3), kCC);
-  p->wst = bf ? kWStage16 : kWStage;
-  p->s1 = p->nk2 * kKC + (bf ? 8 : 4);
-  p->s2 = p->nk3 * kKC + (bf ? 8 : 4);
-  const int h1f = bf ? kTile * p->s1 / 2 : kTile * p->s1;  // floats of the gathered rows
-  const int r1 = h1f > kTile * kRedStride ? h1f : kTile * kRedStride;
+  p->s1 = p->nk2 * kKC + 4;
+  p->s2 = p->nk3 * kKC + 4;
+  const int r1 = kTile * p->s1 > kTile * kRedStride ? kTile * p->s1 : kTile * kRedStride;
   p->o_h2 = r1;
-  p->o_ct = p->o_h2 + (bf ? kTile * p->s2 / 2 : kTile * p->s2);
+  p->o_ct = p->o_h2 + kTile * p->s2;
   p->o_idx = p->o_ct + p->ts * p->nk2 * kKC;
   p->o_w = (p->o_idx + kTile + p->ts + 31) & ~31;  // 128-byte aligned stages
   for (p->nst = kMaxStages; p->nst >= 2; --p->nst) {
-    p->o_bar = p->o_w + p->nst * p->wst;
+    p->o_bar = p->o_w + p->nst * kWStage;
     *smem = static_cast<size_t>(p->o_bar + 4 * p->nst) * sizeof(float);  // full and empty
     if (*smem <= static_cast<size_t>(kSmemMax)) break;
   }
@@ -559,20 +468,19 @@ int plan_gather(int C1) { return C1 <= 64 ? kLdg : kCpAsync; }
 // K5 (xyz and idx_ws unused). centers are read by both (ct). w1x: layer 1's
 // three xyz rows (3, C1), or nullptr when layer 1 reads no xyz. r2 is the
 // squared radius in f32, inv_r 1 / r or 1. gather: kLdg or kCpAsync, or -1
-// for the plan's choice. bf16: 1 for the bf16 mode (a_rows and out bf16, w2
-// and w3 packed in bf16; C1 a multiple of 8), 0 for 3xTF32 (f32).
+// for the plan's choice.
 extern "C" int sa_fused_k4(const float* xyz, const float* centers, const int* idx, int* idx_ws,
-                           const void* a_rows, const float* w1x, const float* b1,
+                           const float* a_rows, const float* w1x, const float* b1,
                            const float* w2, long long n_w2, const float* b2, const float* w3,
-                           long long n_w3, const float* b3, void* out, int B, int N, int S,
+                           long long n_w3, const float* b3, float* out, int B, int N, int S,
                            int K, int C1, int C2, int C3, float r2, float inv_r, int gather,
-                           int bf16, void* stream) {
+                           void* stream) {
   if (B < 1 || B > 65535 || N < 1 || S < 1 || K < 1 || K > kTile || C1 < 1 || C2 < 1 || C3 < 1 ||
-      gather < -1 || gather > kCpAsync || bf16 < 0 || bf16 > 1)
+      gather < -1 || gather > kCpAsync)
     return kErrArgs;
   if (!centers || (!idx && (!xyz || !idx_ws))) return kErrArgs;
-  if (C1 % 4 || C2 % 4 || C3 % 4 || (bf16 && C1 % 8)) return kErrWidth;
-  if (n_w2 != packed_floats(C1, C2, bf16) || n_w3 != packed_floats(C2, C3, bf16)) return kErrPacked;
+  if (C1 % 4 || C2 % 4 || C3 % 4) return kErrWidth;
+  if (n_w2 != packed_floats(C1, C2) || n_w3 != packed_floats(C2, C3)) return kErrPacked;
   const DeviceInfo& dev = device_info();
   if (dev.err) return dev.err;
   SAArgs p{};
@@ -596,7 +504,7 @@ extern "C" int sa_fused_k4(const float* xyz, const float* centers, const int* id
   p.inv_r = inv_r;
   dim3 grid;
   size_t smem = 0;
-  const int err = make_plan(&p, bf16, dev.sms, &grid, &smem);
+  const int err = make_plan(&p, dev.sms, &grid, &smem);
   if (err) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!idx) {
@@ -606,12 +514,7 @@ extern "C" int sa_fused_k4(const float* xyz, const float* centers, const int* id
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if (gather < 0) gather = plan_gather(C1);
-  if (bf16) {
-    if (gather == kLdg) sa_tc_kernel<kLdg, true><<<grid, kThreads, smem, s>>>(p);
-    else sa_tc_kernel<kCpAsync, true><<<grid, kThreads, smem, s>>>(p);
-  } else {
-    if (gather == kLdg) sa_tc_kernel<kLdg, false><<<grid, kThreads, smem, s>>>(p);
-    else sa_tc_kernel<kCpAsync, false><<<grid, kThreads, smem, s>>>(p);
-  }
+  if (gather == kLdg) sa_tc_kernel<kLdg><<<grid, kThreads, smem, s>>>(p);
+  else sa_tc_kernel<kCpAsync><<<grid, kThreads, smem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -39,9 +39,14 @@ _F = ctypes.c_float
 # given as (argtypes, restype).
 SIGNATURES = {
     "chain_fused": {
-        "chain_fused_workspace": ([_PI, _I, _I, _I, _I], _LL),
-        "chain_fused_k1": [_P, _P, _LL, _PI, _I, _I, _I, _I, _P, _P, _P, _LL, _I, _P],
-        "chain_fused_k2": [_P, _P, _P, _P, _LL, _PI, _I, _I, _I, _I, _P, _P, _P, _LL, _I, _P],
+        "chain_fused_workspace": ([_PI, _I, _I, _I], _LL),
+        "chain_fused_k1": [_P, _P, _LL, _PI, _I, _I, _I, _I, _P, _P, _P, _LL, _P],
+        "chain_fused_k2": [_P, _P, _P, _P, _LL, _PI, _I, _I, _I, _I, _P, _P, _P, _LL, _P],
+    },
+    "chain_fused_bf16": {
+        "chain_fused_bf16_workspace": ([_PI, _I, _I, _I], _LL),
+        "chain_fused_k1_bf16": [_P, _P, _LL, _PI, _I, _I, _I, _I, _P, _P, _P, _LL, _P],
+        "chain_fused_k2_bf16": [_P, _P, _P, _P, _LL, _PI, _I, _I, _I, _I, _P, _P, _P, _LL, _P],
     },
     "fps": {
         "fps_k3": [_P, _I, _I, _I, _I, _I, _I, _P, _P],
@@ -56,7 +61,10 @@ SIGNATURES = {
         "gather_bf16_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
     "sa_fused": {
-        "sa_fused_k4": [_P] * 8 + [_LL, _P, _P, _LL, _P, _P] + [_I] * 7 + [_F, _F, _I, _I, _P],
+        "sa_fused_k4": [_P] * 8 + [_LL, _P, _P, _LL, _P, _P] + [_I] * 7 + [_F, _F, _I, _P],
+    },
+    "sa_fused_bf16": {
+        "sa_fused_k4_bf16": [_P] * 8 + [_LL, _P, _P, _LL, _P, _P] + [_I] * 7 + [_F, _F, _P],
     },
     "sa_fused_train": {
         "sa_train_workspace": ([_I] * 8, _LL),

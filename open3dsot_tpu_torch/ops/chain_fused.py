@@ -1,7 +1,8 @@
 """Fused eval-mode PointNet chains (SegPointNet / MiniPointNet), port of
 `open3dsot_tpu/ops/chain_fused.py`.
 
-Two kernels, CUDA C++ in `csrc/chain_fused.cu` (the design note is there):
+Two kernels, CUDA C++ in `csrc/chain_fused.cu` (3xTF32) and
+`csrc/chain_fused_bf16.cu` (the bf16 mode); the design notes are there:
 
   K1 `fused_pointnet_encoder`: per point, a chain of Dense layers with eval
      BatchNorm folded in, each followed by ReLU; optionally one layer is
@@ -33,10 +34,11 @@ The bf16 compute mode (`FoldedChain(..., dtype=torch.bfloat16)`, the JAX
 kernels' `dtype=jnp.bfloat16`): BatchNorm folds in f32 as in the f32 mode;
 each layer's product takes bf16 operands (the activations and W' rounded to
 nearest even) and accumulates in f32, then + b' (f32) and ReLU. The tap, the
-pooled vector and K2's logits stay f32. The weights are packed in bf16, one
-part; the plain versions round the operands and multiply in f32
-(`_dense`), which is exact bf16-operand / f32-accumulate arithmetic on the
-CPU and the card alike (TF32 off).
+pooled vector and K2's logits stay f32. The weights are packed in bf16
+panels (`pack_panels_bf16`) for `chain_fused_k1_bf16` / `_k2_bf16`; the plain
+versions round the operands and multiply in f32 (`_dense`), which is exact
+bf16-operand / f32-accumulate arithmetic on the CPU and the card alike (TF32
+off).
 """
 
 from __future__ import annotations
@@ -146,22 +148,39 @@ def pack_chunks(w: torch.Tensor) -> torch.Tensor:
     return chunks.reshape(-1)
 
 
-def pack_chunks_bf16(w: torch.Tensor) -> torch.Tensor:
-    """`pack_chunks` for the bf16 mode (csrc/bf16_tc.cuh): the same chunks, one
-    part of W^T rounded to bf16, in core matrices of 8 outputs x 8 inputs (128
-    bytes), input-major within the chunk; returned as the float32 view of
+# The bf16 kernels' weight panel: a layer's output chunk (64 channels where the
+# layer has at most 64, else 128) x PANEL_K inputs (csrc/bf16_layers.cuh)
+PANEL_K = 64
+
+
+def panel_width(c: int) -> int:
+    """Output channels of a bf16 panel of a layer with c outputs
+    (csrc/bf16_layers.cuh::chunk_width)."""
+    return 128 if c > 64 else 64
+
+
+def pack_panels_bf16(w: torch.Tensor) -> torch.Tensor:
+    """A weight w (in, out) as the bf16 kernels read it (csrc/bf16_layers.cuh):
+    W^T (out, in) rounded to bf16 and zero-padded to whole panels of
+    panel_width(out) x PANEL_K channels; the panels follow each other
+    output-chunk major, each in core matrices of 8 outputs x 8 inputs (128
+    bytes), input-major within the panel. Returned as the float32 view of
     those bf16 values (half as many floats), so that a layer's weights and
     bias share one f32 buffer."""
-    wt, nc, nk = _padded_t(w)
-    chunks = wt.to(BF16).reshape(nc, CHUNK_OUT // 8, 8, nk, CHUNK_IN // 8, 8)
-    return chunks.permute(0, 3, 1, 4, 2, 5).contiguous().reshape(-1).view(torch.float32)
+    k, c = w.shape
+    pw = panel_width(c)
+    nc, nk = -(-c // pw), -(-k // PANEL_K)
+    wt = w.new_zeros(nc * pw, nk * PANEL_K)
+    wt[:c, :k] = w.t()
+    panels = wt.to(BF16).reshape(nc, pw // 8, 8, nk, PANEL_K // 8, 8)
+    return panels.permute(0, 3, 1, 4, 2, 5).contiguous().reshape(-1).view(torch.float32)
 
 
 def pack_layer(w: torch.Tensor, b: torch.Tensor, dtype=None) -> torch.Tensor:
-    """One layer as K1/K2 read it: `pack_chunks(w)` (`pack_chunks_bf16` in the
+    """One layer as K1/K2 read it: `pack_chunks(w)` (`pack_panels_bf16` in the
     bf16 mode), then b (f32) zero-padded to a multiple of 8."""
     c = w.shape[1]
-    packed = pack_chunks_bf16(w) if is_bf16(dtype) else pack_chunks(w)
+    packed = pack_panels_bf16(w) if is_bf16(dtype) else pack_chunks(w)
     return torch.cat([packed, F.pad(b.float(), (0, round8(c) - c))])
 
 
@@ -171,9 +190,10 @@ class FoldedChain:
     `split` > 0 marks K2's first layer, whose input is concat(tap, pooled):
     its first `split` rows (W_tap) go into the packed buffer and the rest
     (W_pool, f32 (in, out)) into `w_pool`. The packed buffer holds each
-    layer as `pack_layer` lays it out for `dtype` (None: the 3xTF32 mode;
-    torch.bfloat16: the bf16 mode), in the order `csrc/chain_fused.cu` reads
-    them. The weights and biases themselves stay f32 in both modes.
+    layer as `pack_layer` lays it out for `dtype` (None: the 3xTF32 mode,
+    read by `csrc/chain_fused.cu`; torch.bfloat16: the bf16 mode, read by
+    `csrc/chain_fused_bf16.cu`). The weights and biases themselves stay f32 in
+    both modes.
     """
 
     def __init__(self, layers: Sequence[Tuple[torch.Tensor, torch.Tensor]], split: int = 0,
@@ -251,9 +271,20 @@ def _c_widths(widths: Sequence[int]):
     return (ctypes.c_int * len(widths))(*widths), len(widths) - 1
 
 
-def _workspace(lib, widths, n_layers: int, B: int, N: int, bf16: bool, dev, what: str):
+def _library(bf16: bool):
+    """The library of a mode and its entries (workspace, K1, K2)."""
+    from open3dsot_tpu_torch.ops._build import load_library
+
+    if bf16:
+        lib = load_library("chain_fused_bf16").lib
+        return lib.chain_fused_bf16_workspace, lib.chain_fused_k1_bf16, lib.chain_fused_k2_bf16
+    lib = load_library("chain_fused").lib
+    return lib.chain_fused_workspace, lib.chain_fused_k1, lib.chain_fused_k2
+
+
+def _workspace(workspace, widths, n_layers: int, B: int, N: int, dev, what: str):
     """Device memory between the kernels' launches, as the C side plans them."""
-    n = lib.chain_fused_workspace(widths, n_layers, B, N, int(bf16))
+    n = workspace(widths, n_layers, B, N)
     if n < 0:
         raise_on(n, what, _ERRORS)
     return torch.empty(max(n, 1), device=dev), n
@@ -277,8 +308,6 @@ def _k1_fake(x, packed, weights, biases, widths, tap_at, bf16=False):
 
 @_k1_op.register_kernel("cuda")
 def _k1_cuda(x, packed, weights, biases, widths, tap_at, bf16=False):
-    from open3dsot_tpu_torch.ops._build import load_library
-
     B, N, _ = x.shape
     dev = x.device
     check("x", x, dev)
@@ -286,13 +315,13 @@ def _k1_cuda(x, packed, weights, biases, widths, tap_at, bf16=False):
     tap = torch.empty(B, N, widths[tap_at + 1] if tap_at >= 0 else 0, device=dev)
     pooled = torch.empty(B, widths[-1], device=dev)
     c_widths, n_layers = _c_widths(widths)
-    lib = load_library("chain_fused").lib
-    ws, ws_n = _workspace(lib, c_widths, n_layers, B, N, bf16, dev, "K1 chain_fused_k1")
-    rc = lib.chain_fused_k1(
-        x.data_ptr(), packed.data_ptr(), packed.numel(), c_widths, n_layers, B, N, tap_at,
-        tap.data_ptr() if tap_at >= 0 else None, pooled.data_ptr(), ws.data_ptr(), ws_n,
-        int(bf16), stream_of(x))
-    raise_on(rc, "K1 chain_fused_k1", _ERRORS)
+    workspace, k1, _ = _library(bf16)
+    what = f"K1 {k1.__name__}"
+    ws, ws_n = _workspace(workspace, c_widths, n_layers, B, N, dev, what)
+    rc = k1(x.data_ptr(), packed.data_ptr(), packed.numel(), c_widths, n_layers, B, N, tap_at,
+            tap.data_ptr() if tap_at >= 0 else None, pooled.data_ptr(), ws.data_ptr(), ws_n,
+            stream_of(x))
+    raise_on(rc, what, _ERRORS)
     fused_pointnet_encoder.launches += 1
     return tap, pooled
 
@@ -312,8 +341,6 @@ def _k2_fake(tap, pooled, packed, w_pool, weights, biases, widths, bf16=False):
 
 @_k2_op.register_kernel("cuda")
 def _k2_cuda(tap, pooled, packed, w_pool, weights, biases, widths, bf16=False):
-    from open3dsot_tpu_torch.ops._build import load_library
-
     B, N, _ = tap.shape
     dev = tap.device
     check("tap", tap, dev)
@@ -323,13 +350,13 @@ def _k2_cuda(tap, pooled, packed, w_pool, weights, biases, widths, bf16=False):
     g = torch.empty(B, widths[1], device=dev)
     out = torch.empty(B, N, widths[-1], device=dev)
     c_widths, n_layers = _c_widths(widths)
-    lib = load_library("chain_fused").lib
-    ws, ws_n = _workspace(lib, c_widths, n_layers, B, N, bf16, dev, "K2 chain_fused_k2")
-    rc = lib.chain_fused_k2(
-        tap.data_ptr(), pooled.data_ptr(), w_pool.data_ptr(), packed.data_ptr(), packed.numel(),
-        c_widths, n_layers, pooled.shape[1], B, N, g.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        ws_n, int(bf16), stream_of(tap))
-    raise_on(rc, "K2 chain_fused_k2", _ERRORS)
+    workspace, _, k2 = _library(bf16)
+    what = f"K2 {k2.__name__}"
+    ws, ws_n = _workspace(workspace, c_widths, n_layers, B, N, dev, what)
+    rc = k2(tap.data_ptr(), pooled.data_ptr(), w_pool.data_ptr(), packed.data_ptr(),
+            packed.numel(), c_widths, n_layers, pooled.shape[1], B, N, g.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), ws_n, stream_of(tap))
+    raise_on(rc, what, _ERRORS)
     fused_seg_head.launches += 1
     return out
 

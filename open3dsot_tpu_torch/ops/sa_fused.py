@@ -7,7 +7,8 @@ points within the radius (ball query), their centred xyz (divided by r if
 eval BatchNorm folded in and ReLU, and the max over the K neighbors.
 
   K4 `fused_sa_apply(..., idx=None, nsample=K)`: the ball query runs on the
-     card too (csrc/sa_fused.cu; the design note is there).
+     card too (csrc/sa_fused.cu, 3xTF32, and csrc/sa_fused_bf16.cu, the bf16
+     mode; the design notes are there).
   K5 `fused_sa_apply(..., idx=idx)`: the same with precomputed indices.
 
 Both kernels take layer 1 in A-form: only the C1-wide rows A[j] are
@@ -38,9 +39,10 @@ The bf16 compute mode (a `FoldedSA` made with `dtype=torch.bfloat16`; JAX
 `fused_sa_apply(dtype=jnp.bfloat16)`): A and ct stay f32 (features
 that arrive as bf16 are taken as f32, as JAX's a_form casts them); the
 gathered A rows are rounded to bf16, as the compiled TPU kernel gathers
-them; then relu(g + ct) in f32, and layers 2-3 with bf16 operands and f32
-sums; the max over K is returned as bf16. `sa_eval_plain(..., dtype=)` does
-the same by rounding, in A-form.
+them (the kernel rounds them as it gathers them); then relu(g + ct) in f32,
+and layers 2-3 with bf16 operands and f32 sums, from weights packed in bf16
+panels (`pack_panels_bf16`); the max over K is returned as bf16.
+`sa_eval_plain(..., dtype=)` does the same by rounding, in A-form.
 """
 
 from __future__ import annotations
@@ -55,24 +57,26 @@ from open3dsot_tpu_torch.ops.chain_fused import (
     _dense,
     is_bf16,
     pack_chunks,
-    pack_chunks_bf16,
+    pack_panels_bf16,
     round_bf16,
 )
 from open3dsot_tpu_torch.ops.grouping import group_points
 from open3dsot_tpu_torch.ops.neighbors import ball_query, radius_sq
 
 Folded = Sequence[Tuple[torch.Tensor, torch.Tensor]]
-GATHER_FORMS = ("ldg", "cp_async")  # how K4/K5 gather their rows (csrc/sa_fused.cu::Gather)
+# how the 3xTF32 K4/K5 gather their rows (csrc/sa_fused.cu::Gather); the bf16
+# mode has one form
+GATHER_FORMS = ("ldg", "cp_async")
 
 _ERRORS = {-1: "B, N, S, K (1..64) or widths not accepted",
-           -2: "a width C1, C2 or C3 is not a multiple of 4 (C1 of 8 in bf16)",
-           -3: "two weight stages do not fit in shared memory beside the row tile",
+           -2: "a width C1, C2 or C3 is not a multiple of 4",
+           -3: "the tiles and the weight stages do not fit in shared memory",
            -4: "a packed weight has the wrong size"}
 
 
 class PackedSA(NamedTuple):
     """K4/K5's weights: layer 1's xyz rows (3, C1) and bias, layers 2-3 packed
-    for the tensor cores (`pack_chunks`, or `pack_chunks_bf16` in the bf16
+    for the tensor cores (`pack_chunks`, or `pack_panels_bf16` in the bf16
     mode) with their biases."""
     w1x: torch.Tensor
     b1: torch.Tensor
@@ -86,7 +90,7 @@ def pack_sa(folded: Folded, dtype=None) -> PackedSA:
     """The packed form of three folded layers for the mode `dtype`, on their device."""
     (w1, b1), (w2, b2), (w3, b3) = folded
     f = lambda t: t.detach().float().contiguous()  # noqa: E731
-    pack = pack_chunks_bf16 if is_bf16(dtype) else pack_chunks
+    pack = pack_panels_bf16 if is_bf16(dtype) else pack_chunks
     return PackedSA(f(w1[:3]), f(b1), pack(f(w2)), f(b2), pack(f(w3)), f(b3))
 
 
@@ -191,7 +195,8 @@ def _launch(xyz: torch.Tensor, features: Optional[torch.Tensor], new_xyz: torch.
             bf16: bool = False) -> torch.Tensor:
     """Check the inputs against the kernel's and launch it: K4 when idx is
     None (K neighbors by its ball query), else K5 (idx (B, S, K) int32); in
-    the bf16 mode with `bf16` (packed weights of that mode, output bf16)."""
+    the bf16 mode with `bf16` (packed weights of that mode, output bf16; its
+    one gather form takes no `gather`)."""
     from open3dsot_tpu_torch.ops._build import load_library
 
     B, N, _ = xyz.shape
@@ -217,20 +222,23 @@ def _launch(xyz: torch.Tensor, features: Optional[torch.Tensor], new_xyz: torch.
     if packed.w2.device != dev:
         raise ValueError(f"the packed weights are on {packed.w2.device}, expected {dev}")
     inv_r = 1.0 / radius if normalize_xyz else 1.0
-    a = a_rows(xyz, features, w1, inv_r=inv_r, use_xyz=use_xyz)
-    if bf16:
-        a = a.to(BF16)  # the rows the kernel gathers, rounded once
+    a = a_rows(xyz, features, w1, inv_r=inv_r, use_xyz=use_xyz)  # f32; the bf16 kernel rounds it
     idx_ws = torch.empty(B, S, K, dtype=torch.int32, device=dev) if idx is None else None
     out = torch.empty(B, S, C3, device=dev, dtype=BF16 if bf16 else torch.float32)
-    rc = load_library("sa_fused").lib.sa_fused_k4(
-        xyz.data_ptr(), new_xyz.data_ptr(), None if idx is None else idx.data_ptr(),
-        None if idx_ws is None else idx_ws.data_ptr(), a.data_ptr(),
-        packed.w1x.data_ptr() if reads_xyz else None, packed.b1.data_ptr(),
-        packed.w2.data_ptr(), packed.w2.numel(), packed.b2.data_ptr(), packed.w3.data_ptr(),
-        packed.w3.numel(), packed.b3.data_ptr(), out.data_ptr(), B, N, S, K, C1, C2, C3,
-        radius_sq(radius), inv_r, gather, int(bf16), stream_of(xyz))
-    raise_on(rc, "K4 sa_fused_k4 (ball query)" if idx is None else "K5 sa_fused_k4 (idx given)",
-             _ERRORS)
+    args = (xyz.data_ptr(), new_xyz.data_ptr(), None if idx is None else idx.data_ptr(),
+            None if idx_ws is None else idx_ws.data_ptr(), a.data_ptr(),
+            packed.w1x.data_ptr() if reads_xyz else None, packed.b1.data_ptr(),
+            packed.w2.data_ptr(), packed.w2.numel(), packed.b2.data_ptr(), packed.w3.data_ptr(),
+            packed.w3.numel(), packed.b3.data_ptr(), out.data_ptr(), B, N, S, K, C1, C2, C3,
+            radius_sq(radius), inv_r)
+    if bf16:
+        entry = load_library("sa_fused_bf16").lib.sa_fused_k4_bf16
+        rc = entry(*args, stream_of(xyz))
+    else:
+        entry = load_library("sa_fused").lib.sa_fused_k4
+        rc = entry(*args, gather, stream_of(xyz))
+    raise_on(rc, f"K4 {entry.__name__} (ball query)" if idx is None
+             else f"K5 {entry.__name__} (idx given)", _ERRORS)
     return out
 
 
@@ -276,10 +284,10 @@ def fused_sa_apply(xyz: torch.Tensor, features: Optional[torch.Tensor], new_xyz:
                    gather: Optional[str] = None) -> torch.Tensor:
     """K4 (idx None, pass nsample) or K5 (idx (B, S, K) int32): xyz (B, N, 3),
     features (B, N, C) or None, new_xyz (B, S, 3) centroids -> (B, S, C3).
-    gather: one of GATHER_FORMS to force the kernel's gather form (to time
-    them), or None for the kernel's own choice. The compute mode is the
+    gather: one of GATHER_FORMS to force the 3xTF32 kernel's gather form (to
+    time them), or None for the kernel's own choice. The compute mode is the
     folded layers' own (`FoldedSA.dtype`; plain pairs are f32): bf16 gives a
-    bf16 output."""
+    bf16 output, and has one gather form."""
     if len(folded) != 3:
         raise ValueError(f"the fused SA takes 3 folded layers, got {len(folded)}")
     if idx is None and nsample is None:
@@ -294,6 +302,8 @@ def fused_sa_apply(xyz: torch.Tensor, features: Optional[torch.Tensor], new_xyz:
     gather_form = -1 if gather is None else GATHER_FORMS.index(gather)
     kw = dict(radius=radius, normalize_xyz=normalize_xyz, use_xyz=use_xyz)
     bf16 = is_bf16(getattr(folded, "dtype", None))
+    if bf16 and gather is not None:
+        raise ValueError("the bf16 mode has one gather form: gather must be None")
     packed = getattr(folded, "packed", None)
     if idx is None and not direct(xyz):
         return _k4_op(xyz, features, new_xyz, [t for layer in folded for t in layer],

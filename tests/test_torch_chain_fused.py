@@ -465,17 +465,18 @@ def test_switching_the_mode_refolds_and_keeps_the_weights():
 
 def _unpack_bf16(chain):
     """[(W^T, b)] per layer from a bf16 packed buffer (bf16 values in f32
-    words), by csrc/chain_fused.cu::make_layout's rule in the bf16 mode:
-    whole chunks of CHUNK_OUT x CHUNK_IN channels, output-chunk major, one
-    part each, in core matrices of 8 x 8."""
-    co, ci = cf.CHUNK_OUT, cf.CHUNK_IN
+    words), by csrc/chain_fused_bf16.cu::make_layout's rule: whole panels of
+    panel_width(out) x PANEL_K channels, output-chunk major, each in core
+    matrices of 8 x 8, then the bias padded to 8."""
+    P = cf.PANEL_K
     w, off, out = chain.packed_widths, 0, []
     for k, c in zip(w[:-1], w[1:]):
-        nc, nk = -(-_r8(c) // co), -(-_r8(k) // ci)
-        floats = nc * nk * co * ci // 2
+        pw = cf.panel_width(c)
+        nc, nk = -(-c // pw), -(-k // P)
+        floats = nc * nk * pw * P // 2
         wt = (chain.packed[off: off + floats].contiguous().view(BF)
-              .reshape(nc, nk, co // 8, ci // 8, 8, 8)
-              .permute(0, 2, 4, 1, 3, 5).reshape(nc * co, nk * ci))
+              .reshape(nc, nk, pw // 8, P // 8, 8, 8)
+              .permute(0, 2, 4, 1, 3, 5).reshape(nc * pw, nk * P))
         out.append((wt, chain.packed[off + floats: off + floats + _r8(c)]))
         off += floats + _r8(c)
     assert off == chain.packed.numel()

@@ -364,12 +364,15 @@ def test_set_abstraction_matches_flax_bf16(fused_eval, with_features, use_fps, m
 
 
 
-@pytest.mark.parametrize("mlp", [(64, 64, 128), (256, 256, 256), (16, 16, 24)])
+@pytest.mark.parametrize("mlp", [(64, 64, 128), (256, 256, 256), (16, 16, 24), (24, 36, 68)])
 def test_bf16_packed_weights_unpack_to_the_rounded_weights(mlp):
-    """pack_sa in the bf16 mode: W2 and W3 as whole zero-padded chunks of
-    bf16(W^T), core matrices of 8 x 8 (csrc/sa_fused.cu::packed_floats with
-    bf16: half the floats of the TF32 mode's hi + lo, a quarter of its bytes
-    a part)."""
+    """pack_sa in the bf16 mode: W2 and W3 as whole zero-padded panels of
+    bf16(W^T), 64 or 128 output x 64 input channels, output-chunk major, core
+    matrices of 8 x 8
+    (csrc/sa_fused_bf16.cu::panel_floats, csrc/bf16_layers.cuh); (24, 36, 68):
+    widths that are multiples of 4 but not of 8."""
+    from open3dsot_tpu_torch.ops.chain_fused import PANEL_K as P, panel_width
+
     _, _, _, _, port = _setup(7, mlp=list(mlp))
     folded = port.folded_chains()
     packed = sa_fused.pack_sa(folded, BF)
@@ -377,9 +380,10 @@ def test_bf16_packed_weights_unpack_to_the_rounded_weights(mlp):
     assert torch.equal(packed.w1x, w1[:3]) and torch.equal(packed.b2, b2)
     for w, p in ((w2, packed.w2), (w3, packed.w3)):
         k, c = w.shape
-        nc, nk = _cdiv(_cdiv(c, 8) * 8, CHUNK_OUT), _cdiv(_cdiv(k, 8) * 8, CHUNK_IN)
-        assert p.dtype == torch.float32 and p.numel() == nc * nk * CHUNK_OUT * CHUNK_IN // 2
-        wt = (p.view(BF).reshape(nc, nk, CHUNK_OUT // 8, CHUNK_IN // 8, 8, 8)
-              .permute(0, 2, 4, 1, 3, 5).reshape(nc * CHUNK_OUT, nk * CHUNK_IN))
+        pw = panel_width(c)
+        nc, nk = _cdiv(c, pw), _cdiv(k, P)
+        assert p.dtype == torch.float32 and p.numel() == nc * nk * pw * P // 2
+        wt = (p.view(BF).reshape(nc, nk, pw // 8, P // 8, 8, 8)
+              .permute(0, 2, 4, 1, 3, 5).reshape(nc * pw, nk * P))
         assert torch.equal(wt[:c, :k], w.t().to(BF))
         assert not wt[c:].float().any() and not wt[:, k:].float().any()
