@@ -14,6 +14,7 @@
     python3 chip_smoke.py --bf16-breakdown  # phases 1, 2, the bf16 K1/K2/K4 breakdown, no result
     python3 chip_smoke.py --k6-bf16-times # phases 1, 2 and 19 only (K6 in bf16), no result
     python3 chip_smoke.py --train-times   # phases 1, 2 and 19-21 (bf16 and M2 training), no result
+    python3 chip_smoke.py --device-sampler-times  # phases 1, 2 and 22 (device sampler), no result
 
 Phases, one line or a few each; any failure exits non-zero:
   1. environment: torch / CUDA versions, the card's name and power limit;
@@ -63,7 +64,7 @@ Phases, one line or a few each; any failure exits non-zero:
      synthetic dataset at BAT_Car widths (both paths), a profiler window
      (K3's launches in it beside the profiler's records of them), and the
      CLI on cfgs/BAT_synthetic.yaml.
- 10. printed last, after phase 21: one JSON line of the kernels K1-K6 and
+ 10. printed last, after phase 22: one JSON line of the kernels K1-K6 and
      the probes P1/P2, then K1/K2/K4/K5 and K6 (forward, backward) in the
      bf16 mode (each with its bound from this run's shapes), the card line,
      then the result line.
@@ -192,6 +193,23 @@ Phases, one line or a few each; any failure exits non-zero:
      gradients 5e-2; bf16 printed), the B = 100 step's time on a prebuilt
      batch (wall, device busy, idle share), and Trainer.fit validating on
      M2ScanTracker (steps/s, the loader's wait, train/acc_* logged).
+ 22. training with samples built on the card (data/device_sampler.py): (a)
+     the threefry draws (split, bits, randint with a per-row maxval,
+     bernoulli, uniform, normal) on the card against the CPU, bit for bit
+     (normal within prng.NORMAL_ULPS); (b) one raw batch built on the card
+     and on the CPU with one key, M2 at cfgs/M2_track_kitti.yaml's widths (B
+     = 100, also int16-packed) and BAT at cfgs/BAT_Car.yaml's (B = 50, 4
+     candidates): within 1e-5, labels equal but on their box's faces, no
+     host sync in the pinned copy and the build, the raw batch's host ms
+     and the build's device ms; (c) BAT Trainer.fit with device_sampler in
+     f32 and bf16 (no validation): steps/s, samples/s, the loader's wait
+     beside phase 13's / 20's host-sampler steps/s, K3 2 and K6 4 + 4
+     launches a step, bf16 again with the loader's one thread (workers 0);
+     (d) M2 Trainer.fit with device_sampler, f32, int16 transfer and
+     workers 0, beside phase 21's; (e) resume on the card: M2 2 + 2 epochs
+     against 4 under torch's deterministic algorithms (step, epoch, LR go
+     on; weights bit for bit), save_top_k 1 leaves one ckpt_ep*.pt. Its
+     lines also go to chiprun_out/phase22.txt.
 
 Weights are random, made with numpy from a seed in the JAX tree's shape
 (open3dsot_tpu_torch.weights). Needs one card; no network.
@@ -614,6 +632,7 @@ def main(argv=None) -> None:
     breakdown_only = "--bf16-breakdown" in args
     k6_bf16_only = "--k6-bf16-times" in args
     train_only = "--train-times" in args
+    sampler_only = "--device-sampler-times" in args
     # --- 1. environment ---------------------------------------------------
     print(f"env: python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
@@ -637,6 +656,8 @@ def main(argv=None) -> None:
                           [n for n in bf16_eval if n in SIGNATURES] if breakdown_only else
                           ["sa_fused_train"] if k6_only else
                           ["sa_fused_train", "sa_fused_train_bf16"] if k6_bf16_only else
+                          ["fps", "sa_fused", "sa_fused_train", "sa_fused_train_bf16"]
+                          if sampler_only else
                           bf16_eval + ["sa_fused_train", "sa_fused_train_bf16"] if train_only else
                           ["sa_fused"] if k4_only else ["fps", "fps_floor"] if k3_only else
                           bf16_eval + ["sa_fused_train", "sa_fused_train_bf16", "gather_probe",
@@ -661,6 +682,10 @@ def main(argv=None) -> None:
             m2_train_phase(card)
         print(f"{'train' if train_only else 'k6 bf16'} times done: phases 1, 2 and "
               f"{'19-21' if train_only else '19'} only", flush=True)
+        return
+    if sampler_only:
+        device_sampler_phase(card)
+        print("device sampler times done: phases 1, 2 and 22 only", flush=True)
         return
     if k4_only:
         matching_phases(card, libs["sa_fused"], k4_only=True)
@@ -814,6 +839,9 @@ def main(argv=None) -> None:
     k6b = check_k6_bf16(bat_k6_calls(), card, libs["sa_fused_train_bf16"])
     k6b_launches = bf16_train_phase(card)
     m2_train_phase(card)
+
+    # --- 22. training with samples built on the card ---------------------------
+    device_sampler_phase(card)
     replaces = "open3dsot_tpu/ops/sa_fused_train.py:608-776 (cdt bfloat16)"
     for what in ("fwd", "bwd"):
         bf16_kernels.append(kernel_entry(
@@ -1723,6 +1751,7 @@ def check_trainer(card: str) -> tuple:
     launches = training_counts()
     last = history[-1]
     n2 = last["steps"] - history[0]["steps"]  # steps of epoch 2
+    FIT_RATES["BAT f32"] = n2 / last["time_s"]
     print(f"fit: {last['steps']} steps of B={TRAIN_B}, losses {[h['loss'] for h in history]}; "
           f"epoch 2: {n2 / last['time_s']:.3f} steps/s, {n2 * TRAIN_B / last['time_s']:.2f} "
           f"samples/s, waiting for the loader {last['data_wait_s']:.4f} of {last['time_s']:.4f} s; "
@@ -4069,6 +4098,7 @@ def fit_run(model, cfg, sampler, val, card: str, what: str, steps: int = 3) -> d
     torch.cuda.synchronize()
     last = history[-1]
     n2 = last["steps"] - history[0]["steps"]
+    FIT_RATES[what] = n2 / last["time_s"]
     print(f"fit {what}: {last['steps']} steps of B={cfg.batch_size}, losses "
           f"{[h['loss'] for h in history]}; epoch 2: {n2 / last['time_s']:.3f} steps/s, "
           f"{n2 * cfg.batch_size / last['time_s']:.2f} samples/s, waiting for the loader "
@@ -4265,6 +4295,326 @@ def m2_train_phase(card: str) -> None:
     for cfg, model, what in ((cfg32, m32, "M2 f32"), (cfg16, m16, "M2 bf16")):
         fit_run(model, cfg, get_dataset(cfg, "train_motion", "train"), val, card, what)
     print(f"phase 21 ok in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# --- 22. training with samples built on the card ------------------------------
+
+# Steps/s of the host-sampler fit runs of phases 13, 20 and 21 in this run,
+# printed beside phase 22's device-sampler runs (by fit_run's `what`).
+FIT_RATES: dict = {}
+BUILD_ATOL = 1e-5  # the card's build against the CPU's (tests/test_torch_device_sampler.py's)
+PHASE22_LOG = ROOT / "chiprun_out" / "phase22.txt"
+CARD_DEVICE = "cuda"  # phase 22's device ("cpu" in a rehearsal on the CPU)
+
+
+def say(line: str) -> None:
+    """Print a phase 22 line and keep it under chiprun_out/, so that the whole
+    of phase 22's report survives when only the end of stdout is kept."""
+    print(line, flush=True)
+    PHASE22_LOG.parent.mkdir(exist_ok=True)
+    with open(PHASE22_LOG, "a") as fh:
+        fh.write(line + "\n")
+
+
+def draws_on_card(card: str) -> None:
+    """22a: the threefry draws on the card equal the CPU's (normal within
+    prng.NORMAL_ULPS), with a key of Python ints and a (B,) key on the card."""
+    import numpy as np
+    import torch
+
+    from open3dsot_tpu_torch.utils import prng
+
+    key = prng.fold_in(prng.prng_key(SEED + 1), 12345)
+    rows = torch.arange(1, 101).reshape(100, 1) * 700
+    for name, draw in (
+            ("split", lambda dev: torch.stack([torch.stack(k) for k in prng.split(
+                tuple(torch.tensor(w, device=dev) for w in key), 7)])),
+            ("bits", lambda dev: prng.bits(key, (100, 1024), device=dev)),
+            ("randint per-row maxval", lambda dev: prng.randint(key, (100, 1024), 0, rows.to(dev))),
+            ("bernoulli", lambda dev: prng.bernoulli(key, 0.5, (100, 64), device=dev)),
+            ("uniform", lambda dev: prng.uniform(key, (100, 2048), -0.3, 0.3, device=dev)),
+            ("uniform of (B,) keys", lambda dev: prng.uniform(
+                prng.fold_in(prng.prng_key(SEED), torch.arange(100, device=dev)), (64,))),
+            ("normal", lambda dev: prng.normal(key, (100, 2048), device=dev))):
+        want, got = draw("cpu"), draw(CARD_DEVICE).cpu()
+        if got.dtype == torch.float32:
+            ulps = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs().max().item()
+        else:
+            ulps = 0 if torch.equal(got, want) else -1
+        bound = prng.NORMAL_ULPS if name == "normal" else 0
+        say(f"  22a draw {name} {tuple(got.shape)}: card against CPU, max {ulps} ulps "
+            f"(bound {bound})")
+        if not 0 <= ulps <= bound:
+            fail(f"draw {name} on the card differs from the CPU's")
+
+
+def build_gaps(ds_mod):
+    """Make the builder record, per crop, each row's smallest distance from
+    a valid raw point to the crop boundary; -> (the list, restore)."""
+    import torch
+
+    margins, crop = [], ds_mod._crop
+
+    def recording(pts, valid, box, half, A=None):
+        local, ok = crop(pts, valid, box, half, A=A)
+        gap = (local.abs() - half[:, None, :]).abs().amin(dim=-1)
+        margins.append(torch.where(valid, gap, float("inf")).amin(dim=-1).cpu())
+        return local, ok
+
+    ds_mod._crop = recording
+    return margins, lambda: setattr(ds_mod, "_crop", crop)
+
+
+def face_flips(got, want, points, box4, wlh, factor: float, what: str) -> int:
+    """Labels that differ must sit within BUILD_ATOL of their box's faces."""
+    from open3dsot_tpu_torch.geometry import rigid
+
+    flips = got != want
+    if flips.any():
+        local = rigid.remove_transform_points(points, box4)
+        half = (wlh[:, [1, 0, 2]] * (factor / 2))[:, None, :]
+        gap = (local.abs() - half).abs().amin(dim=-1)[flips].max().item()
+        if gap > BUILD_ATOL:
+            fail(f"build {what}: a label differs {gap:.3e} from its box's faces")
+    return int(flips.sum())
+
+
+def compare_build(kind: str, cfg, got: dict, want: dict, near) -> str:
+    """The card's build (on the CPU now) against the CPU's, rows whose crop
+    boundary passes within BUILD_ATOL of a raw point aside."""
+    import numpy as np
+    import torch
+
+    keep = ~near
+    g = {k: v[keep] for k, v in got.items()}
+    w = {k: v[keep] for k, v in want.items()}
+    rad = (lambda t: t * (np.pi / 180.0)) if cfg.degrees else (lambda t: t)
+    flips = 0
+    if kind == "motion":
+        n = cfg.point_sample_size
+        pts = g["points"]
+        box = torch.cat([g["box_label"][:, :3], rad(g["box_label"][:, 3:])], -1)
+        prev = torch.cat([g["box_label_prev"][:, :3], rad(g["box_label_prev"][:, 3:])], -1)
+        flips += face_flips(g["seg_label"][:, :n], w["seg_label"][:, :n], pts[:, :n, :3], prev,
+                            g["bbox_size"], 1.25, "seg_label prev")
+        flips += face_flips(g["seg_label"][:, n:], w["seg_label"][:, n:], pts[:, n:, :3], box,
+                            g["bbox_size"], 1.25, "seg_label this")
+        flips += face_flips(pts[:, :n, 4], w["points"][:, :n, 4], pts[:, :n, :3],
+                            torch.zeros_like(box), g["bbox_size"], 1.25, "seg_mask_prev")
+        if not torch.equal(g["motion_state_label"], w["motion_state_label"]):
+            fail("build motion: motion_state_label differs")
+        close = {"points xyz": (pts[..., :3], w["points"][..., :3])}
+        close.update({k: (g[k], w[k]) for k in ("box_label", "box_label_prev", "motion_label",
+                                                 "prev_bc", "this_bc", "candidate_bc")})
+    else:
+        box = torch.cat([g["box_label"][:, :3], rad(g["box_label"][:, 3:])], -1)
+        flips += face_flips(g["seg_label"], w["seg_label"], g["search_points"], box,
+                            g["bbox_size"], 1.0, "seg_label")
+        close = {k: (g[k], w[k]) for k in ("template_points", "search_points", "box_label",
+                                           "points2cc_dist_t", "points2cc_dist_s")}
+    for k in got:
+        if got[k].dtype != want[k].dtype or got[k].shape != want[k].shape:
+            fail(f"build {kind} {k}: {got[k].dtype} {tuple(got[k].shape)} on the card, "
+                 f"{want[k].dtype} {tuple(want[k].shape)} on the CPU")
+    errs = {k: (a - b).abs().max().item() for k, (a, b) in close.items()}
+    worst = max(errs.values())
+    if not worst <= BUILD_ATOL:
+        fail(f"build {kind}: {errs} from the CPU's (atol {BUILD_ATOL})")
+    return (f"max |diff| {worst:.3e} (atol {BUILD_ATOL}); {flips} labels differ, each on its "
+            f"box's faces; {int(near.sum())} rows with a raw point within {BUILD_ATOL} of "
+            f"the crop boundary set aside")
+
+
+def build_on_card(kind: str, cfg, B: int, card: str) -> dict:
+    """22b: one raw batch built on the card and on the CPU with one key; the
+    card's build under torch.cuda.set_sync_debug_mode('error'); host ms of
+    the raw batch, device ms of the build (events)."""
+    import torch
+
+    from open3dsot_tpu_torch.data import device_sampler as ds
+    from open3dsot_tpu_torch.data import get_dataset
+    from open3dsot_tpu_torch.data.loader import collate
+    from open3dsot_tpu_torch.geometry.rigid import up_frame
+    from open3dsot_tpu_torch.utils import prng
+
+    raw_cls = ds.RawMotionSampler if kind == "motion" else ds.RawSiameseSampler
+    sampler = raw_cls(get_dataset(cfg, cfg.train_type, "train").dataset, cfg,
+                      max_raw_points=int(cfg.max_raw_points))
+    idx = [(i * 7) % len(sampler) for i in range(B)]
+    t0 = time.perf_counter()
+    host = collate([sampler[i] for i in idx])
+    if getattr(cfg, "transfer_quant", None):
+        host = ds.pack_raw_batch(host)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    def builder(dev):
+        return ds.make_builder(cfg, cfg.train_type, A=up_frame(cfg.up_axis, device=dev))
+
+    key = prng.fold_in(prng.prng_key(SEED + 1), 3)
+    cpu_raw = {k: torch.from_numpy(v) for k, v in host.items()}
+    margins, restore = build_gaps(ds)
+    try:
+        want = builder("cpu")(cpu_raw, key)
+    finally:
+        restore()
+    near = torch.stack(margins).amin(dim=0) <= BUILD_ATOL
+    pinned = {k: v.pin_memory() for k, v in cpu_raw.items()}
+    build = builder(CARD_DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # any host sync in the copy or the build raises
+    try:
+        raw = {k: v.to(CARD_DEVICE, non_blocking=True) for k, v in pinned.items()}
+        out = build(raw, key)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = {k: v.cpu() for k, v in out.items()}
+    verdict = compare_build(kind, cfg, got, want, near)
+    ms = time_ms(lambda: build(raw, key), iters=10, repeats=5)
+    what = f"{kind} B={B}{' int16' if getattr(cfg, 'transfer_quant', None) else ''}"
+    say(f"  22b build {what} (P={cfg.max_raw_points}): card against CPU {verdict}; no host "
+        f"sync; raw batch on the host {host_ms:.4f} ms, build on the card {ms:.4f} ms "
+        f"(events) [{card}]")
+    return dict(build_ms=ms, host_ms=host_ms)
+
+
+def device_fit(model, cfg, sampler, card: str, what: str, beside: str, build_ms: float,
+               steps: int = 4) -> dict:
+    """22c/d: Trainer.fit with device_sampler: true, two epochs of `steps`
+    steps, no validation; epoch 2's steps/s beside the host sampler's."""
+    import numpy as np
+    import torch
+
+    from open3dsot_tpu_torch.train.trainer import Trainer
+
+    work_dir = ROOT / "runs" / f"chip_smoke_device_sampler_{what.replace(' ', '_')}"
+    history = Trainer(model, cfg, work_dir=str(work_dir)).fit(sampler, None, epochs=2,
+                                                               steps_per_epoch=steps)
+    torch.cuda.synchronize()
+    last = history[-1]
+    n2 = last["steps"] - history[0]["steps"]
+    rate = n2 / last["time_s"]
+    host = FIT_RATES.get(beside)
+    host_s = f"{host:.3f} steps/s" if host else "not measured in this call"
+    say(f"  22 fit {what} B={cfg.batch_size} device_sampler: {rate:.3f} steps/s, "
+        f"{rate * cfg.batch_size:.2f} samples/s, waiting for the loader {last['data_wait_s']:.4f} "
+        f"of {last['time_s']:.4f} s, build {build_ms:.4f} ms a batch on the card; host sampler "
+        f"({beside}, this run): {host_s}; losses {[h['loss'] for h in history]} [{card}]")
+    if not all(np.isfinite(h["loss"]) for h in history) or last["steps"] != 2 * steps:
+        fail(f"device-sampler fit {what}: {history}")
+    return last
+
+
+def resume_on_card(m2_cfg, val, card: str) -> None:
+    """22e: M2 f32 with the device sampler, 2 epochs then 2 more from a
+    fresh Trainer and model, against 4 uninterrupted epochs, validating on
+    the host loop: step, epoch and LR go on (the LR drops after epoch 2);
+    under torch's deterministic algorithms (M2 trains through no hand
+    kernel; BAT's K6 adds its da rows by float atomics) the weights equal
+    the uninterrupted run's bit for bit; save_top_k 1 leaves one
+    ckpt_ep*.pt."""
+    import shutil
+
+    import torch
+
+    from open3dsot_tpu_torch.data import get_dataset
+    from open3dsot_tpu_torch.train.trainer import Trainer
+
+    cfg = m2_cfg.copy()
+    cfg.save_top_k, cfg.val_tracker, cfg.lr_decay_step = 1, "host", 2
+    sampler = get_dataset(cfg, "train_motion", "train")
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, chunks in (("whole", [4]), ("chunked", [2, 4])):
+            work_dir = ROOT / "runs" / f"chip_smoke_resume_{name}"
+            shutil.rmtree(work_dir, ignore_errors=True)
+            for i, epochs in enumerate(chunks):
+                model, _ = make_model(cfg, fused_eval=True)
+                resume = str(work_dir / "ckpt_last.pt") if i else None
+                history = Trainer(model, cfg, work_dir=str(work_dir)).fit(
+                    sampler, val, epochs=epochs, steps_per_epoch=2, resume_from=resume)
+            runs[name] = (model, history, work_dir)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (a, ha, da), (b, hb, db) = runs["whole"], runs["chunked"]
+    ca = torch.load(da / "ckpt_last.pt", weights_only=True)
+    cb = torch.load(db / "ckpt_last.pt", weights_only=True)
+    sa, sb = a.net.state_dict(), b.net.state_dict()
+    worst = max((sa[k].double() - v.double()).abs().max().item() for k, v in sb.items())
+    lr = (ca["optimizer"]["param_groups"][0]["lr"], cb["optimizer"]["param_groups"][0]["lr"])
+    tops = sorted(p.name for p in db.glob("ckpt_ep*.pt"))
+    say(f"  22e resume M2 B={cfg.batch_size}: epochs {[h['epoch'] for h in hb]} steps "
+        f"{[h['steps'] for h in hb]} (uninterrupted {[h['steps'] for h in ha[2:]]}); lr "
+        f"{lr[1]:.3e} (uninterrupted {lr[0]:.3e}); weights and statistics against the "
+        f"uninterrupted run: max |diff| {worst:.3e} (bound 0); losses "
+        f"{[h['loss'] for h in hb]} against {[h['loss'] for h in ha[2:]]}; top-1 checkpoints "
+        f"{tops} [{card}]")
+    if [h["epoch"] for h in hb] != [2, 3] or [h["steps"] for h in hb] != [6, 8] or \
+            (ca["step"], cb["step"]) != (8, 8) or lr[0] != lr[1] or lr[0] >= cfg.lr:
+        fail("resume: the step, epoch or learning rate did not go on")
+    if worst != 0 or [h["loss"] for h in hb] != [h["loss"] for h in ha[2:]]:
+        fail(f"resume: the resumed run is {worst} from the uninterrupted one")
+    if len(tops) != 1:
+        fail(f"save_top_k 1 left {tops}")
+
+
+def device_sampler_phase(card: str) -> None:
+    """Phase 22: training with samples built on the card."""
+    t0 = time.perf_counter()
+    if PHASE22_LOG.exists():
+        PHASE22_LOG.unlink()
+    from open3dsot_tpu_torch.config import load_config
+    from open3dsot_tpu_torch.data import get_dataset
+    from open3dsot_tpu_torch.ops import sa_fused_train
+
+    draws_on_card(card)
+    over = dict(dataset="synthetic", syn_num_tracklets=8, syn_tracklet_len=16, seed=SEED,
+                category_name="Car", tensorboard=False, device_sampler=True)
+    m2 = load_config(str(ROOT / M2_CFG), over)
+    m2q = load_config(str(ROOT / M2_CFG), dict(over, transfer_quant="int16"))
+    bat = matching_cfg("bat", syn_num_tracklets=8, tensorboard=False, device_sampler=True)
+    bat16 = matching_cfg("bat", syn_num_tracklets=8, tensorboard=False, device_sampler=True,
+                         bf16=True)
+    builds = {"m2": build_on_card("motion", m2, M2_TRAIN_B, card),
+              "m2q": build_on_card("motion", m2q, M2_TRAIN_B, card),
+              "bat": build_on_card("siamese", bat, TRAIN_B, card)}
+
+    k6 = sa_fused_train.fused_sa_train_apply
+    model, variables = make_model(bat, fused_eval=True)
+    sampler = get_dataset(bat, "train_siamese", "train")
+    for cfg, what, beside in ((bat, "BAT f32", "BAT f32"), (bat16, "BAT bf16", "BAT bf16")):
+        if cfg is bat16:
+            model, _ = make_model(bat16, fused_eval=True, variables=variables)
+        reset_training_counts()
+        device_fit(model, cfg, sampler, card, what, beside, builds["bat"]["build_ms"])
+        n = training_counts()
+        n16 = (k6.bf16_fwd_launches, k6.bf16_bwd_launches)
+        say(f"  22c launches in the {what} fit (8 steps): K3 {n[0]} K6 forward {n[1]} backward "
+            f"{n[2]} (bf16 {n16[0]} / {n16[1]}) K4 {n[3]}")
+        k6_n = n16 if cfg is bat16 else n[1:3]
+        if n[0] != 2 * 8 or tuple(k6_n) != (4 * 8, 4 * 8) or n[3] != 0:
+            fail(f"{what} device-sampler fit: expected K3 2, K6 4 + 4 launches per step")
+    # the same BAT f32 fit with the raw batches made by the loader's one
+    # background thread alone (workers 0, not BAT_Car's 10): its Python
+    # contends with the training loop's for the GIL
+    serial = bat16.copy()
+    serial.workers = 0
+    device_fit(model, serial, sampler, card, "BAT bf16 workers 0", "BAT bf16",
+               builds["bat"]["build_ms"])
+    del model
+    for cfg, what, build in ((m2, "M2 f32", "m2"), (m2q, "M2 f32 int16", "m2q")):
+        model, _ = make_model(cfg, fused_eval=True)
+        device_fit(model, cfg, get_dataset(cfg, "train_motion", "train"), card, what, "M2 f32",
+                   builds[build]["build_ms"])
+    serial = m2.copy()
+    serial.workers = 0
+    device_fit(model, serial, get_dataset(serial, "train_motion", "train"), card,
+               "M2 f32 workers 0", "M2 f32", builds["m2"]["build_ms"])
+    del model
+    val = get_dataset(load_config(str(ROOT / M2_CFG), dict(over, syn_num_tracklets=1)), "test",
+                      "test")
+    resume_on_card(m2, val, card)
+    dt = time.perf_counter() - t0
+    say(f"phase 22 ok in {dt:.1f} s")
 
 
 if __name__ == "__main__":

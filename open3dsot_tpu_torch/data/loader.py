@@ -2,8 +2,10 @@
 collator of fixed-shape batches and a loader whose background thread builds
 the next batches while the device trains on this one. Unlike the original,
 the background thread ends when the consumer stops iterating early (a
-trainer's `steps_per_epoch` below the loader's length), and `close` shuts
-the worker threads down.
+trainer's `steps_per_epoch` below the loader's length), `close` shuts the
+worker threads down, and `transform` (the int16 pack, the pinned copies of
+the device sampler's raw batches) runs on each collated batch in the
+background thread too.
 """
 
 from __future__ import annotations
@@ -28,12 +30,13 @@ class BatchLoader:
 
     drop_last=True keeps batch shapes static. Shuffling is deterministic
     given `seed` + `epoch`. `workers` > 0 builds a batch's samples in a
-    thread pool; `prefetch` batches are built ahead in a background thread.
+    thread pool; `prefetch` batches are built ahead in a background thread;
+    `transform` maps each collated batch there.
     """
 
     def __init__(self, sampler, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, seed: int = 0, prefetch: int = 2,
-                 workers: int = 0):
+                 workers: int = 0, transform=None):
         self.sampler = sampler
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -41,6 +44,7 @@ class BatchLoader:
         self.seed = seed
         self.prefetch = prefetch
         self.workers = workers
+        self.transform = transform
         self.epoch = 0
         self._pool = None
         if workers > 0:
@@ -72,7 +76,8 @@ class BatchLoader:
                 samples = list(self._pool.map(self.sampler.__getitem__, map(int, chunk)))
             else:
                 samples = [self.sampler[int(i)] for i in chunk]
-            yield collate(samples)
+            batch = collate(samples)
+            yield batch if self.transform is None else self.transform(batch)
 
     def __iter__(self) -> Iterator[dict]:
         if self.prefetch <= 0:

@@ -2,12 +2,20 @@
 
     python -m open3dsot_tpu_torch.main --cfg cfgs/BAT_synthetic.yaml \
         [--epoch N] [--batch_size B] [--seed S] [--log_dir DIR] [--workers W] \
-        [--check_val_every_n_epoch E] [--device cuda]                        # train
+        [--check_val_every_n_epoch E] [--save_top_k K] [--device_sampler \
+        [--transfer_quant int16]] [--device cuda]                           # train
     python -m open3dsot_tpu_torch.main --cfg cfgs/M2_track_synthetic.yaml --test \
         [--checkpoint ckpt_best.pt] [--max_tracklets N] [--device cuda] [--bf16] \
         [--tracker scan [--host_metrics] [--transfer_quant int16]]          # eval
 
-Flags keep the JAX CLI's names (main.py); a flag given overrides the YAML.
+Flags keep the JAX CLI's names (main.py); a flag given overrides the YAML,
+and `--preloading` and `--save_top_k` override it even at their defaults
+(False and -1), as in the JAX CLI and the reference. `--fused_sa` /
+`--fused_sa_train` (true / false / auto; the config keys of the same names)
+choose the kernels of eval (K1/K2, K3/K4) and of training (K6): `auto` is
+on, the card being the accelerator; `false` is the plain path, by the
+user's choice. `--category_name` names the class (the synthetic dataset
+makes one class whatever its name).
 Eval runs the host loop (`--tracker host`, tracking/eval.py) for every
 model, or the batched device-resident scan tracker (`--tracker scan`:
 tracking/scan_tracker.py for M2-Track, tracking/scan_matching.py for BAT
@@ -24,7 +32,9 @@ motion sampler (`train_motion`), BAT and P2B on the siamese one
 (weights.random_variables). `--checkpoint` is a trainer checkpoint
 (`ckpt_best.pt`, `ckpt_last.pt`) or a file written by
 `torch.save(model.net.state_dict(), path)`; without one the weights are
-random, made from the seed.
+random, made from the seed. `--device_sampler` builds the training
+samples on the device (data/device_sampler.py); `--transfer_quant int16`
+then ships the raw frames as int16.
 """
 
 from __future__ import annotations
@@ -32,7 +42,8 @@ from __future__ import annotations
 import argparse
 
 _OVERRIDES = ("epoch", "batch_size", "seed", "log_dir", "workers", "check_val_every_n_epoch",
-              "transfer_quant", "bf16")
+              "transfer_quant", "bf16", "category_name", "device_sampler")
+_TRI_STATE = {"true": True, "false": False, "auto": "auto"}
 
 
 def parse_args(argv=None):
@@ -49,6 +60,18 @@ def parse_args(argv=None):
     parser.add_argument("--workers", type=int, default=None)
     parser.add_argument("--seed", type=int, default=None)
     parser.add_argument("--check_val_every_n_epoch", type=int, default=None)
+    parser.add_argument("--category_name", type=str, default=None)
+    # as the reference (main.py:44,47): default False, and it always overrides the YAML
+    parser.add_argument("--preloading", action="store_true", default=False)
+    parser.add_argument("--save_top_k", type=int, default=-1,
+                        help="keep k best checkpoints by precision (-1 = all)")
+    parser.add_argument("--device_sampler", action="store_true", default=None,
+                        help="build training samples on the device (data/device_sampler.py)")
+    parser.add_argument("--fused_sa", type=str, default=None, choices=["auto", "true", "false"],
+                        help="the eval kernels (K1/K2, K3/K4); auto = on")
+    parser.add_argument("--fused_sa_train", type=str, default=None,
+                        choices=["auto", "true", "false"],
+                        help="the training kernel K6; auto = on")
     parser.add_argument("--bf16", action="store_true", default=None,
                         help="bf16 compute (params/BN stats stay f32)")
     parser.add_argument("--device", type=str, default="cuda",
@@ -60,23 +83,43 @@ def parse_args(argv=None):
                         help="with --tracker scan: score trajectories on the host "
                              "(geometry/iou.py) instead of on the device (geometry/iou_device.py)")
     parser.add_argument("--transfer_quant", type=str, default=None, choices=["int16"],
-                        help="with --tracker scan: ship frame points to the device as "
-                             "per-sample fixed-point int16 (utils/quant.py)")
+                        help="ship frame points to the device as per-sample fixed-point "
+                             "int16 (utils/quant.py): --tracker scan eval, and training "
+                             "with --device_sampler")
     return parser.parse_args(argv)
+
+
+def config_of(args):
+    """The config of the parsed flags: defaults < YAML < flags."""
+    from open3dsot_tpu_torch.config import load_config
+
+    over = {k: getattr(args, k) for k in _OVERRIDES if getattr(args, k) is not None}
+    over.update(preloading=args.preloading, save_top_k=args.save_top_k)
+    for k in ("fused_sa", "fused_sa_train"):
+        if getattr(args, k) is not None:
+            over[k] = _TRI_STATE[getattr(args, k)]
+    return load_config(args.cfg, over)
+
+
+def kernel_options(cfg, net_model: str) -> dict:
+    """The model's kernel switches from the config: `fused_sa` ->
+    fused_eval, `fused_sa_train` -> fused_train (BAT, P2B); on unless False."""
+    opts = {"fused_eval": getattr(cfg, "fused_sa", "auto") not in (False, "false")}
+    if net_model.lower() != "m2track":
+        opts["fused_train"] = getattr(cfg, "fused_sa_train", "auto") not in (False, "false")
+    return opts
 
 
 def main(argv=None):
     args = parse_args(argv)
     import torch
 
-    from open3dsot_tpu_torch.config import load_config
     from open3dsot_tpu_torch.data import get_dataset
     from open3dsot_tpu_torch.models import get_model
     from open3dsot_tpu_torch.weights import random_variables, state_dict_from_jax
 
-    cfg = load_config(args.cfg, {k: getattr(args, k) for k in _OVERRIDES
-                                 if getattr(args, k) is not None})
-    model = get_model(cfg.net_model)(cfg, device=args.device)
+    cfg = config_of(args)
+    model = get_model(cfg.net_model)(cfg, device=args.device, **kernel_options(cfg, cfg.net_model))
     if args.checkpoint:
         from open3dsot_tpu_torch.train.trainer import state_dict_of_checkpoint
 

@@ -8,8 +8,10 @@ variable tree (weights.py).
 BatchNorm (eps 1e-5) follows flax, the reference of the port, in training
 mode too: the batch variance is the biased one, mean(x^2) - mean(x)^2
 clipped at 0, over every leading axis, and the running statistics blend
-ra <- 0.9 ra + 0.1 batch with that biased variance (torch's own update uses
-the unbiased one, so `F.batch_norm(training=True)` is not used). The update
+ra <- (1 - m) ra + m batch with that biased variance (torch's own update
+uses the unbiased one, so `F.batch_norm(training=True)` is not used); m is
+the BatchNorm's `momentum`, 0.1 (flax's 0.9) unless train/bn_momentum.py
+schedules it. The update
 is in place under no_grad; it bumps the buffers' versions, so a cached BN
 fold (models/pointnet.py::_FoldCache) is refolded before the next eval
 forward.
@@ -81,9 +83,6 @@ def linear(x: torch.Tensor, dense: nn.Linear, dtype) -> torch.Tensor:
     return dense_bf16(x, dense) if is_bf16(dtype) else dense(x)
 
 
-BN_MOMENTUM = 0.9  # flax's: ra <- m * ra + (1 - m) * batch
-
-
 def batch_stats(x: torch.Tensor):
     """(mean, biased variance) over every leading axis, as flax computes them
     (use_fast_variance: mean(x^2) - mean(x)^2, clipped at 0)."""
@@ -144,11 +143,12 @@ class DenseBNRelu(nn.Module):
         return x
 
     def update_batch_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
-        """Blend a batch's (mean, biased variance) into the running statistics."""
+        """Blend a batch's (mean, biased variance) into the running statistics
+        with the BatchNorm's momentum m: ra <- (1 - m) ra + m batch."""
+        keep = 1.0 - self.bn.momentum  # flax's momentum: 0.9 at torch's default 0.1
         with torch.no_grad():
-            self.bn.running_mean.mul_(BN_MOMENTUM).add_(mean.detach(), alpha=1.0 - BN_MOMENTUM)
-            self.bn.running_var.mul_(BN_MOMENTUM).add_(var.detach().clamp_min(0.0),
-                                                    alpha=1.0 - BN_MOMENTUM)
+            self.bn.running_mean.mul_(keep).add_(mean.detach(), alpha=1.0 - keep)
+            self.bn.running_var.mul_(keep).add_(var.detach().clamp_min(0.0), alpha=1.0 - keep)
 
     def folded(self):
         """(W' (in, out), b') with this layer's eval BatchNorm folded in."""

@@ -13,7 +13,21 @@ the Adam state stay f32).
   `tracking/scan_matching.py::MatchScanTracker` for BAT and P2B), or on the
   host eval loop (`tracking/eval.py`) with `val_tracker: host`;
   `ckpt_best.pt` (best validation precision), `ckpt_last.pt`,
-  `ckpt_meta.json` and `history.jsonl` in the work directory.
+  `ckpt_ep{epoch:03d}.pt` (the `save_top_k` best validated epochs: -1 keeps
+  all, 0 none), `ckpt_meta.json` (best metric, top-k table) and
+  `history.jsonl` in the work directory; `fit(resume_from=ckpt)` restores
+  the net, the optimizer, the LR schedule's position, the step and
+  `ckpt_meta.json`, and goes on from epoch step // steps_per_epoch.
+- `device_sampler: true` (train_motion, train_siamese): the loader makes
+  raw padded frames (data/device_sampler.py's raw samplers; int16-packed
+  under `transfer_quant: int16`), copied to the device from pinned memory,
+  and the sample build runs there before each step, keyed by
+  fold_in(PRNGKey(seed + 1), step) with `step` the updates made before it,
+  as JAX's `state.step`. So loader shuffling (seed + epoch) and the build
+  (seed, step) key off the restored position: a resumed run repeats an
+  uninterrupted one.
+- `bn_decay_step` truthy: the BatchNorm momentum follows
+  train/bn_momentum.py's schedule by epoch (`bn_momentum`, `bn_decay_rate`).
 
 `config.tensorboard: false` keeps the scalars in `scalars.jsonl` only. The
 loss terms are logged under `loss/`, the accuracies (`acc_*`, M2-Track's)
@@ -21,10 +35,9 @@ under `train/`, as the JAX trainer logs them.
 Each epoch's record also holds `data_wait_s`, the time the loop waited for
 the loader, against `time_s`, the epoch's time.
 
-Not ported yet (ROADMAP.md): resume, top-k checkpoints, the BN-momentum
-schedule, the on-device sampler (`device_sampler`) and meshes. A config that
-asks for one of them (`UNPORTED_KEYS`) is refused rather than trained as if
-it did not.
+Not ported yet (ROADMAP.md): meshes (`dp_shard_map`, `mesh_shape`). A
+config that asks for one of them (`UNPORTED_KEYS`) is refused rather than
+trained as if it did not.
 """
 
 from __future__ import annotations
@@ -38,16 +51,15 @@ import numpy as np
 import torch
 
 from open3dsot_tpu_torch.data.loader import BatchLoader
+from open3dsot_tpu_torch.train.bn_momentum import BN_MOMENTUM, bn_momentum_schedule, set_bn_momentum
 from open3dsot_tpu_torch.train.optim import clip_gradients, make_optimizer
+from open3dsot_tpu_torch.utils import prng
 
 
 # Config keys the JAX trainer honours and this one does not yet: key ->
 # (its default, the ROADMAP item that ports it). A value other than the
-# default is refused. bn_decay_step is off when falsy, as JAX reads it.
+# default is refused.
 UNPORTED_KEYS = {
-    "save_top_k": (-1, "ROADMAP.md, section 1 item 3: top-k checkpoints"),
-    "bn_decay_step": (None, "ROADMAP.md, section 1 item 3: the BN-momentum schedule"),
-    "device_sampler": (False, "ROADMAP.md, section 1 item 4: samples made on the device"),
     "dp_shard_map": (False, "ROADMAP.md, section 1 item 6: multi-device runs"),
     "mesh_shape": (None, "ROADMAP.md, section 1 item 6: multi-device runs"),
 }
@@ -56,7 +68,7 @@ UNPORTED_KEYS = {
 def refuse_unported_keys(config) -> None:
     for key, (default, item) in UNPORTED_KEYS.items():
         value = getattr(config, key, default)
-        if value != default and not (key == "bn_decay_step" and not value):
+        if value != default:
             raise NotImplementedError(f"config.{key}={value!r} is not ported yet ({item}); "
                                       f"leave it at {default!r}")
 
@@ -88,6 +100,8 @@ class Trainer:
         os.makedirs(self.work_dir, exist_ok=True)
         self.log_every = log_every
         self.best_metric = -np.inf
+        self.save_top_k = int(getattr(config, "save_top_k", -1))
+        self._topk: list = []  # (precision, path), best first
         self.history = []
         self._val_scan = None  # the scan tracker of validation, built on first use
         self._val_prep_cache, self._val_prep_cache_for = None, None
@@ -97,18 +111,32 @@ class Trainer:
                                    enable_tensorboard=getattr(config, "tensorboard", True))
 
     def fit(self, train_sampler, val_sampler=None, epochs: Optional[int] = None,
-            steps_per_epoch: Optional[int] = None):
+            steps_per_epoch: Optional[int] = None, resume_from: Optional[str] = None):
         """Train for `epochs` (the config's by default) of at most
-        `steps_per_epoch` steps (the loader's length by default); -> history."""
+        `steps_per_epoch` steps (the loader's length by default), from the
+        checkpoint `resume_from` when given; -> history."""
         cfg = self.config
         epochs = epochs if epochs is not None else cfg.epoch
+        builder, transform = None, None
+        if getattr(cfg, "device_sampler", False):
+            train_sampler, builder, transform = self._device_sampler(train_sampler)
         loader = BatchLoader(train_sampler, cfg.batch_size, shuffle=True, drop_last=True,
-                             seed=cfg.seed, workers=getattr(cfg, "workers", 0) or 0)
+                             seed=cfg.seed, workers=getattr(cfg, "workers", 0) or 0,
+                             transform=transform)
         spe = steps_per_epoch or max(len(loader), 1)
         optimizer, scheduler = make_optimizer(cfg, self.model.net.parameters(), spe)
         step = 0
-        for epoch in range(epochs):
+        if resume_from is not None:
+            step = self._resume(resume_from, optimizer, scheduler)
+        bn_sched = None
+        if getattr(cfg, "bn_decay_step", None):
+            bn_sched = bn_momentum_schedule(initial=getattr(cfg, "bn_momentum", 0.1),
+                                            decay=getattr(cfg, "bn_decay_rate", 0.5),
+                                            step_size=int(cfg.bn_decay_step))
+        sampler_key = prng.prng_key(int(cfg.seed) + 1)
+        for epoch in range(step // spe, epochs):
             loader.set_epoch(epoch)
+            set_bn_momentum(self.model.net, bn_sched(epoch) if bn_sched else BN_MOMENTUM)
             t0 = time.perf_counter()
             wait, losses = 0.0, []
             batches = iter(loader)
@@ -118,9 +146,13 @@ class Trainer:
                 wait += time.perf_counter() - t_wait
                 if batch is None:
                     break
+                if builder is not None:
+                    raw = {k: v.to(self.model.device, non_blocking=True) for k, v in batch.items()}
+                    batch = builder(raw, prng.fold_in(sampler_key, step))
+                else:
+                    batch = self.model.device_batch(batch)
                 fetch = (i + 1) % self.log_every == 0 or i == 0
-                scalars = train_step(self.model, optimizer, self.model.device_batch(batch),
-                                     scheduler, fetch=fetch)
+                scalars = train_step(self.model, optimizer, batch, scheduler, fetch=fetch)
                 step += 1
                 if scalars is not None:
                     losses.append(scalars["loss_total"])
@@ -135,6 +167,7 @@ class Trainer:
             info = {"epoch": epoch, "steps": step,
                     "loss": float(np.mean(losses)) if losses else float("nan"),
                     "time_s": time.perf_counter() - t0, "data_wait_s": wait}
+            ckpt = (optimizer, scheduler, step, epoch)
             if val_sampler is not None and (
                     (epoch + 1) % getattr(cfg, "check_val_every_n_epoch", 1) == 0):
                 succ, prec = self.validate(val_sampler)
@@ -142,14 +175,51 @@ class Trainer:
                 self.logger.log_scalars({"success/test": succ, "precision/test": prec}, step=step)
                 if prec > self.best_metric:
                     self.best_metric = prec
-                    self.save_checkpoint(optimizer, step, epoch, "best")
+                    self.save_checkpoint(*ckpt, "best")
+                self.save_topk_checkpoint(*ckpt, prec)
                 self._save_ckpt_meta()
-            self.save_checkpoint(optimizer, step, epoch, "last")
+            self.save_checkpoint(*ckpt, "last")
             self.history.append(info)
             self._log(info)
         loader.close()
         self.logger.close()
         return self.history
+
+    def _device_sampler(self, train_sampler):
+        """(the raw twin of `train_sampler`, its device builder, the loader's
+        transform: the int16 pack under transfer_quant and, for a model on
+        the card, pinned tensors)."""
+        from open3dsot_tpu_torch.data import device_sampler as ds
+        from open3dsot_tpu_torch.geometry.rigid import up_frame
+
+        cfg = self.config
+        raw_type = {"train_motion": ds.RawMotionSampler, "train_siamese": ds.RawSiameseSampler}
+        ttype = getattr(cfg, "train_type", None)
+        if ttype not in raw_type or not hasattr(train_sampler, "dataset"):
+            raise ValueError("device_sampler: true needs train_type train_motion or train_siamese "
+                             f"and a sampler over a dataset; got {ttype!r}, "
+                             f"{type(train_sampler).__name__}")
+        raw = raw_type[ttype](train_sampler.dataset, cfg,
+                              max_raw_points=int(getattr(cfg, "max_raw_points", 2048)))
+        pack = ds.pack_raw_batch if getattr(cfg, "transfer_quant", None) else None
+        pin = self.model.device.type == "cuda"
+
+        def transform(batch):
+            batch = {k: torch.from_numpy(v) for k, v in (pack(batch) if pack else batch).items()}
+            return {k: v.pin_memory() for k, v in batch.items()} if pin else batch
+
+        build = ds.make_builder(cfg, ttype, A=up_frame(cfg.up_axis, device=self.model.device))
+        return raw, build, transform
+
+    def _resume(self, path: str, optimizer, scheduler) -> int:
+        """Load a `save_checkpoint` file into the net, the optimizer and the
+        schedule, and the work directory's ckpt_meta.json; -> its step."""
+        ckpt = torch.load(path, map_location=self.model.device, weights_only=True)
+        self.model.net.load_state_dict(ckpt["state_dict"], strict=True)
+        optimizer.load_state_dict(ckpt["optimizer"])
+        scheduler.load_state_dict(ckpt["scheduler"])
+        self._load_ckpt_meta()
+        return int(ckpt["step"])
 
     def validate(self, val_sampler):
         """Success/Precision of the current weights on `val_sampler`.
@@ -184,19 +254,58 @@ class Trainer:
         finally:
             self.model.net.train()
 
-    def save_checkpoint(self, optimizer, step: int, epoch: int, name: str) -> str:
-        """`ckpt_{name}.pt`: the net's state_dict, the optimizer's, step and epoch."""
+    def save_checkpoint(self, optimizer, scheduler, step: int, epoch: int, name: str) -> str:
+        """`ckpt_{name}.pt`: the net's state_dict, the optimizer's, the LR
+        schedule's, step and epoch."""
         path = os.path.join(self.work_dir, f"ckpt_{name}.pt")
-        torch.save({"state_dict": self.model.net.state_dict(),
-                    "optimizer": optimizer.state_dict(), "step": step, "epoch": epoch}, path)
+        torch.save({"state_dict": self.model.net.state_dict(), "optimizer": optimizer.state_dict(),
+                    "scheduler": scheduler.state_dict(), "step": step, "epoch": epoch}, path)
         return path
 
+    def save_topk_checkpoint(self, optimizer, scheduler, step: int, epoch: int,
+                             precision: float) -> None:
+        """Keep the `save_top_k` best epochs by validation precision
+        (reference ModelCheckpoint(monitor='precision/test', mode='max',
+        save_top_k)): -1 keeps every validated epoch, 0 none; a checkpoint
+        that would be evicted at once is not written."""
+        k = self.save_top_k
+        if k == 0 or (k > 0 and len(self._topk) >= k and precision <= self._topk[-1][0]):
+            return
+        path = self.save_checkpoint(optimizer, scheduler, step, epoch, f"ep{epoch:03d}")
+        # an epoch validated again (a run resumed from an earlier checkpoint)
+        # replaces its entry
+        self._topk = [(p, pth) for p, pth in self._topk if pth != path]
+        self._topk.append((precision, path))
+        self._topk.sort(key=lambda t: -t[0])
+        if k > 0:
+            for _, stale in self._topk[k:]:
+                if os.path.exists(stale):
+                    os.remove(stale)
+            self._topk = self._topk[:k]
+
     def _save_ckpt_meta(self) -> None:
+        """ckpt_meta.json: the best metric and the top-k table, written
+        atomically, so that a resumed Trainer keeps them."""
         meta_path = os.path.join(self.work_dir, "ckpt_meta.json")
         tmp = meta_path + ".tmp"
         with open(tmp, "w") as fh:
-            json.dump({"best_metric": float(self.best_metric)}, fh)
+            json.dump({"best_metric": float(self.best_metric),
+                       "topk": [[float(p), path] for p, path in self._topk]}, fh)
         os.replace(tmp, meta_path)
+
+    def _load_ckpt_meta(self) -> None:
+        path = os.path.join(self.work_dir, "ckpt_meta.json")
+        if not os.path.exists(path):
+            return
+        try:
+            with open(path) as fh:
+                meta = json.load(fh)
+        except (json.JSONDecodeError, OSError) as e:
+            # a truncated file counts as missing: best_metric restarts at -inf
+            print(f"WARNING: ignoring corrupt {path}: {e}", flush=True)
+            return
+        self.best_metric = float(meta.get("best_metric", -np.inf))
+        self._topk = [(float(p), pth) for p, pth in meta.get("topk", []) if os.path.isfile(pth)]
 
     def _log(self, info: dict) -> None:
         print(json.dumps({k: (round(v, 5) if isinstance(v, float) else v)

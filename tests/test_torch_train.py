@@ -274,9 +274,7 @@ def test_loader_thread_ends_when_the_consumer_stops():
     loader.close()
 
 
-@pytest.mark.parametrize("key,value", [("save_top_k", 3), ("bn_decay_step", 10),
-                                       ("device_sampler", True), ("dp_shard_map", True),
-                                       ("mesh_shape", [1])])
+@pytest.mark.parametrize("key,value", [("dp_shard_map", True), ("mesh_shape", [1])])
 def test_unported_config_keys_are_refused(key, value, tmp_path):
     """Keys the JAX trainer honours and the port's does not yet: a value
     other than the default is refused, naming the ROADMAP item that ports
