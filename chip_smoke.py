@@ -15,6 +15,7 @@
     python3 chip_smoke.py --k6-bf16-times # phases 1, 2 and 19 only (K6 in bf16), no result
     python3 chip_smoke.py --train-times   # phases 1, 2 and 19-21 (bf16 and M2 training), no result
     python3 chip_smoke.py --device-sampler-times  # phases 1, 2 and 22 (device sampler), no result
+    python3 chip_smoke.py --real-data-times  # phases 1, 2 and 23 (KITTI data, checkpoints), no result
 
 Phases, one line or a few each; any failure exits non-zero:
   1. environment: torch / CUDA versions, the card's name and power limit;
@@ -44,9 +45,9 @@ Phases, one line or a few each; any failure exits non-zero:
      design (each design's serial step skeleton alone on its block for
      npoint - 1 steps, probes/fps_floor.py, csrc/fps_floor.cu); K3's
      launches against the profiler's records of them in a window that
-     opens on K3 and in one that opens on a sleep kernel; the block sweep
-     (every T from 32 to 1024 with PPT <= 32, both winner forms, at N =
-     512 to 16384, each checked).
+     opens on K3 and in one that opens on a sleep kernel; with --k3-times
+     the block sweep (every T from 32 to 1024 with PPT <= 32, both winner
+     forms, at N = 512 to 16384, each checked).
   7. K4 (3xTF32 on the tensor cores) against sa_eval_plain at each of the
      seven SA calls of a BAT forward at cfgs/BAT_Car.yaml widths, on the
      inputs that forward gives them (B = 1 and 16); K5 (indices from the
@@ -64,7 +65,7 @@ Phases, one line or a few each; any failure exits non-zero:
      synthetic dataset at BAT_Car widths (both paths), a profiler window
      (K3's launches in it beside the profiler's records of them), and the
      CLI on cfgs/BAT_synthetic.yaml.
- 10. printed last, after phase 22: one JSON line of the kernels K1-K6 and
+ 10. printed last, after phase 23: one JSON line of the kernels K1-K6 and
      the probes P1/P2, then K1/K2/K4/K5 and K6 (forward, backward) in the
      bf16 mode (each with its bound from this run's shapes), the card line,
      then the result line.
@@ -74,7 +75,11 @@ Phases, one line or a few each; any failure exits non-zero:
      ragged S); times by events and by profiler device time, both bounds (f32
      CUDA cores, 3xTF32 tensor cores) and the share; device time by kernel
      name over the four calls at B = 50, forward and backward apart; the
-     HMMA/HGMMA count of K6's product kernels (fails if one has none).
+     HMMA/HGMMA count of K6's product kernels (fails if one has none). The
+     backward again under torch's deterministic algorithms (da summed in a
+     fixed order): two calls equal bit for bit, dct, dW and dgamma/dbeta
+     equal to the atomics path's, da within the tolerance of the plain
+     version and of the atomics path, and its time at B = 16 and 50.
  12. a BAT train step, kernel path vs plain path, both held against the plain
      path in float64: losses, every gradient, the running statistics, and
      the launches of one step (K3 = 2, K6 forward = 4, backward = 4); P2B
@@ -174,7 +179,8 @@ Phases, one line or a few each; any failure exits non-zero:
      (printed only for the batch statistics), the backward of both at the
      kernel forward's grids; times beside the 3xTF32 K6 on the same inputs
      in this call and the same products as cuBLAS bf16 GEMMs, device time by
-     events behind a queued sleep, the bound at 989 TFLOP/s bf16; device
+     events behind a queued sleep, the bound at 989 TFLOP/s bf16; the
+     ordered da as phase 11 holds it (within the bf16 tolerance); device
      time by kernel of each pass of both modes at B = 50; the HMMA and
      HGMMA counts of the 17 bf16 product kernels (wgmma alone).
  20. training under bf16: a BAT bf16 train step (K6 in bf16; K3 2, K6 4 / 4
@@ -208,8 +214,28 @@ Phases, one line or a few each; any failure exits non-zero:
      (d) M2 Trainer.fit with device_sampler, f32, int16 transfer and
      workers 0, beside phase 21's; (e) resume on the card: M2 2 + 2 epochs
      against 4 under torch's deterministic algorithms (step, epoch, LR go
-     on; weights bit for bit), save_top_k 1 leaves one ckpt_ep*.pt. Its
-     lines also go to chiprun_out/phase22.txt.
+     on; weights bit for bit), save_top_k 1 leaves one ckpt_ep*.pt; then BAT
+     in f32 and in bf16 the same way, f32 also run twice for 8 steps
+     (weights bit for bit), every K6 backward with its ordered da (K6's
+     `ordered_bwd_launches`). Its lines also go to chiprun_out/phase22.txt.
+ 23. KITTI-format data and released checkpoints (`--real-data-times` alone):
+     a KITTI tracking layout in a temporary directory (velodyne/, label_02/,
+     calib/; the test split's scenes 0019 and 0020, 40 HDL-64E sweeps of
+     about 120000 points each, three Cars driving through each scene), and
+     checkpoints in the reference's Lightning key layout of M2-Track
+     (cfgs/M2_track_kitti.yaml, class Car) and BAT (cfgs/BAT_Car.yaml) at
+     their widths: the seeded weights with the Dense biases torch suppresses
+     at zero, written by export_torch.save_checkpoint against
+     reference_layout.lightning_template and imported back bit for bit. In
+     subprocesses, as `python -m` runs them: eval_released_ckpt --tracker
+     scan (M2; K1/K2 launched) and --tracker host (BAT; K3/K4 launched), each
+     held to the same eval in this process on the exported weights; main
+     --tracker scan --eval_prep_cache, cold then warm (the same
+     Success/Precision; the warm run packs no batch on the host), and
+     --save_results (read_results: one record a tracklet, boxes equal to the
+     tracker's). Lines: the dataset's load seconds, frames/s of each eval
+     (cold and warm), the store's and the results file's MB. Its lines also
+     go to chiprun_out/phase23.txt.
 
 Weights are random, made with numpy from a seed in the JAX tree's shape
 (open3dsot_tpu_torch.weights). Needs one card; no network.
@@ -251,6 +277,9 @@ BOX_ATOL = 1e-3  # M2: two argmax gates and the rigid math; BAT/P2B: three SA la
                  # prints all three distances)
 MATCHING_CFG = {"bat": "cfgs/BAT_Car.yaml", "p2b": "cfgs/P2B_Car.yaml"}
 TRAIN_B = 50  # batch_size of cfgs/BAT_Car.yaml
+# phases 11 and 19: K6's backward with the ordered da, {B: [events ms, device ms]}
+# over the four calls, by mode
+K6_ORDERED = {}
 K6_BATCHES = (16, TRAIN_B)  # phase 11's batch sizes; the last one is TRAIN_B
 # Published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): float32
 # outside the tensor cores, and HBM3. A kernel's bound is the larger of its
@@ -633,6 +662,7 @@ def main(argv=None) -> None:
     k6_bf16_only = "--k6-bf16-times" in args
     train_only = "--train-times" in args
     sampler_only = "--device-sampler-times" in args
+    real_only = "--real-data-times" in args
     # --- 1. environment ---------------------------------------------------
     print(f"env: python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
@@ -658,6 +688,7 @@ def main(argv=None) -> None:
                           ["sa_fused_train", "sa_fused_train_bf16"] if k6_bf16_only else
                           ["fps", "sa_fused", "sa_fused_train", "sa_fused_train_bf16"]
                           if sampler_only else
+                          ["chain_fused", "fps", "sa_fused"] if real_only else
                           bf16_eval + ["sa_fused_train", "sa_fused_train_bf16"] if train_only else
                           ["sa_fused"] if k4_only else ["fps", "fps_floor"] if k3_only else
                           bf16_eval + ["sa_fused_train", "sa_fused_train_bf16", "gather_probe",
@@ -687,12 +718,16 @@ def main(argv=None) -> None:
         device_sampler_phase(card)
         print("device sampler times done: phases 1, 2 and 22 only", flush=True)
         return
+    if real_only:
+        real_data_phase(card)
+        print("real data times done: phases 1, 2 and 23 only", flush=True)
+        return
     if k4_only:
         matching_phases(card, libs["sa_fused"], k4_only=True)
         print("k4 times done: phases 1, 2 and 7 only", flush=True)
         return
     if k3_only:
-        check_k3(card)
+        check_k3(card, sweep=True)
         print("k3 times done: phases 1, 2 and 6 only", flush=True)
         return
     if scan_only:
@@ -842,6 +877,9 @@ def main(argv=None) -> None:
 
     # --- 22. training with samples built on the card ---------------------------
     device_sampler_phase(card)
+
+    # --- 23. KITTI-format data and Lightning checkpoints ---------------------------
+    real_data_phase(card)
     replaces = "open3dsot_tpu/ops/sa_fused_train.py:608-776 (cdt bfloat16)"
     for what in ("fwd", "bwd"):
         bf16_kernels.append(kernel_entry(
@@ -850,6 +888,13 @@ def main(argv=None) -> None:
             k6b["sums"][TRAIN_B][what], k6b["sums"][TRAIN_B][what + "_plain"],
             k6b["work"][TRAIN_B][0 if what == "fwd" else 1],
             library_ms=k6b["sums"][TRAIN_B][what + "_cublas"], peak=PEAK_BF16_FLOPS))
+    for what, source in (("f32", "sa_fused_train.cu"), ("bf16", "sa_fused_train_bf16.cu")):
+        o = K6_ORDERED[what]
+        bf16_kernels.append(kernel_entry(
+            f"K6 fused_sa_train_apply (backward, {what}, da in a fixed order)", source,
+            "open3dsot_tpu/ops/sa_fused_train.py:709-776", o["launches"], o["err"],
+            o[TRAIN_B][0], o["plain"], o["work"], tensor_core=what == "f32",
+            peak=PEAK_BF16_FLOPS))
 
     # --- 10. results ------------------------------------------------------
     kernels = [
@@ -919,11 +964,12 @@ def k3_profiler_records(card: str) -> None:
           f"{k3(device_rows(runs))} [{card}]", flush=True)
 
 
-def check_k3(card: str) -> dict:
+def check_k3(card: str, sweep: bool = False) -> dict:
     """Phase 6: K3 against furthest_point_sample_plain, index for index, at
     BAT's shapes and edge shapes; times against the bound and both skeleton
-    floors; the block sweep. On a tree from before K3's redesign (no
-    fps_block: a parent run with --k3-times) only what that tree has."""
+    floors; with `sweep` (--k3-times) the block sweep, which fps_block's
+    choice comes from. On a tree from before K3's redesign (no fps_block: a
+    parent run with --k3-times) only what that tree has."""
     import torch
 
     from open3dsot_tpu_torch.ops import sampling as smp
@@ -995,7 +1041,7 @@ def check_k3(card: str) -> dict:
         same("B=4 N=512->512 npoint = N", cloud(4, 512, 64), 512)
         same("B=4 N=100->100 npoint = N", cloud(4, 100), 100)
     k3_profiler_records(card)
-    if redesigned:
+    if redesigned and sweep:
         k3_sweep(card, cloud, same)
     print("phase 6 ok: K3 indices equal to the plain version's", flush=True)
     return times
@@ -1438,6 +1484,51 @@ def k6_work(B: int, N: int, S: int, K: int, c1: int, c2: int, c3: int, bf16: boo
     return fwd, bwd
 
 
+@contextlib.contextmanager
+def deterministic():
+    """torch.use_deterministic_algorithms(True) inside the block (warn_only:
+    a torch op with no deterministic form warns): K6's backward then sums da
+    in a fixed order."""
+    import torch
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def check_ordered(label: str, bwd, atomic, da_close) -> float:
+    """K6's backward under deterministic algorithms (its ordered da) against
+    the same call with the flag off (`atomic`, its outputs): two calls give
+    the same da bit for bit, every other output equals the atomics path's bit
+    for bit, and da_close(name, da_ordered, da_atomic) holds da to the phase's
+    tolerance (against the plain version too, by the caller). Returns da."""
+    import torch
+
+    from open3dsot_tpu_torch.ops import sa_fused_train as k6
+
+    n0 = k6.fused_sa_train_apply.ordered_bwd_launches
+    with deterministic():
+        o1, o2 = bwd(), bwd()
+    torch.cuda.synchronize()
+    if k6.fused_sa_train_apply.ordered_bwd_launches - n0 != 2:
+        fail(f"{label}: the backward did not take the ordered path under deterministic algorithms")
+    if not torch.equal(o1[0], o2[0]):
+        fail(f"{label}: the ordered da differs between two calls by "
+             f"{(o1[0] - o2[0]).abs().max().item():.3e}")
+    for i, name in enumerate(("dct", "dW2", "dW3")):
+        if not torch.equal(o1[i + 1], atomic[i + 1]):
+            fail(f"{label}: {name} of the ordered path differs from the atomics path's")
+    if not torch.equal(torch.cat(o1[4]), torch.cat(atomic[4])):
+        fail(f"{label}: dgamma, dbeta of the ordered path differ from the atomics path's")
+    da_close(f"{label} da ordered against atomics", o1[0], atomic[0])
+    print(f"  {label}: ordered da the same bit for bit in two calls; dct, dW, dgamma, dbeta "
+          f"equal to the atomics path's", flush=True)
+    return o1[0]
+
+
 def check_k6(calls, card: str, lib, strict: bool = True):
     """K6 forward and backward against their plain versions at each call's
     inputs; the backward of both takes the plain forward's grids and
@@ -1461,8 +1552,10 @@ def check_k6(calls, card: str, lib, strict: bool = True):
     errs = {"fwd": 0.0, "bwd": 0.0}
     sums = {B: [0.0] * 4 for B in K6_BATCHES}  # events: fwd kernel, plain, bwd kernel, plain
     dev = {B: [0.0] * 4 for B in K6_BATCHES}  # the same in device time
+    # the ordered bwd: {B: [events ms, device ms]} over the four calls, its da's error
+    ordered = dict({B: [0.0, 0.0] for B in K6_BATCHES}, err=0.0)
     work = {B: [[0, 0], [0, 0]] for B in K6_BATCHES}
-    per_pass = {"forward": [], "backward": []}  # the kernel calls at B = TRAIN_B
+    per_pass = {"forward": [], "backward": [], "backward ordered": []}  # kernel calls at TRAIN_B
 
     def one(label, mod, xyz, feats, new, B, timed=True, k_cut=None):
         layers = list(mod.mlp_shared.children())
@@ -1494,6 +1587,11 @@ def check_k6(calls, card: str, lib, strict: bool = True):
                            ("dW2", bwd_k[2], bwd_p[2]), ("dW3", bwd_k[3], bwd_p[3]),
                            ("dgamma,dbeta", torch.cat(bwd_k[4]), torch.cat(bwd_p[4]))):
             errs["bwd"] = max(errs["bwd"], compare(f"K6 bwd {shape} {name}", x, y))
+        bwd_o = lambda: k6.sa_train_bwd_kernel(*bargs, packs)  # noqa: E731
+        da_o = check_ordered(f"K6 bwd {shape}", bwd_o, bwd_k, compare)
+        err_o = compare(f"K6 bwd {shape} da ordered", da_o, bwd_p[0])
+        errs["bwd"] = max(errs["bwd"], err_o)
+        ordered["err"] = max(ordered["err"], err_o)
         if not timed:
             return
         fns = (lambda: k6.sa_train_fwd_kernel(a, ct, idx, w2, b2, w3, b3, bn, packs),
@@ -1503,6 +1601,12 @@ def check_k6(calls, card: str, lib, strict: bool = True):
         if B == TRAIN_B:
             per_pass["forward"].append(fns[0])
             per_pass["backward"].append(fns[2])
+            per_pass["backward ordered"].append(bwd_o)
+        with deterministic():
+            t_o = min(time_ms(bwd_o, iters=5, repeats=5) for _ in range(2))
+            d_o = device_ms(bwd_o, iters=3)
+        ordered[B][0] += t_o
+        ordered[B][1] = None if d_o is None or ordered[B][1] is None else ordered[B][1] + d_o
         t = [time_ms(f, iters=5, repeats=5) for f in fns]
         t2 = [time_ms(f, iters=5, repeats=5) for f in reversed(fns)][::-1]
         t = [min(x, y) for x, y in zip(t, t2)]
@@ -1514,8 +1618,9 @@ def check_k6(calls, card: str, lib, strict: bool = True):
             work[B][i][0] += w[0]
             work[B][i][1] += w[1]
         print(f"  time {shape}: fwd kernel {t[0]:.4f} ms plain {t[1]:.4f} ms, bwd kernel "
-              f"{t[2]:.4f} ms plain {t[3]:.4f} ms; device time fwd {fmt_ms(d[0])} / "
-              f"{fmt_ms(d[1])}, bwd {fmt_ms(d[2])} / {fmt_ms(d[3])} [{card}]", flush=True)
+              f"{t[2]:.4f} ms (ordered da {t_o:.4f} ms) plain {t[3]:.4f} ms; device time fwd "
+              f"{fmt_ms(d[0])} / {fmt_ms(d[1])}, bwd {fmt_ms(d[2])} (ordered {fmt_ms(d_o)}) / "
+              f"{fmt_ms(d[3])} [{card}]", flush=True)
 
     with torch.no_grad():
         for label, mod, xyz_all, feats_all, new_all in calls:
@@ -1532,7 +1637,11 @@ def check_k6(calls, card: str, lib, strict: bool = True):
             one(f"{label} ragged", mod, xyz[:1].contiguous(), feats[:1].contiguous(),
                 new[:1, :new.shape[1] - 5].contiguous(), 1, timed=False, k_cut=k_cut)
         for what, fns in per_pass.items():
-            pass_breakdown(f"K6 {what}", fns, card)
+            if what.endswith("ordered"):
+                with deterministic():
+                    pass_breakdown(f"K6 {what}", fns, card)
+            else:
+                pass_breakdown(f"K6 {what}", fns, card)
     for B in K6_BATCHES:
         line = []
         for i, what in ((0, "fwd"), (2, "bwd")):
@@ -1543,8 +1652,10 @@ def check_k6(calls, card: str, lib, strict: bool = True):
             line.append(f"{what} kernel {sums[B][i]:.4f} ms plain {sums[B][i + 1]:.4f} ms (device "
                         f"{fmt_ms(d)} / {fmt_ms(dev[B][i + 1])}; bound f32 {b32:.4f} ms by {by}, "
                         f"3xTF32 {btc:.4f} ms, device at {share} of it)")
-        print(f"  K6 over one BAT train step's 4 calls, B={B}: {'; '.join(line)} [{card}]",
-              flush=True)
+        print(f"  K6 over one BAT train step's 4 calls, B={B}: {'; '.join(line)}; bwd with the "
+              f"ordered da (deterministic algorithms) {ordered[B][0]:.4f} ms (device "
+              f"{fmt_ms(ordered[B][1])}) [{card}]", flush=True)
+    K6_ORDERED.setdefault("f32", {}).update(ordered, plain=sums[TRAIN_B][3], work=work[TRAIN_B][1])
     print("phase 11 ok: K6 forward and backward within tolerance at every K6 call of a BAT "
           "train step", flush=True)
     return errs, sums, work
@@ -3824,6 +3935,7 @@ def check_k6_bf16(calls, card: str, lib) -> dict:
     sums = {B: dict.fromkeys(keys, 0.0) for B in K6_BATCHES}
     dev = {B: dict.fromkeys(keys, 0.0) for B in K6_BATCHES}
     work = {B: [[0, 0], [0, 0]] for B in K6_BATCHES}
+    ordered = dict({B: [0.0, 0.0] for B in K6_BATCHES}, err=0.0)  # as check_k6's
     per_pass = {k: [] for k in ("fwd", "fwd_tf32", "bwd", "bwd_tf32")}  # the calls at TRAIN_B
 
     def one(label, mod, xyz, feats, new, B, widths=None, nsample=None):
@@ -3876,6 +3988,11 @@ def check_k6_bf16(calls, card: str, lib) -> dict:
         errs["bwd"] = max(errs["bwd"], compare_bf16(
             f"K6 bf16 bwd {shape} dgamma,dbeta", torch.cat(gk[4]), torch.cat(gp[4]),
             torch.cat(gf[4])))
+        da_o = check_ordered(f"K6 bf16 bwd {shape}", bwd_k, gk,
+                             lambda n, x, y: compare_bf16(n, x, y, gf[0], control=False))
+        err_o = compare_bf16(f"K6 bf16 bwd {shape} da ordered", da_o, gp[0], gf[0])
+        errs["bwd"] = max(errs["bwd"], err_o)
+        ordered["err"] = max(ordered["err"], err_o)
         if widths is not None:  # the cut cases are checked, not timed
             return
         _, st_t, grids_t = fwd_t()
@@ -3887,6 +4004,11 @@ def check_k6_bf16(calls, card: str, lib) -> dict:
         t = {k: time_ms(f, iters=5, repeats=5) for k, f in fns.items()}
         t2 = {k: time_ms(f, iters=5, repeats=5) for k, f in reversed(list(fns.items()))}
         d = {k: queued_ms(f, iters=3, repeats=3, sleep=BF16_SLEEP) for k, f in fns.items()}
+        with deterministic():
+            t_o = min(time_ms(bwd_k, iters=5, repeats=5) for _ in range(2))
+            d_o = queued_ms(bwd_k, iters=3, repeats=3, sleep=BF16_SLEEP)
+        ordered[B][0] += t_o
+        ordered[B][1] = None if d_o is None or ordered[B][1] is None else ordered[B][1] + d_o
         d["fwd_cublas"], d["bwd_cublas"] = k6_cublas_ms(B, S, K, c1, c2, c3, gen)
         t["fwd_cublas"], t["bwd_cublas"] = d["fwd_cublas"], d["bwd_cublas"]
         for k in keys:
@@ -3898,7 +4020,7 @@ def check_k6_bf16(calls, card: str, lib) -> dict:
         print(f"  time K6 bf16 {shape}: fwd kernel {min(t['fwd'], t2['fwd']):.4f} ms "
               f"(3xTF32 {min(t['fwd_tf32'], t2['fwd_tf32']):.4f}, plain "
               f"{min(t['fwd_plain'], t2['fwd_plain']):.4f}), bwd kernel "
-              f"{min(t['bwd'], t2['bwd']):.4f} ms (3xTF32 "
+              f"{min(t['bwd'], t2['bwd']):.4f} ms (ordered da {t_o:.4f}, 3xTF32 "
               f"{min(t['bwd_tf32'], t2['bwd_tf32']):.4f}, plain "
               f"{min(t['bwd_plain'], t2['bwd_plain']):.4f}); device fwd {fmt_ms(d['fwd'])} "
               f"/ {fmt_ms(d['fwd_tf32'])}, bwd {fmt_ms(d['bwd'])} / {fmt_ms(d['bwd_tf32'])}; "
@@ -3932,8 +4054,11 @@ def check_k6_bf16(calls, card: str, lib) -> dict:
                         f"{sums[B][what + '_plain']:.4f} ms, cuBLAS bf16 products "
                         f"{fmt_ms(dev[B][what + '_cublas'])}; bound {bound:.4f} ms by {by} at 989 "
                         f"TFLOP/s bf16 (device at {share} of it)")
-        print(f"  K6 bf16 over one BAT train step's 4 calls, B={B}: {'; '.join(line)} [{card}]",
-              flush=True)
+        print(f"  K6 bf16 over one BAT train step's 4 calls, B={B}: {'; '.join(line)}; bwd with "
+              f"the ordered da (deterministic algorithms) {ordered[B][0]:.4f} ms (device "
+              f"{fmt_ms(ordered[B][1])}) [{card}]", flush=True)
+    K6_ORDERED.setdefault("bf16", {}).update(ordered, plain=sums[TRAIN_B]["bwd_plain"],
+                                             work=work[TRAIN_B][1])
     print("phase 19 ok: K6 bf16 forward and backward within the bf16 tolerance at every K6 call "
           "of a BAT train step and at " + ", ".join(c[2] for c in K6_BF16_CUT) + ", the f32 "
           "control outside it", flush=True)
@@ -4307,12 +4432,14 @@ PHASE22_LOG = ROOT / "chiprun_out" / "phase22.txt"
 CARD_DEVICE = "cuda"  # phase 22's device ("cpu" in a rehearsal on the CPU)
 
 
-def say(line: str) -> None:
-    """Print a phase 22 line and keep it under chiprun_out/, so that the whole
-    of phase 22's report survives when only the end of stdout is kept."""
+def say(line: str, log: Path = None) -> None:
+    """Print a phase 22 line (or one of the phase `log` names) and keep it
+    under chiprun_out/, so that the whole of the phase's report survives when
+    only the end of stdout is kept."""
+    log = log or PHASE22_LOG
     print(line, flush=True)
-    PHASE22_LOG.parent.mkdir(exist_ok=True)
-    with open(PHASE22_LOG, "a") as fh:
+    log.parent.mkdir(exist_ok=True)
+    with open(log, "a") as fh:
         fh.write(line + "\n")
 
 
@@ -4503,14 +4630,14 @@ def device_fit(model, cfg, sampler, card: str, what: str, beside: str, build_ms:
     return last
 
 
-def resume_on_card(m2_cfg, val, card: str) -> None:
-    """22e: M2 f32 with the device sampler, 2 epochs then 2 more from a
-    fresh Trainer and model, against 4 uninterrupted epochs, validating on
-    the host loop: step, epoch and LR go on (the LR drops after epoch 2);
-    under torch's deterministic algorithms (M2 trains through no hand
-    kernel; BAT's K6 adds its da rows by float atomics) the weights equal
-    the uninterrupted run's bit for bit; save_top_k 1 leaves one
-    ckpt_ep*.pt."""
+def resume_on_card(cfg0, val, card: str, what: str, twice: bool = False) -> None:
+    """22e: a model with the device sampler, 2 epochs then 2 more from a
+    fresh Trainer and model, against 4 uninterrupted epochs (8 steps),
+    validating on the host loop: step, epoch and LR go on (the LR drops after
+    epoch 2); under torch's deterministic algorithms the weights equal the
+    uninterrupted run's bit for bit (BAT's K6 then sums its da rows in a fixed
+    order, not by float atomics), and with `twice` a second uninterrupted run
+    equals the first; save_top_k 1 leaves one ckpt_ep*.pt."""
     import shutil
 
     import torch
@@ -4518,14 +4645,14 @@ def resume_on_card(m2_cfg, val, card: str) -> None:
     from open3dsot_tpu_torch.data import get_dataset
     from open3dsot_tpu_torch.train.trainer import Trainer
 
-    cfg = m2_cfg.copy()
+    cfg = cfg0.copy()
     cfg.save_top_k, cfg.val_tracker, cfg.lr_decay_step = 1, "host", 2
-    sampler = get_dataset(cfg, "train_motion", "train")
+    sampler = get_dataset(cfg, cfg.train_type, "train")
     runs = {}
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        for name, chunks in (("whole", [4]), ("chunked", [2, 4])):
-            work_dir = ROOT / "runs" / f"chip_smoke_resume_{name}"
+    plan = (("whole", [4]), ("chunked", [2, 4])) + ((("again", [4]),) if twice else ())
+    with deterministic():
+        for name, chunks in plan:
+            work_dir = ROOT / "runs" / f"chip_smoke_resume_{what.replace(' ', '_')}_{name}"
             shutil.rmtree(work_dir, ignore_errors=True)
             for i, epochs in enumerate(chunks):
                 model, _ = make_model(cfg, fused_eval=True)
@@ -4533,16 +4660,18 @@ def resume_on_card(m2_cfg, val, card: str) -> None:
                 history = Trainer(model, cfg, work_dir=str(work_dir)).fit(
                     sampler, val, epochs=epochs, steps_per_epoch=2, resume_from=resume)
             runs[name] = (model, history, work_dir)
-    finally:
-        torch.use_deterministic_algorithms(False)
+
+    def apart(x, y) -> float:
+        sx, sy = x.net.state_dict(), y.net.state_dict()
+        return max((sx[k].double() - v.double()).abs().max().item() for k, v in sy.items())
+
     (a, ha, da), (b, hb, db) = runs["whole"], runs["chunked"]
     ca = torch.load(da / "ckpt_last.pt", weights_only=True)
     cb = torch.load(db / "ckpt_last.pt", weights_only=True)
-    sa, sb = a.net.state_dict(), b.net.state_dict()
-    worst = max((sa[k].double() - v.double()).abs().max().item() for k, v in sb.items())
+    worst = apart(a, b)
     lr = (ca["optimizer"]["param_groups"][0]["lr"], cb["optimizer"]["param_groups"][0]["lr"])
     tops = sorted(p.name for p in db.glob("ckpt_ep*.pt"))
-    say(f"  22e resume M2 B={cfg.batch_size}: epochs {[h['epoch'] for h in hb]} steps "
+    say(f"  22e resume {what} B={cfg.batch_size}: epochs {[h['epoch'] for h in hb]} steps "
         f"{[h['steps'] for h in hb]} (uninterrupted {[h['steps'] for h in ha[2:]]}); lr "
         f"{lr[1]:.3e} (uninterrupted {lr[0]:.3e}); weights and statistics against the "
         f"uninterrupted run: max |diff| {worst:.3e} (bound 0); losses "
@@ -4550,11 +4679,19 @@ def resume_on_card(m2_cfg, val, card: str) -> None:
         f"{tops} [{card}]")
     if [h["epoch"] for h in hb] != [2, 3] or [h["steps"] for h in hb] != [6, 8] or \
             (ca["step"], cb["step"]) != (8, 8) or lr[0] != lr[1] or lr[0] >= cfg.lr:
-        fail("resume: the step, epoch or learning rate did not go on")
+        fail(f"resume {what}: the step, epoch or learning rate did not go on")
     if worst != 0 or [h["loss"] for h in hb] != [h["loss"] for h in ha[2:]]:
-        fail(f"resume: the resumed run is {worst} from the uninterrupted one")
+        fail(f"resume {what}: the resumed run is {worst} from the uninterrupted one")
     if len(tops) != 1:
         fail(f"save_top_k 1 left {tops}")
+    if twice:
+        c, hc, _ = runs["again"]
+        again = apart(a, c)
+        say(f"  22e {what}: two uninterrupted 8-step runs: weights and statistics max |diff| "
+            f"{again:.3e} (bound 0); losses {[h['loss'] for h in hc]} against "
+            f"{[h['loss'] for h in ha]}")
+        if again != 0 or [h["loss"] for h in hc] != [h["loss"] for h in ha]:
+            fail(f"{what}: two 8-step runs under deterministic algorithms are {again} apart")
 
 
 def device_sampler_phase(card: str) -> None:
@@ -4612,9 +4749,346 @@ def device_sampler_phase(card: str) -> None:
     del model
     val = get_dataset(load_config(str(ROOT / M2_CFG), dict(over, syn_num_tracklets=1)), "test",
                       "test")
-    resume_on_card(m2, val, card)
+    resume_on_card(m2, val, card, "M2")
+    bat_val = get_dataset(matching_cfg("bat", syn_num_tracklets=1, tensorboard=False), "test",
+                          "test")
+    for cfg, what in ((bat, "f32"), (bat16, "bf16")):
+        k6.ordered_bwd_launches = 0
+        twice = what == "f32"
+        resume_on_card(cfg, bat_val, card, f"BAT {what}", twice=twice)
+        # two or three runs of 8 steps, 4 K6 backward calls a step, all ordered
+        runs = 3 if twice else 2
+        K6_ORDERED.setdefault(what, {})["launches"] = k6.ordered_bwd_launches
+        say(f"  22e K6 backward launches with the ordered da, BAT {what}: "
+            f"{k6.ordered_bwd_launches} (expected {runs * 8 * 4})")
+        if k6.ordered_bwd_launches != runs * 8 * 4:
+            fail("22e: BAT's K6 backward did not sum da in a fixed order in every step")
     dt = time.perf_counter() - t0
     say(f"phase 22 ok in {dt:.1f} s")
+
+
+# --- phase 23: real-format data and released checkpoints ---------------------------
+
+PHASE23_LOG = ROOT / "chiprun_out" / "phase23.txt"
+REAL_SCENES = ("0019", "0020")  # KITTI's test split (data/kitti.py)
+REAL_FRAMES = 40
+# An HDL-64E sweep: 64 beams from +2.0 to -24.9 degrees of elevation, 2150
+# azimuth steps (0.17 degrees), returns within 80 m: about 120000 points.
+REAL_BEAMS, REAL_AZIMUTHS, REAL_RANGE, SENSOR_HEIGHT = 64, 2150, 80.0, 1.73
+# velodyne -> camera of a KITTI calibration: the axes' permutation (x forward
+# to z, y left to -x, z up to -y) and the sensors' offset
+TR_VELO_CAM = ((0.0, -1.0, 0.0, 0.0), (0.0, 0.0, -1.0, -0.08), (1.0, 0.0, 0.0, -0.27))
+CAR_WLH = (1.62, 3.88, 1.52)
+
+
+def say23(line: str) -> None:
+    say(line, PHASE23_LOG)
+
+
+def hdl64_rays():
+    """(directions (64 * REAL_AZIMUTHS, 3), the ground's range along each
+    (inf for a ray at or above the horizon)), beam-major."""
+    import numpy as np
+
+    elev = np.deg2rad(np.linspace(2.0, -24.9, REAL_BEAMS))
+    az = np.deg2rad(np.arange(REAL_AZIMUTHS) * (360.0 / REAL_AZIMUTHS))
+    E, A = np.meshgrid(elev, az, indexing="ij")
+    dirs = np.stack([np.cos(E) * np.cos(A), np.cos(E) * np.sin(A), np.sin(E)], -1).reshape(-1, 3)
+    with np.errstate(divide="ignore"):
+        ground = np.where(dirs[:, 2] < 0, SENSOR_HEIGHT / -dirs[:, 2], np.inf)
+    return dirs, ground
+
+
+def hdl64_sweep(cars, rng, rays):
+    """One sweep from a sensor SENSOR_HEIGHT above flat ground: each ray's
+    first return on a car (a box, slab test in its frame, over the azimuths
+    that can reach it) or the ground, within REAL_RANGE, 1 cm of range noise;
+    (N, 4) float32 with intensity. cars: (centre, yaw) in the velodyne frame."""
+    import numpy as np
+
+    dirs, ground = rays
+    t = ground.copy()
+    w, l, h = CAR_WLH
+    half = np.array([l / 2, w / 2, h / 2])
+    reach = float(np.linalg.norm(half))
+    step = 2 * np.pi / REAL_AZIMUTHS
+    beams = np.arange(REAL_BEAMS)[:, None] * REAL_AZIMUTHS
+    for centre, yaw in cars:
+        dist = float(np.hypot(centre[0], centre[1]))
+        spread = np.arcsin(min(1.0, reach / dist)) + step
+        mid = np.arctan2(centre[1], centre[0])
+        cols = np.round((mid + np.arange(-spread, spread, step)) / step).astype(int)
+        idx = (beams + cols[None] % REAL_AZIMUTHS).ravel()
+        c, s = np.cos(yaw), np.sin(yaw)
+        R = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])  # box -> velodyne
+        o, d = -(R.T @ centre), dirs[idx] @ R  # the ray origin and directions in the box frame
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t1, t2 = (-half - o) / d, (half - o) / d
+        near = np.nanmax(np.minimum(t1, t2), axis=1)
+        far = np.nanmin(np.maximum(t1, t2), axis=1)
+        hit = (far >= near) & (near > 0) & (near < t[idx])
+        t[idx[hit]] = near[hit]
+    keep = t < REAL_RANGE
+    r = t[keep] + rng.normal(0.0, 0.01, int(keep.sum()))
+    pts = dirs[keep] * r[:, None]
+    return np.concatenate([pts, rng.uniform(0, 1, (len(pts), 1))], 1).astype(np.float32)
+
+
+def write_real_kitti(root: Path, seed: int = SEED) -> dict:
+    """KITTI's tracking layout under root (velodyne/, label_02/, calib/):
+    scenes REAL_SCENES of REAL_FRAMES HDL-64E sweeps, three Cars driving
+    through each, labelled in camera coordinates as KITTI labels them.
+    Returns the points per frame."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rays = hdl64_rays()
+    tr = np.array(TR_VELO_CAM)
+    velo_to_cam = np.vstack([tr, [0, 0, 0, 1]])
+    w, l, h = CAR_WLH
+    counts = []
+    for d in ("label_02", "calib"):
+        (root / d).mkdir(parents=True, exist_ok=True)
+    for k, scene in enumerate(REAL_SCENES):
+        (root / "velodyne" / scene).mkdir(parents=True, exist_ok=True)
+        with open(root / "calib" / f"{scene}.txt", "w") as f:
+            f.write("P0: " + " ".join(["0.0"] * 12) + "\n")
+            f.write("Tr_velo_cam " + " ".join(f"{v:.6e}" for v in tr.reshape(-1)) + "\n")
+        # start (x, y) in m, yaw, speed in m a frame
+        starts = [(8.0 + 2 * k, -6.0, 0.5, 0.25), (-12.0, 5.0 - k, -0.2, 0.3),
+                  (15.0, 9.0, 3.0 + 0.1 * k, 0.2)]
+        rows = []
+        for fr in range(REAL_FRAMES):
+            cars = []
+            for tid, (x0, y0, yaw0, v) in enumerate(starts):
+                yaw = yaw0 + 0.004 * fr
+                centre = np.array([x0 + v * fr * np.cos(yaw), y0 + v * fr * np.sin(yaw),
+                                   h / 2 - SENSOR_HEIGHT])
+                cars.append((centre, yaw))
+                cam = velo_to_cam @ np.append(centre, 1.0)
+                ry = -yaw - np.pi / 2  # data/kitti.py's velodyne orientation inverted
+                rows.append(f"{fr} {tid} Car 0 0 {-np.pi / 2:.2f} 100.00 150.00 200.00 250.00 "
+                            f"{h:.2f} {w:.2f} {l:.2f} {cam[0]:.6f} {cam[1] + h / 2:.6f} "
+                            f"{cam[2]:.6f} {ry:.6f}")
+            rows.append(f"{fr} -1 DontCare -1 -1 -10 0 0 10 10 -1 -1 -1 -1000 -1000 -1000 -10")
+            sweep = hdl64_sweep(cars, rng, rays)
+            counts.append(len(sweep))
+            sweep.tofile(root / "velodyne" / scene / f"{fr:06}.bin")
+        (root / "label_02" / f"{scene}.txt").write_text("\n".join(rows) + "\n")
+    return dict(points=counts)
+
+
+# The entry points run in a fresh interpreter as `python -m` runs them
+# (runpy, run_name "__main__"), several per process: each run's launches of
+# K1-K4 by the wrappers' counters, its scan batches packed on the host
+# (`_ScanTracker._prepare` calls) and the seconds of its dataset eval.
+RUN_SCRIPT = r"""
+import json, runpy, sys, time
+import torch
+from open3dsot_tpu_torch.ops import chain_fused as cf, sa_fused, sampling
+from open3dsot_tpu_torch.tracking import eval as ev, scan_tracker as st
+prepares, spans = [], []
+prepare = st._ScanTracker._prepare
+def counted(self, sequences):
+    prepares.append(len(sequences))
+    return prepare(self, sequences)
+def timed(fn):
+    def run(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        spans.append(time.perf_counter() - t0)
+        return out
+    return run
+st._ScanTracker._prepare = counted
+st.evaluate_with_tracker = timed(st.evaluate_with_tracker)
+ev.evaluate_dataset = timed(ev.evaluate_dataset)
+kernels = {"K1": cf.fused_pointnet_encoder, "K2": cf.fused_seg_head,
+           "K3": sampling.furthest_point_sample, "K4": sa_fused.fused_sa_apply}
+for module, argv in json.loads(sys.argv[1]):
+    del prepares[:], spans[:]
+    for f in kernels.values():
+        f.launches = 0
+    sys.argv = [module] + argv
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+    print("RUN " + json.dumps({"module": module, "prepares": len(prepares), "eval_s": sum(spans),
+                               "launches": {k: f.launches for k, f in kernels.items()}}),
+          flush=True)
+"""
+
+
+def run_entry_points(runs: list, what: str) -> list:
+    """RUN_SCRIPT over [(module, argv)] in one subprocess: per run, its
+    printed 'success/test:' line and the RUN record."""
+    cmd = [sys.executable, "-c", RUN_SCRIPT, json.dumps(runs)]
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"{what}: exit {proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-4000:]}")
+    out, last = [], None
+    for line in proc.stdout.splitlines():
+        if line.startswith("success/test:"):
+            last = line
+        elif line.startswith("RUN "):
+            out.append(dict(json.loads(line[4:]), line=last))
+            last = None
+    if len(out) != len(runs) or not all(r["line"] for r in out):
+        fail(f"{what}: a run printed no Success/Precision\n{proc.stdout[-3000:]}")
+    return out
+
+
+def real_cfg(name: str, root: Path, data: Path) -> tuple:
+    """The config file of phase 23's model: cfgs/M2_track_kitti.yaml for the
+    Car class, or cfgs/BAT_Car.yaml, with the data path; (path, config)."""
+    import yaml
+
+    from open3dsot_tpu_torch.config import load_config
+
+    src = {"m2": "cfgs/M2_track_kitti.yaml", "bat": "cfgs/BAT_Car.yaml"}[name]
+    with open(ROOT / src) as f:
+        d = yaml.safe_load(f)
+    d.update(path=str(data), category_name="Car", dataset="kitti")
+    path = root / f"{name}.yaml"
+    path.write_text(yaml.safe_dump(d))
+    return path, load_config(str(path))
+
+
+def released_checkpoint(name: str, cfg, path: Path):
+    """A checkpoint in the reference's Lightning key layout of the seeded
+    weights (make_model's), the Dense biases torch suppresses set to zero:
+    written through export_torch.save_checkpoint against
+    reference_layout.lightning_template, then imported back through
+    import_torch.import_checkpoint and held to the weights bit for bit.
+    Returns the model, on the card with those weights."""
+    import torch
+
+    from open3dsot_tpu_torch.export_torch import save_checkpoint
+    from open3dsot_tpu_torch.import_torch import import_checkpoint
+    from open3dsot_tpu_torch.reference_layout import lightning_template, without_suppressed_biases
+    from open3dsot_tpu_torch.weights import state_dict_from_jax, variables_of
+
+    model, _ = make_model(cfg, fused_eval=True)
+    template = lightning_template(cfg, variables_of(model.net))
+    variables = without_suppressed_biases(variables_of(model.net), cfg, template)
+    model.net.load_state_dict(state_dict_from_jax(variables), strict=True)
+    save_checkpoint(variables, cfg, template, str(path))
+    back = state_dict_from_jax(import_checkpoint(str(path), cfg, model=model))
+    want = state_dict_from_jax(variables)
+    bad = [k for k in want if not torch.equal(back[k], want[k])]
+    n_keys = len(torch.load(str(path), weights_only=False)["state_dict"])
+    say23(f"  23 {name}: {path.name}, {n_keys} Lightning keys, {path.stat().st_size / 2**20:.2f} "
+          f"MB; imported back: {len(want) - len(bad)} of {len(want)} tensors equal to the "
+          f"exported weights bit for bit")
+    if bad:
+        fail(f"phase 23 {name}: the imported checkpoint differs from the exported weights at {bad[:5]}")
+    return model
+
+
+def mb(path: Path) -> float:
+    files = [path] if path.is_file() else [p for p in path.rglob("*") if p.is_file()]
+    return sum(p.stat().st_size for p in files) / 2**20
+
+
+def real_data_phase(card: str) -> None:
+    """Phase 23: KITTI-format data and Lightning checkpoints through the
+    port's entry points on the card."""
+    import shutil
+
+    import torch
+
+    from open3dsot_tpu_torch.data import get_dataset
+    from open3dsot_tpu_torch.tracking.eval import evaluate_dataset
+    from open3dsot_tpu_torch.tracking.results import ResultsWriter, read_results
+    from open3dsot_tpu_torch.tracking.scan_tracker import M2ScanTracker
+
+    t_phase = time.perf_counter()
+    if PHASE23_LOG.exists():
+        PHASE23_LOG.unlink()
+    tmp = Path(tempfile.mkdtemp(prefix="phase23-"))
+    try:
+        data = tmp / "kitti"
+        t0 = time.perf_counter()
+        made = write_real_kitti(data)
+        say23(f"  23 data: KITTI tracking layout, scenes {', '.join(REAL_SCENES)} x {REAL_FRAMES} "
+              f"HDL-64E sweeps ({min(made['points'])}-{max(made['points'])} points, mean "
+              f"{sum(made['points']) / len(made['points']):.0f}), 3 Cars each; written in "
+              f"{time.perf_counter() - t0:.2f} s, {mb(data):.1f} MB")
+        m2_yaml, m2_cfg = real_cfg("m2", tmp, data)
+        bat_yaml, bat_cfg = real_cfg("bat", tmp, data)
+        t0 = time.perf_counter()
+        sampler = get_dataset(m2_cfg, "test", m2_cfg.test_split)
+        seqs = [sampler[i] for i in range(len(sampler))]
+        load_s = time.perf_counter() - t0
+        n_frames = sum(len(s) - 1 for s in seqs)
+        say23(f"  23 dataset load: {len(seqs)} tracklets, {n_frames + len(seqs)} frames read and "
+              f"decoded in {load_s:.2f} s (host)")
+        if len(seqs) != 3 * len(REAL_SCENES) or any(len(s) != REAL_FRAMES for s in seqs):
+            fail(f"phase 23: the loader gave tracklets of {[len(s) for s in seqs]}")
+
+        m2 = released_checkpoint("m2", m2_cfg, tmp / "m2.ckpt")
+        bat = released_checkpoint("bat", bat_cfg, tmp / "bat.ckpt")
+        torch.save(m2.net.state_dict(), tmp / "m2_port.pt")
+        # in process, on the original weights: the M2 scan tracker and BAT's host loop
+        want_m2 = m2.evaluate_scan(sampler, m2_cfg)
+        want_bat = evaluate_dataset(bat, get_dataset(bat_cfg, "test", bat_cfg.test_split), bat_cfg)
+        fmt = "success/test: {:.2f}  precision/test: {:.2f}"
+
+        common = ["--data", str(data), "--device", "cuda"]
+        store, results = tmp / "prep_store", tmp / "results.jsonl"
+        cli = ["--cfg", str(m2_yaml), "--test", "--tracker", "scan", "--checkpoint",
+               str(tmp / "m2_port.pt"), "--device", "cuda"]
+        # one interpreter for the released checkpoints and the store's cold run,
+        # another for its warm run (a store serves later processes) and the results
+        m2_run, bat_run, cold = run_entry_points([
+            ("open3dsot_tpu_torch.eval_released_ckpt",
+             ["--cfg", str(m2_yaml), "--ckpt", str(tmp / "m2.ckpt"), "--tracker", "scan"] + common),
+            ("open3dsot_tpu_torch.eval_released_ckpt",
+             ["--cfg", str(bat_yaml), "--ckpt", str(tmp / "bat.ckpt"), "--tracker", "host"] + common),
+            ("open3dsot_tpu_torch.main", cli + ["--eval_prep_cache", str(store)]),
+        ], "eval_released_ckpt, main cold")
+        for name, run, want, kernels in (("M2 --tracker scan", m2_run, want_m2, ("K1", "K2")),
+                                         ("BAT --tracker host", bat_run, want_bat, ("K3", "K4"))):
+            n = run["launches"]
+            say23(f"  23 eval_released_ckpt {name}: {run['line']} (in process on the exported "
+                  f"weights: {fmt.format(*want)}); {n_frames / run['eval_s']:.1f} frames/s; "
+                  f"launches {n} [{card}]")
+            if run["line"] != fmt.format(*want):
+                fail(f"phase 23 {name}: Success/Precision differ from the in-process eval")
+            if not all(n[k] > 0 for k in kernels):
+                fail(f"phase 23 {name}: {kernels} were not launched: {n}")
+
+        warm, saved = run_entry_points([
+            ("open3dsot_tpu_torch.main", cli + ["--eval_prep_cache", str(store)]),
+            ("open3dsot_tpu_torch.main", cli + ["--save_results", str(results)])], "main warm")
+        for what, run in (("cold", cold), ("warm", warm), ("--save_results", saved)):
+            say23(f"  23 main --tracker scan {what}: {run['line']}; {run['prepares']} packed "
+                  f"batches built on the host; eval {run['eval_s']:.3f} s = "
+                  f"{n_frames / run['eval_s']:.1f} frames/s; launches {run['launches']} [{card}]")
+        say23(f"  23 prep store {mb(store):.2f} MB ({len(list(store.glob('prep_*.npz')))} "
+              f"batches); results file {mb(results):.3f} MB")
+        if warm["line"] != cold["line"] or cold["line"] != m2_run["line"]:
+            fail("phase 23: the warm store's Success/Precision differ from the cold run's")
+        if cold["prepares"] == 0 or warm["prepares"] != 0:
+            fail(f"phase 23: cold run built {cold['prepares']} batches, warm {warm['prepares']}")
+        header, records = read_results(str(results))
+        tracker = M2ScanTracker(m2, m2_cfg, max_points=4096)
+        worst = 0.0
+        for j in range(0, len(seqs), 16):  # the writer loop's batches
+            for r, (ious, _, bbs) in zip(records[j:j + 16],
+                                         tracker.evaluate_sequences(seqs[j:j + 16], m2_cfg)):
+                boxes = [ResultsWriter._encode_box(b) for b in bbs]
+                worst = max(worst, max(abs(a - b) for x, y in zip(r["boxes"], boxes)
+                                       for a, b in zip(x, y)))
+        say23(f"  23 read_results: {len(records)} records ({header['net_model']}, "
+              f"{header['category_name']}), boxes against the tracker's in process: max |diff| "
+              f"{worst:.3e}")
+        if [r["tracklet"] for r in records] != list(range(len(seqs))) or not worst <= 1e-5:
+            fail(f"phase 23: the saved results are not the tracker's ({worst})")
+        if saved["prepares"] == 0:
+            fail("phase 23: the --save_results run packed no batch")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say23(f"phase 23 ok in {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 // What both modes of K6 (sa_fused_train.cu, 3xTF32; sa_fused_train_bf16.cu,
 // bf16) share: the grid's dimensions, the BatchNorm arithmetic with its
-// rounding pinned, y1's statistics, and the fixed-order reductions of the
-// per-block partial sums.
+// rounding pinned, y1's statistics, the fixed-order reductions of the
+// per-block partial sums, and B4's ordered path for da.
 //
 // Rounding pinned where a decision depends on it: relu(y * s + t) with
 // __fmul_rn/__fadd_rn, s and t from 1 / sqrt(var + eps) rounded as IEEE
@@ -258,5 +258,151 @@ inline int finalize_bwd(const double* part, long long P, int C, const Dims& d, c
     const int rc_ = (expr); \
     if (rc_) return rc_;    \
   } while (0)
+
+// ---- B4's ordered path: da summed in a fixed order ---------------------------
+// Taken under torch.use_deterministic_algorithms (the wrapper reads the flag at
+// each call). da[b, n] = the sum of dy1[r] over the rows r of sample b with
+// idx[r] = n, in the order of r, as the JAX kernel's onehot^T @ dy1 sums it in
+// a fixed order. An inverse index, built by a stable counting sort of idx per
+// sample: the counts by integer atomics (exact in any order), an exclusive scan
+// of them, then a fill that keeps the rows of one target in the order of r.
+// One thread per (b, n, c) then sums its target's rows down that list. The
+// scatter pass leaves dy1 in its dz1 grid for it (in place: each element is
+// read and written by one thread). Every step is the same from run to run.
+
+constexpr int kScanThreads = 1024;
+constexpr int kFillSmem = 48 * 1024;  // cursors in shared memory up to this many bytes
+
+// cnt[b * N + j] = the number of rows of sample b with idx = j in [0, N)
+__global__ void da_count_kernel(const int* __restrict__ idx, const Dims d, int* __restrict__ cnt) {
+  const long long r = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (r >= d.R) return;
+  const int j = __ldg(idx + r);
+  if (j >= 0 && j < d.N)
+    atomicAdd(cnt + (r / (static_cast<long long>(d.S) * d.K)) * d.N + j, 1);
+}
+
+// off[i] = cnt[0] + ... + cnt[i - 1] for i <= n: one block, each thread over a
+// contiguous run, its runs' sums scanned in shared memory.
+__global__ void __launch_bounds__(kScanThreads) da_scan_kernel(const int* __restrict__ cnt,
+                                                               long long n, int* __restrict__ off) {
+  __shared__ int sums[kScanThreads];
+  const int t = threadIdx.x;
+  const long long per = (n + kScanThreads - 1) / kScanThreads;
+  const long long lo = t * per < n ? t * per : n, hi = lo + per < n ? lo + per : n;
+  int s = 0;
+  for (long long i = lo; i < hi; ++i) s += cnt[i];
+  sums[t] = s;
+  __syncthreads();
+  for (int o = 1; o < kScanThreads; o <<= 1) {  // inclusive scan of the runs' sums
+    const int v = t >= o ? sums[t - o] : 0;
+    __syncthreads();
+    sums[t] += v;
+    __syncthreads();
+  }
+  int run = sums[t] - s;
+  for (long long i = lo; i < hi; ++i) {
+    off[i] = run;
+    run += cnt[i];
+  }
+  if (t == kScanThreads - 1) off[n] = sums[t];
+}
+
+// rows[off[b * N + j] + m] = the m-th row of sample b (in the order of r) with
+// idx = j. One warp a sample walks its rows 32 at a time: lanes with the same
+// target rank themselves by lane (match.any), the group's last lane moves the
+// target's cursor on. Cursors in shared memory (SH) or in cur (zeroed).
+template <bool SH>
+__global__ void da_fill_kernel(const int* __restrict__ idx, const Dims d,
+                               const int* __restrict__ off, int* __restrict__ cur_g,
+                               int* __restrict__ rows) {
+  extern __shared__ int cur_s[];
+  const int b = blockIdx.x, lane = threadIdx.x;
+  int* cur = SH ? cur_s : cur_g + static_cast<long long>(b) * d.N;
+  if (SH)
+    for (int n = lane; n < d.N; n += 32) cur[n] = 0;
+  __syncwarp();
+  const long long r0 = static_cast<long long>(b) * d.S * d.K, r1 = r0 + static_cast<long long>(d.S) * d.K;
+  const int* o = off + static_cast<long long>(b) * d.N;
+  int j_next = r0 + lane < r1 ? __ldg(idx + r0 + lane) : -1;
+  for (long long base = r0; base < r1; base += 32) {
+    const long long r = base + lane;
+    const int j = j_next;
+    j_next = r + 32 < r1 ? __ldg(idx + r + 32) : -1;
+    const bool in = r < r1 && j >= 0 && j < d.N;
+    const unsigned peers = __match_any_sync(0xffffffffu, in ? j : -1);
+    const int at = in ? cur[j] : 0;
+    __syncwarp();
+    if (in) {
+      rows[o[j] + at + __popc(peers & ((1u << lane) - 1u))] = static_cast<int>(r);
+      if ((peers >> lane) == 1u) cur[j] = at + __popc(peers);  // the group's last lane
+    }
+    __syncwarp();
+  }
+}
+
+__device__ __forceinline__ float dy1_value(float v) { return v; }
+__device__ __forceinline__ float dy1_value(uint16_t v) {
+  return __uint_as_float(static_cast<uint32_t>(v) << 16);
+}
+
+// da[b, n, c] = the sum of dy1[r, c] over rows[off[b * N + n] ...], in order.
+// dy1 is f32 (the f32 mode) or bf16 bits (the bf16 mode), ld elements a row.
+template <typename T>
+__global__ void da_sum_kernel(const T* __restrict__ dy1, int ld, const int* __restrict__ off,
+                              const int* __restrict__ rows, const Dims d, float* __restrict__ da) {
+  const long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (e >= static_cast<long long>(d.B) * d.N * d.C1) return;
+  const long long bn = e / d.C1;
+  const int c = static_cast<int>(e - bn * d.C1);
+  const int end = __ldg(off + bn + 1);
+  float s = 0.f;
+  for (int i = __ldg(off + bn); i < end; ++i)
+    s += dy1_value(dy1[static_cast<long long>(__ldg(rows + i)) * ld + c]);
+  da[e] = s;
+}
+
+// The ordered path's scratch: cnt (B * N ints, also the cursors where they do
+// not fit in shared memory), off (B * N + 1) and rows (R).
+struct Ordered {
+  int* cnt;
+  int* off;
+  int* rows;
+};
+
+inline size_t ordered_ints(const Dims& d) {
+  return 2 * static_cast<size_t>(d.B) * d.N + 1 + static_cast<size_t>(d.R);
+}
+
+inline Ordered ordered_at(const Dims& d, void* p) {
+  int* q = static_cast<int*>(p);
+  const size_t BN = static_cast<size_t>(d.B) * d.N;
+  return Ordered{q, q + BN, q + 2 * BN + 1};
+}
+
+// da (B, N, C1) from dy1 (R rows of ld elements) in the order of r.
+template <typename T>
+inline int ordered_da(const Dims& d, const int* idx, const T* dy1, int ld, const Ordered& o,
+                      float* da, cudaStream_t st) {
+  const long long BN = static_cast<long long>(d.B) * d.N;
+  cudaError_t e = cudaMemsetAsync(o.cnt, 0, BN * sizeof(int), st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  da_count_kernel<<<cdiv(d.R, 256), 256, 0, st>>>(idx, d, o.cnt);
+  LAUNCH_CHECK();
+  da_scan_kernel<<<1, kScanThreads, 0, st>>>(o.cnt, BN, o.off);
+  LAUNCH_CHECK();
+  const size_t smem = static_cast<size_t>(d.N) * sizeof(int);
+  if (smem <= kFillSmem) {
+    da_fill_kernel<true><<<d.B, 32, smem, st>>>(idx, d, o.off, o.cnt, o.rows);
+  } else {
+    e = cudaMemsetAsync(o.cnt, 0, BN * sizeof(int), st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    da_fill_kernel<false><<<d.B, 32, 0, st>>>(idx, d, o.off, o.cnt, o.rows);
+  }
+  LAUNCH_CHECK();
+  da_sum_kernel<T><<<cdiv(BN * d.C1, 256), 256, 0, st>>>(dy1, ld, o.off, o.rows, d, da);
+  LAUNCH_CHECK();
+  return 0;
+}
 
 }  // namespace

@@ -89,7 +89,9 @@
 //  - Gather: indexed float4 loads of A-form rows; an index outside [0, N)
 //    gives NaN rows. Scatter: da += dy1 with atomicAdd (the pad-with-first
 //    ball query repeats an index up to K times, so a row of da sums in an
-//    order that changes from run to run, about K * 2^-24 of its magnitude).
+//    order that changes from run to run, about K * 2^-24 of its magnitude);
+//    under torch's deterministic algorithms the entry's `ordered` flag sums
+//    each row of da in the order of r instead (k6_common.cuh::ordered_da).
 //  - Rounding pinned where a decision depends on it: relu(y * s + t) with
 //    __fmul_rn/__fadd_rn, s and t from 1 / sqrt(var + eps) rounded as IEEE
 //    division and square root, the tie split g / cnt as IEEE division. The
@@ -946,8 +948,10 @@ __global__ void maxgrad_kernel(const Ctx x, const float* __restrict__ g, float* 
   }
 }
 
-// ---- B4: dy1 = BN backward of dz1; da[b, idx[r]] += dy1[r]; dct[bs] = sum_k dy1
-__global__ void scatter_kernel(const Ctx x, const float* __restrict__ dz1, float* __restrict__ da,
+// ---- B4: dy1 = BN backward of dz1; da[b, idx[r]] += dy1[r]; dct[bs] = sum_k dy1.
+// ORDERED: dy1 is written over dz1 for ordered_da (k6_common.cuh), no atomics.
+template <bool ORDERED>
+__global__ void scatter_kernel(const Ctx x, float* __restrict__ dz1, float* __restrict__ da,
                                float* __restrict__ dct) {
   const Dims& d = x.d;
   const long long BS = static_cast<long long>(d.B) * d.S;
@@ -968,7 +972,10 @@ __global__ void scatter_kernel(const Ctx x, const float* __restrict__ dz1, float
     const float y1 = in ? __fadd_rn(__ldg(x.a + row), ctv) : __int_as_float(0x7fc00000);
     const float v = bn_bwd(dz1[r * d.C1 + c], yhat_of(y1, mu, inv), s, c1, c2);
     acc += v;
-    if (in) atomicAdd(da + row, v);
+    if (ORDERED)
+      dz1[r * d.C1 + c] = v;
+    else if (in)
+      atomicAdd(da + row, v);
   }
   dct[e] = acc;
 }
@@ -1006,7 +1013,7 @@ void dw_split(const Dims& d, int I, int J, int* P, long long* chunk) {
 }
 
 struct Workspace {  // byte offsets into one buffer
-  size_t part, part2, count, fold, coef, mx, sh, dwpart, dz2, dz1, total;
+  size_t part, part2, count, fold, coef, mx, sh, dwpart, dz2, dz1, ordered, total;
 };
 
 Workspace layout(const Dims& d, bool backward) {
@@ -1038,6 +1045,7 @@ Workspace layout(const Dims& d, bool backward) {
     w.dwpart = take((e3 > e2 ? e3 : e2) * sizeof(float));
     w.dz2 = take(static_cast<size_t>(d.R) * d.C2 * sizeof(float));
     w.dz1 = take(static_cast<size_t>(d.R) * d.C1 * sizeof(float));
+    w.ordered = take(ordered_ints(d) * sizeof(int));
   }
   w.total = off;
   return w;
@@ -1194,13 +1202,14 @@ extern "C" int sa_train_fwd(const float* a, const float* ct, const int* idx, con
 // statistics, and the output's cotangent g (B, S, C3). w2tp (n2 floats) and
 // w3tp (n3) are W2^T (C2 x C1) and W3^T (C3 x C2) packed. Writes da (B, N,
 // C1), dct (B, S, C1), dw2 (C1 x C2), dw3 (C2 x C3) and dbn = [dg1, dbt1, dg2,
-// dbt2, dg3, dbt3].
+// dbt2, dg3, dbt3]. ordered != 0: da summed in a fixed order (ordered_da),
+// else by float atomics.
 extern "C" int sa_train_bwd(const float* g, const float* a, const float* ct, const int* idx,
                             const float* y2, const float* y3, const float* stats,
                             const float* w2tp, long long n2, const float* w3tp, long long n3,
                             const float* bn, float* da, float* dct, float* dw2, float* dw3,
                             float* dbn, void* ws, int B, int N, int S, int K, int C1, int C2,
-                            int C3, void* stream) {
+                            int C3, int ordered, void* stream) {
   Dims d;
   RUN(check(B, N, S, K, C1, C2, C3, &d));
   if (n2 != packed_floats(C2, C1) || n3 != packed_floats(C3, C2)) return kErrPacked;
@@ -1258,10 +1267,16 @@ extern "C" int sa_train_bwd(const float* g, const float* a, const float* ct, con
   RUN((dw<kLoadH1, kLoadDy2>(x, dwpart, dw2, C1, C2, st)));
   RUN((rowmm<kLoadDy2, kEpiMaskY1>(x, w2tp, nullptr, dz1, part, C2, C1, st)));
   RUN(finalize_bwd(part, row_tiles(d), C1, d, fin, dbn_l[0], dbn_l[0] + C1, coef_l[0], st));
-  // B4: da (zeroed here) += dy1 at idx; dct = sum_k dy1
+  // B4: dct = sum_k dy1; da = the sum of dy1 at idx, in a fixed order or by atomics
+  const unsigned blocks = static_cast<unsigned>(cdiv(centroids(d) * C1, kThreads));
+  if (ordered) {
+    scatter_kernel<true><<<blocks, kThreads, 0, st>>>(x, dz1, da, dct);
+    LAUNCH_CHECK();
+    return ordered_da(d, idx, dz1, C1, ordered_at(d, base + w.ordered), da, st);
+  }
   e = cudaMemsetAsync(da, 0, static_cast<size_t>(B) * N * C1 * sizeof(float), st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  scatter_kernel<<<cdiv(centroids(d) * C1, kThreads), kThreads, 0, st>>>(x, dz1, da, dct);
+  scatter_kernel<false><<<blocks, kThreads, 0, st>>>(x, dz1, da, dct);
   LAUNCH_CHECK();
   return 0;
 }

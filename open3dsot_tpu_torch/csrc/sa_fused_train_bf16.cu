@@ -938,9 +938,11 @@ __global__ void __launch_bounds__(kRPThreads, 1)
 // ---- B4: dy1 = BN backward of dz1 (bf16); da[b, idx[r]] += bf16(dy1[r]) (the
 // JAX kernel's bf16 one-hot product); dct[bs] = sum_k dy1 unrounded. y1 with a
 // rounded to bf16. An index outside [0, N) gives a NaN y1 and adds nothing.
+// ORDERED: bf16(dy1) is written over dz1 for ordered_da (k6_common.cuh), no atomics.
+template <bool ORDERED>
 __global__ void scatter_kernel(const float* __restrict__ a, const float* __restrict__ ct,
                                const int* __restrict__ idx, const Dims d,
-                               const uint16_t* __restrict__ dz1, int ld,
+                               uint16_t* __restrict__ dz1, int ld,
                                const float* __restrict__ fold, const float* __restrict__ mean,
                                const float* __restrict__ coef, float* __restrict__ da,
                                float* __restrict__ dct) {
@@ -963,7 +965,10 @@ __global__ void scatter_kernel(const float* __restrict__ a, const float* __restr
     const float dz = __uint_as_float(static_cast<uint32_t>(dz1[r * ld + c]) << 16);
     const float v = bn_bwd(dz, yhat_of(y1, mu, inv), s, c1, c2);
     acc += v;
-    if (in) atomicAdd(da + row, round_bf16(v));
+    if (ORDERED)
+      dz1[r * ld + c] = bf16_bits(v);
+    else if (in)
+      atomicAdd(da + row, round_bf16(v));
   }
   dct[e] = acc;
 }
@@ -1086,7 +1091,7 @@ void dw_split(const Dims& d, int I, int J, int* P, long long* chunk) {
 }
 
 struct Workspace {  // byte offsets into one buffer
-  size_t part, part2, count, fold, y3, coef, share, dwpart, dy3, dz2, dy2, dz1, total;
+  size_t part, part2, count, fold, y3, coef, share, dwpart, dy3, dz2, dy2, dz1, ordered, total;
 };
 
 Workspace layout(const Dims& d, bool backward) {
@@ -1120,6 +1125,7 @@ Workspace layout(const Dims& d, bool backward) {
     w.dz2 = take(R * round8(d.C2) * 2);
     w.dy2 = take(R * round8(d.C2) * 2);
     w.dz1 = take(R * round8(d.C1) * 2);
+    w.ordered = take(ordered_ints(d) * sizeof(int));
   }
   w.total = off;
   return w;
@@ -1283,14 +1289,15 @@ extern "C" int sa_train_bf16_fwd(const float* a, const float* ct, const int* idx
 // statistics, and the output's cotangent g (B, S, C3) f32. w2t, w3t as the
 // forward's; w2 (C1 x round8(C2)) and w3 (C2 x round8(C3)) W2 and W3 in bf16.
 // Writes da (B, N, C1), dct (B, S, C1), dw2 (C1 x C2), dw3 (C2 x C3) and dbn =
-// [dg1, dbt1, dg2, dbt2, dg3, dbt3].
+// [dg1, dbt1, dg2, dbt2, dg3, dbt3]. ordered != 0: da summed in a fixed order
+// (ordered_da), else by float atomics.
 extern "C" int sa_train_bf16_bwd(const float* g, const float* a, const float* ct, const int* idx,
                                  const uint16_t* h1, const uint16_t* h2, const float* mxt,
                                  const float* stats, const uint16_t* w2t, const uint16_t* w3t,
                                  const uint16_t* w2, const uint16_t* w3, const float* b2,
                                  const float* b3, const float* bn, float* da, float* dct,
                                  float* dw2, float* dw3, float* dbn, void* ws, int B, int N, int S,
-                                 int K, int C1, int C2, int C3, void* stream) {
+                                 int K, int C1, int C2, int C3, int ordered, void* stream) {
   Dims d;
   RUN(check(B, N, S, K, C1, C2, C3, &d));
   RUN(device_info().err);
@@ -1384,12 +1391,18 @@ extern "C" int sa_train_bf16_bwd(const float* g, const float* a, const float* ct
   RUN(run_pass<kB5>(d, p, dy2, nullptr, w2, nullptr, st));
   RUN(finalize_bwd(part, 2 * row_blocks(d, C1, ns), C1, d, fin, dbn_l[0], dbn_l[0] + C1,
                    coef_l[0], st));
-  // B6: da (zeroed here) += bf16(dy1) at idx; dct = sum_k dy1
+  // B6: dct = sum_k dy1; da = the sum of bf16(dy1) at idx, in a fixed order or by atomics
+  const unsigned blocks = static_cast<unsigned>(cdiv(BS * C1, kThreads));
+  if (ordered) {
+    scatter_kernel<true><<<blocks, kThreads, 0, st>>>(a, ct, idx, d, dz1, round8(C1), fold_l[0],
+                                                      mean_l[0], coef_l[0], da, dct);
+    LAUNCH_CHECK();
+    return ordered_da(d, idx, dz1, round8(C1), ordered_at(d, base + w.ordered), da, st);
+  }
   e = cudaMemsetAsync(da, 0, static_cast<size_t>(B) * N * C1 * sizeof(float), st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  scatter_kernel<<<cdiv(BS * C1, kThreads), kThreads, 0, st>>>(a, ct, idx, d, dz1, round8(C1),
-                                                               fold_l[0], mean_l[0], coef_l[0],
-                                                               da, dct);
+  scatter_kernel<false><<<blocks, kThreads, 0, st>>>(a, ct, idx, d, dz1, round8(C1), fold_l[0],
+                                                     mean_l[0], coef_l[0], da, dct);
   LAUNCH_CHECK();
   return 0;
 }

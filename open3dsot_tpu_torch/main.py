@@ -6,7 +6,8 @@
         [--transfer_quant int16]] [--device cuda]                           # train
     python -m open3dsot_tpu_torch.main --cfg cfgs/M2_track_synthetic.yaml --test \
         [--checkpoint ckpt_best.pt] [--max_tracklets N] [--device cuda] [--bf16] \
-        [--tracker scan [--host_metrics] [--transfer_quant int16]]          # eval
+        [--save_results R.jsonl] [--tracker scan [--host_metrics] \
+        [--transfer_quant int16] [--eval_prep_cache DIR]]                   # eval
 
 Flags keep the JAX CLI's names (main.py); a flag given overrides the YAML,
 and `--preloading` and `--save_top_k` override it even at their defaults
@@ -23,16 +24,22 @@ and P2B): on-device scoring by default, host scoring with
 `--host_metrics`, frame points shipped as int16 with `--transfer_quant
 int16`. `--bf16` (or `bf16: true` in the YAML) computes in bf16, in eval on
 either path and in training (the kernels in their bf16 mode); parameters,
-gradients, the Adam state and the statistics stay f32. Not ported yet:
-process sharding, the disk prep cache (`--eval_prep_cache`) and
-`--save_results`.
+gradients, the Adam state and the statistics stay f32. `--save_results`
+writes each tracklet's trajectory and per-frame scores as JSONL
+(tracking/results.py); `--eval_prep_cache DIR` keeps the scan tracker's
+packed batches on disk (tracking/prep_store.py), so a later eval of the same
+data and settings neither decodes the dataset nor pads a frame (ignored
+with `--save_results`, whose host-scored loop needs the frames). Not
+ported yet: process sharding (ROADMAP.md §1 item 6).
 Training runs every model through `train/trainer.py`: M2-Track on the
 motion sampler (`train_motion`), BAT and P2B on the siamese one
 (`train_siamese`), starting from random weights made from the seed
 (weights.random_variables). `--checkpoint` is a trainer checkpoint
 (`ckpt_best.pt`, `ckpt_last.pt`) or a file written by
 `torch.save(model.net.state_dict(), path)`; without one the weights are
-random, made from the seed. `--device_sampler` builds the training
+random, made from the seed. A released Lightning `.ckpt` of the reference
+is refused here: `python -m open3dsot_tpu_torch.eval_released_ckpt` imports
+and evaluates one. `--device_sampler` builds the training
 samples on the device (data/device_sampler.py); `--transfer_quant int16`
 then ships the raw frames as int16.
 """
@@ -82,6 +89,14 @@ def parse_args(argv=None):
     parser.add_argument("--host_metrics", action="store_true",
                         help="with --tracker scan: score trajectories on the host "
                              "(geometry/iou.py) instead of on the device (geometry/iou_device.py)")
+    parser.add_argument("--save_results", type=str, default=None,
+                        help="write per-tracklet predicted trajectories + per-frame "
+                             "IoU/distance to this JSONL path (tracking/results.py)")
+    parser.add_argument("--eval_prep_cache", type=str, default=None,
+                        help="directory for a disk-backed packed eval prep cache "
+                             "(tracking/prep_store.py): with --tracker scan, repeated "
+                             "evaluations skip dataset decode and padding "
+                             "(fingerprint-checked)")
     parser.add_argument("--transfer_quant", type=str, default=None, choices=["int16"],
                         help="ship frame points to the device as per-sample fixed-point "
                              "int16 (utils/quant.py): --tracker scan eval, and training "
@@ -121,10 +136,16 @@ def main(argv=None):
     cfg = config_of(args)
     model = get_model(cfg.net_model)(cfg, device=args.device, **kernel_options(cfg, cfg.net_model))
     if args.checkpoint:
-        from open3dsot_tpu_torch.train.trainer import state_dict_of_checkpoint
+        import pickle
 
-        sd = state_dict_of_checkpoint(
-            torch.load(args.checkpoint, map_location=model.device, weights_only=True))
+        from open3dsot_tpu_torch.train.trainer import RELEASED_CKPT, state_dict_of_checkpoint
+
+        try:
+            payload = torch.load(args.checkpoint, map_location=model.device, weights_only=True)
+        except pickle.UnpicklingError as e:
+            raise ValueError(f"--checkpoint {args.checkpoint} holds more than weights; if it is "
+                             f"{RELEASED_CKPT}") from e
+        sd = state_dict_of_checkpoint(payload)
     else:
         print("WARNING: no --checkpoint given; starting from random weights from the seed")
         sd = state_dict_from_jax(random_variables(model.net, cfg.seed))
@@ -132,14 +153,25 @@ def main(argv=None):
 
     if args.test:
         test_sampler = get_dataset(cfg, "test", cfg.test_split)
+        writer = None
+        if args.save_results:
+            from open3dsot_tpu_torch.tracking.results import ResultsWriter
+
+            writer = ResultsWriter(args.save_results, cfg)
         if args.tracker == "scan":
             succ, prec = model.evaluate_scan(test_sampler, cfg, max_tracklets=args.max_tracklets,
-                                             device_metrics=not args.host_metrics)
+                                             device_metrics=not args.host_metrics,
+                                             prep_store_path=args.eval_prep_cache,
+                                             results_writer=writer)
         else:
             from open3dsot_tpu_torch.tracking.eval import evaluate_dataset
 
             succ, prec = evaluate_dataset(model, test_sampler, cfg,
-                                          max_tracklets=args.max_tracklets, verbose=True)
+                                          max_tracklets=args.max_tracklets, verbose=True,
+                                          results_writer=writer)
+        if writer is not None:
+            writer.close()
+            print(f"saved {writer.n_written} tracklet trajectories to {writer.path}")
         print(f"success/test: {succ:.2f}  precision/test: {prec:.2f}")
         return
 

@@ -26,7 +26,10 @@ f32 mode, csrc/sa_fused_train_bf16.cu (`sa_train_bf16_fwd`,
 `sa_train_bf16_bwd`; bf16 wgmma) in the bf16 mode; the design notes are
 there. Launches are counted in `fused_sa_train_apply.fwd_launches` and
 `.bwd_launches` (either mode), and those of the bf16 mode in
-`.bf16_fwd_launches` and `.bf16_bwd_launches` too. The kernels take W2, W3
+`.bf16_fwd_launches` and `.bf16_bwd_launches` too. The backward adds da by
+float atomics, or, under `torch.use_deterministic_algorithms(True)`, in a
+fixed order (counted in `.ordered_bwd_launches` too): a resumed run then
+matches an uninterrupted one bit for bit. The kernels take W2, W3
 (forward) and W2^T, W3^T (backward) in the form their products read, built
 by `Packs`; the SA layer holds them in its fold cache, built again only when
 a weight or the mode changes (models/pointnet.py::SetAbstraction.train_packs).
@@ -312,7 +315,9 @@ def sa_train_fwd_kernel(a, ct, idx, w2, b2, w3, b3, bn: Sequence[torch.Tensor], 
 def sa_train_bwd_kernel(g_out, a, ct, idx, grids, stats: Stats, w2, b2, w3, b3,
                         bn: Sequence[torch.Tensor], packs: Packs):
     """K6 backward on the card: the same function as `sa_train_bwd_plain` in
-    the mode of `packs`, from the grids of `sa_train_fwd_kernel` in that mode."""
+    the mode of `packs`, from the grids of `sa_train_fwd_kernel` in that mode.
+    Under `torch.use_deterministic_algorithms(True)` da is summed in a fixed
+    order (the entries' `ordered` path), else by float atomics."""
     B, N, C1 = a.shape
     S, K = idx.shape[1], idx.shape[2]
     C2, C3 = w2.shape[1], w3.shape[1]
@@ -349,6 +354,8 @@ def sa_train_bwd_kernel(g_out, a, ct, idx, grids, stats: Stats, w2, b2, w3, b3,
     dw3 = torch.empty(C2, C3, device=dev)
     dbn = torch.empty(2 * (C1 + C2 + C3), device=dev)
     ws = _workspace(dims, True, bf16, dev)
+    # read at each call, so a captured graph keeps the path it was captured with
+    ordered = torch.are_deterministic_algorithms_enabled()
     if bf16:
         b2, b3 = b2.detach().float().contiguous(), b3.detach().float().contiguous()
         check("b2", b2, dev, (C2,))
@@ -358,7 +365,7 @@ def sa_train_bwd_kernel(g_out, a, ct, idx, grids, stats: Stats, w2, b2, w3, b3,
             h2.data_ptr(), mxt.data_ptr(), stats_flat.data_ptr(), packs.w2.data_ptr(),
             packs.w3.data_ptr(), packs.w2t.data_ptr(), packs.w3t.data_ptr(), b2.data_ptr(),
             b3.data_ptr(), bn_flat.data_ptr(), da.data_ptr(), dct.data_ptr(), dw2.data_ptr(),
-            dw3.data_ptr(), dbn.data_ptr(), ws.data_ptr(), *dims, stream_of(g_out))
+            dw3.data_ptr(), dbn.data_ptr(), ws.data_ptr(), *dims, int(ordered), stream_of(g_out))
         raise_on(rc, "K6 sa_train_bf16_bwd", _ERRORS)
     else:
         rc = _library(False).sa_train_bwd(
@@ -366,10 +373,11 @@ def sa_train_bwd_kernel(g_out, a, ct, idx, grids, stats: Stats, w2, b2, w3, b3,
             y3.data_ptr(), stats_flat.data_ptr(), packs.w2t.data_ptr(), packs.w2t.numel(),
             packs.w3t.data_ptr(), packs.w3t.numel(), bn_flat.data_ptr(), da.data_ptr(),
             dct.data_ptr(), dw2.data_ptr(), dw3.data_ptr(), dbn.data_ptr(), ws.data_ptr(), *dims,
-            stream_of(g_out))
+            int(ordered), stream_of(g_out))
         raise_on(rc, "K6 sa_train_bwd", _ERRORS)
     fused_sa_train_apply.bwd_launches += 1
     fused_sa_train_apply.bf16_bwd_launches += int(bf16)
+    fused_sa_train_apply.ordered_bwd_launches += int(ordered)
     return da, dct, dw2, dw3, tuple(torch.split(dbn, [C1, C1, C2, C2, C3, C3]))
 
 
@@ -452,6 +460,8 @@ fused_sa_train_apply.fwd_launches = 0
 fused_sa_train_apply.bwd_launches = 0
 fused_sa_train_apply.bf16_fwd_launches = 0
 fused_sa_train_apply.bf16_bwd_launches = 0
+# backward launches that summed da in a fixed order (deterministic algorithms)
+fused_sa_train_apply.ordered_bwd_launches = 0
 
 
 def reset_launch_counts() -> None:
@@ -459,3 +469,4 @@ def reset_launch_counts() -> None:
     fused_sa_train_apply.bwd_launches = 0
     fused_sa_train_apply.bf16_fwd_launches = 0
     fused_sa_train_apply.bf16_bwd_launches = 0
+    fused_sa_train_apply.ordered_bwd_launches = 0

@@ -4,7 +4,9 @@ Frame 0 is the ground truth; each later frame builds its model input on the
 host around the previous prediction, runs one forward on the model's
 device, fetches the 4-DoF box to the host, converts it to a world box and
 scores overlap/accuracy against the ground truth (reference
-base_model.py:59-117). Sharding tracklets across processes comes later.
+base_model.py:59-117). `results_writer` writes each tracklet's trajectory
+(tracking/results.py). Sharding tracklets across processes comes later
+(ROADMAP.md §1 item 6).
 Under bf16 compute (`bf16: true`) the forward's boxes still come back f32
 (the models cast their heads back, as JAX's do), so the host's box math and
 Success/Precision are computed as in f32.
@@ -50,8 +52,12 @@ class Tracker:
 
 
 def evaluate_dataset(model, test_sampler, config, max_tracklets: Optional[int] = None,
-                     verbose: bool = False):
-    """Run the tracker over every tracklet; returns (success, precision)."""
+                     verbose: bool = False, results_writer=None):
+    """Run the tracker over every tracklet; returns (success, precision).
+
+    results_writer: optional tracking.results.ResultsWriter, which persists
+    each tracklet's predicted trajectory and per-frame scores.
+    """
     tracker = Tracker(model)
     success, precision = Success(), Precision()
     n = len(test_sampler)
@@ -59,7 +65,9 @@ def evaluate_dataset(model, test_sampler, config, max_tracklets: Optional[int] =
         n = min(n, max_tracklets)
     for i in range(n):
         sequence = test_sampler[i]
-        ious, distances, _ = tracker.evaluate_one_sequence(sequence, config)
+        ious, distances, result_bbs = tracker.evaluate_one_sequence(sequence, config)
+        if results_writer is not None:
+            results_writer.add(i, result_bbs, ious, distances)
         success.update(ious)
         precision.update(distances)
         if verbose:

@@ -22,7 +22,7 @@ Here:
 
 The JAX `mesh=` argument (the slot axis sharded over a device mesh) is not
 taken: slot sharding over several cards waits for the port's multi-GPU work
-(ROADMAP.md §1 item 5).
+(ROADMAP.md §1 item 6).
 
 Matching models online take reference_BB 'previous_result' only (the gt
 modes need per-frame ground truth, which does not exist at serving time);

@@ -27,8 +27,9 @@ batch shape; the eager loop is what the graph is held to, and what the CPU
 runs. Host plumbing, scoring and the dataset loop are shared with the M2
 tracker (tracking/scan_tracker.py). A model made under `bf16: true` runs in
 its bf16 mode inside the graph as it does eagerly (the JAX tracker has no
-compute_dtype of its own here). Not ported yet: process sharding, the
-disk prep store and the results writer (ROADMAP.md §1).
+compute_dtype of its own here). The dataset loop takes the disk prep store
+and the results writer as the M2 tracker's does. Not ported yet: process
+sharding (ROADMAP.md §1 item 6).
 """
 
 from __future__ import annotations
@@ -329,7 +330,8 @@ def evaluate_dataset_scan_matching(model, test_sampler, config, max_points: int 
                                    batch_tracklets: int = 8, max_tracklets: Optional[int] = None,
                                    tracker: Optional[MatchScanTracker] = None,
                                    device_metrics: bool = True, pipeline_depth: int = 3,
-                                   prep_cache: Optional[dict] = None):
+                                   prep_cache: Optional[dict] = None,
+                                   prep_store_path: Optional[str] = None, results_writer=None):
     """Scan-tracker dataset evaluation of P2B/BAT; returns (success,
     precision). Arguments as scan_tracker.evaluate_dataset_scan's. A config
     the scan tracker cannot serve (an unknown reference_BB or
@@ -339,4 +341,5 @@ def evaluate_dataset_scan_matching(model, test_sampler, config, max_points: int 
     if tracker is None:
         tracker = MatchScanTracker(model, config, max_points=max_points)
     return evaluate_with_tracker(tracker, model, test_sampler, config, batch_tracklets,
-                                 max_tracklets, device_metrics, pipeline_depth, prep_cache)
+                                 max_tracklets, device_metrics, pipeline_depth, prep_cache,
+                                 prep_store_path, results_writer)

@@ -314,8 +314,18 @@ class Trainer:
             f.write(json.dumps(info) + "\n")
 
 
+RELEASED_CKPT = ("a Lightning checkpoint of the reference (its weights under 'state_dict' "
+                 "with the reference's keys, no 'step'): evaluate it with `python -m "
+                 "open3dsot_tpu_torch.eval_released_ckpt --cfg ... --ckpt ... --data ...`, or "
+                 "import it with open3dsot_tpu_torch.import_torch.import_checkpoint")
+
+
 def state_dict_of_checkpoint(payload) -> dict:
-    """The net's state_dict from a `Trainer` checkpoint or a bare state_dict."""
-    if isinstance(payload, dict) and "state_dict" in payload and "step" in payload:
+    """The net's state_dict from a `Trainer` checkpoint or a bare state_dict.
+    A Lightning checkpoint (a 'state_dict' and no 'step') raises, naming the
+    entry point that imports one."""
+    if isinstance(payload, dict) and "state_dict" in payload:
+        if "step" not in payload:
+            raise ValueError(f"--checkpoint is {RELEASED_CKPT}")
         return payload["state_dict"]
     return payload

@@ -59,6 +59,28 @@ def _put(tree: dict, path, value) -> None:
     tree[path[-1]] = value
 
 
+def variables_of(net: nn.Module) -> dict:
+    """The port's weights as the JAX package's `{'params', 'batch_stats'}`
+    numpy tree (float32): the inverse of `state_dict_from_jax`, which drops
+    only `num_batches_tracked`."""
+    params, stats = {}, {}
+
+    def leaf(t: torch.Tensor) -> np.ndarray:
+        return t.detach().float().cpu().numpy().copy()
+
+    for name, mod in net.named_modules():
+        path = name.split(".") if name else []
+        if isinstance(mod, nn.Linear):
+            _put(params, path + ["kernel"], np.ascontiguousarray(leaf(mod.weight).T))
+            _put(params, path + ["bias"], leaf(mod.bias))
+        elif isinstance(mod, nn.BatchNorm1d):
+            _put(params, path + ["scale"], leaf(mod.weight))
+            _put(params, path + ["bias"], leaf(mod.bias))
+            _put(stats, path + ["mean"], leaf(mod.running_mean))
+            _put(stats, path + ["var"], leaf(mod.running_var))
+    return {"params": params, "batch_stats": stats}
+
+
 def random_variables(net: nn.Module, seed: int) -> dict:
     """Random eval weights in the JAX tree's shape, made with numpy from `seed`.
 

@@ -1,7 +1,9 @@
 """Each numpy host module that the port carries as a copy gives the
 original's output on seeded inputs (config, quaternion, data_classes,
 points_utils, iou, metrics, synthetic data, the test and siamese training
-samplers, the Kalman search space, the batch loader, the scalar logger)."""
+samplers, the Kalman search space, the batch loader, the scalar logger, the
+visualization writers, the nuScenes split and category tables; the real
+datasets' loaders are held in tests/test_torch_datasets.py)."""
 
 from __future__ import annotations
 
@@ -185,19 +187,64 @@ def test_synthetic_dataset_and_test_sampler_copy():
 
 
 def test_unported_datasets_and_models_are_refused():
-    """What the port does not run yet raises: the real datasets, an unknown
-    model. The siamese and the motion training samplers run."""
+    """What the port does not run raises: an unknown dataset or sampler
+    type, an unknown model (the real datasets load since their copies
+    came, tests/test_torch_datasets.py). The siamese and the motion training
+    samplers run."""
     from open3dsot_tpu_torch.models import get_model
 
-    for name in ("kitti", "nuscenes", "waymo"):
-        cfg = p_config.make_config({"dataset": name})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            p_get_dataset(cfg, "test", "test")
+    with pytest.raises(ValueError, match="unknown dataset 'argoverse'"):
+        p_get_dataset(p_config.make_config({"dataset": "argoverse"}), "test", "test")
     cfg = p_config.make_config({"dataset": "synthetic"})
+    with pytest.raises(ValueError, match="unknown dataset type"):
+        p_get_dataset(cfg, "train_flow", "train")
     assert len(p_get_dataset(cfg, "train_motion", "train")) > 0
     assert len(p_get_dataset(cfg, "train_siamese", "train")) > 0
     with pytest.raises(ValueError, match="unknown model"):
         get_model("votenet")
+
+
+def test_visualization_writers_copy(tmp_path):
+    """get_3d_box, write_ply (with and without colours), write_obj, box2obj
+    and write_bbox write the original's files byte for byte."""
+    import open3dsot_tpu.utils.visualization as j_vis
+    import open3dsot_tpu_torch.utils.visualization as p_vis
+
+    rng = np.random.default_rng(7)
+    np.testing.assert_array_equal(p_vis.get_3d_box((1.6, 3.9, 1.5), 0.3, [1.0, 2.0, 0.5]),
+                                  j_vis.get_3d_box((1.6, 3.9, 1.5), 0.3, [1.0, 2.0, 0.5]))
+    pts = rng.standard_normal((20, 3)).astype(np.float32)
+    colors = rng.integers(0, 255, (20, 3))
+    jb, pb = _boxes(7, n=1)[0]
+    corners = jb.corners().T
+    for tag, vis, box in (("j", j_vis, jb), ("p", p_vis, pb)):
+        vis.write_ply(pts, str(tmp_path / f"{tag}.ply"))
+        vis.write_ply(pts, str(tmp_path / f"{tag}_c.ply"), colors=colors)
+        vis.write_obj(pts, str(tmp_path / f"{tag}_pts"))
+        vis.box2obj(box, str(tmp_path / f"{tag}_box.obj"))
+        vis.write_bbox(corners, 2, str(tmp_path / f"{tag}_bbox.ply"))
+    for name in (".ply", "_c.ply", "_pts.obj", "_box.obj", "_bbox.ply"):
+        assert (tmp_path / f"p{name}").read_bytes() == (tmp_path / f"j{name}").read_bytes(), name
+
+
+def test_nuscenes_split_tables_copy():
+    """The vendored split constants and their checks are the original's."""
+    import open3dsot_tpu.data.nuscenes_splits as j_ns
+    import open3dsot_tpu_torch.data.nuscenes_splits as p_ns
+
+    assert p_ns.MINI_TRAIN == j_ns.MINI_TRAIN and p_ns.MINI_VAL == j_ns.MINI_VAL
+    assert p_ns._EXPECTED_SIZES == j_ns._EXPECTED_SIZES
+    assert p_ns._vendored_splits() == j_ns._vendored_splits()
+    for split in ("mini_train", "mini_val"):
+        assert p_ns.get_split_scenes(split) == j_ns.get_split_scenes(split)
+
+
+def test_nuscenes_category_tables_copy():
+    import open3dsot_tpu.data.nuscenes_data as j_nd
+    import open3dsot_tpu_torch.data.nuscenes_data as p_nd
+
+    assert p_nd.general_to_tracking_class == j_nd.general_to_tracking_class
+    assert p_nd.tracking_to_general_class == j_nd.tracking_to_general_class
 
 
 def test_kalman_search_space_copy():
