@@ -16,6 +16,8 @@
     python3 chip_smoke.py --train-times   # phases 1, 2 and 19-21 (bf16 and M2 training), no result
     python3 chip_smoke.py --device-sampler-times  # phases 1, 2 and 22 (device sampler), no result
     python3 chip_smoke.py --real-data-times  # phases 1, 2 and 23 (KITTI data, checkpoints), no result
+    python3 chip_smoke.py --distributed-times  # phases 1, 2 and 24 (multi-device runs), no result
+    python3 chip_smoke.py --split-cards   # phases 1, 2 and 24c over every card present, no result
 
 Phases, one line or a few each; any failure exits non-zero:
   1. environment: torch / CUDA versions, the card's name and power limit;
@@ -65,7 +67,7 @@ Phases, one line or a few each; any failure exits non-zero:
      synthetic dataset at BAT_Car widths (both paths), a profiler window
      (K3's launches in it beside the profiler's records of them), and the
      CLI on cfgs/BAT_synthetic.yaml.
- 10. printed last, after phase 23: one JSON line of the kernels K1-K6 and
+ 10. printed last, after phase 24: one JSON line of the kernels K1-K6 and
      the probes P1/P2, then K1/K2/K4/K5 and K6 (forward, backward) in the
      bf16 mode (each with its bound from this run's shapes), the card line,
      then the result line.
@@ -236,6 +238,40 @@ Phases, one line or a few each; any failure exits non-zero:
      tracker's). Lines: the dataset's load seconds, frames/s of each eval
      (cold and warm), the store's and the results file's MB. Its lines also
      go to chiprun_out/phase23.txt.
+ 24. multi-device runs (parallel/distributed.py) on the one card: (a) a
+     world of one under NCCL (an all_reduce of a card tensor), where K6's
+     staged entries (csrc/k6_common.cuh, Staging), f32 and bf16, equal the
+     single call bit for bit at the four K6 calls of a BAT train step (B =
+     50; the backward with its da in a fixed order), are held to the plain
+     versions (phases 11 and 19's tolerances) and timed against the single
+     call in turns and against the plain versions, and the host syncs the
+     stages add are counted by torch's sync debug mode ('error'); (b) a
+     two-rank gloo world with CUDA tensors (this script again,
+     `--rank-worker`; the ranks share cuda:0 on a one-card host): the M2
+     and BAT scan evals and the M2 host loop sharded over the ranks (4
+     tracklets x 8 frames) equal to the one-process evals; a BAT_Car train
+     step on 16 samples (8 a rank) with global statistics in f32 and bf16
+     and with per-device statistics in f32, K6 launched 4 + 4 times a rank,
+     staged in the global modes; the f32 steps against the one-process step
+     on the global batch (per-device: the mean of the two half steps): loss
+     terms within 1e-3, the whole gradient within 0.1 and the running
+     statistics within 1e-3 (norm-relative), the per-device gradient held
+     to be more than 0.1 from the global one; the bf16 step held to finite
+     losses and a finite, non-zero gradient and read, not held, against the
+     one-process bf16 step, that step run again and the f32 step (loss
+     terms, gradient by module, the discrete choices that part: ball
+     queries, kNN, objectness labels); K6 staged over the two ranks at the
+     four calls (16 samples): each rank's statistics the global batch's,
+     its rows of out, da and dct the single call's, dW and dgamma / dbeta
+     summed over the ranks the single call's, and (read) the maxima whose
+     neighbour the ranks' statistics change; (c) the M2 and BAT online
+     pools of 16 split over every card (over [cuda:0, cuda:0] on one card)
+     against unsplit trackers of their parts' slots, bit for bit, and on
+     several cards a tracker put on the last card against cuda:0's
+     (`--split-cards` runs this part alone); (d) bf16 online M2 and BAT
+     trackers (B = 8) against the bf16 scan trackers and their bundles
+     against the live trackers, bit for bit. The kernels line gains the
+     staged K6 rows. Its lines also go to chiprun_out/phase24.txt.
 
 Weights are random, made with numpy from a seed in the JAX tree's shape
 (open3dsot_tpu_torch.weights). Needs one card; no network.
@@ -246,6 +282,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -663,6 +700,11 @@ def main(argv=None) -> None:
     train_only = "--train-times" in args
     sampler_only = "--device-sampler-times" in args
     real_only = "--real-data-times" in args
+    dist_only = "--distributed-times" in args
+    split_only = "--split-cards" in args
+    if "--rank-worker" in args:  # a rank of phase 24's two-rank world
+        rank_worker(args[args.index("--rank-worker") + 1])
+        return
     # --- 1. environment ---------------------------------------------------
     print(f"env: python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
@@ -681,7 +723,8 @@ def main(argv=None) -> None:
     bf16_eval = ["chain_fused", "chain_fused_bf16", "fps", "sa_fused", "sa_fused_bf16"]
     libs = load_libraries(["chain_fused"] if chain_only or scan_only else
                           ["fps", "sa_fused"] if match_only else
-                          ["chain_fused", "fps", "sa_fused"] if online_only or rates_only else
+                          ["chain_fused", "fps", "sa_fused"] if online_only or rates_only
+                          or split_only else
                           bf16_eval if bf16_only else
                           [n for n in bf16_eval if n in SIGNATURES] if breakdown_only else
                           ["sa_fused_train"] if k6_only else
@@ -689,7 +732,8 @@ def main(argv=None) -> None:
                           ["fps", "sa_fused", "sa_fused_train", "sa_fused_train_bf16"]
                           if sampler_only else
                           ["chain_fused", "fps", "sa_fused"] if real_only else
-                          bf16_eval + ["sa_fused_train", "sa_fused_train_bf16"] if train_only else
+                          bf16_eval + ["sa_fused_train", "sa_fused_train_bf16"]
+                          if train_only or dist_only else
                           ["sa_fused"] if k4_only else ["fps", "fps_floor"] if k3_only else
                           bf16_eval + ["sa_fused_train", "sa_fused_train_bf16", "gather_probe",
                                        "fps_floor"])
@@ -721,6 +765,16 @@ def main(argv=None) -> None:
     if real_only:
         real_data_phase(card)
         print("real data times done: phases 1, 2 and 23 only", flush=True)
+        return
+    if split_only:
+        dist_online_split(card)
+        print("split cards done: phases 1, 2 and 24's online pool over the cards only",
+              flush=True)
+        return
+    if dist_only:
+        for row in distributed_phase(card):
+            print(f"  24 kernels line row: {json.dumps(row)}", flush=True)
+        print("distributed times done: phases 1, 2 and 24 only", flush=True)
         return
     if k4_only:
         matching_phases(card, libs["sa_fused"], k4_only=True)
@@ -880,6 +934,9 @@ def main(argv=None) -> None:
 
     # --- 23. KITTI-format data and Lightning checkpoints ---------------------------
     real_data_phase(card)
+
+    # --- 24. multi-device runs: process groups, the staged K6, the split pool -------
+    bf16_kernels.extend(distributed_phase(card))
     replaces = "open3dsot_tpu/ops/sa_fused_train.py:608-776 (cdt bfloat16)"
     for what in ("fwd", "bwd"):
         bf16_kernels.append(kernel_entry(
@@ -2505,7 +2562,7 @@ def online_track(tracker, seqs, frames, slots=None, first: int = 1, steps=None):
     from open3dsot_tpu_torch.tracking.online import OnlineMatchTracker
 
     slots = list(range(len(seqs))) if slots is None else slots
-    match = isinstance(tracker, OnlineMatchTracker)
+    match = isinstance(getattr(tracker, "parts", [tracker])[0], OnlineMatchTracker)
     for slot, seq, f in zip(slots, seqs, frames):
         tracker.reset(slot, seq[0]["pc"] if match else f[0], seq[0]["3d_bbox"])
     steps = ONLINE_T - first if steps is None else steps
@@ -5089,6 +5146,666 @@ def real_data_phase(card: str) -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     say23(f"phase 23 ok in {time.perf_counter() - t_phase:.1f} s")
+
+
+# --- 24. multi-device runs ---------------------------------------------------------------
+
+DIST_B = 16  # the global batch of phase 24's two-rank steps and K6 calls: 8 rows a rank
+DIST_EVAL = dict(syn_num_tracklets=4, syn_tracklet_len=8)  # phase 24's evals
+DIST_SPLIT_B = 16  # the online pool split over [cuda:0, cuda:0]: two sub-pools of 8
+DIST_BF16_B = 8  # the bf16 online trackers and bundles
+DIST_STEPS = 6  # online steps of phase 24's trackers
+K6_GLOBAL = "open3dsot_tpu/ops/sa_fused_train.py:56-61, :383-397, :583-590"
+DIST_TRAIN = (("global f32", False, False), ("per-device f32", False, True),
+              ("global bf16", True, False))  # (name, bf16, per-device statistics)
+
+
+def dist_evals(shard: bool) -> dict:
+    """Phase 24's evals through their entry points, sharded over the ranks
+    or not: the M2 and BAT scan trackers and the M2 host loop on 4
+    synthetic tracklets of 8 frames; -> name: (success, precision)."""
+    from open3dsot_tpu_torch.data import get_dataset
+    from open3dsot_tpu_torch.tracking.eval import evaluate_dataset
+
+    out = {}
+    for name, cfg in (("M2", bench_cfg(**DIST_EVAL)), ("BAT", match_cfg("bat", **DIST_EVAL))):
+        model, _ = make_model(cfg, fused_eval=True)
+        sampler = get_dataset(cfg, "test", "test")
+        out[f"{name} scan"] = model.evaluate_scan(sampler, cfg, shard_across_processes=shard)
+        if name == "M2":
+            out["M2 host loop"] = evaluate_dataset(model, sampler, cfg,
+                                                   shard_across_processes=shard)
+    return out
+
+
+class StepChoices:
+    """The discrete choices of a BAT train step, in which its gradient is not
+    continuous: the seven ball queries' indices (the backbones' and the vote
+    aggregation's), the BoxCloud kNN's, and the objectness labels (a
+    proposal centre within 0.3 of the box). Inside the context a step's
+    choices are kept in `own`, on the CPU."""
+
+    def __init__(self):
+        self.own = {"ball query": [], "kNN": [], "labels": []}
+
+    def _keep(self, kind: str, value):
+        self.own[kind].append(value.detach().cpu())
+        return value
+
+    def __enter__(self):
+        import torch
+
+        from open3dsot_tpu_torch.models import bat, pointnet, xcorr
+
+        self._saved = bq, knn, loss = pointnet.ball_query, xcorr.knn, bat.matching_loss
+
+        def matching_loss(config, batch, output):
+            d = ((output["center_xyz"] - batch["box_label"][:, None, :3]) ** 2).sum(-1)
+            self._keep("labels", torch.sqrt(d + 1e-6) < 0.3)
+            return loss(config, batch, output)
+
+        pointnet.ball_query = lambda *a, **k: self._keep("ball query", bq(*a, **k))
+        xcorr.knn = lambda *a, **k: self._keep("kNN", knn(*a, **k))
+        bat.matching_loss = matching_loss
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from open3dsot_tpu_torch.models import bat, pointnet, xcorr
+
+        pointnet.ball_query, xcorr.knn, bat.matching_loss = self._saved
+
+    @staticmethod
+    def of_ranks(ranks: list) -> dict:
+        """The ranks' choices as one run's on the global batch: the indices
+        concatenated over the ranks, the labels (the loss's, on rows
+        gathered on every rank) rank 0's."""
+        import torch
+
+        out = {k: [torch.cat(parts) for parts in zip(*(r[k] for r in ranks))]
+               for k in ("ball query", "kNN")}
+        out["labels"] = ranks[0]["labels"]
+        return out
+
+    @staticmethod
+    def flips(a: dict, b: dict) -> str:
+        """How far two runs' choices part: entries that differ, by kind."""
+        parts = []
+        for k in ("ball query", "kNN", "labels"):
+            n = sum(int((x != y).sum()) for x, y in zip(a[k], b[k]))
+            parts.append(f"{k} {n} of {sum(x.numel() for x in a[k])}")
+        pos = [sum(int(x.sum()) for x in r["labels"]) for r in (a, b)]
+        return ", ".join(parts) + f" (proposals labelled positive: {pos[0]} / {pos[1]})"
+
+
+def dist_train_step(bf16: bool, per_device: bool, rows=None, choices=None) -> tuple:
+    """One BAT_Car train step from the seeded weights on the first DIST_B
+    samples of the training sampler (rows `rows` of them, or all), with SGD
+    at learning rate 1, so that the step is minus the gradient, inside
+    `choices` (a StepChoices) where given: -> (loss terms, {parameter:
+    gradient}, {running statistic}, the K6 launches (forward, backward,
+    staged forward, staged backward)), on the CPU."""
+    import torch
+
+    from open3dsot_tpu_torch.ops import sa_fused_train as k6
+    from open3dsot_tpu_torch.train.trainer import train_step
+
+    cfg = matching_cfg("bat", bf16=bf16)
+    model, _ = make_model(cfg, fused_eval=True)
+    before = {k: v.detach().clone() for k, v in model.net.named_parameters()}
+    batch = model.device_batch(train_batch(cfg, DIST_B, SEED))
+    if rows is not None:
+        batch = {k: v[rows[0]:rows[1]].contiguous() for k, v in batch.items()}
+    opt = torch.optim.SGD(model.net.parameters(), lr=1.0)
+    reset_training_counts()
+    with choices or contextlib.nullcontext():
+        losses = train_step(model, opt, batch, fetch=True, per_device_stats=per_device)
+    torch.cuda.synchronize()
+    f = k6.fused_sa_train_apply
+    launches = (f.fwd_launches, f.bwd_launches, f.staged_fwd_launches, f.staged_bwd_launches)
+    grads = {k: (before[k] - p.detach()).float().cpu() for k, p in model.net.named_parameters()}
+    stats = {k: b.float().cpu() for k, b in model.net.named_buffers() if "running" in k}
+    return losses, grads, stats, launches
+
+
+_K6_CALLS: list = []
+
+
+def dist_k6_calls() -> list:
+    """bat_k6_calls(), made once in a process."""
+    if not _K6_CALLS:
+        _K6_CALLS.extend(bat_k6_calls())
+    return _K6_CALLS
+
+
+def dist_k6(rows, bf16: bool, staged: bool) -> list:
+    """K6 forward and backward at the four K6 calls of a BAT_Car train step
+    on the first DIST_B samples (rows `rows` of them), staged or not, with a
+    seeded bf16-valued cotangent; -> per call [out, the 6 statistics, da,
+    dct, dW2, dW3, the 6 of dgamma / dbeta, the neighbour each channel's
+    maximum comes from (-1 where it is 0)] on the CPU."""
+    import torch
+
+    from open3dsot_tpu_torch.ops import sa_fused_train as k6
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    lo, hi = rows
+    res = []
+    for _, mod, xyz, feats, new in dist_k6_calls():
+        x = k6_bf16_inputs(mod, xyz[lo:hi].contiguous(), feats[lo:hi].contiguous(),
+                           new[lo:hi].contiguous(), gen)
+        c3 = x["w3"].shape[1]
+        g = torch.randn(DIST_B, new.shape[1], c3, device="cuda", generator=gen)
+        g = g.to(torch.bfloat16).float()[lo:hi].contiguous()
+        packs = k6.Packs(x["w2"], x["w3"], bf16)
+        wb = (x["w2"], x["b2"], x["w3"], x["b3"], x["bn"])
+        y3 = torch.empty(*x["idx"].shape, c3, device="cuda") if bf16 else None
+        out, st, grids = k6.sa_train_fwd_kernel(x["a"], x["ct"], x["idx"], *wb, packs,
+                                                y3_out=y3, staged=staged)
+        grads = k6.sa_train_bwd_kernel(g, x["a"], x["ct"], x["idx"], grids, st, *wb, packs,
+                                       staged=staged)
+        # BN3 keeps the order of y3 in a channel (reversed where its scale is
+        # negative), so its argmax over the neighbours is h3's where h3 > 0
+        y3 = y3 if bf16 else grids[1]
+        arg = torch.where(out > 0, (y3 * x["bn"][4].sign()).argmax(dim=2), -1)
+        res.append([t.float().cpu() for t in (out, *st, *grads[:4], *grads[4], arg)])
+    torch.cuda.synchronize()
+    return res
+
+
+def rank_worker(out_path: str) -> None:
+    """A rank of phase 24's two-rank gloo world on the one card (started by
+    distributed_phase with torchrun's environment): its shard of the evals,
+    its rows of the train steps and of the K6 calls; results pickled to
+    out_path.<rank>."""
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from open3dsot_tpu_torch.parallel import distributed
+
+    device = distributed.init_from_env("cuda", "gloo")
+    r, n = distributed.rank(), distributed.world_size()
+    rows = (r * DIST_B // n, (r + 1) * DIST_B // n)
+    out = {"device": str(device), "backend": torch.distributed.get_backend(),
+           "evals": dist_evals(True)}
+    for name, bf16, per_device in DIST_TRAIN:
+        choices = StepChoices()
+        out[name] = dist_train_step(bf16, per_device, rows, choices)
+        out[f"{name} choices"] = choices.own
+    for bf16 in (False, True):
+        with torch.no_grad():
+            out[f"K6 {'bf16' if bf16 else 'f32'}"] = dist_k6(rows, bf16, staged=True)
+    with open(f"{out_path}.{r}", "wb") as f:
+        pickle.dump(out, f)
+    distributed.shutdown()
+
+
+def staged_world_of_one(card: str) -> dict:
+    """The staged K6 (f32 and bf16) in a world of one under NCCL on the card
+    at the four K6 calls of a BAT train step at B = TRAIN_B: forward and
+    backward equal to the single call bit for bit (the backward with its da
+    in a fixed order), held to the plain versions as phases 11 and 19 hold
+    the single call, timed against the single call and the plain version;
+    the host syncs the stages add, counted by torch's sync debug mode;
+    -> {mode: {launch times, errors, work}}."""
+    import torch
+
+    from open3dsot_tpu_torch.ops import sa_fused_train as k6
+    from open3dsot_tpu_torch.parallel import distributed
+
+    distributed.init(0, 1, "localhost", distributed.free_port(), torch.device("cuda", 0), "nccl")
+    try:
+        probe = torch.arange(4.0, device="cuda")
+        distributed.all_reduce_sum(probe)
+        print(f"  24 NCCL world of one: backend {torch.distributed.get_backend()}, all_reduce "
+              f"of a card tensor {probe.tolist()}", flush=True)
+        calls = dist_k6_calls()
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        res = {}
+        for bf16 in (False, True):
+            mode = "bf16" if bf16 else "f32"
+            t = dict.fromkeys(("fwd", "fwd_staged", "fwd_plain", "bwd", "bwd_staged",
+                               "bwd_plain"), 0.0)
+            q = dict.fromkeys(("fwd", "fwd_staged", "bwd", "bwd_staged"), 0.0)  # device only
+            errs, work = {"fwd": 0.0, "bwd": 0.0}, [[0, 0], [0, 0]]
+            for label, mod, xyz, feats, new in calls:
+                x = k6_bf16_inputs(mod, xyz, feats, new, gen)
+                a, ab, ct, idx = x["a"], x["ab"], x["ct"], x["idx"]
+                wb = (x["w2"], x["b2"], x["w3"], x["b3"], x["bn"])
+                B, S, K = idx.shape
+                c1, c2, c3 = a.shape[2], x["w2"].shape[1], x["w3"].shape[1]
+                shape = f"{label} {mode} B={B} S={S} K={K} C={c1},{c2},{c3}"
+                packs = k6.Packs(x["w2"], x["w3"], bf16)
+                g = torch.randn(B, S, c3, device="cuda", generator=gen).to(torch.bfloat16).float()
+                y3 = torch.empty(B, S, K, c3, device="cuda") if bf16 else None
+                single = k6.sa_train_fwd_kernel(a, ct, idx, *wb, packs)
+                staged = k6.sa_train_fwd_kernel(a, ct, idx, *wb, packs, y3_out=y3, staged=True)
+                with deterministic():
+                    b_single = k6.sa_train_bwd_kernel(g, a, ct, idx, staged[2], staged[1], *wb,
+                                                      packs)
+                    b_staged = k6.sa_train_bwd_kernel(g, a, ct, idx, staged[2], staged[1], *wb,
+                                                      packs, staged=True)
+                torch.cuda.synchronize()
+                flat = lambda o: [o[0], *o[1], *o[2]]  # noqa: E731
+                same_f = all(torch.equal(u, v) for u, v in zip(flat(single), flat(staged)))
+                same_b = all(torch.equal(u, v) for u, v in
+                             zip([*b_single[:4], *b_single[4]], [*b_staged[:4], *b_staged[4]]))
+                print(f"  24 staged K6 {shape}: forward {'bit-identical to' if same_f else 'DIFFERS from'} "
+                      f"the single call, backward (ordered da) {'bit-identical to' if same_b else 'DIFFERS from'} "
+                      f"it", flush=True)
+                if not (same_f and same_b):
+                    fail(f"phase 24: the staged K6 in a world of one differs from the single call "
+                         f"({shape})")
+                if bf16:
+                    out_p, _, _ = k6.sa_train_fwd_plain(ab, ct, idx, *wb, True)
+                    bwd_p = k6.sa_train_bwd_plain(g, ab, ct, idx, staged[2], staged[1], *wb, True,
+                                                  y3=y3)
+                    errs["fwd"] = max(errs["fwd"], compare_bf16(
+                        f"24 staged K6 fwd {shape} out", staged[0], out_p, out_p, control=False))
+                    errs["bwd"] = max(errs["bwd"], compare_bf16(
+                        f"24 staged K6 bwd {shape} da", b_staged[0], bwd_p[0], bwd_p[0],
+                        control=False))
+                else:
+                    out_p, st_p, grids_p = k6.sa_train_fwd_plain(a, ct, idx, *wb)
+                    bwd_p = k6.sa_train_bwd_plain(g, a, ct, idx, grids_p, st_p, *wb)
+                    errs["fwd"] = max(errs["fwd"], compare(f"24 staged K6 fwd {shape} out",
+                                                           staged[0], out_p))
+                    b_on_plain = k6.sa_train_bwd_kernel(g, a, ct, idx, grids_p, st_p, *wb, packs,
+                                                        staged=True)
+                    errs["bwd"] = max(errs["bwd"], compare(f"24 staged K6 bwd {shape} da",
+                                                           b_on_plain[0], bwd_p[0]))
+                grids, st = staged[2], staged[1]
+                fns = {"fwd": lambda: k6.sa_train_fwd_kernel(a, ct, idx, *wb, packs),
+                       "fwd_staged": lambda: k6.sa_train_fwd_kernel(a, ct, idx, *wb, packs,
+                                                                    staged=True),
+                       "fwd_plain": lambda: k6.sa_train_fwd_plain(ab if bf16 else a, ct, idx, *wb,
+                                                                  bf16),
+                       "bwd": lambda: k6.sa_train_bwd_kernel(g, a, ct, idx, grids, st, *wb, packs),
+                       "bwd_staged": lambda: k6.sa_train_bwd_kernel(g, a, ct, idx, grids, st, *wb,
+                                                                    packs, staged=True),
+                       "bwd_plain": lambda: k6.sa_train_bwd_plain(g, ab if bf16 else a, ct, idx,
+                                                                  grids, st, *wb, bf16, y3=y3)
+                       if bf16 else k6.sa_train_bwd_plain(g, a, ct, idx, grids_p, st_p, *wb)}
+                # single and staged in turns (single, staged, staged, single)
+                order = ("fwd", "fwd_staged", "fwd_staged", "fwd", "bwd", "bwd_staged",
+                         "bwd_staged", "bwd")
+                got = {}
+                for key in order:
+                    got.setdefault(key, []).append(time_ms(fns[key], iters=5, repeats=5))
+                for key in ("fwd_plain", "bwd_plain"):
+                    got[key] = [time_ms(fns[key], iters=3, repeats=3)]
+                for key, v in got.items():
+                    t[key] += min(v)
+                for key in q:  # behind a queued sleep: the device's time without the host's
+                    q[key] += queued_ms(fns[key], iters=5, repeats=3, sleep=20_000_000)
+                for i, w in enumerate(k6_work(B, xyz.shape[1], S, K, c1, c2, c3, bf16)):
+                    work[i][0] += w[0]
+                    work[i][1] += w[1]
+            # the host syncs of a staged forward and backward: torch's sync debug
+            # mode raises on any synchronizing call
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fns["bwd_staged"]()
+                fns["fwd_staged"]()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            print(f"  24 staged K6 {mode} over one BAT train step's 4 calls, B={TRAIN_B}, world of "
+                  f"one (NCCL): forward {t['fwd_staged']:.4f} ms staged against {t['fwd']:.4f} ms "
+                  f"single ({t['fwd_staged'] / t['fwd'] - 1:+.1%}), backward "
+                  f"{t['bwd_staged']:.4f} ms against {t['bwd']:.4f} ms "
+                  f"({t['bwd_staged'] / t['bwd'] - 1:+.1%}); plain {t['fwd_plain']:.4f} / "
+                  f"{t['bwd_plain']:.4f} ms; device alone (events behind a queued sleep) forward "
+                  f"{q['fwd_staged']:.4f} / {q['fwd']:.4f} ms, backward {q['bwd_staged']:.4f} / "
+                  f"{q['bwd']:.4f} ms; host syncs added by the stages: 0 (sync debug mode "
+                  f"'error' raised none; 3 all_reduces a forward, 3 a backward) [{card}]",
+                  flush=True)
+            res[mode] = dict(t=t, errs=errs, work=work)
+        return res
+    finally:
+        distributed.shutdown()
+
+
+def held(name: str, got, want, rtol: float) -> float:
+    """rel_err of got from want, within rtol, printed; -> the error."""
+    e = rel_err(got, want)
+    print(f"  {name}: rel err {e:.3e} (within {rtol:.3e}) {'ok' if e <= rtol else 'FAIL'}",
+          flush=True)
+    if not e <= rtol:
+        fail(f"phase 24: {name} {e:.3e} from the one-process reference, above {rtol:.3e}")
+    return e
+
+
+def check_dist_step(name: str, got: tuple, want: tuple) -> None:
+    """A rank's f32 train step against the one-process reference: each loss
+    term within 1e-3 (relative), the whole gradient within phase 12's rule
+    for the loss's gradient (0.1, norm-relative, all parameters together)
+    and the running statistics within 1e-3. A zero gradient is 1.0 away;
+    the per-device step is held to be further than 0.1 from the global one
+    (dist_train_checks)."""
+    losses, grads, stats, _ = got
+    w_losses, w_grads, w_stats, _ = want
+    errs = loss_errs(losses, w_losses)
+    worst = max(errs, key=errs.get)
+    print(f"  {name}: loss terms within {errs[worst]:.3e} (relative, {worst}) of the "
+          f"one-process step", flush=True)
+    if not errs[worst] <= 1e-3:
+        fail(f"phase 24: {name}'s {worst} {errs[worst]:.3e} from the one-process step (within "
+             f"1e-3)")
+    held(f"{name} gradient, all parameters", flat_of(grads), flat_of(w_grads), 0.1)
+    held(f"{name} running statistics", flat_of(stats), flat_of(w_stats), 1e-3)
+
+
+def loss_errs(losses: dict, want: dict) -> dict:
+    """Each loss term's relative distance from want's."""
+    return {k: abs(losses[k] - w) / max(abs(w), 1e-6) for k, w in want.items()}
+
+
+def flat_of(d: dict):
+    """The tensors of a {name: tensor} dict as one vector, by name."""
+    import torch
+
+    return torch.cat([d[k].reshape(-1) for k in sorted(d)])
+
+
+def grad_parts(got: dict, want: dict, top: int = 4) -> str:
+    """Where two gradients part: the modules (first two parts of a parameter's
+    name) with the largest shares of the squared distance, each with its
+    own norm-relative distance."""
+    parts = {}
+    for k in want:
+        parts.setdefault(".".join(k.split(".")[:2]), []).append(k)
+    total = float((flat_of(got) - flat_of(want)).square().sum())
+    rows = []
+    for mod, keys in parts.items():
+        g, w = flat_of({k: got[k] for k in keys}), flat_of({k: want[k] for k in keys})
+        rows.append((float((g - w).square().sum()) / max(total, 1e-30), mod, rel_err(g, w)))
+    rows.sort(reverse=True)
+    return ", ".join(f"{m} {share:.1%} (rel {e:.3e})" for share, m, e in rows[:top])
+
+
+def split_cards() -> list:
+    """The cards phase 24 splits the online pool over: every card where
+    there are several, else cuda:0 twice."""
+    import torch
+
+    n = torch.cuda.device_count()
+    return [f"cuda:{i}" for i in range(n)] if n > 1 else ["cuda:0", "cuda:0"]
+
+
+def dist_online_split(card: str) -> None:
+    """The M2 and BAT online pools of DIST_SPLIT_B slots split over
+    split_cards() against unsplit trackers of their parts' slots on cuda:0,
+    bit for bit; on several cards also one tracker put on the last card
+    (`devices=[that card]`) against the same tracker on cuda:0."""
+    import numpy as np
+
+    from open3dsot_tpu_torch.data import get_dataset
+
+    devices = split_cards()
+    per = DIST_SPLIT_B // len(devices)
+    for name in ("m2track", "bat"):
+        t0 = time.perf_counter()
+        cfg = (bench_cfg(syn_num_tracklets=DIST_SPLIT_B, syn_tracklet_len=ONLINE_T)
+               if name == "m2track" else
+               match_cfg("bat", syn_num_tracklets=DIST_SPLIT_B, syn_tracklet_len=ONLINE_T))
+        model, _ = make_model(cfg, fused_eval=True)
+        sampler = get_dataset(cfg, "test", "test")
+        seqs = [sampler[i] for i in range(DIST_SPLIT_B)]
+        frames = [[f["pc"].points.T.astype(np.float32) for f in seq] for seq in seqs]
+        split = online_tracker(model, cfg, DIST_SPLIT_B, devices=devices)
+        got = online_track(split, seqs, frames, steps=DIST_STEPS)
+        want = np.concatenate([online_track(online_tracker(model, cfg, per), seqs[s:s + per],
+                                            frames[s:s + per], steps=DIST_STEPS)
+                               for s in range(0, DIST_SPLIT_B, per)])
+        on = [str(p._state["ref"].device) for p in split.parts]
+        print(f"  24 online {name} pool of {DIST_SPLIT_B} split over {devices}: {same(got, want)} "
+              f"{len(devices)} unsplit trackers of {per} on cuda:0 over {DIST_STEPS} steps; parts' "
+              f"state on {on}, replays {[p.replays for p in split.parts]}; "
+              f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+        if not (np.array_equal(got, want) and np.isfinite(got).all() and on == devices
+                and all(p.replays == DIST_STEPS for p in split.parts)):
+            fail(f"phase 24: the {name} online pool split over {devices} differs from unsplit "
+                 f"trackers")
+        if len(set(devices)) > 1:
+            last = online_tracker(model, cfg, per, devices=[devices[-1]])
+            one = online_track(last, seqs[:per], frames[:per], steps=DIST_STEPS)
+            print(f"  24 online {name} tracker of {per} put on {last.device}: {same(one, want[:per])} "
+                  f"the tracker on cuda:0; replays {last.replays}", flush=True)
+            if not (np.array_equal(one, want[:per]) and str(last.device) == devices[-1]):
+                fail(f"phase 24: the {name} online tracker on {devices[-1]} differs from cuda:0's")
+
+
+def dist_online(card: str) -> None:
+    """The online pool split over cards (dist_online_split); bf16 online
+    trackers and their bundles against the bf16 scan trackers at the same
+    B, bit for bit."""
+    import numpy as np
+
+    from open3dsot_tpu_torch.data import get_dataset
+    from open3dsot_tpu_torch.tracking.serving_export import load_serving_bundle, save_serving_bundle
+
+    dist_online_split(card)
+    tmp = Path(tempfile.mkdtemp(prefix="phase24_bundle_"))
+    try:
+        for name in ("m2track", "bat"):
+            B = DIST_BF16_B
+            cfg = (bench_cfg(syn_num_tracklets=B, syn_tracklet_len=ONLINE_T, bf16=True)
+                   if name == "m2track" else
+                   match_cfg("bat", syn_num_tracklets=B, syn_tracklet_len=ONLINE_T, bf16=True))
+            model, _ = make_model(cfg, fused_eval=True)
+            sampler = get_dataset(cfg, "test", "test")
+            seqs = [sampler[i] for i in range(B)]
+            frames = [[f["pc"].points.T.astype(np.float32) for f in seq] for seq in seqs]
+            live = online_tracker(model, cfg, B)
+            got = online_track(live, seqs, frames)
+            scan = model.scan_tracker(cfg, max_points=ONLINE_P, frame_bucket=ONLINE_T,
+                                      **({} if name == "m2track" else
+                                         {"first_crop_points": ONLINE_FIRST_CROP}))
+            want = np.stack(scan.track_batch(seqs))
+            t0 = time.perf_counter()
+            save_serving_bundle(live, tmp / name)
+            served = load_serving_bundle(tmp / name)
+            export_s = time.perf_counter() - t0
+            loaded = online_track(served, seqs, frames)
+            print(f"  24 bf16 online {name} B={B}: mode {live.compute_mode}, graph boxes "
+                  f"{same(got, want)} the bf16 scan tracker's over {ONLINE_T - 1} steps; its bundle "
+                  f"(mode {served.compute_mode}, saved and loaded in {export_s:.1f} s) "
+                  f"{same(loaded, got)} the live tracker [{card}]", flush=True)
+            if not (live.compute_mode == served.compute_mode == "bfloat16"
+                    and np.array_equal(got, want) and np.array_equal(loaded, got)
+                    and np.isfinite(got).all()):
+                fail(f"phase 24: the bf16 online {name} tracker or its bundle differs from the "
+                     f"bf16 scan tracker")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+PHASE24_LOG = ROOT / "chiprun_out" / "phase24.txt"
+
+
+class _Tee:
+    """A stdout that also writes to an open file."""
+
+    def __init__(self, out, log):
+        self.out, self.log = out, log
+
+    def write(self, text: str) -> int:
+        self.log.write(text)
+        return self.out.write(text)
+
+    def flush(self) -> None:
+        self.log.flush()
+        self.out.flush()
+
+
+def distributed_phase(card: str) -> list:
+    """Phase 24 (see the module docstring), its lines also in
+    chiprun_out/phase24.txt, which each run writes anew; -> the kernels
+    line's staged K6 rows."""
+    PHASE24_LOG.parent.mkdir(exist_ok=True)
+    with open(PHASE24_LOG, "w") as log, contextlib.redirect_stdout(_Tee(sys.stdout, log)):
+        return _distributed_phase(card)
+
+
+def dist_train_checks(ranks: list) -> dict:
+    """The two ranks' train steps (DIST_TRAIN) against the one-process
+    references on the global batch; -> the K6 launches of each step on rank
+    0. The f32 steps are held (check_dist_step). The bf16 step is held to
+    run (K6 staged, losses and gradient finite, the gradient not zero) and
+    read against the one-process bf16 step, that step run again, and the
+    f32 step, not held: its gradient parts from any other bf16 run of the
+    step by about as much as from the f32 step (chip_smoke's phase 24
+    readings in PERF.md), so the staged bf16 K6 is held per leaf over the
+    two ranks instead (_distributed_phase)."""
+    launches, refs, own = {}, {}, {}
+    for name, bf16, per_device in DIST_TRAIN:
+        if per_device:  # each rank's own statistics: the mean of two one-process half steps
+            halves = [dist_train_step(bf16, True, (r * DIST_B // 2, (r + 1) * DIST_B // 2))
+                      for r in range(2)]
+            mean = lambda i: {k: (halves[0][i][k] + halves[1][i][k]) / 2  # noqa: E731
+                              for k in halves[0][i]}
+            ref = (mean(0), mean(1), mean(2), None)
+            sep = rel_err(flat_of(ref[1]), flat_of(refs["global f32"][1]))
+            print(f"  24 the per-device f32 step's gradient is {sep:.3e} from the global one's "
+                  f"(norm-relative; the limit 0.1 tells them apart)", flush=True)
+            if not sep > 0.1:
+                fail(f"phase 24: the per-device and global steps' gradients are {sep:.3e} apart, "
+                     f"within the limit 0.1 that should tell them apart")
+        else:
+            ch = StepChoices()
+            ref = dist_train_step(bf16, False, choices=ch)
+            own[name] = ch.own
+            if not bf16:  # bf16_step_readings prints the bf16 step's
+                theirs = StepChoices.of_ranks([rank[f"{name} choices"] for rank in ranks])
+                print(f"  24 {name} step, choices of the two ranks against one process: "
+                      f"{StepChoices.flips(theirs, ch.own)}", flush=True)
+        refs[name] = ref
+        if bf16:
+            bf16_step_readings(name, ranks, ref, dist_train_step(bf16, False), refs["global f32"],
+                               own)
+        else:
+            for r, rank in enumerate(ranks):
+                check_dist_step(f"24 {name} step, rank {r}", rank[name], ref)
+        launches[name] = ranks[0][name][3]
+        staged = 0 if per_device else 4
+        print(f"  24 {name} step: K6 launches on each rank (forward, backward, staged forward, "
+              f"staged backward) {[rank[name][3] for rank in ranks]}", flush=True)
+        if any(rank[name][3] != (4, 4, staged, staged) for rank in ranks):
+            fail(f"phase 24: {name} step launched K6 {[rank[name][3] for rank in ranks]}, "
+                 f"expected (4, 4, {staged}, {staged}) on each rank")
+    return launches
+
+
+def bf16_step_readings(name: str, ranks: list, one: tuple, again: tuple, f32: tuple,
+                       own: dict) -> None:
+    """The two-rank bf16 step held to run (finite losses and gradient, the
+    gradient not zero) and read, not held, against the one-process bf16
+    step `one`, the same step run again (`again`: K6's da sums by atomics,
+    in any order) and the one-process f32 step."""
+    import torch
+
+    def terms(errs):
+        return ", ".join(f"{k} {e:.2e}" for k, e in sorted(errs.items()))
+
+    for r, rank in enumerate(ranks):
+        losses, grads = rank[name][:2]
+        g = flat_of(grads)
+        if not (all(torch.isfinite(torch.tensor(v)) for v in losses.values())
+                and torch.isfinite(g).all() and g.norm() > 0):
+            fail(f"phase 24: {name} step on rank {r}: losses or gradient not finite, or no gradient")
+    theirs = StepChoices.of_ranks([rank[f"{name} choices"] for rank in ranks])
+    for who, x, whom, y, flips in (
+            ("rank 0", ranks[0][name], "one process", one, StepChoices.flips(theirs, own[name])),
+            ("one process, run again,", again, "its first run", one, None),
+            ("one process", one, "the global f32 step", f32,
+             StepChoices.flips(own[name], own["global f32"]))):
+        print(f"  24 {name} step, {who} against {whom} (not held): loss terms "
+              f"{terms(loss_errs(x[0], y[0]))}; gradient {rel_err(flat_of(x[1]), flat_of(y[1])):.3e}"
+              f", by module {grad_parts(x[1], y[1])}" + (f"; choices {flips}" if flips else ""),
+              flush=True)
+
+
+def _distributed_phase(card: str) -> list:
+    import pickle
+
+    import torch
+
+    from open3dsot_tpu_torch.parallel import distributed
+
+    t_phase = time.perf_counter()
+    one = staged_world_of_one(card)
+    tmp = Path(tempfile.mkdtemp(prefix="phase24_"))
+    try:
+        t0 = time.perf_counter()
+        code = distributed.launch([str(ROOT / "chip_smoke.py"), "--rank-worker",
+                                   str(tmp / "out")], 2)
+        if code:
+            fail(f"phase 24: a rank of the two-rank gloo world exited with {code}")
+        ranks = []
+        for r in range(2):
+            with open(tmp / f"out.{r}", "rb") as f:
+                ranks.append(pickle.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  24 two ranks ({ranks[0]['backend']}) on {ranks[0]['device']} and "
+          f"{ranks[1]['device']}: {time.perf_counter() - t0:.1f} s with their start [{card}]",
+          flush=True)
+    # the sharded evals against the one-process evals
+    want = dist_evals(False)
+    for k, w in want.items():
+        for r, rank in enumerate(ranks):
+            g = rank["evals"][k]
+            print(f"  24 {k} sharded over 2 ranks, rank {r}: success {g[0]:.4f} precision "
+                  f"{g[1]:.4f}; one process {w[0]:.4f} / {w[1]:.4f}", flush=True)
+            if tuple(g) != tuple(w):
+                fail(f"phase 24: the sharded {k} eval differs from the one-process eval")
+    launches = dist_train_checks(ranks)
+    # K6 staged over the two ranks against the single call on the global batch
+    for mode in ("f32", "bf16"):
+        single = dist_k6((0, DIST_B), mode == "bf16", staged=False)
+        for c, want in enumerate(single):
+            got = [rank[f"K6 {mode}"][c] for rank in ranks]
+            b = DIST_B // 2
+            check = (lambda n, x, y: compare_bf16(n, x, y, y, control=False)) if mode == "bf16" \
+                else compare
+            for r in range(2):
+                for i, what in ((0, "out"), (7, "da"), (8, "dct")):
+                    check(f"24 K6 {mode} call {c} rank {r} {what}", got[r][i],
+                          want[i][r * b:(r + 1) * b])
+                for i in range(1, 7):  # the statistics: the global batch's on every rank
+                    compare(f"24 K6 {mode} call {c} rank {r} statistic {i}", got[r][i], want[i])
+            for i, what in ((9, "dW2"), (10, "dW3")):
+                check(f"24 K6 {mode} call {c} {what} summed over the ranks",
+                      got[0][i] + got[1][i], want[i])
+            check(f"24 K6 {mode} call {c} dgamma,dbeta summed over the ranks",
+                  torch.cat(got[0][11:17]) + torch.cat(got[1][11:17]), torch.cat(want[11:17]))
+            # a reading: the maxima whose neighbour the ranks' statistics change
+            arg, mine = want[17], torch.cat([got[0][17], got[1][17]])
+            print(f"  24 K6 {mode} call {c}: of {int((arg >= 0).sum())} maxima above 0, "
+                  f"{int(((mine != arg) & (arg >= 0)).sum())} come from another neighbour over "
+                  f"the two ranks than in the single call", flush=True)
+    print("  24 staged K6 over two ranks: every rank's statistics are the global batch's, its "
+          "rows of out, da and dct the single call's, dW and dgamma / dbeta summed over the "
+          "ranks the single call's", flush=True)
+    dist_online(card)
+    print(f"phase 24 ok in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    rows = []
+    for mode, key in (("f32", "global f32"), ("bf16", "global bf16")):
+        o = one[mode]
+        for i, what in enumerate(("fwd", "bwd")):
+            rows.append(kernel_entry(
+                f"K6 fused_sa_train_apply ({'forward' if what == 'fwd' else 'backward'}, {mode}, "
+                f"staged: statistics over a process group)",
+                "sa_fused_train.cu" if mode == "f32" else "sa_fused_train_bf16.cu",
+                K6_GLOBAL, launches[key][2 + i], o["errs"][what], o["t"][f"{what}_staged"],
+                o["t"][f"{what}_plain"], o["work"][i], tensor_core=mode == "f32",
+                peak=PEAK_BF16_FLOPS))
+    return rows
 
 
 if __name__ == "__main__":

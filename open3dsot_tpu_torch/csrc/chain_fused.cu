@@ -74,7 +74,7 @@
 //    element by pool_bias_kernel (an f32 GEMV split over input channels), and
 //    the per-point chain then starts from relu(tap W_tap + g[b]).
 //  - Host work per launch is the plan and the launches: the device's SM count
-//    and the kernels' shared-memory limit are set once per process.
+//    and the kernels' shared-memory limit are set once per device.
 //
 // The bf16 mode is chain_fused_bf16.cu.
 //
@@ -86,6 +86,7 @@
 #include <stdint.h>
 
 #include "tf32_tc.cuh"  // kCC x kKC weight chunks, the TF32 split, mma.sync, wgmma, TMA
+#include "per_device.cuh"  // per_device: set-up once for each card
 
 namespace {
 
@@ -469,7 +470,7 @@ __global__ void __launch_bounds__(kThreads) pool_bias_kernel(
   }
 }
 
-// --- host: once per process, the plan, the launches ---------------------------
+// --- host: once per device, the plan, the launches ----------------------------
 
 struct DeviceInfo {
   int sms;
@@ -477,11 +478,9 @@ struct DeviceInfo {
 };
 
 const DeviceInfo& device_info() {
-  static const DeviceInfo info = [] {
+  return per_device<DeviceInfo>([](int dev) {
     DeviceInfo d{132, 0};
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaError_t e = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
     const void* kernels[] = {reinterpret_cast<const void*>(chain_tc_kernel<16>),
                              reinterpret_cast<const void*>(chain_tc_kernel<32>),
                              reinterpret_cast<const void*>(chain_tc_kernel<64>)};
@@ -490,8 +489,7 @@ const DeviceInfo& device_info() {
         e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     d.err = static_cast<int>(e);
     return d;
-  }();
-  return info;
+  });
 }
 
 struct Stage {

@@ -66,6 +66,7 @@
 #include <stdint.h>
 
 #include "bf16_layers.cuh"  // tiles, panels, the ring, chunk_products
+#include "per_device.cuh"  // per_device: set-up once for each card
 
 namespace {
 
@@ -416,7 +417,7 @@ __global__ void __launch_bounds__(kGemvThreads) pool_bias_kernel(
   }
 }
 
-// --- host: once per process, the plan, the launches ---------------------------
+// --- host: once per device, the plan, the launches ----------------------------
 
 struct DeviceInfo {
   int sms;
@@ -424,11 +425,9 @@ struct DeviceInfo {
 };
 
 const DeviceInfo& device_info() {
-  static const DeviceInfo info = [] {
+  return per_device<DeviceInfo>([](int dev) {
     DeviceInfo d{132, 0};
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaError_t e = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
     const void* kernels[] = {reinterpret_cast<const void*>(chain_bf16_kernel<1, false>),
                              reinterpret_cast<const void*>(chain_bf16_kernel<2, false>),
                              reinterpret_cast<const void*>(chain_bf16_kernel<1, true>)};
@@ -437,8 +436,7 @@ const DeviceInfo& device_info() {
         e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     d.err = static_cast<int>(e);
     return d;
-  }();
-  return info;
+  });
 }
 
 struct Stage {

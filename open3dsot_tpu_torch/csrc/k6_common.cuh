@@ -247,6 +247,98 @@ inline int finalize_bwd(const double* part, long long P, int C, const Dims& d, c
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- staged entries: statistics summed over a process group -----------------
+// Under a process group whose BatchNorm statistics are those of the global
+// batch, each pass's sums have to be added up over the processes before the
+// finalize that needs them. A staged entry runs one stage: stage k ends
+// where pass k's sums are complete, with the 2 x C doubles (sum, sum of
+// squares; for the backward, sum dz and sum dz * yhat) in `sums`; the caller
+// adds them and the row count up over the processes into sums[0 .. 2C] (the
+// count at sums[2C]) and calls stage k + 1, which starts with the finalize
+// from them. With sums[2C] = R and one process that is the finalize of the
+// single call, bit for bit. dgamma and dbeta are this process's own sums:
+// the gradient is averaged over the processes after the backward.
+struct Staging {
+  int stage;  // < 0: the single call, all stages
+  double* sums;
+};
+
+__global__ void stage_sums_kernel(const double* __restrict__ part, int P, int C, double* part2,
+                                  unsigned* count, double* __restrict__ sums,
+                                  float* __restrict__ dgamma, float* __restrict__ dbeta) {
+  double s1, s2;
+  if (!reduce_partials(part, P, C, part2, count, &s1, &s2)) return;
+  const int c = blockIdx.x * 32 + (threadIdx.x & 31);
+  if (threadIdx.x < 32 && c < C) {
+    sums[c] = s1;
+    sums[C + c] = s2;
+    if (dgamma) {
+      dbeta[c] = static_cast<float>(s1);
+      dgamma[c] = static_cast<float>(s2);
+    }
+  }
+}
+
+// finalize_fwd_kernel's arithmetic from the summed sums, M = sums[2C].
+__global__ void finalize_fwd_sums_kernel(const double* __restrict__ sums, int C,
+                                         const float* __restrict__ gamma,
+                                         const float* __restrict__ beta, float* __restrict__ mean,
+                                         float* __restrict__ var, float* __restrict__ fold) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  const double M = sums[2 * C];
+  const double md = sums[c] / M;
+  const float mu = static_cast<float>(md), v = static_cast<float>(sums[C + c] / M - md * md);
+  mean[c] = mu;
+  var[c] = v;
+  fold_of(mu, v, gamma[c], beta[c], fold + c, fold + C + c, fold + 2 * C + c);
+}
+
+// finalize_bwd_kernel's coefficients from the summed sums, M = sums[2C].
+__global__ void coef_sums_kernel(const double* __restrict__ sums, int C, float* __restrict__ coef) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  const float M = static_cast<float>(sums[2 * C]);
+  coef[c] = __fdiv_rn(static_cast<float>(sums[c]), M);
+  coef[C + c] = __fdiv_rn(static_cast<float>(sums[C + c]), M);
+}
+
+// Where pass k's statistics are complete (forward): the single call
+// finalizes; staged, stage k ends here (*stop) with the sums, and stage k + 1
+// starts here with the finalize from the summed ones.
+inline int sync_fwd(const Staging& sg, int k, const double* part, long long P, int C,
+                    const Dims& d, const Fin& f, const float* gamma, const float* beta,
+                    float* mean, float* var, float* fold, cudaStream_t st, bool* stop) {
+  *stop = false;
+  if (sg.stage < 0) return finalize_fwd(part, P, C, d, f, gamma, beta, mean, var, fold, st);
+  if (sg.stage == k) {
+    stage_sums_kernel<<<fin_grid(P, C), 32 * kFinWarps, 0, st>>>(
+        part, static_cast<int>(P), C, f.part2, f.count, sg.sums, nullptr, nullptr);
+    *stop = true;
+  } else if (sg.stage == k + 1) {
+    finalize_fwd_sums_kernel<<<cdiv(C, 128), 128, 0, st>>>(sg.sums, C, gamma, beta, mean, var,
+                                                           fold);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward's: stage k ends with dgamma, dbeta (this process's) and the
+// sums; stage k + 1 starts with the coefficients from the summed ones.
+inline int sync_bwd(const Staging& sg, int k, const double* part, long long P, int C,
+                    const Dims& d, const Fin& f, float* dgamma, float* dbeta, float* coef,
+                    cudaStream_t st, bool* stop) {
+  *stop = false;
+  if (sg.stage < 0) return finalize_bwd(part, P, C, d, f, dgamma, dbeta, coef, st);
+  if (sg.stage == k) {
+    stage_sums_kernel<<<fin_grid(P, C), 32 * kFinWarps, 0, st>>>(
+        part, static_cast<int>(P), C, f.part2, f.count, sg.sums, dgamma, dbeta);
+    *stop = true;
+  } else if (sg.stage == k + 1) {
+    coef_sums_kernel<<<cdiv(C, 128), 128, 0, st>>>(sg.sums, C, coef);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 #define LAUNCH_CHECK()                                  \
   do {                                                  \
     const cudaError_t e_ = cudaGetLastError();          \

@@ -101,6 +101,7 @@
 
 #include "ball_query.cuh"  // bq_kernel
 #include "tf32_tc.cuh"     // kCC x kKC weight chunks, the TF32 split, wgmma, TMA
+#include "per_device.cuh"  // per_device: set-up once for each card
 
 namespace {
 
@@ -399,11 +400,9 @@ struct DeviceInfo {
 };
 
 const DeviceInfo& device_info() {
-  static const DeviceInfo info = [] {
+  return per_device<DeviceInfo>([](int dev) {
     DeviceInfo d{132, 0};
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaError_t e = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
     const void* kernels[] = {reinterpret_cast<const void*>(sa_tc_kernel<kLdg>),
                              reinterpret_cast<const void*>(sa_tc_kernel<kCpAsync>)};
     for (const void* k : kernels)
@@ -411,8 +410,7 @@ const DeviceInfo& device_info() {
         e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     d.err = static_cast<int>(e);
     return d;
-  }();
-  return info;
+  });
 }
 
 long long packed_floats(int k, int c) {

@@ -75,6 +75,7 @@
 
 #include "ball_query.cuh"   // bq_kernel
 #include "bf16_layers.cuh"  // tiles, panels, the ring, chunk_products
+#include "per_device.cuh"  // per_device: set-up once for each card
 
 namespace {
 
@@ -445,11 +446,9 @@ struct DeviceInfo {
 };
 
 const DeviceInfo& device_info() {
-  static const DeviceInfo info = [] {
+  return per_device<DeviceInfo>([](int dev) {
     DeviceInfo d{132, 0};
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaError_t e = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
     const void* kernels[] = {reinterpret_cast<const void*>(sa_bf16_kernel<1, false>),
                              reinterpret_cast<const void*>(sa_bf16_kernel<2, false>),
                              reinterpret_cast<const void*>(sa_bf16_kernel<1, true>)};
@@ -458,8 +457,7 @@ const DeviceInfo& device_info() {
         e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     d.err = static_cast<int>(e);
     return d;
-  }();
-  return info;
+  });
 }
 
 // Floats of a layer's panels (k inputs, c outputs: ops/chain_fused.py::pack_panels_bf16).

@@ -111,6 +111,7 @@
 
 #include "tf32_tc.cuh"  // kCC x kKC weight chunks, the TF32 split, mma.sync, wgmma, TMA
 #include "k6_common.cuh"  // Dims, the BatchNorm arithmetic, y1's statistics, the finalizes
+#include "per_device.cuh"  // per_device: set-up once for each card
 
 namespace {
 
@@ -1068,18 +1069,16 @@ int check(int B, int N, int S, int K, int C1, int C2, int C3, Dims* d) {
   return 0;
 }
 
-// The SM count and the kernels' shared-memory limit, once per process.
+// The SM count and the kernels' shared-memory limit, once per device.
 struct DeviceInfo {
   int sms;
   int err;
 };
 
 const DeviceInfo& device_info() {
-  static const DeviceInfo info = [] {
+  return per_device<DeviceInfo>([](int dev) {
     DeviceInfo d{132, 0};
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaError_t e = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
     const void* kernels[] = {
         reinterpret_cast<const void*>(rowmm_kernel<kLoadH1, kEpiBias>),
         reinterpret_cast<const void*>(rowmm_kernel<kLoadH2, kEpiBias>),
@@ -1092,8 +1091,7 @@ const DeviceInfo& device_info() {
         e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     d.err = static_cast<int>(e);
     return d;
-  }();
-  return info;
+  });
 }
 
 template <int L, int E>
@@ -1143,15 +1141,12 @@ extern "C" long long sa_train_packed_floats(int k_in, int n_out) {
   return packed_floats(k_in, n_out);
 }
 
-// Forward F1-F4. w2p, w3p: W2 (C1 x C2) and W3 (C2 x C3) packed (n2, n3
-// floats); bn = [g1, bt1 (C1), g2, bt2 (C2), g3, bt3 (C3)]; stats (out) =
-// [mean1, var1, mean2, var2, mean3, var3]; y2/y3 (out) the pre-BN grids (R x
-// C2, C3) that the backward reads; out (B, S, C3).
-extern "C" int sa_train_fwd(const float* a, const float* ct, const int* idx, const float* w2p,
-                            long long n2, const float* b2, const float* w3p, long long n3,
-                            const float* b3, const float* bn, float* y2, float* y3, float* out,
-                            float* stats, void* ws, int B, int N, int S, int K, int C1, int C2,
-                            int C3, void* stream) {
+// The forward, in one call (sg.stage < 0) or one stage of it.
+static int fwd_impl(const float* a, const float* ct, const int* idx, const float* w2p,
+                    long long n2, const float* b2, const float* w3p, long long n3,
+                    const float* b3, const float* bn, float* y2, float* y3, float* out,
+                    float* stats, void* ws, int B, int N, int S, int K, int C1, int C2, int C3,
+                    const Staging& sg, void* stream) {
   Dims d;
   RUN(check(B, N, S, K, C1, C2, C3, &d));
   if (n2 != packed_floats(C1, C2) || n3 != packed_floats(C2, C3)) return kErrPacked;
@@ -1181,16 +1176,25 @@ extern "C" int sa_train_fwd(const float* a, const float* ct, const int* idx, con
   x.mean[1] = mu2;
   x.mean[2] = mu3;
 
+  const auto in = [&](int k) { return sg.stage < 0 || sg.stage == k; };
+  bool stop = false;
   // F1: y1's statistics, gathered
-  y1_stats_kernel<false><<<dim3(cdiv(C1, 32), stat_chunks(d)), dim3(32, 8), 0, st>>>(a, ct, idx, d,
-                                                                                      part);
-  LAUNCH_CHECK();
-  RUN(finalize_fwd(part, stat_chunks(d), C1, d, fin, g1, bt1, mu1, v1, fold, st));
+  if (in(0)) {
+    y1_stats_kernel<false><<<dim3(cdiv(C1, 32), stat_chunks(d)), dim3(32, 8), 0, st>>>(a, ct, idx,
+                                                                                        d, part);
+    LAUNCH_CHECK();
+  }
+  RUN(sync_fwd(sg, 0, part, stat_chunks(d), C1, d, fin, g1, bt1, mu1, v1, fold, st, &stop));
+  if (stop) return 0;
   // F2, F3: the products, their statistics from the epilogues
-  RUN((rowmm<kLoadH1, kEpiBias>(x, w2p, b2, y2, part, C1, C2, st)));
-  RUN(finalize_fwd(part, row_tiles(d), C2, d, fin, g2, bt2, mu2, v2, fold + 3 * Cm, st));
-  RUN((rowmm<kLoadH2, kEpiBias>(x, w3p, b3, y3, part, C2, C3, st)));
-  RUN(finalize_fwd(part, row_tiles(d), C3, d, fin, g3, bt3, mu3, v3, fold + 6 * Cm, st));
+  if (in(1)) RUN((rowmm<kLoadH1, kEpiBias>(x, w2p, b2, y2, part, C1, C2, st)));
+  RUN(sync_fwd(sg, 1, part, row_tiles(d), C2, d, fin, g2, bt2, mu2, v2, fold + 3 * Cm, st,
+               &stop));
+  if (stop) return 0;
+  if (in(2)) RUN((rowmm<kLoadH2, kEpiBias>(x, w3p, b3, y3, part, C2, C3, st)));
+  RUN(sync_fwd(sg, 2, part, row_tiles(d), C3, d, fin, g3, bt3, mu3, v3, fold + 6 * Cm, st,
+               &stop));
+  if (stop) return 0;
   // F4
   const long long BS = centroids(d);
   maxpool_kernel<<<cdiv(BS * C3, kThreads), kThreads, 0, st>>>(y3, fold + 6 * Cm, out, BS, K, C3);
@@ -1198,18 +1202,39 @@ extern "C" int sa_train_fwd(const float* a, const float* ct, const int* idx, con
   return 0;
 }
 
-// Backward B1-B4 from the forward's inputs a, ct, idx, its grids y2, y3 and
-// statistics, and the output's cotangent g (B, S, C3). w2tp (n2 floats) and
-// w3tp (n3) are W2^T (C2 x C1) and W3^T (C3 x C2) packed. Writes da (B, N,
-// C1), dct (B, S, C1), dw2 (C1 x C2), dw3 (C2 x C3) and dbn = [dg1, dbt1, dg2,
-// dbt2, dg3, dbt3]. ordered != 0: da summed in a fixed order (ordered_da),
-// else by float atomics.
-extern "C" int sa_train_bwd(const float* g, const float* a, const float* ct, const int* idx,
-                            const float* y2, const float* y3, const float* stats,
-                            const float* w2tp, long long n2, const float* w3tp, long long n3,
-                            const float* bn, float* da, float* dct, float* dw2, float* dw3,
-                            float* dbn, void* ws, int B, int N, int S, int K, int C1, int C2,
-                            int C3, int ordered, void* stream) {
+// Forward F1-F4. w2p, w3p: W2 (C1 x C2) and W3 (C2 x C3) packed (n2, n3
+// floats); bn = [g1, bt1 (C1), g2, bt2 (C2), g3, bt3 (C3)]; stats (out) =
+// [mean1, var1, mean2, var2, mean3, var3]; y2/y3 (out) the pre-BN grids (R x
+// C2, C3) that the backward reads; out (B, S, C3).
+extern "C" int sa_train_fwd(const float* a, const float* ct, const int* idx, const float* w2p,
+                            long long n2, const float* b2, const float* w3p, long long n3,
+                            const float* b3, const float* bn, float* y2, float* y3, float* out,
+                            float* stats, void* ws, int B, int N, int S, int K, int C1, int C2,
+                            int C3, void* stream) {
+  return fwd_impl(a, ct, idx, w2p, n2, b2, w3p, n3, b3, bn, y2, y3, out, stats, ws, B, N, S, K, C1,
+                  C2, C3, Staging{-1, nullptr}, stream);
+}
+
+// sa_train_fwd in stages 0-3 (k6_common.cuh, Staging): the same arguments
+// and workspace at every stage, and sums (2 * max(C1, C2, C3) + 1 doubles).
+extern "C" int sa_train_fwd_staged(const float* a, const float* ct, const int* idx,
+                                   const float* w2p, long long n2, const float* b2,
+                                   const float* w3p, long long n3, const float* b3,
+                                   const float* bn, float* y2, float* y3, float* out, float* stats,
+                                   void* ws, int B, int N, int S, int K, int C1, int C2, int C3,
+                                   int stage, double* sums, void* stream) {
+  if (stage < 0 || stage > 3) return kErrArgs;
+  return fwd_impl(a, ct, idx, w2p, n2, b2, w3p, n3, b3, bn, y2, y3, out, stats, ws, B, N, S, K, C1,
+                  C2, C3, Staging{stage, sums}, stream);
+}
+
+// The backward, in one call (sg.stage < 0) or one stage of it.
+static int bwd_impl(const float* g, const float* a, const float* ct, const int* idx,
+                    const float* y2, const float* y3, const float* stats, const float* w2tp,
+                    long long n2, const float* w3tp, long long n3, const float* bn, float* da,
+                    float* dct, float* dw2, float* dw3, float* dbn, void* ws, int B, int N, int S,
+                    int K, int C1, int C2, int C3, int ordered, const Staging& sg,
+                    void* stream) {
   Dims d;
   RUN(check(B, N, S, K, C1, C2, C3, &d));
   if (n2 != packed_floats(C2, C1) || n3 != packed_floats(C3, C2)) return kErrPacked;
@@ -1242,31 +1267,48 @@ extern "C" int sa_train_bwd(const float* g, const float* a, const float* ct, con
   x.dz2 = dz2;
   x.mx3 = mx;
   x.sh3 = sh;
+  const auto in = [&](int k) { return sg.stage < 0 || sg.stage == k; };
+  bool stop = false;
   const float* st_l = stats;
   const float* bn_l = bn;
   for (int l = 0; l < 3; ++l) {
     x.fold[l] = fold + 3 * Cm * l;
     x.coef[l] = coef + 2 * Cm * l;
     x.mean[l] = st_l;
-    fold_kernel<<<cdiv(Cs[l], kThreads), kThreads, 0, st>>>(st_l, st_l + Cs[l], bn_l,
-                                                             bn_l + Cs[l], fold + 3 * Cm * l, Cs[l]);
-    LAUNCH_CHECK();
+    if (in(0)) {
+      fold_kernel<<<cdiv(Cs[l], kThreads), kThreads, 0, st>>>(st_l, st_l + Cs[l], bn_l,
+                                                               bn_l + Cs[l], fold + 3 * Cm * l,
+                                                               Cs[l]);
+      LAUNCH_CHECK();
+    }
     st_l += 2 * Cs[l];
     bn_l += 2 * Cs[l];
   }
   float* coef_l[3] = {coef, coef + 2 * Cm, coef + 4 * Cm};
   // B1: the max, the tie shares and dz3's sums
-  maxgrad_kernel<<<dim3(cdiv(C3, 32), cent_chunks(d)), dim3(32, 8), 0, st>>>(x, g, mx, sh, part);
-  LAUNCH_CHECK();
-  RUN(finalize_bwd(part, cent_chunks(d), C3, d, fin, dbn_l[2], dbn_l[2] + C3, coef_l[2], st));
+  if (in(0)) {
+    maxgrad_kernel<<<dim3(cdiv(C3, 32), cent_chunks(d)), dim3(32, 8), 0, st>>>(x, g, mx, sh, part);
+    LAUNCH_CHECK();
+  }
+  RUN(sync_bwd(sg, 0, part, cent_chunks(d), C3, d, fin, dbn_l[2], dbn_l[2] + C3, coef_l[2], st,
+               &stop));
+  if (stop) return 0;
   // B2: dW3 = h2^T dy3; dz2 = (dy3 W3^T) * relu'(h2) and its sums; dy3 from y3 as it loads
-  RUN((dw<kLoadH2, kLoadDy3>(x, dwpart, dw3, C2, C3, st)));
-  RUN((rowmm<kLoadDy3, kEpiMaskY2>(x, w3tp, nullptr, dz2, part, C3, C2, st)));
-  RUN(finalize_bwd(part, row_tiles(d), C2, d, fin, dbn_l[1], dbn_l[1] + C2, coef_l[1], st));
+  if (in(1)) {
+    RUN((dw<kLoadH2, kLoadDy3>(x, dwpart, dw3, C2, C3, st)));
+    RUN((rowmm<kLoadDy3, kEpiMaskY2>(x, w3tp, nullptr, dz2, part, C3, C2, st)));
+  }
+  RUN(sync_bwd(sg, 1, part, row_tiles(d), C2, d, fin, dbn_l[1], dbn_l[1] + C2, coef_l[1], st,
+               &stop));
+  if (stop) return 0;
   // B3: dW2 = h1^T dy2; dz1 = (dy2 W2^T) * relu'(h1) and its sums; dy2 from dz2 as it loads
-  RUN((dw<kLoadH1, kLoadDy2>(x, dwpart, dw2, C1, C2, st)));
-  RUN((rowmm<kLoadDy2, kEpiMaskY1>(x, w2tp, nullptr, dz1, part, C2, C1, st)));
-  RUN(finalize_bwd(part, row_tiles(d), C1, d, fin, dbn_l[0], dbn_l[0] + C1, coef_l[0], st));
+  if (in(2)) {
+    RUN((dw<kLoadH1, kLoadDy2>(x, dwpart, dw2, C1, C2, st)));
+    RUN((rowmm<kLoadDy2, kEpiMaskY1>(x, w2tp, nullptr, dz1, part, C2, C1, st)));
+  }
+  RUN(sync_bwd(sg, 2, part, row_tiles(d), C1, d, fin, dbn_l[0], dbn_l[0] + C1, coef_l[0], st,
+               &stop));
+  if (stop) return 0;
   // B4: dct = sum_k dy1; da = the sum of dy1 at idx, in a fixed order or by atomics
   const unsigned blocks = static_cast<unsigned>(cdiv(centroids(d) * C1, kThreads));
   if (ordered) {
@@ -1279,4 +1321,33 @@ extern "C" int sa_train_bwd(const float* g, const float* a, const float* ct, con
   scatter_kernel<false><<<blocks, kThreads, 0, st>>>(x, dz1, da, dct);
   LAUNCH_CHECK();
   return 0;
+}
+
+// Backward B1-B4 from the forward's inputs a, ct, idx, its grids y2, y3 and
+// statistics, and the output's cotangent g (B, S, C3). w2tp (n2 floats) and
+// w3tp (n3) are W2^T (C2 x C1) and W3^T (C3 x C2) packed. Writes da (B, N,
+// C1), dct (B, S, C1), dw2 (C1 x C2), dw3 (C2 x C3) and dbn = [dg1, dbt1, dg2,
+// dbt2, dg3, dbt3]. ordered != 0: da summed in a fixed order (ordered_da),
+// else by float atomics.
+extern "C" int sa_train_bwd(const float* g, const float* a, const float* ct, const int* idx,
+                            const float* y2, const float* y3, const float* stats,
+                            const float* w2tp, long long n2, const float* w3tp, long long n3,
+                            const float* bn, float* da, float* dct, float* dw2, float* dw3,
+                            float* dbn, void* ws, int B, int N, int S, int K, int C1, int C2,
+                            int C3, int ordered, void* stream) {
+  return bwd_impl(g, a, ct, idx, y2, y3, stats, w2tp, n2, w3tp, n3, bn, da, dct, dw2, dw3, dbn, ws,
+                  B, N, S, K, C1, C2, C3, ordered, Staging{-1, nullptr}, stream);
+}
+
+// sa_train_bwd in stages 0-3 (k6_common.cuh, Staging), as sa_train_fwd_staged.
+extern "C" int sa_train_bwd_staged(const float* g, const float* a, const float* ct,
+                                   const int* idx, const float* y2, const float* y3,
+                                   const float* stats, const float* w2tp, long long n2,
+                                   const float* w3tp, long long n3, const float* bn, float* da,
+                                   float* dct, float* dw2, float* dw3, float* dbn, void* ws, int B,
+                                   int N, int S, int K, int C1, int C2, int C3, int ordered,
+                                   int stage, double* sums, void* stream) {
+  if (stage < 0 || stage > 3) return kErrArgs;
+  return bwd_impl(g, a, ct, idx, y2, y3, stats, w2tp, n2, w3tp, n3, bn, da, dct, dw2, dw3, dbn, ws,
+                  B, N, S, K, C1, C2, C3, ordered, Staging{stage, sums}, stream);
 }

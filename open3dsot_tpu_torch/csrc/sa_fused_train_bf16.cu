@@ -83,6 +83,7 @@
 #include <stdint.h>
 
 #include "k6_common.cuh"  // Dims, the BatchNorm arithmetic, y1's statistics, the finalizes
+#include "per_device.cuh"  // per_device: set-up once for each card
 
 namespace {
 
@@ -987,7 +988,7 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
 // The SM count, the kernels' shared-memory limit and the CUDA driver's tensor-map
-// encoder, once per process.
+// encoder, once per device.
 struct DeviceInfo {
   int sms;
   int err;
@@ -1008,11 +1009,9 @@ cudaError_t allow_smem() {
 }
 
 const DeviceInfo& device_info() {
-  static const DeviceInfo info = [] {
+  return per_device<DeviceInfo>([](int dev) {
     DeviceInfo d{132, 0, nullptr};
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaError_t e = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess) e = allow_smem<128>();
     if (e == cudaSuccess) e = allow_smem<64>();
     if (e == cudaSuccess)
@@ -1025,8 +1024,7 @@ const DeviceInfo& device_info() {
     d.encode = reinterpret_cast<EncodeTiled>(fn);
     d.err = static_cast<int>(e);
     return d;
-  }();
-  return info;
+  });
 }
 
 // A 2D map over a bf16 matrix (rows x cols, ld elements apart), boxes of
@@ -1203,20 +1201,12 @@ extern "C" long long sa_train_bf16_workspace(int B, int N, int S, int K, int C1,
   return static_cast<long long>(layout(d, backward != 0).total);
 }
 
-// Forward. a (B, N, C1) f32 (rounded to bf16 here as it is read), ct (B, S,
-// C1), idx (B, S, K); w2t (C2 x round8(C1)) and w3t (C3 x round8(C2)): W2^T and
-// W3^T in bf16; bn = [g1, bt1 (C1), g2, bt2 (C2), g3, bt3 (C3)]. Writes h1 (R x
-// round8(C1)) and h2 (R x round8(C2)) in bf16, mxt (3, B * S, C3): out = max_k
-// relu(BN3(y3)), the number of its ties and the sum of yhat3 over them; stats =
-// [mean1, var1, mean2, var2, mean3, var3]. y3: null, or (R x C3) f32 where the
-// max pass writes the y3 it took the maxima on (a check's copy of the
-// product the backward computes again; where null and K is not a power of two
-// up to 64, the workspace holds it for scan_kernel).
-extern "C" int sa_train_bf16_fwd(const float* a, const float* ct, const int* idx,
-                                 const uint16_t* w2t, const float* b2, const uint16_t* w3t,
-                                 const float* b3, const float* bn, uint16_t* h1, uint16_t* h2,
-                                 float* mxt, float* y3, float* stats, void* ws, int B, int N, int S,
-                                 int K, int C1, int C2, int C3, void* stream) {
+// The forward, in one call (sg.stage < 0) or one stage of it.
+static int fwd_impl(const float* a, const float* ct, const int* idx, const uint16_t* w2t,
+                    const float* b2, const uint16_t* w3t, const float* b3, const float* bn,
+                    uint16_t* h1, uint16_t* h2, float* mxt, float* y3, float* stats, void* ws,
+                    int B, int N, int S, int K, int C1, int C2, int C3, const Staging& sg,
+                    void* stream) {
   Dims d;
   RUN(check(B, N, S, K, C1, C2, C3, &d));
   RUN(device_info().err);
@@ -1237,40 +1227,49 @@ extern "C" int sa_train_bf16_fwd(const float* a, const float* ct, const int* idx
   float *fold1 = fold, *fold2 = fold + 3 * Cm, *fold3 = fold + 6 * Cm;
   const int P2 = 2 * row_blocks(d, C2, ns), P3 = 2 * row_blocks(d, C3, ns);
 
+  const auto in = [&](int k) { return sg.stage < 0 || sg.stage == k; };
+  bool stop = false;
   // F1: y1's statistics, gathered
-  y1_stats_kernel<true><<<dim3(cdiv(C1, 32), stat_chunks(d)), dim3(32, 8), 0, st>>>(a, ct, idx, d,
-                                                                                     part);
-  LAUNCH_CHECK();
-  RUN(finalize_fwd(part, stat_chunks(d), C1, d, fin, g1, bt1, mu1, v1, fold1, st));
+  if (in(0)) {
+    y1_stats_kernel<true><<<dim3(cdiv(C1, 32), stat_chunks(d)), dim3(32, 8), 0, st>>>(a, ct, idx,
+                                                                                       d, part);
+    LAUNCH_CHECK();
+  }
+  RUN(sync_fwd(sg, 0, part, stat_chunks(d), C1, d, fin, g1, bt1, mu1, v1, fold1, st, &stop));
+  if (stop) return 0;
   PassArgs p{};
   p.d = d;
   p.a = a;
   p.ct = ct;
   p.idx = idx;
   // h1; F2: y2's sums
-  const long long row_blocks8 = cdiv(d.R, 8);
-  h1_kernel<<<dim3(cdiv(C1 / 4, 32), row_blocks8 < 65535 ? row_blocks8 : 65535), dim3(32, 8), 0,
-              st>>>(a, ct, idx, d, fold1, h1, round8(C1));
-  LAUNCH_CHECK();
   p.nout = C2;
   p.kin0 = C1;
   p.bias = b2;
   p.part = part;
-  RUN(run_pass<kF2>(d, p, h1, nullptr, w2t, nullptr, st));
-  RUN(finalize_fwd(part, P2, C2, d, fin, g2, bt2, mu2, v2, fold2, st));
+  if (in(1)) {
+    const long long row_blocks8 = cdiv(d.R, 8);
+    h1_kernel<<<dim3(cdiv(C1 / 4, 32), row_blocks8 < 65535 ? row_blocks8 : 65535), dim3(32, 8), 0,
+                st>>>(a, ct, idx, d, fold1, h1, round8(C1));
+    LAUNCH_CHECK();
+    RUN(run_pass<kF2>(d, p, h1, nullptr, w2t, nullptr, st));
+  }
+  RUN(sync_fwd(sg, 1, part, P2, C2, d, fin, g2, bt2, mu2, v2, fold2, st, &stop));
+  if (stop) return 0;
   // F3: h2
   p.fold = fold2;
   p.out = h2;
   p.out_ld = round8(C2);
-  RUN(run_pass<kF3>(d, p, h1, nullptr, w2t, nullptr, st));
+  if (in(2)) RUN(run_pass<kF3>(d, p, h1, nullptr, w2t, nullptr, st));
   // F4: y3's sums
   p.nout = C3;
   p.kin0 = C2;
   p.bias = b3;
   p.fold = nullptr;
   p.out = nullptr;
-  RUN(run_pass<kF4>(d, p, h2, nullptr, w3t, nullptr, st));
-  RUN(finalize_fwd(part, P3, C3, d, fin, g3, bt3, mu3, v3, fold3, st));
+  if (in(2)) RUN(run_pass<kF4>(d, p, h2, nullptr, w3t, nullptr, st));
+  RUN(sync_fwd(sg, 2, part, P3, C3, d, fin, g3, bt3, mu3, v3, fold3, st, &stop));
+  if (stop) return 0;
   // F5: the max over K, its ties and their yhat3
   p.fold = fold3;
   p.mean = mu3;
@@ -1285,19 +1284,46 @@ extern "C" int sa_train_bf16_fwd(const float* a, const float* ct, const int* idx
   return 0;
 }
 
-// Backward from the forward's inputs a, ct, idx, its grids h1, h2, mxt and
-// statistics, and the output's cotangent g (B, S, C3) f32. w2t, w3t as the
-// forward's; w2 (C1 x round8(C2)) and w3 (C2 x round8(C3)) W2 and W3 in bf16.
-// Writes da (B, N, C1), dct (B, S, C1), dw2 (C1 x C2), dw3 (C2 x C3) and dbn =
-// [dg1, dbt1, dg2, dbt2, dg3, dbt3]. ordered != 0: da summed in a fixed order
-// (ordered_da), else by float atomics.
-extern "C" int sa_train_bf16_bwd(const float* g, const float* a, const float* ct, const int* idx,
-                                 const uint16_t* h1, const uint16_t* h2, const float* mxt,
-                                 const float* stats, const uint16_t* w2t, const uint16_t* w3t,
-                                 const uint16_t* w2, const uint16_t* w3, const float* b2,
-                                 const float* b3, const float* bn, float* da, float* dct,
-                                 float* dw2, float* dw3, float* dbn, void* ws, int B, int N, int S,
-                                 int K, int C1, int C2, int C3, int ordered, void* stream) {
+// Forward. a (B, N, C1) f32 (rounded to bf16 here as it is read), ct (B, S,
+// C1), idx (B, S, K); w2t (C2 x round8(C1)) and w3t (C3 x round8(C2)): W2^T and
+// W3^T in bf16; bn = [g1, bt1 (C1), g2, bt2 (C2), g3, bt3 (C3)]. Writes h1 (R x
+// round8(C1)) and h2 (R x round8(C2)) in bf16, mxt (3, B * S, C3): out = max_k
+// relu(BN3(y3)), the number of its ties and the sum of yhat3 over them; stats =
+// [mean1, var1, mean2, var2, mean3, var3]. y3: null, or (R x C3) f32 where the
+// max pass writes the y3 it took the maxima on (a check's copy of the
+// product the backward computes again; where null and K is not a power of two
+// up to 64, the workspace holds it for scan_kernel).
+extern "C" int sa_train_bf16_fwd(const float* a, const float* ct, const int* idx,
+                                 const uint16_t* w2t, const float* b2, const uint16_t* w3t,
+                                 const float* b3, const float* bn, uint16_t* h1, uint16_t* h2,
+                                 float* mxt, float* y3, float* stats, void* ws, int B, int N, int S,
+                                 int K, int C1, int C2, int C3, void* stream) {
+  return fwd_impl(a, ct, idx, w2t, b2, w3t, b3, bn, h1, h2, mxt, y3, stats, ws, B, N, S, K, C1, C2,
+                  C3, Staging{-1, nullptr}, stream);
+}
+
+// sa_train_bf16_fwd in stages 0-3 (k6_common.cuh, Staging): the same
+// arguments and workspace at every stage, and sums (2 * max(C1, C2, C3) + 1
+// doubles).
+extern "C" int sa_train_bf16_fwd_staged(const float* a, const float* ct, const int* idx,
+                                        const uint16_t* w2t, const float* b2, const uint16_t* w3t,
+                                        const float* b3, const float* bn, uint16_t* h1,
+                                        uint16_t* h2, float* mxt, float* y3, float* stats,
+                                        void* ws, int B, int N, int S, int K, int C1, int C2,
+                                        int C3, int stage, double* sums, void* stream) {
+  if (stage < 0 || stage > 3) return kErrArgs;
+  return fwd_impl(a, ct, idx, w2t, b2, w3t, b3, bn, h1, h2, mxt, y3, stats, ws, B, N, S, K, C1, C2,
+                  C3, Staging{stage, sums}, stream);
+}
+
+// The backward, in one call (sg.stage < 0) or one stage of it.
+static int bwd_impl(const float* g, const float* a, const float* ct, const int* idx,
+                    const uint16_t* h1, const uint16_t* h2, const float* mxt, const float* stats,
+                    const uint16_t* w2t, const uint16_t* w3t, const uint16_t* w2,
+                    const uint16_t* w3, const float* b2, const float* b3, const float* bn,
+                    float* da, float* dct, float* dw2, float* dw3, float* dbn, void* ws, int B,
+                    int N, int S, int K, int C1, int C2, int C3, int ordered, const Staging& sg,
+                    void* stream) {
   Dims d;
   RUN(check(B, N, S, K, C1, C2, C3, &d));
   RUN(device_info().err);
@@ -1323,8 +1349,10 @@ extern "C" int sa_train_bf16_bwd(const float* g, const float* a, const float* ct
   float* fold_l[3] = {fold, fold + 3 * Cm, fold + 6 * Cm};
   float* coef_l[3] = {coef, coef + 2 * Cm, coef + 4 * Cm};
   const float* mean_l[3] = {stats, stats + 2 * C1, stats + 2 * (C1 + C2)};
+  const auto in = [&](int k) { return sg.stage < 0 || sg.stage == k; };
+  bool stop = false;
   const float* bn_l = bn;
-  for (int l = 0; l < 3; ++l) {
+  for (int l = 0; l < 3 && in(0); ++l) {
     fold_kernel<<<cdiv(Cs[l], kThreads), kThreads, 0, st>>>(mean_l[l], mean_l[l] + Cs[l], bn_l,
                                                              bn_l + Cs[l], fold_l[l], Cs[l]);
     LAUNCH_CHECK();
@@ -1332,10 +1360,14 @@ extern "C" int sa_train_bf16_bwd(const float* g, const float* a, const float* ct
   }
   const long long BS = centroids(d);
   // B1: dz3's sums from the forward's ties, and the shares
-  dz3_sums_kernel<<<dim3(cdiv(C3, 32), cent_chunks(d)), dim3(32, 8), 0, st>>>(mxt, g, share, part,
-                                                                             BS, C3);
-  LAUNCH_CHECK();
-  RUN(finalize_bwd(part, cent_chunks(d), C3, d, fin, dbn_l[2], dbn_l[2] + C3, coef_l[2], st));
+  if (in(0)) {
+    dz3_sums_kernel<<<dim3(cdiv(C3, 32), cent_chunks(d)), dim3(32, 8), 0, st>>>(mxt, g, share,
+                                                                               part, BS, C3);
+    LAUNCH_CHECK();
+  }
+  RUN(sync_bwd(sg, 0, part, cent_chunks(d), C3, d, fin, dbn_l[2], dbn_l[2] + C3, coef_l[2], st,
+               &stop));
+  if (stop) return 0;
   PassArgs p{};
   p.d = d;
   p.a = a;
@@ -1353,9 +1385,11 @@ extern "C" int sa_train_bf16_bwd(const float* g, const float* a, const float* ct
   p.share = share;
   p.out = dy3;
   p.out_ld = round8(C3);
-  RUN(run_pass<kB2>(d, p, h2, nullptr, w3t, nullptr, st));
-  // dW3 = h2^T dy3
-  RUN(dw(d, h2, C2, dy3, C3, dwpart, dw3, st));
+  if (in(1)) {
+    RUN(run_pass<kB2>(d, p, h2, nullptr, w3t, nullptr, st));
+    // dW3 = h2^T dy3
+    RUN(dw(d, h2, C2, dy3, C3, dwpart, dw3, st));
+  }
   // B3: dz2 = (dy3 W3^T) where h2 > 0, its sums with yhat2
   p.nout = C2;
   p.kin0 = C3;
@@ -1366,9 +1400,10 @@ extern "C" int sa_train_bf16_bwd(const float* g, const float* a, const float* ct
   p.coef = nullptr;
   p.out = dz2;
   p.out_ld = round8(C2);
-  RUN(run_pass<kB3>(d, p, dy3, h1, w3, w2t, st));
-  RUN(finalize_bwd(part, 2 * row_blocks(d, C2, ns), C2, d, fin, dbn_l[1], dbn_l[1] + C2,
-                   coef_l[1], st));
+  if (in(1)) RUN(run_pass<kB3>(d, p, dy3, h1, w3, w2t, st));
+  RUN(sync_bwd(sg, 1, part, 2 * row_blocks(d, C2, ns), C2, d, fin, dbn_l[1], dbn_l[1] + C2,
+               coef_l[1], st, &stop));
+  if (stop) return 0;
   // B4: dy2
   p.kin0 = C1;
   p.kin1 = 0;
@@ -1376,9 +1411,11 @@ extern "C" int sa_train_bf16_bwd(const float* g, const float* a, const float* ct
   p.gin = dz2;
   p.gin_ld = round8(C2);
   p.out = dy2;
-  RUN(run_pass<kB4>(d, p, h1, nullptr, w2t, nullptr, st));
-  // dW2 = h1^T dy2
-  RUN(dw(d, h1, C1, dy2, C2, dwpart, dw2, st));
+  if (in(2)) {
+    RUN(run_pass<kB4>(d, p, h1, nullptr, w2t, nullptr, st));
+    // dW2 = h1^T dy2
+    RUN(dw(d, h1, C1, dy2, C2, dwpart, dw2, st));
+  }
   // B5: dz1 = (dy2 W2^T) where h1 > 0, its sums with yhat1
   p.nout = C1;
   p.kin0 = C2;
@@ -1388,9 +1425,10 @@ extern "C" int sa_train_bf16_bwd(const float* g, const float* a, const float* ct
   p.coef = nullptr;
   p.out = dz1;
   p.out_ld = round8(C1);
-  RUN(run_pass<kB5>(d, p, dy2, nullptr, w2, nullptr, st));
-  RUN(finalize_bwd(part, 2 * row_blocks(d, C1, ns), C1, d, fin, dbn_l[0], dbn_l[0] + C1,
-                   coef_l[0], st));
+  if (in(2)) RUN(run_pass<kB5>(d, p, dy2, nullptr, w2, nullptr, st));
+  RUN(sync_bwd(sg, 2, part, 2 * row_blocks(d, C1, ns), C1, d, fin, dbn_l[0], dbn_l[0] + C1,
+               coef_l[0], st, &stop));
+  if (stop) return 0;
   // B6: dct = sum_k dy1; da = the sum of bf16(dy1) at idx, in a fixed order or by atomics
   const unsigned blocks = static_cast<unsigned>(cdiv(BS * C1, kThreads));
   if (ordered) {
@@ -1405,4 +1443,37 @@ extern "C" int sa_train_bf16_bwd(const float* g, const float* a, const float* ct
                                                      mean_l[0], coef_l[0], da, dct);
   LAUNCH_CHECK();
   return 0;
+}
+
+// Backward from the forward's inputs a, ct, idx, its grids h1, h2, mxt and
+// statistics, and the output's cotangent g (B, S, C3) f32. w2t, w3t as the
+// forward's; w2 (C1 x round8(C2)) and w3 (C2 x round8(C3)) W2 and W3 in bf16.
+// Writes da (B, N, C1), dct (B, S, C1), dw2 (C1 x C2), dw3 (C2 x C3) and dbn =
+// [dg1, dbt1, dg2, dbt2, dg3, dbt3]. ordered != 0: da summed in a fixed order
+// (ordered_da), else by float atomics.
+extern "C" int sa_train_bf16_bwd(const float* g, const float* a, const float* ct, const int* idx,
+                                 const uint16_t* h1, const uint16_t* h2, const float* mxt,
+                                 const float* stats, const uint16_t* w2t, const uint16_t* w3t,
+                                 const uint16_t* w2, const uint16_t* w3, const float* b2,
+                                 const float* b3, const float* bn, float* da, float* dct,
+                                 float* dw2, float* dw3, float* dbn, void* ws, int B, int N, int S,
+                                 int K, int C1, int C2, int C3, int ordered, void* stream) {
+  return bwd_impl(g, a, ct, idx, h1, h2, mxt, stats, w2t, w3t, w2, w3, b2, b3, bn, da, dct, dw2,
+                  dw3, dbn, ws, B, N, S, K, C1, C2, C3, ordered, Staging{-1, nullptr}, stream);
+}
+
+// sa_train_bf16_bwd in stages 0-3 (k6_common.cuh, Staging), as
+// sa_train_bf16_fwd_staged.
+extern "C" int sa_train_bf16_bwd_staged(const float* g, const float* a, const float* ct,
+                                        const int* idx, const uint16_t* h1, const uint16_t* h2,
+                                        const float* mxt, const float* stats, const uint16_t* w2t,
+                                        const uint16_t* w3t, const uint16_t* w2,
+                                        const uint16_t* w3, const float* b2, const float* b3,
+                                        const float* bn, float* da, float* dct, float* dw2,
+                                        float* dw3, float* dbn, void* ws, int B, int N, int S,
+                                        int K, int C1, int C2, int C3, int ordered, int stage,
+                                        double* sums, void* stream) {
+  if (stage < 0 || stage > 3) return kErrArgs;
+  return bwd_impl(g, a, ct, idx, h1, h2, mxt, stats, w2t, w3t, w2, w3, b2, b3, bn, da, dct, dw2,
+                  dw3, dbn, ws, B, N, S, K, C1, C2, C3, ordered, Staging{stage, sums}, stream);
 }

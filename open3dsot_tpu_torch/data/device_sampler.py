@@ -53,12 +53,26 @@ def first_smallest(keys: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(keys, dim=1, stable=True)[1][:, :k]
 
 
-def _draw(requests: dict, device) -> dict:
+def _draw(requests: dict, device, rows=None) -> dict:
     """name -> a list of (key, shape) requests  =>  name -> their bits, all
-    made in one threefry pass (prng.bits_many)."""
+    made in one threefry pass (prng.bits_many); `rows` (lo, hi): only those
+    rows of each draw are kept."""
     flat = [r for rs in requests.values() for r in rs]
     made = iter(prng.bits_many(flat, device) if flat else [])
+    if rows is not None:
+        made = (t[rows[0]:rows[1]] for t in made)
     return {name: [next(made) for _ in rs] for name, rs in requests.items()}
+
+
+def _draw_batch(B: int, shard):
+    """(the batch the draws are made for, the rows kept of them): a builder
+    under `shard` = (rank, n) builds rows [rank * B, (rank + 1) * B) of a
+    global batch of n * B, and draws for all of it as JAX's GSPMD build
+    does, so that its rows are that build's, bit for bit."""
+    if shard is None:
+        return B, None
+    rank, n = shard
+    return B * n, (rank * B, (rank + 1) * B)
 
 
 def _select_requests(key, B: int, P: int, n: int) -> list:
@@ -186,9 +200,10 @@ def _crop(pts, valid, box, half, A=None):
     return local, ((local < h) & (local > -h)).all(dim=-1) & valid
 
 
-def make_motion_builder(config, A=None):
+def make_motion_builder(config, A=None, shard=None):
     """build(raw, key) -> an M2-Track batch, the device twin of
-    motion_processing (JAX device_sampler.py:148-266)."""
+    motion_processing (JAX device_sampler.py:148-266); `shard` as in
+    `_draw_batch`."""
     n = int(config.point_sample_size)
     scale = float(config.bb_scale)
     offset = float(config.bb_offset)
@@ -204,13 +219,14 @@ def make_motion_builder(config, A=None):
         prev_box, this_box = raw["prev_box"], raw["this_box"]  # (B, 4) world (c, theta)
         wlh, cand0 = raw["wlh"], raw["candidate_zero"]  # (B, 3), (B,)
         (B, P, _), dev = prev_pts.shape, prev_pts.device
+        Bd, rows = _draw_batch(B, shard)
 
         k_aug_p, k_aug_t, k_off, k_sel_p, k_sel_t = prng.split(key, 5)
-        d = _draw({"aug_p": _augment_requests(k_aug_p, B) if use_aug else [],
-                   "aug_t": _augment_requests(k_aug_t, B) if use_aug else [],
-                   "off": _ref_offset_requests(k_off, B, data_limit_box),
-                   "sel_p": _select_requests(k_sel_p, B, P, n),
-                   "sel_t": _select_requests(k_sel_t, B, this_pts.shape[1], n)}, dev)
+        d = _draw({"aug_p": _augment_requests(k_aug_p, Bd) if use_aug else [],
+                   "aug_t": _augment_requests(k_aug_t, Bd) if use_aug else [],
+                   "off": _ref_offset_requests(k_off, Bd, data_limit_box),
+                   "sel_p": _select_requests(k_sel_p, Bd, P, n),
+                   "sel_t": _select_requests(k_sel_t, Bd, this_pts.shape[1], n)}, dev, rows)
         if use_aug:
             prev_pts, prev_box = _augment(prev_pts, prev_valid, prev_box, wlh, d["aug_p"], A=A)
             this_pts, this_box = _augment(this_pts, this_valid, this_box, wlh, d["aug_t"], A=A)
@@ -270,11 +286,11 @@ def make_motion_builder(config, A=None):
     return build
 
 
-def make_siamese_builder(config, A=None):
+def make_siamese_builder(config, A=None, shard=None):
     """build(raw, key) -> a BAT / P2B batch, the device twin of
     siamese_processing (JAX device_sampler.py:375-495): perturbed-template
     merge, Kalman search offset, subwindow crop, strict seg labels, the
-    4-DoF target, BoxClouds."""
+    4-DoF target, BoxClouds; `shard` as in `_draw_batch`."""
     t_size = int(config.template_size)
     s_size = int(config.search_size)
     m_scale, m_offset = float(config.model_bb_scale), float(config.model_bb_offset)
@@ -294,16 +310,17 @@ def make_siamese_builder(config, A=None):
         first_box, tmpl_box, srch_box = raw["first_box"], raw["template_box"], raw["search_box"]
         wlh, cand0 = raw["wlh"], raw["candidate_zero"]
         B, dev = first_pts.shape[0], first_pts.device
+        Bd, rows = _draw_batch(B, shard)
 
         k_aug, k_toff, k_tlim, k_koff, k_klim, k_sel_t, k_sel_s = prng.split(key, 7)
-        d = _draw({"aug": _augment_requests(k_aug, B) if use_aug else [],
-                   "toff": [(k_toff, (B, 3))],
-                   "tlim": _limit_requests(k_tlim, B, data_limit_box),
-                   "koff": [(k_koff, (B, 3))],
-                   "klim": _limit_requests(k_klim, B, data_limit_box),
-                   "sel_t": _select_requests(k_sel_t, B, first_pts.shape[1] + tmpl_pts.shape[1],
+        d = _draw({"aug": _augment_requests(k_aug, Bd) if use_aug else [],
+                   "toff": [(k_toff, (Bd, 3))],
+                   "tlim": _limit_requests(k_tlim, Bd, data_limit_box),
+                   "koff": [(k_koff, (Bd, 3))],
+                   "klim": _limit_requests(k_klim, Bd, data_limit_box),
+                   "sel_t": _select_requests(k_sel_t, Bd, first_pts.shape[1] + tmpl_pts.shape[1],
                                              t_size),
-                   "sel_s": _select_requests(k_sel_s, B, srch_pts.shape[1], s_size)}, dev)
+                   "sel_s": _select_requests(k_sel_s, Bd, srch_pts.shape[1], s_size)}, dev, rows)
         if use_aug:  # the search frame only (PointTrackingSampler.__getitem__)
             srch_pts, srch_box = _augment(srch_pts, srch_valid, srch_box, wlh, d["aug"], A=A)
 
@@ -519,9 +536,10 @@ def dequant_builder(builder):
     return wrapped
 
 
-def make_builder(config, train_type: str, A=None):
+def make_builder(config, train_type: str, A=None, shard=None):
     """The builder of `train_type` ('train_motion' or 'train_siamese'), with
-    the int16 dequantisation under `transfer_quant`."""
+    the int16 dequantisation under `transfer_quant`; `shard` (rank, n): the
+    rank's rows of a global batch (`_draw_batch`)."""
     make = {"train_motion": make_motion_builder, "train_siamese": make_siamese_builder}[train_type]
-    build = make(config, A=A)
+    build = make(config, A=A, shard=shard)
     return dequant_builder(build) if getattr(config, "transfer_quant", None) else build

@@ -5,7 +5,9 @@ the background thread ends when the consumer stops iterating early (a
 trainer's `steps_per_epoch` below the loader's length), `close` shuts the
 worker threads down, and `transform` (the int16 pack, the pinned copies of
 the device sampler's raw batches) runs on each collated batch in the
-background thread too.
+background thread too. `rows` builds only those rows of each batch: a
+rank of a data-parallel run takes its rows of the global batch, as JAX's
+`shard_batch` splits it.
 """
 
 from __future__ import annotations
@@ -31,12 +33,13 @@ class BatchLoader:
     drop_last=True keeps batch shapes static. Shuffling is deterministic
     given `seed` + `epoch`. `workers` > 0 builds a batch's samples in a
     thread pool; `prefetch` batches are built ahead in a background thread;
-    `transform` maps each collated batch there.
+    `transform` maps each collated batch there. `rows` (lo, hi): only rows
+    lo..hi - 1 of each batch of `batch_size` are built and yielded.
     """
 
     def __init__(self, sampler, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, seed: int = 0, prefetch: int = 2,
-                 workers: int = 0, transform=None):
+                 workers: int = 0, transform=None, rows=None):
         self.sampler = sampler
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -45,6 +48,7 @@ class BatchLoader:
         self.prefetch = prefetch
         self.workers = workers
         self.transform = transform
+        self.rows = rows
         self.epoch = 0
         self._pool = None
         if workers > 0:
@@ -72,6 +76,8 @@ class BatchLoader:
         nb = len(self)
         for b in range(nb):
             chunk = idx[b * self.batch_size : (b + 1) * self.batch_size]
+            if self.rows is not None:
+                chunk = chunk[self.rows[0]:self.rows[1]]
             if self._pool is not None:
                 samples = list(self._pool.map(self.sampler.__getitem__, map(int, chunk)))
             else:

@@ -8,6 +8,7 @@
         [--checkpoint ckpt_best.pt] [--max_tracklets N] [--device cuda] [--bf16] \
         [--save_results R.jsonl] [--tracker scan [--host_metrics] \
         [--transfer_quant int16] [--eval_prep_cache DIR]]                   # eval
+    ... [--num_devices N [--dist_backend gloo]]                      # N ranks
 
 Flags keep the JAX CLI's names (main.py); a flag given overrides the YAML,
 and `--preloading` and `--save_top_k` override it even at their defaults
@@ -29,8 +30,19 @@ writes each tracklet's trajectory and per-frame scores as JSONL
 (tracking/results.py); `--eval_prep_cache DIR` keeps the scan tracker's
 packed batches on disk (tracking/prep_store.py), so a later eval of the same
 data and settings neither decodes the dataset nor pads a frame (ignored
-with `--save_results`, whose host-scored loop needs the frames). Not
-ported yet: process sharding (ROADMAP.md §1 item 6).
+with `--save_results`, whose host-scored loop needs the frames).
+`--num_devices N` runs N ranks, one card each (parallel/distributed.py):
+without `RANK` in the environment this command starts them itself, as
+torchrun would (`python -m torch.distributed.run --nproc_per_node N -m
+open3dsot_tpu_torch.main ...` runs the same ranks, and then N, where given,
+must equal the world size). The backend is NCCL on cards and gloo on the
+CPU; `--dist_backend gloo` lets ranks share a card. Eval spreads the
+tracklets over the ranks (`shard_across_processes`, on every eval path) and
+sums the metrics; with `--save_results R.jsonl` rank r > 0 writes its
+tracklets to `R.rank{r}.jsonl`. Training is data-parallel
+(train/trainer.py): the global batch `batch_size` is split over the ranks;
+where it does not divide, this command starts gcd(batch_size, N) ranks, as
+JAX's Trainer shrinks its mesh.
 Training runs every model through `train/trainer.py`: M2-Track on the
 motion sampler (`train_motion`), BAT and P2B on the siamese one
 (`train_siamese`), starting from random weights made from the seed
@@ -97,6 +109,12 @@ def parse_args(argv=None):
                              "(tracking/prep_store.py): with --tracker scan, repeated "
                              "evaluations skip dataset decode and padding "
                              "(fingerprint-checked)")
+    parser.add_argument("--num_devices", type=int, default=None,
+                        help="ranks (one card each): started here, or checked against torchrun's "
+                             "WORLD_SIZE")
+    parser.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
+                        help="process-group backend: nccl on cards, gloo on the CPU by default; "
+                             "gloo lets ranks share a card")
     parser.add_argument("--transfer_quant", type=str, default=None, choices=["int16"],
                         help="ship frame points to the device as per-sample fixed-point "
                              "int16 (utils/quant.py): --tracker scan eval, and training "
@@ -125,16 +143,70 @@ def kernel_options(cfg, net_model: str) -> dict:
     return opts
 
 
+def ranks_to_launch(args, cfg) -> int:
+    """How many ranks `--num_devices` starts: N, or gcd(batch_size, N) for
+    training where the global batch does not divide over N."""
+    import math
+
+    n = args.num_devices
+    if not args.test and cfg.batch_size % n:
+        usable = math.gcd(cfg.batch_size, n)
+        print(f"[main] batch_size {cfg.batch_size} not divisible by {n} devices; "
+              f"starting {usable} ranks")
+        return usable
+    return n
+
+
+def results_path(path: str, rank: int) -> str:
+    """--save_results of a rank: rank 0 writes `path`, rank r > 0 its own file."""
+    if rank == 0:
+        return path
+    stem, dot, ext = path.rpartition(".")
+    return f"{stem}.rank{rank}.{ext}" if dot else f"{path}.rank{rank}"
+
+
 def main(argv=None):
+    import os
+    import sys
+
     args = parse_args(argv)
+    from open3dsot_tpu_torch.parallel import distributed
+
+    cfg = config_of(args)
+    if args.num_devices is not None and args.num_devices < 1:
+        raise ValueError(f"--num_devices must be >= 1, got {args.num_devices}")
+    if args.num_devices and args.num_devices > 1 and "RANK" not in os.environ:
+        n = ranks_to_launch(args, cfg)
+        if (args.dist_backend or distributed.default_backend(args.device)) == "nccl":
+            distributed.local_devices(n)  # a card a rank, or refuse before starting any
+        argv = sys.argv[1:] if argv is None else list(argv)
+        code = distributed.launch(["-m", "open3dsot_tpu_torch.main", *argv], n)
+        if code:
+            raise SystemExit(code)
+        return
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.num_devices is not None and "RANK" in os.environ and world != args.num_devices:
+        raise ValueError(f"--num_devices {args.num_devices} but the launcher started {world} "
+                         f"ranks (WORLD_SIZE)")
+    if not args.test and cfg.batch_size % world:
+        raise ValueError(f"batch_size {cfg.batch_size} does not divide over the launcher's "
+                         f"{world} ranks")
+    device = distributed.init_from_env(args.device, args.dist_backend)
+    try:
+        _run(args, cfg, device)
+    finally:
+        distributed.shutdown()
+
+
+def _run(args, cfg, device):
     import torch
 
     from open3dsot_tpu_torch.data import get_dataset
     from open3dsot_tpu_torch.models import get_model
+    from open3dsot_tpu_torch.parallel import distributed
     from open3dsot_tpu_torch.weights import random_variables, state_dict_from_jax
 
-    cfg = config_of(args)
-    model = get_model(cfg.net_model)(cfg, device=args.device, **kernel_options(cfg, cfg.net_model))
+    model = get_model(cfg.net_model)(cfg, device=device, **kernel_options(cfg, cfg.net_model))
     if args.checkpoint:
         import pickle
 
@@ -152,27 +224,30 @@ def main(argv=None):
     model.net.load_state_dict(sd, strict=True)
 
     if args.test:
+        sharded = distributed.world_size() > 1
         test_sampler = get_dataset(cfg, "test", cfg.test_split)
         writer = None
         if args.save_results:
             from open3dsot_tpu_torch.tracking.results import ResultsWriter
 
-            writer = ResultsWriter(args.save_results, cfg)
+            writer = ResultsWriter(results_path(args.save_results, distributed.rank()), cfg)
         if args.tracker == "scan":
             succ, prec = model.evaluate_scan(test_sampler, cfg, max_tracklets=args.max_tracklets,
                                              device_metrics=not args.host_metrics,
                                              prep_store_path=args.eval_prep_cache,
-                                             results_writer=writer)
+                                             results_writer=writer,
+                                             shard_across_processes=sharded)
         else:
             from open3dsot_tpu_torch.tracking.eval import evaluate_dataset
 
             succ, prec = evaluate_dataset(model, test_sampler, cfg,
                                           max_tracklets=args.max_tracklets, verbose=True,
-                                          results_writer=writer)
+                                          shard_across_processes=sharded, results_writer=writer)
         if writer is not None:
             writer.close()
             print(f"saved {writer.n_written} tracklet trajectories to {writer.path}")
-        print(f"success/test: {succ:.2f}  precision/test: {prec:.2f}")
+        if distributed.rank() == 0:
+            print(f"success/test: {succ:.2f}  precision/test: {prec:.2f}")
         return
 
     from open3dsot_tpu_torch.train.trainer import Trainer
@@ -182,7 +257,8 @@ def main(argv=None):
     val_sampler = get_dataset(cfg, "test", cfg.val_split)
     history = Trainer(model, cfg, work_dir=args.log_dir).fit(train_sampler, val_sampler)
     last = history[-1] if history else {}
-    print(f"trained {last.get('steps', 0)} steps; loss {last.get('loss', float('nan')):.4f}")
+    if distributed.rank() == 0:
+        print(f"trained {last.get('steps', 0)} steps; loss {last.get('loss', float('nan')):.4f}")
 
 
 if __name__ == "__main__":

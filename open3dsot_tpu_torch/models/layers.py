@@ -39,6 +39,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from open3dsot_tpu_torch.ops.chain_fused import BF16, BN_EPS, fold_dense_bn, is_bf16
+from open3dsot_tpu_torch.parallel import distributed
 
 
 def resolve_device(device) -> torch.device:
@@ -85,8 +86,18 @@ def linear(x: torch.Tensor, dense: nn.Linear, dtype) -> torch.Tensor:
 
 def batch_stats(x: torch.Tensor):
     """(mean, biased variance) over every leading axis, as flax computes them
-    (use_fast_variance: mean(x^2) - mean(x)^2, clipped at 0)."""
+    (use_fast_variance: mean(x^2) - mean(x)^2, clipped at 0). Inside
+    `distributed.global_batch()` they are those of the global batch: the
+    sums of x and x^2 and the row count summed over the ranks, whose
+    backward sums the cotangents of those sums (from dy and dy * yhat) over
+    the ranks too."""
     dims = tuple(range(x.dim() - 1))
+    if distributed.in_global_batch():
+        C = x.shape[-1]
+        sums = distributed.sum_over_batch(torch.cat(
+            [x.sum(dims), (x * x).sum(dims), x.new_full((1,), x.numel() // C)]))
+        mean = sums[:C] / sums[-1]
+        return mean, (sums[C:2 * C] / sums[-1] - mean * mean).clamp_min(0.0)
     mean = x.mean(dims)
     return mean, ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
 

@@ -71,11 +71,15 @@ SIGNATURES = {
         "sa_train_packed_floats": ([_I] * 2, _LL),
         "sa_train_fwd": [_P] * 4 + [_LL, _P, _P, _LL] + [_P] * 7 + [_I] * 7 + [_P],
         "sa_train_bwd": [_P] * 8 + [_LL, _P, _LL] + [_P] * 7 + [_I] * 8 + [_P],
+        "sa_train_fwd_staged": [_P] * 4 + [_LL, _P, _P, _LL] + [_P] * 7 + [_I] * 8 + [_P, _P],
+        "sa_train_bwd_staged": [_P] * 8 + [_LL, _P, _LL] + [_P] * 7 + [_I] * 9 + [_P, _P],
     },
     "sa_fused_train_bf16": {
         "sa_train_bf16_workspace": ([_I] * 8, _LL),
         "sa_train_bf16_fwd": [_P] * 14 + [_I] * 7 + [_P],
         "sa_train_bf16_bwd": [_P] * 21 + [_I] * 8 + [_P],
+        "sa_train_bf16_fwd_staged": [_P] * 14 + [_I] * 8 + [_P, _P],
+        "sa_train_bf16_bwd_staged": [_P] * 21 + [_I] * 9 + [_P, _P],
     },
 }
 

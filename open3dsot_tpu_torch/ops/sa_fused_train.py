@@ -60,6 +60,20 @@ it), dW and dh take bf16 operands (h, dy, W^T), the ReLU masks are h > 0 of
 the stored bf16 h, da scatter-sums bf16-rounded dy1 with f32 sums and dct
 sums dy1 in f32. The mode comes from the MLP's layers (`DenseBNRelu.dtype`),
 as K4's from `FoldedSA.dtype`.
+
+Under a process group whose statistics are those of the global batch
+(`parallel/distributed.py::global_batch`, the trainer's default mode on
+several ranks, as JAX's GSPMD step, whose partitioner adds K6's per-shard
+partial sums up over the shards) the kernels run staged: each entry has a
+`_staged` twin that stops where a pass's statistics are complete (at each
+finalize of the single call), the wrapper sums the (2, C) float64 sums and
+the row count over the group with one all_reduce (`_run_staged`), and the
+next stage finalizes from them with the global count; the backward's
+dgamma, dbeta stay each rank's own, to be averaged with the other
+gradients. Three all_reduces a forward and three a backward; counted in
+`.staged_fwd_launches` and `.staged_bwd_launches` (and in the launches of
+either mode). The plain versions take the same sums (`global_stats`).
+Elsewhere (one rank, or per-device statistics) the single calls run.
 """
 
 from __future__ import annotations
@@ -73,6 +87,7 @@ from open3dsot_tpu_torch.ops._launch import check, on_cuda, raise_on, stream_of
 from open3dsot_tpu_torch.ops.chain_fused import BF16, is_bf16, pack_chunks
 from open3dsot_tpu_torch.ops.grouping import group_points
 from open3dsot_tpu_torch.ops.sa_fused import a_form
+from open3dsot_tpu_torch.parallel import distributed
 
 BN_EPS = 1e-5
 _ERRORS = {-1: "B, N, S or K not accepted (B * S * K below 2^31 rows)",
@@ -84,9 +99,17 @@ _ERRORS = {-1: "B, N, S or K not accepted (B * S * K below 2^31 rows)",
 Stats = Tuple[torch.Tensor, ...]  # (mean1, var1, mean2, var2, mean3, var3)
 
 
-def _stats(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(mean, biased variance mean(y^2) - mean(y)^2) over every axis but the last."""
+def _stats(y: torch.Tensor, global_stats: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean, biased variance mean(y^2) - mean(y)^2) over every axis but the
+    last; with `global_stats` over the rows of every rank of the process
+    group (their sums and count summed by all_reduce)."""
     dims = tuple(range(y.dim() - 1))
+    if global_stats:
+        C = y.shape[-1]
+        sums = distributed.all_reduce_sum(torch.cat(
+            [y.sum(dims), (y * y).sum(dims), y.new_full((1,), y.numel() // C)]))
+        mean = sums[:C] / sums[-1]
+        return mean, sums[C:2 * C] / sums[-1] - mean * mean
     mean = y.mean(dims)
     return mean, (y * y).mean(dims) - mean * mean
 
@@ -116,41 +139,49 @@ def _y1(a, ct, idx):
 
 
 def sa_train_fwd_plain(a, ct, idx, w2, b2, w3, b3, bn: Sequence[torch.Tensor],
-                       bf16: bool = False):
+                       bf16: bool = False, global_stats: bool = False):
     """The plain forward: a (B, N, C1), ct (B, S, C1), idx (B, S, K), w2 (C1,
     C2), w3 (C2, C3), bn = (g1, bt1, g2, bt2, g3, bt3) -> (out (B, S, C3),
     stats, grids): in f32 the pre-BN grids (y2, y3), in bf16 the activations
     (h1, h2) as bf16 tensors. `bf16`: the bf16 mode, with `a` already rounded
-    to bf16 (`_SATrainFunction` rounds it); out is returned in a's dtype."""
+    to bf16 (`_SATrainFunction` rounds it); out is returned in a's dtype.
+    `global_stats`: the statistics of the process group's global batch."""
     r = _rounder(bf16)
     y1 = _y1(a, ct, idx)
-    m1, v1 = _stats(y1)
+    m1, v1 = _stats(y1, global_stats)
     s1, t1, _ = _fold(m1, v1, bn[0], bn[1])
     h1 = r(_relu_fold(y1, s1, t1))
     y2 = h1 @ r(w2) + b2
-    m2, v2 = _stats(y2)
+    m2, v2 = _stats(y2, global_stats)
     s2, t2, _ = _fold(m2, v2, bn[2], bn[3])
     h2 = r(_relu_fold(y2, s2, t2))
     y3 = h2 @ r(w3) + b3
-    m3, v3 = _stats(y3)
+    m3, v3 = _stats(y3, global_stats)
     s3, t3, _ = _fold(m3, v3, bn[4], bn[5])
     out = _relu_fold(y3, s3, t3).amax(dim=2)
     grids = (h1.to(BF16), h2.to(BF16)) if bf16 else (y2, y3)
     return out, (m1, v1, m2, v2, m3, v3), grids
 
 
-def _bn_bwd(dz, yh, s, M: float, r):
+def _bn_bwd(dz, yh, s, M: float, r, global_stats: bool = False):
     """BN-training backward with the global sums: -> (dy, dgamma, dbeta). The
     sums take dz as it is, the body r(dz) (bf16-rounded in the bf16 mode,
-    where the Pallas passes sum dz before they store it as bf16)."""
+    where the Pallas passes sum dz before they store it as bf16). With
+    `global_stats` the body takes the sums and count of every rank of the
+    process group, and dgamma, dbeta stay this rank's own."""
     dbeta = dz.sum((0, 1, 2))
     dgamma = (dz * yh).sum((0, 1, 2))
-    return s * (r(dz) - dbeta / M - yh * (dgamma / M)), dgamma, dbeta
+    sb, sg = dbeta, dgamma
+    if global_stats:
+        C = dz.shape[-1]
+        sums = distributed.all_reduce_sum(torch.cat([dbeta, dgamma, dz.new_full((1,), M)]))
+        sb, sg, M = sums[:C], sums[C:2 * C], sums[-1]
+    return s * (r(dz) - sb / M - yh * (sg / M)), dgamma, dbeta
 
 
 def sa_train_bwd_plain(g_out, a, ct, idx, grids, stats: Stats, w2, b2, w3, b3,
                        bn: Sequence[torch.Tensor], bf16: bool = False,
-                       y3: Optional[torch.Tensor] = None):
+                       y3: Optional[torch.Tensor] = None, global_stats: bool = False):
     """The plain backward from the forward's inputs a, ct, idx, its grids and
     statistics, and the cotangent g_out (B, S, C3) -> (da (B, N, C1), dct (B,
     S, C1), dw2, dw3, (dg1, dbt1, dg2, dbt2, dg3, dbt3)). The grids are the
@@ -159,7 +190,8 @@ def sa_train_bwd_plain(g_out, a, ct, idx, grids, stats: Stats, w2, b2, w3, b3,
     then). `y3` (bf16): the y3 of the kernel's max pass (`sa_train_fwd_kernel`'s
     `y3_out`), taken in place of h2 W3 + b3, so that the maxima and their ties
     are the kernel's. `bf16`: the bf16 mode (the module docstring), `a` as the
-    forward took it."""
+    forward took it. `global_stats`: the forward's statistics were the
+    process group's, and so are the BN backward's sums (`_bn_bwd`)."""
     r = _rounder(bf16)
     y1 = _y1(a, ct, idx)
     B, S, K, C1 = y1.shape
@@ -179,14 +211,16 @@ def sa_train_bwd_plain(g_out, a, ct, idx, grids, stats: Stats, w2, b2, w3, b3,
     # B1: the max gradient, split over tied maxima, times relu'
     mask = (h3 == h3.amax(dim=2, keepdim=True)).to(h3.dtype)
     dz3 = (g_out[:, :, None, :] * mask / mask.sum(dim=2, keepdim=True)) * (h3 > 0)
-    dy3, dg3, dbt3 = _bn_bwd(dz3, yh3, folds[2][0], M, r)
+    dy3, dg3, dbt3 = _bn_bwd(dz3, yh3, folds[2][0], M, r, global_stats)
     # B2, B3
     dy3 = r(dy3)
     dw3 = torch.einsum("bskc,bskd->cd", h2, dy3)
-    dy2, dg2, dbt2 = _bn_bwd((dy3 @ r(w3).t()) * (h2 > 0), yh2, folds[1][0], M, r)
+    dy2, dg2, dbt2 = _bn_bwd((dy3 @ r(w3).t()) * (h2 > 0), yh2, folds[1][0], M, r,
+                             global_stats)
     dy2 = r(dy2)
     dw2 = torch.einsum("bskc,bskd->cd", h1, dy2)
-    dy1, dg1, dbt1 = _bn_bwd((dy2 @ r(w2).t()) * (h1 > 0), yh1, folds[0][0], M, r)
+    dy1, dg1, dbt1 = _bn_bwd((dy2 @ r(w2).t()) * (h1 > 0), yh1, folds[0][0], M, r,
+                             global_stats)
     # B4: scatter-add into the N points, sum over the K neighbours
     rows = (idx.long() + n_points * torch.arange(B, device=idx.device)[:, None, None]).reshape(-1)
     da = torch.zeros(B * n_points, C1, dtype=dy1.dtype, device=dy1.device)
@@ -212,6 +246,20 @@ def _workspace(dims, backward: bool, bf16: bool, device) -> torch.Tensor:
     nbytes = query(*dims, int(backward))
     raise_on(min(nbytes, 0), "K6 workspace", _ERRORS)
     return torch.empty(nbytes, dtype=torch.uint8, device=device)
+
+
+def _run_staged(call, widths: Sequence[int], rows: int, device) -> None:
+    """A staged entry's stages 0-3: call(stage, sums) launches one; after
+    stage k its (2, widths[k]) float64 sums, with the row count appended,
+    are summed over the process group (distributed.all_reduce_sum) for
+    stage k + 1 (csrc/k6_common.cuh, Staging)."""
+    sums = torch.empty(2 * max(widths) + 1, dtype=torch.float64, device=device)
+    for stage in range(4):
+        call(stage, sums.data_ptr())
+        if stage < 3:
+            part = sums[:2 * widths[stage] + 1]
+            part[-1:].fill_(float(rows))  # a fill kernel: `part[-1] = x` copies from the host
+            distributed.all_reduce_sum(part)
 
 
 def _round8(n: int) -> int:
@@ -259,14 +307,17 @@ class Packs:
 
 
 def sa_train_fwd_kernel(a, ct, idx, w2, b2, w3, b3, bn: Sequence[torch.Tensor], packs: Packs,
-                        y3_out: Optional[torch.Tensor] = None):
+                        y3_out: Optional[torch.Tensor] = None, staged: bool = False):
     """K6 forward on the card: the same function as `sa_train_fwd_plain` in
     the mode of `packs` (`a` taken unrounded in the bf16 mode: the kernel
     rounds it). Its grids: (y2, y3) f32 in the f32 mode; (h1, h2, mxt) in
     bf16, h1 and h2 with their channels padded to a multiple of 8, out a
     view of mxt[0]. `y3_out` (bf16 mode; (B, S, K, C3) f32): where the max
     pass writes the y3 it took the maxima on, for a check that holds the
-    plain backward (its `y3`) to the kernel's maxima and ties."""
+    plain backward (its `y3`) to the kernel's maxima and ties. `staged`: the
+    staged entries, with the statistics summed over the process group
+    between the stages (`_run_staged`; in a world of one the single call's
+    results, bit for bit)."""
     B, N, C1 = a.shape
     S, K = idx.shape[1], idx.shape[2]
     C2, C3 = w2.shape[1], w3.shape[1]
@@ -291,33 +342,35 @@ def sa_train_fwd_kernel(a, ct, idx, w2, b2, w3, b3, bn: Sequence[torch.Tensor], 
     if bf16:
         h1, h2 = (torch.empty(B, S, K, _round8(c), dtype=BF16, device=dev) for c in (C1, C2))
         mxt = torch.empty(3, B, S, C3, device=dev)
-        rc = _library(True).sa_train_bf16_fwd(
-            a.data_ptr(), ct.data_ptr(), idx.data_ptr(), packs.w2.data_ptr(), b2.data_ptr(),
-            packs.w3.data_ptr(), b3.data_ptr(), bn_flat.data_ptr(), h1.data_ptr(), h2.data_ptr(),
-            mxt.data_ptr(), None if y3_out is None else y3_out.data_ptr(), stats.data_ptr(),
-            ws.data_ptr(), *dims, stream_of(a))
-        raise_on(rc, "K6 sa_train_bf16_fwd", _ERRORS)
+        name = "sa_train_bf16_fwd"
+        args = (a.data_ptr(), ct.data_ptr(), idx.data_ptr(), packs.w2.data_ptr(), b2.data_ptr(),
+                packs.w3.data_ptr(), b3.data_ptr(), bn_flat.data_ptr(), h1.data_ptr(),
+                h2.data_ptr(), mxt.data_ptr(), None if y3_out is None else y3_out.data_ptr(),
+                stats.data_ptr(), ws.data_ptr(), *dims)
         out, grids = mxt[0], (h1, h2, mxt)
     else:
         grids = tuple(torch.empty(B, S, K, c, device=dev) for c in (C2, C3))
         out = torch.empty(B, S, C3, device=dev)
-        rc = _library(False).sa_train_fwd(
-            a.data_ptr(), ct.data_ptr(), idx.data_ptr(), packs.w2.data_ptr(), packs.w2.numel(),
-            b2.data_ptr(), packs.w3.data_ptr(), packs.w3.numel(), b3.data_ptr(), bn_flat.data_ptr(),
-            grids[0].data_ptr(), grids[1].data_ptr(), out.data_ptr(), stats.data_ptr(),
-            ws.data_ptr(), *dims, stream_of(a))
-        raise_on(rc, "K6 sa_train_fwd", _ERRORS)
+        name = "sa_train_fwd"
+        args = (a.data_ptr(), ct.data_ptr(), idx.data_ptr(), packs.w2.data_ptr(),
+                packs.w2.numel(), b2.data_ptr(), packs.w3.data_ptr(), packs.w3.numel(),
+                b3.data_ptr(), bn_flat.data_ptr(), grids[0].data_ptr(), grids[1].data_ptr(),
+                out.data_ptr(), stats.data_ptr(), ws.data_ptr(), *dims)
+    _launch_entry(name, bf16, args, staged, (C1, C2, C3), B * S * K, a)
+    fused_sa_train_apply.staged_fwd_launches += int(staged)
     fused_sa_train_apply.fwd_launches += 1
     fused_sa_train_apply.bf16_fwd_launches += int(bf16)
     return out, tuple(torch.split(stats, [C1, C1, C2, C2, C3, C3])), grids
 
 
 def sa_train_bwd_kernel(g_out, a, ct, idx, grids, stats: Stats, w2, b2, w3, b3,
-                        bn: Sequence[torch.Tensor], packs: Packs):
+                        bn: Sequence[torch.Tensor], packs: Packs, staged: bool = False):
     """K6 backward on the card: the same function as `sa_train_bwd_plain` in
     the mode of `packs`, from the grids of `sa_train_fwd_kernel` in that mode.
     Under `torch.use_deterministic_algorithms(True)` da is summed in a fixed
-    order (the entries' `ordered` path), else by float atomics."""
+    order (the entries' `ordered` path), else by float atomics. `staged` as
+    in `sa_train_fwd_kernel`: the BN backward's sums summed over the process
+    group, dgamma and dbeta this rank's own."""
     B, N, C1 = a.shape
     S, K = idx.shape[1], idx.shape[2]
     C2, C3 = w2.shape[1], w3.shape[1]
@@ -360,47 +413,67 @@ def sa_train_bwd_kernel(g_out, a, ct, idx, grids, stats: Stats, w2, b2, w3, b3,
         b2, b3 = b2.detach().float().contiguous(), b3.detach().float().contiguous()
         check("b2", b2, dev, (C2,))
         check("b3", b3, dev, (C3,))
-        rc = _library(True).sa_train_bf16_bwd(
-            g_out.data_ptr(), a.data_ptr(), ct.data_ptr(), idx.data_ptr(), h1.data_ptr(),
-            h2.data_ptr(), mxt.data_ptr(), stats_flat.data_ptr(), packs.w2.data_ptr(),
-            packs.w3.data_ptr(), packs.w2t.data_ptr(), packs.w3t.data_ptr(), b2.data_ptr(),
-            b3.data_ptr(), bn_flat.data_ptr(), da.data_ptr(), dct.data_ptr(), dw2.data_ptr(),
-            dw3.data_ptr(), dbn.data_ptr(), ws.data_ptr(), *dims, int(ordered), stream_of(g_out))
-        raise_on(rc, "K6 sa_train_bf16_bwd", _ERRORS)
+        name = "sa_train_bf16_bwd"
+        args = (g_out.data_ptr(), a.data_ptr(), ct.data_ptr(), idx.data_ptr(), h1.data_ptr(),
+                h2.data_ptr(), mxt.data_ptr(), stats_flat.data_ptr(), packs.w2.data_ptr(),
+                packs.w3.data_ptr(), packs.w2t.data_ptr(), packs.w3t.data_ptr(), b2.data_ptr(),
+                b3.data_ptr(), bn_flat.data_ptr(), da.data_ptr(), dct.data_ptr(), dw2.data_ptr(),
+                dw3.data_ptr(), dbn.data_ptr(), ws.data_ptr(), *dims, int(ordered))
     else:
-        rc = _library(False).sa_train_bwd(
-            g_out.data_ptr(), a.data_ptr(), ct.data_ptr(), idx.data_ptr(), y2.data_ptr(),
-            y3.data_ptr(), stats_flat.data_ptr(), packs.w2t.data_ptr(), packs.w2t.numel(),
-            packs.w3t.data_ptr(), packs.w3t.numel(), bn_flat.data_ptr(), da.data_ptr(),
-            dct.data_ptr(), dw2.data_ptr(), dw3.data_ptr(), dbn.data_ptr(), ws.data_ptr(), *dims,
-            int(ordered), stream_of(g_out))
-        raise_on(rc, "K6 sa_train_bwd", _ERRORS)
+        name = "sa_train_bwd"
+        args = (g_out.data_ptr(), a.data_ptr(), ct.data_ptr(), idx.data_ptr(), y2.data_ptr(),
+                y3.data_ptr(), stats_flat.data_ptr(), packs.w2t.data_ptr(), packs.w2t.numel(),
+                packs.w3t.data_ptr(), packs.w3t.numel(), bn_flat.data_ptr(), da.data_ptr(),
+                dct.data_ptr(), dw2.data_ptr(), dw3.data_ptr(), dbn.data_ptr(), ws.data_ptr(),
+                *dims, int(ordered))
+    _launch_entry(name, bf16, args, staged, (C3, C2, C1), B * S * K, g_out)
+    fused_sa_train_apply.staged_bwd_launches += int(staged)
     fused_sa_train_apply.bwd_launches += 1
     fused_sa_train_apply.bf16_bwd_launches += int(bf16)
     fused_sa_train_apply.ordered_bwd_launches += int(ordered)
     return da, dct, dw2, dw3, tuple(torch.split(dbn, [C1, C1, C2, C2, C3, C3]))
 
 
+def _launch_entry(name: str, bf16: bool, args: tuple, staged: bool, widths, rows: int,
+                  like: torch.Tensor) -> None:
+    """One K6 entry on `like`'s stream: the single call, or its staged twin
+    (`<name>_staged`) stage by stage (`_run_staged`)."""
+    lib, stream = _library(bf16), stream_of(like)
+    if not staged:
+        raise_on(getattr(lib, name)(*args, stream), f"K6 {name}", _ERRORS)
+        return
+    entry = getattr(lib, name + "_staged")
+
+    def call(stage: int, sums: int) -> None:
+        raise_on(entry(*args, stage, sums, stream), f"K6 {name}_staged (stage {stage})", _ERRORS)
+
+    _run_staged(call, widths, rows, like.device)
+
+
 class _SATrainFunction(torch.autograd.Function):
     """(a, ct, w2, b2, w3, b3, g1, bt1, g2, bt2, g3, bt3, idx, bf16, packs) ->
     (out, *stats); the stats carry no gradient. In the bf16 mode `a` is
     rounded to bf16 (on the plain path here, by the kernel on the card), and
-    its gradient passes the rounding unchanged, as JAX's custom VJP passes it."""
+    its gradient passes the rounding unchanged, as JAX's custom VJP passes it.
+    Inside `distributed.global_batch()` the statistics are the process
+    group's: the kernels run staged, the plain versions with `global_stats`."""
 
     @staticmethod
     def forward(ctx, a, ct, w2, b2, w3, b3, g1, bt1, g2, bt2, g3, bt3, idx, bf16, packs):
         bn = (g1, bt1, g2, bt2, g3, bt3)
+        glob = distributed.in_global_batch()
         if on_cuda(a):
             if packs is None or packs.bf16 != bf16:
                 raise ValueError("K6 on the card takes the layer's packed weights of its mode")
             out, stats, grids = sa_train_fwd_kernel(a, ct, idx, w2.contiguous(), b2,
-                                                    w3.contiguous(), b3, bn, packs)
+                                                    w3.contiguous(), b3, bn, packs, staged=glob)
         else:
             if bf16:
                 a = a.to(BF16).to(a.dtype)
-            out, stats, grids = sa_train_fwd_plain(a, ct, idx, w2, b2, w3, b3, bn, bf16)
+            out, stats, grids = sa_train_fwd_plain(a, ct, idx, w2, b2, w3, b3, bn, bf16, glob)
         ctx.save_for_backward(a, ct, idx, w2, b2, w3, b3, *bn)
         ctx.grids, ctx.stats, ctx.bf16, ctx.packs = grids, stats, bf16, packs
+        ctx.glob = glob
         ctx.mark_non_differentiable(*stats)
         return (out, *stats)
 
@@ -410,10 +483,12 @@ class _SATrainFunction(torch.autograd.Function):
         g_out = g_out.contiguous()
         if on_cuda(g_out):
             da, dct, dw2, dw3, dbn = sa_train_bwd_kernel(g_out, a, ct, idx, ctx.grids, ctx.stats,
-                                                         w2, b2, w3, b3, bn, ctx.packs)
+                                                         w2, b2, w3, b3, bn, ctx.packs,
+                                                         staged=ctx.glob)
         else:
             da, dct, dw2, dw3, dbn = sa_train_bwd_plain(g_out, a, ct, idx, ctx.grids, ctx.stats,
-                                                        w2, b2, w3, b3, bn, ctx.bf16)
+                                                        w2, b2, w3, b3, bn, ctx.bf16,
+                                                        global_stats=ctx.glob)
         # the Dense biases feeding a BatchNorm: exactly 0
         db2, db3 = w2.new_zeros(w2.shape[1]), w3.new_zeros(w3.shape[1])
         return (da, dct, dw2, db2, dw3, db3, *dbn, None, None, None)
@@ -462,6 +537,9 @@ fused_sa_train_apply.bf16_fwd_launches = 0
 fused_sa_train_apply.bf16_bwd_launches = 0
 # backward launches that summed da in a fixed order (deterministic algorithms)
 fused_sa_train_apply.ordered_bwd_launches = 0
+# launches of the staged entries (process-group statistics)
+fused_sa_train_apply.staged_fwd_launches = 0
+fused_sa_train_apply.staged_bwd_launches = 0
 
 
 def reset_launch_counts() -> None:
@@ -470,3 +548,5 @@ def reset_launch_counts() -> None:
     fused_sa_train_apply.bf16_fwd_launches = 0
     fused_sa_train_apply.bf16_bwd_launches = 0
     fused_sa_train_apply.ordered_bwd_launches = 0
+    fused_sa_train_apply.staged_fwd_launches = 0
+    fused_sa_train_apply.staged_bwd_launches = 0

@@ -20,24 +20,35 @@ Here:
 - a slot's reset is eager in-place writes of its rows (no graph, no
   program).
 
-The JAX `mesh=` argument (the slot axis sharded over a device mesh) is not
-taken: slot sharding over several cards waits for the port's multi-GPU work
-(ROADMAP.md §1 item 6).
+`make_online_tracker(..., devices=[card, ...])` (JAX `mesh=`, the slot
+axis sharded over a device mesh) splits the pool into one sub-pool a card,
+each a tracker of max_streams / n slots with its own state, model copy and
+captured graph (`SplitOnlineTracker`); `step()` launches every card's
+advance before it fetches any box. The slot count must divide by the
+number of cards, as the mesh's device count must in JAX. A tracker runs its
+advance (the graph's capture and replay, or the eager kernels) with its
+own card current.
 
 Matching models online take reference_BB 'previous_result' only (the gt
 modes need per-frame ground truth, which does not exist at serving time);
 all four shape_aggregation modes run ('all' keeps its per-slot key
 reservoir as state).
 
-Both trackers run in float32: a bf16 model (`bf16: true`) is refused until
-the operators' fakes and the exported programs take the bf16 mode
-(ROADMAP.md, section 2, bf16 item 4); the scan trackers run it.
+A bf16 model (`bf16: true`, or a net set to bf16 by
+layers.py::set_compute_dtype) serves in its bf16 mode: the advance runs the
+net as the scan trackers run it (K1/K2 in their bf16 mode for M2, K3 and K4
+bf16 for BAT/P2B), in one captured graph as in f32, so its boxes equal the
+scan trackers' with the same model at the same B bit for bit; the state
+and the boxes stay f32. `compute_mode` says which mode a tracker serves
+in ('float32' or 'bfloat16').
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import math
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -107,13 +118,26 @@ class _SlotStepGraph(_CapturedStep):
         self.tracker._advance_body()
 
 
-def refuse_bf16_serving(config, model=None) -> None:
-    """The online trackers and their serving bundles run in float32."""
-    if getattr(config, "bf16", False) or (model is not None and computes_in_bf16(model.net)):
-        raise NotImplementedError(
-            "online tracking and serving bundles under bf16 compute are not ported yet "
-            "(ROADMAP.md, section 2, bf16 item 4: the operators' fakes and the exported "
-            "programs in the bf16 mode); the scan trackers run bf16")
+def compute_mode(model) -> str:
+    """'bfloat16' where the model's net computes in bf16, else 'float32'."""
+    return "bfloat16" if computes_in_bf16(model.net) else "float32"
+
+
+def on_card(device: torch.device):
+    """A context with `device` current where it is a card; nothing on the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def model_on(model, device):
+    """The model wrapper with its net on `device`: itself where it is there,
+    else a copy (the wrapper's attributes shared, the net copied)."""
+    device = torch.device(device)
+    if model.device == device:
+        return model
+    moved = copy.copy(model)
+    moved.net = copy.deepcopy(model.net).to(device)
+    moved.device = device
+    return moved
 
 
 class _OnlineBase(_DeviceTracker):
@@ -127,7 +151,6 @@ class _OnlineBase(_DeviceTracker):
 
     def __init__(self, model, config, max_streams: int, max_points: int, transfer_dtype,
                  cuda_graph: bool, device=None):
-        refuse_bf16_serving(config)
         self.max_streams = int(max_streams)
         self.max_points = int(max_points)
         self._active = np.zeros((self.max_streams,), bool)
@@ -137,8 +160,8 @@ class _OnlineBase(_DeviceTracker):
                                      self.device)
 
     def set_model(self, model) -> None:
-        refuse_bf16_serving(self.config, model)
         super().set_model(model)
+        self.compute_mode = compute_mode(model)
 
     def _make_step(self, model):
         advance = self._make_advance(model)
@@ -211,13 +234,16 @@ class _OnlineBase(_DeviceTracker):
                     buf.copy_(value)
 
     def _advance(self) -> None:
-        """Advance every slot: a graph replay on the card, else the eager body."""
-        if not self.cuda_graph:
-            self._advance_body()
-            return
-        graph = self._captured((self.max_streams, self.max_points),
-                               lambda: _SlotStepGraph(self))
-        graph.graph.replay()
+        """Advance every slot: a graph replay on the card, else the eager body,
+        with the tracker's card current (a graph captures, and the kernels
+        launch, on the current card's streams)."""
+        with on_card(self.device):
+            if not self.cuda_graph:
+                self._advance_body()
+                return
+            graph = self._captured((self.max_streams, self.max_points),
+                                   lambda: _SlotStepGraph(self))
+            graph.graph.replay()
         self.replays += 1
 
     def step(self, frames: Dict[int, np.ndarray]) -> Dict[int, np.ndarray]:
@@ -362,8 +388,76 @@ class OnlineMatchTracker(_OnlineBase):
         self._write_slot(slot, **rows)
 
 
-def make_online_tracker(model, config, **kw):
-    """The online tracker for the config's model family."""
-    if getattr(model, "name", "") == "m2track" or not hasattr(config, "search_size"):
-        return OnlineM2Tracker(model, config, **kw)
-    return OnlineMatchTracker(model, config, **kw)
+class SplitOnlineTracker:
+    """An online tracker's slot pool split over several cards (`devices`;
+    JAX `mesh=`): card i serves slots [i * b, (i + 1) * b) of b =
+    max_streams / n as a tracker of class `cls` of b slots on that card
+    (`parts[i]`: its own state, model copy and captured graph). The
+    tracker's API (reset, step, stop, free_slots, current_box, set_model)
+    with global slot numbers; `step` packs and uploads each card's frames
+    and launches each card's advance before it fetches the first box."""
+
+    def __init__(self, cls, devices: Sequence, model, config, max_streams: int = 8, **kw):
+        n, B = len(devices), int(max_streams)
+        if B % n:
+            raise ValueError(f"max_streams {B} does not divide over {n} devices")
+        self.devices = [torch.device(d) for d in devices]
+        self.per = B // n
+        self.max_streams = B
+        self.parts = [cls(model_on(model, d), config, max_streams=self.per, **kw)
+                      for d in self.devices]
+        self.config, self.max_points = config, self.parts[0].max_points
+        self.compute_mode = self.parts[0].compute_mode
+
+    def _part(self, slot):
+        if not (isinstance(slot, (int, np.integer)) and 0 <= slot < self.max_streams):
+            raise ValueError(f"slot must be an int in [0, {self.max_streams}) — got {slot!r}")
+        return self.parts[slot // self.per], int(slot) % self.per
+
+    def reset(self, slot: int, *args, **kw) -> None:
+        part, local = self._part(slot)
+        part.reset(local, *args, **kw)
+
+    def stop(self, slot: int) -> None:
+        part, local = self._part(slot)
+        part.stop(local)
+
+    def free_slots(self) -> list:
+        return [i * self.per + s for i, p in enumerate(self.parts) for s in p.free_slots()]
+
+    def current_box(self, slot: int) -> np.ndarray:
+        part, local = self._part(slot)
+        return part.current_box(local)
+
+    def set_model(self, model) -> None:
+        for part, d in zip(self.parts, self.devices):
+            part.set_model(model_on(model, d))
+
+    def step(self, frames: Dict[int, np.ndarray]) -> Dict[int, np.ndarray]:
+        """As the unsplit tracker's step: every card's advance is launched
+        before any box is fetched."""
+        split = [{} for _ in self.parts]
+        for slot, pts in frames.items():
+            self._part(slot)
+            split[slot // self.per][slot % self.per] = pts
+        for part, own in zip(self.parts, split):
+            part._upload(part._pack(own))
+            part._advance()
+        out = {}
+        for i, (part, own) in enumerate(zip(self.parts, split)):
+            boxes = part._state["ref"].cpu().numpy().copy()
+            out.update({i * self.per + s: boxes[s] for s in own})
+        return out
+
+
+def make_online_tracker(model, config, devices: Optional[Sequence] = None, **kw):
+    """The online tracker for the config's model family: on the model's
+    device, on `devices[0]` where one device is given, or split over
+    `devices` (a `SplitOnlineTracker`) where several are."""
+    m2 = getattr(model, "name", "") == "m2track" or not hasattr(config, "search_size")
+    cls = OnlineM2Tracker if m2 else OnlineMatchTracker
+    if devices is not None and len(devices) > 1:
+        return SplitOnlineTracker(cls, devices, model, config, **kw)
+    if devices:
+        model = model_on(model, devices[0])
+    return cls(model, config, **kw)

@@ -191,12 +191,16 @@ def eval_store(path: str, config, tracker, n: int, batch_tracklets: int,
     the packed arrays: the package that packed them, dataset identity
     (including the content-determining config: data path, synthetic
     seed/size, tiny/preload crops, up axis), batching, padding and the
-    transfer codec. The port runs one process (sharded eval is ROADMAP.md
-    section 1 item 6), so `shard_across_processes=True` raises."""
-    if shard_across_processes:
-        raise NotImplementedError(
-            "shard_across_processes: the port evaluates in one process; sharded "
-            "eval is ROADMAP.md section 1 item 6")
+    transfer codec, and (for a sharded eval) this rank's stripe. Sharded
+    ranks write disjoint subdirectories of `path` (`shard_{r}_of_{n}`), so
+    one --eval_prep_cache directory serves all of them."""
+    from open3dsot_tpu_torch.parallel import distributed
+
+    shard = ([distributed.rank(), distributed.world_size()]
+             if shard_across_processes else [0, 1])
+    if shard != [0, 1]:
+        # one meta.json per stripe: ranks must not share a store directory
+        path = os.path.join(path, f"shard_{shard[0]}_of_{shard[1]}")
     fp = {
         "package": PACKAGE,
         "dataset": str(getattr(config, "dataset", "?")),
@@ -223,7 +227,7 @@ def eval_store(path: str, config, tracker, n: int, batch_tracklets: int,
         "model_bb": [float(getattr(config, "model_bb_scale", 1.0)),
                      float(getattr(config, "model_bb_offset", 0.0))],
         "transfer": str(tracker.transfer_dtype or "f32"),
-        "shard": [0, 1],
+        "shard": shard,
         "first_crop": int(getattr(tracker, "first_crop_points", 0)),
     }
     if extra:

@@ -27,9 +27,10 @@ batch shape; the eager loop is what the graph is held to, and what the CPU
 runs. Host plumbing, scoring and the dataset loop are shared with the M2
 tracker (tracking/scan_tracker.py). A model made under `bf16: true` runs in
 its bf16 mode inside the graph as it does eagerly (the JAX tracker has no
-compute_dtype of its own here). The dataset loop takes the disk prep store
-and the results writer as the M2 tracker's does. Not ported yet: process
-sharding (ROADMAP.md §1 item 6).
+compute_dtype of its own here). The dataset loop takes the disk prep store,
+the results writer and `shard_across_processes` as the M2 tracker's does;
+the JAX tracker's in-process `mesh=` is not ported (one rank a card
+instead, main.py --num_devices).
 """
 
 from __future__ import annotations
@@ -331,7 +332,8 @@ def evaluate_dataset_scan_matching(model, test_sampler, config, max_points: int 
                                    tracker: Optional[MatchScanTracker] = None,
                                    device_metrics: bool = True, pipeline_depth: int = 3,
                                    prep_cache: Optional[dict] = None,
-                                   prep_store_path: Optional[str] = None, results_writer=None):
+                                   prep_store_path: Optional[str] = None, results_writer=None,
+                                   shard_across_processes: bool = False):
     """Scan-tracker dataset evaluation of P2B/BAT; returns (success,
     precision). Arguments as scan_tracker.evaluate_dataset_scan's. A config
     the scan tracker cannot serve (an unknown reference_BB or
@@ -342,4 +344,4 @@ def evaluate_dataset_scan_matching(model, test_sampler, config, max_points: int 
         tracker = MatchScanTracker(model, config, max_points=max_points)
     return evaluate_with_tracker(tracker, model, test_sampler, config, batch_tracklets,
                                  max_tracklets, device_metrics, pipeline_depth, prep_cache,
-                                 prep_store_path, results_writer)
+                                 prep_store_path, results_writer, shard_across_processes)

@@ -29,9 +29,12 @@ whose parameters and statistics are rounded to bf16 (JAX casts the whole
 variable tree, scan_tracker.py:365-374) and which computes in bf16; the
 step's batch goes in as bf16, and box composition and scoring stay f32.
 The dataset loop takes the disk prep store (`prep_store_path`,
-tracking/prep_store.py) and the results writer (`results_writer`,
-tracking/results.py). Not ported yet: process sharding (ROADMAP.md §1
-item 6).
+tracking/prep_store.py), the results writer (`results_writer`,
+tracking/results.py) and `shard_across_processes` (each rank of the process
+group tracks its stripe of the tracklets, and the metric states are summed
+over the ranks, as the JAX package's). Several cards in one process (the
+JAX scan trackers' `mesh=`) are not ported: a multi-card eval runs one rank
+a card (main.py --num_devices).
 """
 
 from __future__ import annotations
@@ -307,21 +310,24 @@ class _CapturedStep:
     writes only the static buffers a subclass makes before calling this
     constructor. Warmed up twice on a side stream first, as torch.cuda.graph
     requires (and so that the kernels' first-use setup and the folded
-    weights are done outside the capture), then captured on the current
-    stream. The kernel wrappers count their launches at capture: `launches`
-    holds, for each wrapper of `counted`, its launches in one replay."""
+    weights are done outside the capture), then captured on that stream,
+    with `device` current (torch.cuda.graph's own capture stream is made
+    once, on the card current at its first use). The kernel wrappers count
+    their launches at capture: `launches` holds, for each wrapper of
+    `counted`, its launches in one replay."""
 
     def __init__(self, device: torch.device, counted: Sequence) -> None:
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            for _ in range(2):
+        with torch.cuda.device(device):
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                for _ in range(2):
+                    self._body()
+            torch.cuda.current_stream(device).wait_stream(side)
+            before = [f.launches for f in counted]
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, stream=side):
                 self._body()
-        torch.cuda.current_stream(device).wait_stream(side)
-        before = [f.launches for f in counted]
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self._body()
         self.launches = tuple(f.launches - b for f, b in zip(counted, before))
 
     def _body(self) -> None:
@@ -627,7 +633,8 @@ def evaluate_dataset_scan(model, test_sampler, config, max_points: int = 4096,
                           batch_tracklets: int = 16, max_tracklets: Optional[int] = None,
                           tracker: Optional[M2ScanTracker] = None, device_metrics: bool = True,
                           pipeline_depth: int = 3, prep_cache: Optional[dict] = None,
-                          prep_store_path: Optional[str] = None, results_writer=None):
+                          prep_store_path: Optional[str] = None, results_writer=None,
+                          shard_across_processes: bool = False):
     """Scan-tracker dataset evaluation; returns (success, precision).
 
     Tracklets are grouped into same-length-bucket batches of up to
@@ -647,21 +654,28 @@ def evaluate_dataset_scan(model, test_sampler, config, max_points: int = 4096,
     results_writer: optional tracking.results.ResultsWriter; each
     tracklet's trajectory and per-frame scores are written (host-scored,
     in tracklet order; the prep store is not used then).
+
+    shard_across_processes: each rank of the process group tracks
+    tracklets rank, rank + world, ... (tracking/eval.py::tracklet_stripe),
+    its prep store in a directory of its own, and the metric states are
+    summed over the ranks at the end.
     """
     if tracker is None:
         tracker = M2ScanTracker(model, config, max_points=max_points)
     return evaluate_with_tracker(tracker, model, test_sampler, config, batch_tracklets,
                                  max_tracklets, device_metrics, pipeline_depth, prep_cache,
-                                 prep_store_path, results_writer)
+                                 prep_store_path, results_writer, shard_across_processes)
 
 
 def evaluate_with_tracker(tracker: _ScanTracker, model, test_sampler, config,
                           batch_tracklets: int, max_tracklets: Optional[int],
                           device_metrics: bool, pipeline_depth: int, prep_cache: Optional[dict],
-                          prep_store_path: Optional[str] = None, results_writer=None):
+                          prep_store_path: Optional[str] = None, results_writer=None,
+                          shard_across_processes: bool = False):
     """The dataset loop of evaluate_dataset_scan and
     scan_matching.evaluate_dataset_scan_matching on a built tracker, which
     tracks with `model` from then on; -> (success, precision)."""
+    from open3dsot_tpu_torch.tracking.eval import merge_process_metrics
     from open3dsot_tpu_torch.utils.metrics import Precision, Success
 
     if tracker.model is not model:
@@ -677,12 +691,15 @@ def evaluate_with_tracker(tracker: _ScanTracker, model, test_sampler, config,
             print("[scan eval] --eval_prep_cache is ignored with "
                   "--save_results: the writer path needs real host frames, "
                   "which a warm PackedPrepStore does not hold")
-        return _scan_eval_with_writer(tracker, test_sampler, config, n, batch_tracklets,
-                                      results_writer, success, precision)
+        _scan_eval_with_writer(tracker, test_sampler, config, n, batch_tracklets,
+                               results_writer, success, precision, shard_across_processes)
+        merge_process_metrics(success, precision, shard_across_processes, tracker.device)
+        return success.compute(), precision.compute()
     if prep_cache is None and prep_store_path is not None:
         from open3dsot_tpu_torch.tracking.prep_store import eval_store
 
-        prep_cache = eval_store(prep_store_path, config, tracker, n, batch_tracklets)
+        prep_cache = eval_store(prep_store_path, config, tracker, n, batch_tracklets,
+                                shard_across_processes)
     if not device_metrics and getattr(prep_cache, "stub_sequences", False):
         # host-scored paths need real frames; a warm PackedPrepStore only
         # has length stubs: ignore it rather than crash on stub access
@@ -690,7 +707,8 @@ def evaluate_with_tracker(tracker: _ScanTracker, model, test_sampler, config,
     if prep_cache is not None and "batches" in prep_cache:
         batches = prep_cache["batches"]
     else:
-        batches = _bucketed_batches(test_sampler, n, tracker, batch_tracklets)
+        batches = _bucketed_batches(test_sampler, n, tracker, batch_tracklets,
+                                    shard_across_processes)
         if prep_cache is not None:
             prep_cache["batches"] = batches
     if device_metrics:
@@ -703,13 +721,16 @@ def evaluate_with_tracker(tracker: _ScanTracker, model, test_sampler, config,
             for ious, distances, _ in tracker.evaluate_sequences(batch, config):
                 success.update(ious)
                 precision.update(distances)
+    merge_process_metrics(success, precision, shard_across_processes, tracker.device)
     return success.compute(), precision.compute()
 
 
-def _bucketed_batches(test_sampler, n, tracker, batch_tracklets):
-    """Group tracklets [0, n) into same-length-bucket batches."""
+def _bucketed_batches(test_sampler, n, tracker, batch_tracklets, shard_across_processes=False):
+    """Group this rank's tracklets below n into same-length-bucket batches."""
+    from open3dsot_tpu_torch.tracking.eval import tracklet_stripe
+
     buckets = defaultdict(list)
-    for i in range(n):
+    for i in tracklet_stripe(n, shard_across_processes):
         seq = test_sampler[i]
         buckets[tracker._bucket_len(len(seq))].append(seq)
     return [
@@ -720,16 +741,18 @@ def _bucketed_batches(test_sampler, n, tracker, batch_tracklets):
 
 
 def _scan_eval_with_writer(tracker, test_sampler, config, n, batch_tracklets, results_writer,
-                           success, precision):
-    """The results-saving loop of both scan trackers: consecutive index
-    batches (true tracklet ids in the records), host-scored via
-    tracker.evaluate_sequences so that the Box trajectories exist on the
-    host."""
-    for j in range(0, n, batch_tracklets):
-        ids = list(range(j, min(n, j + batch_tracklets)))
+                           success, precision, shard_across_processes=False) -> None:
+    """The results-saving loop of both scan trackers: consecutive batches of
+    this rank's tracklet indices (true tracklet ids in the records),
+    host-scored via tracker.evaluate_sequences so that the Box trajectories
+    exist on the host."""
+    from open3dsot_tpu_torch.tracking.eval import tracklet_stripe
+
+    idxs = list(tracklet_stripe(n, shard_across_processes))
+    for j in range(0, len(idxs), batch_tracklets):
+        ids = idxs[j:j + batch_tracklets]
         batch = [test_sampler[i] for i in ids]
         for i, (ious, distances, bbs) in zip(ids, tracker.evaluate_sequences(batch, config)):
             results_writer.add(i, bbs, ious, distances)
             success.update(ious)
             precision.update(distances)
-    return success.compute(), precision.compute()

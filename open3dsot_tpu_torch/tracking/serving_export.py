@@ -21,7 +21,14 @@ the model code or the training config:
 - `meta.json`: what the slot-pool API needs (pool shape, up axis, transfer
   codec, template-crop settings) and what the loader checks (format
   version, torch version, the device type the program was exported on),
-  with the state's shapes and dtypes.
+  with the state's shapes and dtypes and the compute mode ('float32' or
+  'bfloat16'). A bf16 tracker's program holds the bf16 mode's packed weights
+  and calls the operators in their bf16 mode, so its bundle serves in bf16
+  as the live tracker did, and the loaded tracker's `compute_mode` says so.
+
+A tracker split over several cards (tracking/online.py::SplitOnlineTracker,
+JAX `mesh=`) is refused, as the JAX package refuses a sharded one: export
+one unsplit tracker, and split the loaded pool by loading one bundle a card.
 
 Where the JAX bundle also exports the slot `reset`, this one does not: a
 reset is a few per-slot writes of the state, which the loaded tracker makes
@@ -48,10 +55,10 @@ from open3dsot_tpu_torch.models.pointnet import folds_as_buffers
 from open3dsot_tpu_torch.tracking.online import (
     OnlineM2Tracker,
     OnlineMatchTracker,
+    SplitOnlineTracker,
     _OnlineBase,
     _dequantizing,
     input_buffers,
-    refuse_bf16_serving,
 )
 
 FORMAT_VERSION = 1
@@ -75,9 +82,11 @@ def save_serving_bundle(tracker: _OnlineBase, path) -> None:
     """Write a serving bundle of a live online tracker (built on a model)
     into the directory `path`. The program runs on the device type the
     tracker runs on."""
+    if isinstance(tracker, SplitOnlineTracker):
+        raise ValueError("a tracker split over several devices cannot be exported: export an "
+                         "unsplit one (the JAX package refuses a sharded tracker alike)")
     if tracker.model is None:
         raise ValueError("the tracker has no model (a loaded bundle): save from the live tracker")
-    refuse_bf16_serving(tracker.config, tracker.model)
     path = pathlib.Path(path)
     path.mkdir(parents=True, exist_ok=True)
     B, P, dev = tracker.max_streams, tracker.max_points, tracker.device
@@ -98,6 +107,7 @@ def save_serving_bundle(tracker: _OnlineBase, path) -> None:
         "up_axis": [float(v) for v in cfg.up_axis],
         "torch_version": torch.__version__,
         "device": dev.type,
+        "compute_mode": tracker.compute_mode,
         # the loader rebuilds the state pool from these ('wlh' ones, the
         # reservoir keys -inf, everything else zeros)
         "state_shapes": {k: [list(v.shape), str(v.dtype).removeprefix("torch.")]
@@ -143,4 +153,5 @@ def load_serving_bundle(path) -> _OnlineBase:
     self._zero_state({k: (tuple(shape), getattr(torch, dtype))
                       for k, (shape, dtype) in meta["state_shapes"].items()})
     self._step = (advance, _dequantizing(advance))
+    self.compute_mode = meta.get("compute_mode", "float32")
     return self

@@ -1,5 +1,6 @@
 """Training loop, port of `open3dsot_tpu/train/trainer.py`, for M2-Track and
-the matching trackers (BAT, P2B) on one device, in f32 or in bf16 compute
+the matching trackers (BAT, P2B) on one device or data-parallel over the
+ranks of a process group, in f32 or in bf16 compute
 (`bf16: true`: the model's layers compute in bf16; parameters, gradients and
 the Adam state stay f32).
 
@@ -35,9 +36,28 @@ under `train/`, as the JAX trainer logs them.
 Each epoch's record also holds `data_wait_s`, the time the loop waited for
 the loader, against `time_s`, the epoch's time.
 
-Not ported yet (ROADMAP.md): meshes (`dp_shard_map`, `mesh_shape`). A
-config that asks for one of them (`UNPORTED_KEYS`) is refused rather than
-trained as if it did not.
+Data parallelism (parallel/distributed.py; one rank per card, main.py's
+`--num_devices` or torchrun): `batch_size` is the global batch, and each
+rank takes its rows of it (the loader's `rows`, as JAX's `shard_batch`
+splits it over the mesh). The gradients are averaged over the ranks before
+the clip and the optimizer (one all_reduce), and so are the logged losses.
+Two modes, as JAX's `make_train_step`:
+
+- `dp_shard_map: false` (the default, JAX's GSPMD step): the BatchNorm
+  statistics, K6's included (staged, ops/sa_fused_train.py), and the losses
+  are those of the global batch (`distributed.global_batch`; the losses on
+  the ranks' outputs gathered), and the device sampler draws for the global
+  batch and keeps the rank's rows, so a step equals the one-process step
+  on the global batch;
+- `dp_shard_map: true`: each rank's own statistics and losses, the blended
+  running statistics averaged over the ranks after the step, and the
+  device sampler keyed by fold_in(key, rank).
+
+Rank 0 validates and writes the checkpoints, logs and history; the others
+wait at a barrier. A global batch that does not divide over the ranks is
+refused here, naming both numbers (main.py's own launch takes the gcd, as
+JAX's Trainer shrinks its mesh). `mesh_shape` is accepted and ignored, as
+in JAX, which reads it nowhere.
 """
 
 from __future__ import annotations
@@ -51,6 +71,7 @@ import numpy as np
 import torch
 
 from open3dsot_tpu_torch.data.loader import BatchLoader
+from open3dsot_tpu_torch.parallel import distributed
 from open3dsot_tpu_torch.train.bn_momentum import BN_MOMENTUM, bn_momentum_schedule, set_bn_momentum
 from open3dsot_tpu_torch.train.optim import clip_gradients, make_optimizer
 from open3dsot_tpu_torch.utils import prng
@@ -58,11 +79,8 @@ from open3dsot_tpu_torch.utils import prng
 
 # Config keys the JAX trainer honours and this one does not yet: key ->
 # (its default, the ROADMAP item that ports it). A value other than the
-# default is refused.
-UNPORTED_KEYS = {
-    "dp_shard_map": (False, "ROADMAP.md, section 1 item 6: multi-device runs"),
-    "mesh_shape": (None, "ROADMAP.md, section 1 item 6: multi-device runs"),
-}
+# default is refused. None is left.
+UNPORTED_KEYS: dict = {}
 
 
 def refuse_unported_keys(config) -> None:
@@ -73,19 +91,52 @@ def refuse_unported_keys(config) -> None:
                                       f"leave it at {default!r}")
 
 
-def train_step(model, optimizer, batch: dict, scheduler=None, fetch: bool = False):
+def _gathered(tensors: dict, rows: int) -> dict:
+    """The ranks' rows of each (rows, ...) tensor concatenated (differentiably)."""
+    return {k: distributed.gather_rows(v) if torch.is_tensor(v) and v.dim() and
+            v.shape[0] == rows else v for k, v in tensors.items()}
+
+
+def _average_over_ranks(tensors) -> None:
+    """Each tensor averaged over the ranks, in place, with one all_reduce."""
+    tensors = list(tensors)
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    distributed.all_reduce_mean(flat)
+    for t, v in zip(tensors, torch.split(flat, [t.numel() for t in tensors])):
+        t.copy_(v.view_as(t))
+
+
+def train_step(model, optimizer, batch: dict, scheduler=None, fetch: bool = False,
+               per_device_stats: bool = False):
     """One update from a `model.device_batch`; -> the loss terms as floats
-    when `fetch`, else None."""
-    output = model.apply_train(batch)
-    loss_dict = model.loss(batch, output)
+    when `fetch`, else None. On several ranks `batch` is this rank's rows of
+    the global batch, and `per_device_stats` chooses the mode (the module
+    docstring): False takes statistics and losses over the global batch."""
+    with distributed.global_batch(not per_device_stats):
+        output = model.apply_train(batch)
+        if distributed.in_global_batch():
+            rows = next(iter(batch.values())).shape[0]
+            loss_dict = model.loss(_gathered(batch, rows), _gathered(output, rows))
+        else:
+            loss_dict = model.loss(batch, output)
     optimizer.zero_grad(set_to_none=True)
     loss_dict["loss_total"].backward()
-    clip_gradients(model.config, model.net.parameters())
+    params = list(model.net.parameters())
+    if distributed.world_size() > 1:
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        with torch.no_grad():
+            _average_over_ranks(p.grad for p in params)
+            if per_device_stats:  # the blend was each rank's: average it
+                _average_over_ranks(b for n, b in model.net.named_buffers() if "running" in n)
+    clip_gradients(model.config, params)
     optimizer.step()
     if scheduler is not None:
         scheduler.step()
     if fetch:
-        return {k: float(v.detach()) for k, v in loss_dict.items()}
+        scalars = {k: float(v.detach()) for k, v in loss_dict.items()}
+        return distributed.mean_of_floats(scalars, model.device)
     return None
 
 
@@ -105,10 +156,17 @@ class Trainer:
         self.history = []
         self._val_scan = None  # the scan tracker of validation, built on first use
         self._val_prep_cache, self._val_prep_cache_for = None, None
+        self.rank, self.world = distributed.rank(), distributed.world_size()
+        self.per_device_stats = bool(getattr(config, "dp_shard_map", False))
+        if config.batch_size % self.world:
+            raise ValueError(f"batch_size {config.batch_size} does not divide over "
+                             f"{self.world} ranks; give a multiple of {self.world}, or launch "
+                             f"with main.py --num_devices, which takes the gcd")
         from open3dsot_tpu_torch.utils.logging import ScalarLogger
 
-        self.logger = ScalarLogger(self.work_dir,
-                                   enable_tensorboard=getattr(config, "tensorboard", True))
+        self.logger = (ScalarLogger(self.work_dir,
+                                    enable_tensorboard=getattr(config, "tensorboard", True))
+                       if self.rank == 0 else None)
 
     def fit(self, train_sampler, val_sampler=None, epochs: Optional[int] = None,
             steps_per_epoch: Optional[int] = None, resume_from: Optional[str] = None):
@@ -120,9 +178,11 @@ class Trainer:
         builder, transform = None, None
         if getattr(cfg, "device_sampler", False):
             train_sampler, builder, transform = self._device_sampler(train_sampler)
+        rows = cfg.batch_size // self.world
         loader = BatchLoader(train_sampler, cfg.batch_size, shuffle=True, drop_last=True,
                              seed=cfg.seed, workers=getattr(cfg, "workers", 0) or 0,
-                             transform=transform)
+                             transform=transform,
+                             rows=(self.rank * rows, (self.rank + 1) * rows))
         spe = steps_per_epoch or max(len(loader), 1)
         optimizer, scheduler = make_optimizer(cfg, self.model.net.parameters(), spe)
         step = 0
@@ -148,13 +208,17 @@ class Trainer:
                     break
                 if builder is not None:
                     raw = {k: v.to(self.model.device, non_blocking=True) for k, v in batch.items()}
-                    batch = builder(raw, prng.fold_in(sampler_key, step))
+                    key = prng.fold_in(sampler_key, step)
+                    if self.per_device_stats and self.world > 1:
+                        key = prng.fold_in(key, self.rank)  # JAX's fold_in(key, axis_index)
+                    batch = builder(raw, key)
                 else:
                     batch = self.model.device_batch(batch)
                 fetch = (i + 1) % self.log_every == 0 or i == 0
-                scalars = train_step(self.model, optimizer, batch, scheduler, fetch=fetch)
+                scalars = train_step(self.model, optimizer, batch, scheduler, fetch=fetch,
+                                     per_device_stats=self.per_device_stats)
                 step += 1
-                if scalars is not None:
+                if scalars is not None and self.logger is not None:
                     losses.append(scalars["loss_total"])
                     accs = {k: v for k, v in scalars.items() if k.startswith("acc_")}
                     self.logger.log_scalars({k: v for k, v in scalars.items() if k not in accs},
@@ -167,23 +231,30 @@ class Trainer:
             info = {"epoch": epoch, "steps": step,
                     "loss": float(np.mean(losses)) if losses else float("nan"),
                     "time_s": time.perf_counter() - t0, "data_wait_s": wait}
-            ckpt = (optimizer, scheduler, step, epoch)
-            if val_sampler is not None and (
-                    (epoch + 1) % getattr(cfg, "check_val_every_n_epoch", 1) == 0):
-                succ, prec = self.validate(val_sampler)
-                info.update(success=succ, precision=prec)
-                self.logger.log_scalars({"success/test": succ, "precision/test": prec}, step=step)
-                if prec > self.best_metric:
-                    self.best_metric = prec
-                    self.save_checkpoint(*ckpt, "best")
-                self.save_topk_checkpoint(*ckpt, prec)
-                self._save_ckpt_meta()
-            self.save_checkpoint(*ckpt, "last")
+            if self.rank == 0:
+                self._end_epoch(info, val_sampler, (optimizer, scheduler, step, epoch))
+            distributed.barrier(self.model.device)  # the other ranks wait for rank 0's writes
             self.history.append(info)
-            self._log(info)
         loader.close()
-        self.logger.close()
+        if self.logger is not None:
+            self.logger.close()
         return self.history
+
+    def _end_epoch(self, info: dict, val_sampler, ckpt: tuple) -> None:
+        """Validation, checkpoints and the epoch's record (rank 0's)."""
+        epoch, step = ckpt[3], ckpt[2]
+        if val_sampler is not None and (
+                (epoch + 1) % getattr(self.config, "check_val_every_n_epoch", 1) == 0):
+            succ, prec = self.validate(val_sampler)
+            info.update(success=succ, precision=prec)
+            self.logger.log_scalars({"success/test": succ, "precision/test": prec}, step=step)
+            if prec > self.best_metric:
+                self.best_metric = prec
+                self.save_checkpoint(*ckpt, "best")
+            self.save_topk_checkpoint(*ckpt, prec)
+            self._save_ckpt_meta()
+        self.save_checkpoint(*ckpt, "last")
+        self._log(info)
 
     def _device_sampler(self, train_sampler):
         """(the raw twin of `train_sampler`, its device builder, the loader's
@@ -208,7 +279,9 @@ class Trainer:
             batch = {k: torch.from_numpy(v) for k, v in (pack(batch) if pack else batch).items()}
             return {k: v.pin_memory() for k, v in batch.items()} if pin else batch
 
-        build = ds.make_builder(cfg, ttype, A=up_frame(cfg.up_axis, device=self.model.device))
+        shard = None if self.per_device_stats or self.world == 1 else (self.rank, self.world)
+        build = ds.make_builder(cfg, ttype, A=up_frame(cfg.up_axis, device=self.model.device),
+                                shard=shard)
         return raw, build, transform
 
     def _resume(self, path: str, optimizer, scheduler) -> int:

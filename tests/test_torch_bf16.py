@@ -231,22 +231,31 @@ def test_cli_test_bf16(cfg, capsys):
 
 @pytest.mark.parametrize("name", ["m2track", "bat"])
 def test_online_trackers_and_bundles_refuse_bf16(name, tmp_path):
+    """Once refused, bf16 serving is taken now: a bf16 model's online tracker
+    serves in bf16, a bf16 model swapped into an f32 tracker switches it,
+    and a bundle records the mode (tests/test_torch_online_bf16.py holds the
+    boxes to the scan trackers' and to JAX's)."""
+    import json
+
     from open3dsot_tpu_torch.tracking import online, serving_export
 
     path = {"m2track": "cfgs/M2_track_synthetic.yaml", "bat": "cfgs/BAT_synthetic.yaml"}[name]
     cfg = load_config(path, dict(bf16=True))
     model = get_model(name)(cfg, device="cpu")
-    match = "ROADMAP.md, section 2, bf16 item 4"
-    with pytest.raises(NotImplementedError, match=match):
-        online.make_online_tracker(model, cfg, max_streams=2, max_points=64)
+    assert online.make_online_tracker(model, cfg, max_streams=2,
+                                      max_points=64).compute_mode == "bfloat16"
     f32_cfg = load_config(path)
     f32 = get_model(name)(f32_cfg, device="cpu")
     tracker = online.make_online_tracker(f32, f32_cfg, max_streams=2, max_points=64)
-    with pytest.raises(NotImplementedError, match=match):
-        tracker.set_model(model)  # a bf16 model swapped in later
+    assert tracker.compute_mode == "float32"
+    tracker.set_model(model)  # a bf16 model swapped in later
+    assert tracker.compute_mode == "bfloat16"
     set_compute_dtype(f32.net, BF)
-    with pytest.raises(NotImplementedError, match=match):
-        serving_export.save_serving_bundle(tracker, tmp_path / "bundle")
+    tracker.set_model(f32)
+    serving_export.save_serving_bundle(tracker, tmp_path / "bundle")
+    meta = json.loads((tmp_path / "bundle" / "meta.json").read_text())
+    assert meta["compute_mode"] == "bfloat16"
+    assert serving_export.load_serving_bundle(tmp_path / "bundle").compute_mode == "bfloat16"
 
 
 @pytest.mark.parametrize("kernel", ["K1", "K2", "K4"])

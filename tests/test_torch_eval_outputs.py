@@ -228,9 +228,12 @@ def test_store_refuses_other_fingerprints_jax_stores_and_sharding(tmp_path):
         assert "package" not in json.load(f)["fingerprint"]
     with pytest.raises(ValueError, match="different fingerprint"):
         prep_store.eval_store(jax_path, cfg, tracker, n=len(sampler), batch_tracklets=2)
-    with pytest.raises(NotImplementedError, match="section 1 item 6"):
-        prep_store.eval_store(path, cfg, tracker, n=len(sampler), batch_tracklets=2,
-                              shard_across_processes=True)
+    # sharding is taken: in a world of one the stripe is the whole, and the
+    # store is the unsharded one (tests/test_torch_distributed_eval.py holds
+    # the stripes' directories of a two-rank world)
+    sharded = prep_store.eval_store(path, cfg, tracker, n=len(sampler), batch_tracklets=2,
+                                    shard_across_processes=True)
+    assert sharded.path == path and sharded._fingerprint["shard"] == [0, 1]
 
 
 def test_store_round_trips_the_packed_batch(tmp_path):

@@ -93,8 +93,8 @@ def test_bf16_is_refused():
     measured 2^-6.9 of the largest logit at most, 2^-9.3 on average. The
     control: the same net in f32 sits 2^-7.1 from JAX bf16 on average,
     outside the limits.
-    tests/test_torch_bf16.py holds the boxes. What remains refused under bf16
-    is online serving."""
+    tests/test_torch_bf16.py holds the boxes; online serving takes the bf16
+    model too (tests/test_torch_online_bf16.py)."""
     from open3dsot_tpu_torch.tracking.online import make_online_tracker
 
     pcfg = port_make_config(_cfg(16, bf16=True))
@@ -120,5 +120,6 @@ def test_bf16_is_refused():
     set_compute_dtype(port.net, None)
     assert not within(port.apply(batch)["seg_logits"])  # the control: f32 is outside
     set_compute_dtype(port.net, torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, section 2, bf16 item 4"):
-        make_online_tracker(port, pcfg, max_streams=2, max_points=64)
+    serving = port_make_config(_cfg(16, bf16=True, bb_scale=1.25, bb_offset=2.0))
+    assert make_online_tracker(port, serving, max_streams=2,
+                               max_points=64).compute_mode == "bfloat16"

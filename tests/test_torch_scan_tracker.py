@@ -283,7 +283,8 @@ def test_refusals():
         [get_dataset(uniform, "test", "test")[0]])[0]
     assert boxes.shape == (5, 4) and np.isfinite(boxes).all()
     # bf16 compute is no longer refused: it tracks (tests/test_torch_bf16.py
-    # holds it to JAX's); online serving under bf16 still is
+    # holds it to JAX's), and so does online serving of a bf16 model
+    # (tests/test_torch_online_bf16.py holds it to this tracker)
     bf16 = ps.M2ScanTracker(port, pcfg, max_points=MAX_POINTS, frame_bucket=4,
                             compute_dtype=torch.bfloat16)
     boxes = bf16.track_batch([get_dataset(pcfg, "test", "test")[0]])[0]
@@ -292,8 +293,8 @@ def test_refusals():
     bf16_model = get_model("m2track")(bf16_cfg, device="cpu")
     from open3dsot_tpu_torch.tracking.online import OnlineM2Tracker
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, section 2, bf16 item 4"):
-        OnlineM2Tracker(bf16_model, bf16_cfg, max_streams=2, max_points=MAX_POINTS)
+    online = OnlineM2Tracker(bf16_model, bf16_cfg, max_streams=2, max_points=MAX_POINTS)
+    assert online.compute_mode == "bfloat16"
     with pytest.raises(ValueError):
         ps.M2ScanTracker(port, pcfg, transfer_dtype="int8")
 

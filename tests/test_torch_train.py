@@ -276,17 +276,24 @@ def test_loader_thread_ends_when_the_consumer_stops():
 
 @pytest.mark.parametrize("key,value", [("dp_shard_map", True), ("mesh_shape", [1])])
 def test_unported_config_keys_are_refused(key, value, tmp_path):
-    """Keys the JAX trainer honours and the port's does not yet: a value
-    other than the default is refused, naming the ROADMAP item that ports
-    it; the default trains as before."""
+    """The keys once refused here are taken now (UNPORTED_KEYS is empty):
+    `dp_shard_map: true` is the per-device statistics mode, which in a world
+    of one trains as the default does, and `mesh_shape` is accepted and
+    ignored, as in JAX (tests/test_torch_distributed.py holds both modes
+    over two ranks)."""
     from open3dsot_tpu_torch.train.trainer import UNPORTED_KEYS, Trainer
 
-    cfg = port_load_config(SYNTHETIC["bat"], {key: value})
-    model = get_model("bat")(cfg, device="cpu")
-    item = UNPORTED_KEYS[key][1]
-    assert item.startswith("ROADMAP.md, section 1 item ")
-    with pytest.raises(NotImplementedError, match=f"config.{key}=.*{item}"):
-        Trainer(model, cfg, work_dir=str(tmp_path))
-    setattr(cfg, key, UNPORTED_KEYS[key][0])
-    cfg.tensorboard = False
-    Trainer(model, cfg, work_dir=str(tmp_path))
+    assert UNPORTED_KEYS == {}
+    over = dict(SMALL, dataset="synthetic", batch_size=2)
+    runs = []
+    for cfg in (port_load_config(SYNTHETIC["bat"], dict(over, **{key: value})),
+                port_load_config(SYNTHETIC["bat"], over)):
+        port = get_model("bat")(cfg, device="cpu")
+        port.net.load_state_dict(state_dict_from_jax(random_variables(port.net, seed=4)))
+        trainer = Trainer(port, cfg, work_dir=str(tmp_path / str(len(runs))))
+        assert trainer.per_device_stats == (key == "dp_shard_map" and not runs)
+        np.random.seed(0)
+        trainer.fit(get_dataset(cfg, "train_siamese", "train"), epochs=1, steps_per_epoch=1)
+        runs.append(port.net.state_dict())
+    for k, v in runs[0].items():
+        assert torch.equal(v, runs[1][k]), k
