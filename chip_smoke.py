@@ -17,7 +17,8 @@
     python3 chip_smoke.py --device-sampler-times  # phases 1, 2 and 22 (device sampler), no result
     python3 chip_smoke.py --real-data-times  # phases 1, 2 and 23 (KITTI data, checkpoints), no result
     python3 chip_smoke.py --distributed-times  # phases 1, 2 and 24 (multi-device runs), no result
-    python3 chip_smoke.py --split-cards   # phases 1, 2 and 24c over every card present, no result
+    python3 chip_smoke.py --split-cards   # phases 1, 2, 24c and 25b over every card present, no result
+    python3 chip_smoke.py --scan-split-times  # phases 1, 2 and 25 (split scans, native, layers), no result
 
 Phases, one line or a few each; any failure exits non-zero:
   1. environment: torch / CUDA versions, the card's name and power limit;
@@ -67,7 +68,7 @@ Phases, one line or a few each; any failure exits non-zero:
      synthetic dataset at BAT_Car widths (both paths), a profiler window
      (K3's launches in it beside the profiler's records of them), and the
      CLI on cfgs/BAT_synthetic.yaml.
- 10. printed last, after phase 24: one JSON line of the kernels K1-K6 and
+ 10. printed last, after phase 25: one JSON line of the kernels K1-K6 and
      the probes P1/P2, then K1/K2/K4/K5 and K6 (forward, backward) in the
      bf16 mode (each with its bound from this run's shapes), the card line,
      then the result line.
@@ -272,6 +273,31 @@ Phases, one line or a few each; any failure exits non-zero:
      trackers (B = 8) against the bf16 scan trackers and their bundles
      against the live trackers, bit for bit. The kernels line gains the
      staged K6 rows. Its lines also go to chiprun_out/phase24.txt.
+ 25. the scan trackers split over cards in one process (`devices=`, JAX
+     `mesh=`), the native host library and the rest of the layer library:
+     (a) M2 at cfgs/M2_track_kitti.yaml's widths in f32 and bf16, BAT_Car
+     and P2B_Car (f32), B = 16 tracklets of 16 frames split over [cuda:0,
+     cuda:0], graph path: each part's boxes bit for bit those of an
+     unsplit tracker of 8 on its rows; the whole batch within 1e-4 at the
+     first step and 1e-3 over the trajectory of an unsplit tracker of 16
+     (the cross-B bounds); a batch of 15 padded to 16 and 15 trajectories
+     back; evaluate_dataset_scan on a fresh split tracker from launch
+     counts of 0: Success/Precision equal to the parts' unsplit trackers',
+     read against an unsplit tracker of 16, each part's launches a replay
+     (M2 K1 3 / K2 1, BAT K3 2 / K4 7, P2B K4 7); no host sync from the
+     pinned rows to the boxes; frames/s split and unsplit (a reading); (b)
+     with several cards (`--split-cards`), M2 and BAT split over every card,
+     16 tracklets a card, each part equal to an unsplit tracker on cuda:0,
+     and M2's frames/s over the cards against one card; (c) the native
+     library (open3dsot_tpu_torch/native, built with g++ in _build/): its
+     int16 encoder bit for bit numpy's on an M2 scan batch and both timed,
+     the int16 batch's host packing both ways, and BAT's host loop on the
+     KITTI-format sweeps of phase 23 (three tracklets) with
+     OPEN3DSOT_TPU_NATIVE 1 and 0 (frames/s, native crops counted,
+     Success/Precision); (d) SetAbstractionMSG, SetAbstractionAll,
+     FeaturePropagation, FlowEmbedding and PointNetSetUpConv at small
+     widths on the card against the CPU, eval and training forward. Its
+     lines also go to chiprun_out/phase25.txt.
 
 Weights are random, made with numpy from a seed in the JAX tree's shape
 (open3dsot_tpu_torch.weights). Needs one card; no network.
@@ -702,6 +728,7 @@ def main(argv=None) -> None:
     real_only = "--real-data-times" in args
     dist_only = "--distributed-times" in args
     split_only = "--split-cards" in args
+    scan_split_only = "--scan-split-times" in args
     if "--rank-worker" in args:  # a rank of phase 24's two-rank world
         rank_worker(args[args.index("--rank-worker") + 1])
         return
@@ -726,6 +753,8 @@ def main(argv=None) -> None:
                           ["chain_fused", "fps", "sa_fused"] if online_only or rates_only
                           or split_only else
                           bf16_eval if bf16_only else
+                          ["chain_fused", "chain_fused_bf16", "fps", "sa_fused"]
+                          if scan_split_only else
                           [n for n in bf16_eval if n in SIGNATURES] if breakdown_only else
                           ["sa_fused_train"] if k6_only else
                           ["sa_fused_train", "sa_fused_train_bf16"] if k6_bf16_only else
@@ -768,8 +797,13 @@ def main(argv=None) -> None:
         return
     if split_only:
         dist_online_split(card)
-        print("split cards done: phases 1, 2 and 24's online pool over the cards only",
-              flush=True)
+        scan_split_cards(card)
+        print("split cards done: phases 1, 2, 24's online pool and 25's scan trackers over the "
+              "cards only", flush=True)
+        return
+    if scan_split_only:
+        scan_split_phase(card)
+        print("scan split times done: phases 1, 2 and 25 only", flush=True)
         return
     if dist_only:
         for row in distributed_phase(card):
@@ -937,6 +971,9 @@ def main(argv=None) -> None:
 
     # --- 24. multi-device runs: process groups, the staged K6, the split pool -------
     bf16_kernels.extend(distributed_phase(card))
+
+    # --- 25. split scan trackers, the native host library, the layer library -------
+    scan_split_phase(card)
     replaces = "open3dsot_tpu/ops/sa_fused_train.py:608-776 (cdt bfloat16)"
     for what in ("fwd", "bwd"):
         bf16_kernels.append(kernel_entry(
@@ -1339,19 +1376,73 @@ def matching_counts():
             sa_fused.fused_sa_apply.idx_launches)
 
 
+KNN_TIE_REL = 1e-5  # a kNN choice the paths may break either way: d2 gaps below this share
+
+
+@contextlib.contextmanager
+def xcorr_knn(replay=None):
+    """Inside: each kNN of BAT's xcorr (models/xcorr.py, in BoxCloud space)
+    appended to the yielded list as (query, ref, idx); with `replay` (such a
+    list) the indices are taken from it instead of computed."""
+    from open3dsot_tpu_torch.models import xcorr
+
+    calls, computed = [], xcorr.knn
+
+    def knn(query, ref, k):
+        idx = computed(query, ref, k) if replay is None else replay[len(calls)][2]
+        calls.append((query, ref, idx))
+        return idx
+
+    xcorr.knn = knn
+    try:
+        yield calls
+    finally:
+        xcorr.knn = computed
+
+
+def knn_ties(what: str, kernel_calls, plain_calls) -> int:
+    """The search points whose kNN the two paths chose otherwise; fails
+    unless each is a tie at the paths' rounding: both pick k distinct
+    points, and in the plain path's own distances every point only one of
+    them picks lies within KNN_TIE_REL of its k-th nearest. -> the number of
+    such points."""
+    flips = 0
+    for (_, _, ik), (q, r, ip) in zip(kernel_calls, plain_calls):
+        k = ip.shape[-1]
+        for b, n in (ik != ip).any(-1).nonzero().tolist():
+            d2 = ((q[b, n][None].double() - r[b].double()) ** 2).sum(-1)
+            mine, theirs = set(ip[b, n].tolist()), set(ik[b, n].tolist())
+            kth = d2[ip[b, n].long()].max().item()
+            rel = max(abs(d2[i].item() - kth) for i in mine ^ theirs) / max(kth, 1e-30)
+            print(f"  {what}: the xcorr's kNN at search point ({b}, {n}) differs (kernel path "
+                  f"{ik[b, n].tolist()}, plain {ip[b, n].tolist()}): the points only one path "
+                  f"picks lie within {rel:.3e} of the k-th nearest d2", flush=True)
+            if not (len(mine) == len(theirs) == k and rel <= KNN_TIE_REL):
+                fail(f"{what}: the kNN choices differ beyond a tie ({rel})")
+            flips += 1
+    return flips
+
+
 def check_matching_forward(model, plain_model, batch, what: str, want_launches, card: str,
                            timed: bool = True) -> None:
-    """One forward on each path: launches, outputs, times."""
+    """One forward on each path: launches, outputs, times. Where the xcorr's
+    kNN breaks a tie otherwise on the two paths (knn_ties), the plain path
+    runs again on the kernel path's kNN choices, and is held to it."""
     import torch
 
     reset_matching_counts()
-    got = model.apply(batch)
+    with xcorr_knn() as kernel_knn:
+        got = model.apply(batch)
     torch.cuda.synchronize()
     launches = matching_counts()
     print(f"  {what}: one forward launched K3 {launches[0]}, K4 {launches[1]}, K5 {launches[2]}")
     if launches != want_launches:
         fail(f"{what}: launches {launches}, expected K3/K4/K5 = {want_launches}")
-    want = plain_model.apply(batch)
+    with xcorr_knn() as plain_knn:
+        want = plain_model.apply(batch)
+    if knn_ties(what, kernel_knn, plain_knn):
+        with xcorr_knn(replay=kernel_knn):
+            want = plain_model.apply(batch)
     for k in ("estimation_cla", "vote_xyz", "pred_search_bc"):
         if k in want:
             compare(f"{what} {k}", got[k], want[k])
@@ -5806,6 +5897,403 @@ def _distributed_phase(card: str) -> list:
                 o["t"][f"{what}_plain"], o["work"][i], tensor_core=mode == "f32",
                 peak=PEAK_BF16_FLOPS))
     return rows
+
+
+# --- 25. the scan trackers split over cards, the native host library, the layer library ---
+
+PHASE25_LOG = ROOT / "chiprun_out" / "phase25.txt"
+SPLIT_B = 16  # phase 25a's batch: 8 tracklets a part over [cuda:0, cuda:0]
+SPLIT_T = 16  # frames a tracklet, frame_bucket 16: 15 steps a batch
+SPLIT_KW = dict(max_points=SCAN_MAX_POINTS, frame_bucket=SPLIT_T)
+SPLIT_CARD_B = 16  # 25b: tracklets a card
+# the kernels' launches captured per replay of a part's graph: (K1, K2) / (K3, K4)
+SPLIT_LAUNCHES = {"m2track": (3, 1), "bat": (2, 7), "p2b": (0, 7)}
+# a split against an unsplit tracker of the whole batch: ROADMAP §3's cross-B bounds
+SPLIT_FIRST_ATOL, SPLIT_TRAJ_ATOL = 1e-4, 1e-3
+SPLIT_SCORE_ATOL = 1e-2  # per-frame IoU / distance of the split against the whole batch's
+REAL_NATIVE_TRACKLETS = 3  # 25c: BAT's host loop over the first KITTI scene's three Cars
+SPLIT_DEVICE = "cuda:0"  # phase 25's card ("cpu" in a rehearsal on the CPU)
+
+
+def say25(line: str) -> None:
+    say(line, PHASE25_LOG)
+
+
+def split_cfg(name: str, B: int):
+    """Phase 15's M2 configuration (M2_track_kitti.yaml's widths) or phase
+    16's BAT_Car / P2B_Car one, B tracklets of SPLIT_T frames."""
+    if name == "m2track":
+        return bench_cfg(syn_num_tracklets=B, syn_tracklet_len=SPLIT_T)
+    return match_cfg(name, syn_num_tracklets=B, syn_tracklet_len=SPLIT_T)
+
+
+def scan_tracker_of(model, cfg, devices=None, **kw):
+    """The model's scan tracker at phase 25's sizes, graph path; split over
+    `devices` where several are given."""
+    if cfg.net_model.lower() != "m2track":
+        kw["first_crop_points"] = MATCH_KW["first_crop_points"]
+    return model.scan_tracker(cfg, devices=devices, **SPLIT_KW, **kw)
+
+
+def scan_counts(name: str) -> tuple:
+    """The wrappers' launch counts of the model's kernels: (K1, K2) or (K3, K4)."""
+    from open3dsot_tpu_torch.ops import chain_fused as cf
+
+    if name == "m2track":
+        return cf.fused_pointnet_encoder.launches, cf.fused_seg_head.launches
+    return matching_counts()[:2]
+
+
+def reset_scan_counts() -> None:
+    from open3dsot_tpu_torch.ops import chain_fused as cf
+
+    cf.reset_launch_counts()
+    reset_matching_counts()
+
+
+def scores_sp(pieces) -> tuple:
+    """Success / Precision of [(seqs, iou (B, T), dist (B, T))] in that
+    order, as the dataset loop updates them."""
+    from open3dsot_tpu_torch.utils.metrics import Precision, Success
+
+    success, precision = Success(), Precision()
+    for seqs, iou, dist in pieces:
+        for b, seq in enumerate(seqs):
+            success.update(iou[b, :len(seq)])
+            precision.update(dist[b, :len(seq)])
+    return success.compute(), precision.compute()
+
+
+def scored(tracker, seqs) -> tuple:
+    iou, dist = tracker.dispatch_scored(seqs)
+    return iou.cpu().numpy(), dist.cpu().numpy()
+
+
+def split_case(name: str, label: str, devices: list, card: str, **kw) -> None:
+    """25a: one model's scan tracker split over `devices` against unsplit
+    trackers on SPLIT_DEVICE (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from open3dsot_tpu_torch.data import get_dataset
+    from open3dsot_tpu_torch.tracking.scan_tracker import canonical_device
+
+    t0 = time.perf_counter()
+    B, n = SPLIT_B, len(devices)
+    per, steps = B // n, SPLIT_T - 1
+    cfg = split_cfg(name, B)
+    model, _ = make_model(cfg, fused_eval=True)
+    sampler = get_dataset(cfg, "test", "test")
+    seqs = [sampler[i] for i in range(B)]
+    split = scan_tracker_of(model, cfg, devices, **kw)
+    got = np.stack(split.track_batch(seqs))
+    parts = [scan_tracker_of(model, cfg, **kw) for _ in range(n)]
+    want = np.concatenate([np.stack(p.track_batch(seqs[i * per:(i + 1) * per]))
+                           for i, p in enumerate(parts)])
+    whole = scan_tracker_of(model, cfg, **kw)
+    full = np.stack(whole.track_batch(seqs))
+    e_first, e_traj = np.abs(got[:, 0] - full[:, 0]).max(), np.abs(got - full).max()
+    on = [str(canonical_device(p.device)) for p in split.parts]
+    say25(f"  25 {label} B={B} split over {devices} (parts on {on}): {same(got, want)} {n} "
+          f"unsplit trackers of {per} on their rows; from an unsplit tracker of {B}: first "
+          f"step {e_first:.3e} (atol {SPLIT_FIRST_ATOL}), trajectory {e_traj:.3e} (atol "
+          f"{SPLIT_TRAJ_ATOL}) [{card}]")
+    if not (np.array_equal(got, want) and np.isfinite(got).all() and len(on) == n):
+        fail(f"phase 25: the {label} split tracker's parts differ from unsplit trackers of {per}")
+    if not (e_first <= SPLIT_FIRST_ATOL and e_traj <= SPLIT_TRAJ_ATOL):
+        fail(f"phase 25: the {label} split tracker is {e_first} / {e_traj} from the unsplit one")
+    # an odd batch: padded by its last tracklet, the padding's boxes dropped
+    odd = split.track_batch(seqs[:B - 1])
+    padded = seqs[:B - 1] + seqs[B - 2:B - 1]
+    want_odd = np.concatenate([np.stack(p.track_batch(padded[i * per:(i + 1) * per]))
+                               for i, p in enumerate(parts)])[:B - 1]
+    say25(f"  25 {label} B={B - 1}: padded to {B}, {len(odd)} trajectories back, "
+          f"{same(np.stack(odd), want_odd)} the parts' unsplit trackers on the padded rows")
+    if len(odd) != B - 1 or not np.array_equal(np.stack(odd), want_odd):
+        fail(f"phase 25: the {label} split tracker's batch of {B - 1} came back wrong")
+    # the dataset loop from launch counts of 0 on a fresh split tracker
+    fresh = scan_tracker_of(model, cfg, devices, **kw)
+    reset_scan_counts()
+    got_sp = model.evaluate_scan(sampler, cfg, tracker=fresh, batch_tracklets=B)
+    sync_card()
+    counted = scan_counts(name)
+    launches = fresh.graph_launches()
+    want_sp = scores_sp([(seqs[i * per:(i + 1) * per], *scored(p, seqs[i * per:(i + 1) * per]))
+                         for i, p in enumerate(parts)])
+    whole_sp = model.evaluate_scan(sampler, cfg, tracker=whole, batch_tracklets=B)
+    (iou_s, dist_s), (iou_w, dist_w) = scored(split, seqs), scored(whole, seqs)
+    e_iou, e_dist = np.abs(iou_s[:B] - iou_w).max(), np.abs(dist_s[:B] - dist_w).max()
+    per_replay = [p["captured_per_replay"] for p in launches["parts"]]
+    say25(f"  25 {label} evaluate_dataset_scan split: success {got_sp[0]:.4f} precision "
+          f"{got_sp[1]:.4f}; the parts' unsplit trackers {want_sp[0]:.4f} / {want_sp[1]:.4f}; "
+          f"an unsplit tracker of {B} {whole_sp[0]:.4f} / {whole_sp[1]:.4f} (per frame max "
+          f"|iou diff| {e_iou:.3e}, |distance diff| {e_dist:.3e}); launches from 0 "
+          f"{counted} (warm-ups and captures); captured per replay by part {per_replay}, "
+          f"replays {[p['replays'] for p in launches['parts']]}")
+    if tuple(got_sp) != tuple(want_sp):
+        fail(f"phase 25: the {label} split eval's Success/Precision {got_sp} differ from its "
+             f"parts' unsplit trackers' {want_sp}")
+    if not (e_iou <= SPLIT_SCORE_ATOL and e_dist <= SPLIT_SCORE_ATOL):
+        fail(f"phase 25: the {label} split eval's scores are {e_iou} / {e_dist} from the unsplit")
+    kernels = [k for k, c in enumerate(SPLIT_LAUNCHES[name]) if c]
+    if (per_replay != [[SPLIT_LAUNCHES[name]]] * n
+            or any(p["replays"] != steps for p in launches["parts"])
+            or not all(counted[k] > 0 for k in kernels)):
+        fail(f"phase 25: the {label} split eval's launches {counted} / {per_replay} are not "
+             f"{SPLIT_LAUNCHES[name]} a replay of each part")
+    # the frame loops, no host sync between the batch's upload and its boxes
+    host, host_w = split._prepare(seqs)[2], whole._prepare(seqs)[2]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        split._dispatch(host, [])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    t_s = wall_ms(lambda: split._dispatch(host, []))
+    t_w = wall_ms(lambda: whole._dispatch(host_w, []))
+    frames = B * steps
+    say25(f"  25 {label} frames/s from pinned host rows to boxes on the card: split "
+          f"{frames / t_s * 1e3:.2f}, unsplit {frames / t_w * 1e3:.2f} (a reading); "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+
+def scan_split_cards(card: str) -> None:
+    """25b: the M2 and BAT scan trackers split over every card present,
+    SPLIT_CARD_B tracklets a card, each part bit for bit against an unsplit
+    tracker of its rows on the first card; M2's frames/s over the cards
+    against one card."""
+    import numpy as np
+
+    from open3dsot_tpu_torch.data import get_dataset
+    from open3dsot_tpu_torch.tracking.scan_tracker import canonical_device
+
+    devices = split_cards()
+    n = len(set(devices))
+    if n < 2:
+        say25(f"  25 split over several cards: one card present, 25a's [cuda:0, cuda:0] only")
+        return
+    B = SPLIT_CARD_B * n
+    for name in ("m2track", "bat"):
+        t0 = time.perf_counter()
+        cfg = split_cfg(name, B)
+        model, _ = make_model(cfg, fused_eval=True)
+        sampler = get_dataset(cfg, "test", "test")
+        seqs = [sampler[i] for i in range(B)]
+        split = scan_tracker_of(model, cfg, devices)
+        got = np.stack(split.track_batch(seqs))
+        one = scan_tracker_of(model, cfg)
+        rows = [seqs[i:i + SPLIT_CARD_B] for i in range(0, B, SPLIT_CARD_B)]
+        want = np.concatenate([np.stack(one.track_batch(r)) for r in rows])
+        on = [str(canonical_device(p.device)) for p in split.parts]
+        line = (f"  25 {name} B={B} split over {devices} (parts on {on}): {same(got, want)} an "
+                f"unsplit tracker of {SPLIT_CARD_B} on cuda:0 on each part's rows")
+        if name == "m2track":
+            host, host_1 = split._prepare(seqs)[2], one._prepare(rows[0])[2]
+            t_n = wall_ms(lambda: split._dispatch(host, []))
+            t_1 = wall_ms(lambda: one._dispatch(host_1, []))
+            q_n = enqueue_ms(lambda: split._dispatch(host, []))
+            q_1 = enqueue_ms(lambda: one._dispatch(host_1, []))
+            steps = SPLIT_T - 1
+            line += (f"; frames/s {B * steps / t_n * 1e3:.2f} over {n} cards, "
+                     f"{SPLIT_CARD_B * steps / t_1 * 1e3:.2f} on one card "
+                     f"({SPLIT_CARD_B} tracklets a card); a batch {t_n:.2f} / {t_1:.2f} ms to "
+                     f"its boxes, of which the host's enqueueing {q_n:.2f} / {q_1:.2f} ms")
+        say25(line + f"; {time.perf_counter() - t0:.1f} s [{card}]")
+        if not (np.array_equal(got, want) and np.isfinite(got).all() and on == devices):
+            fail(f"phase 25: the {name} scan tracker split over {devices} differs from cuda:0's")
+
+
+def native_phase(card: str) -> None:
+    """25c: the native host library (open3dsot_tpu_torch/native) built in
+    _build/, its int16 encoder against numpy on an M2 scan batch, the int16
+    scan batch's host packing both ways, and BAT's host loop on KITTI-format
+    sweeps with OPEN3DSOT_TPU_NATIVE 1 and 0."""
+    import numpy as np
+
+    from open3dsot_tpu_torch import native
+    from open3dsot_tpu_torch.data import get_dataset
+    from open3dsot_tpu_torch.tracking.eval import evaluate_dataset
+    from open3dsot_tpu_torch.utils import quant
+
+    before = os.environ.get("OPEN3DSOT_TPU_NATIVE")
+    os.environ.pop("OPEN3DSOT_TPU_NATIVE", None)
+    tmp = Path(tempfile.mkdtemp(prefix="phase25-"))
+    try:
+        t0 = time.perf_counter()
+        ok = native.available()
+        path = Path(native.library()._name)
+        say25(f"  25 native: available() {ok} after {time.perf_counter() - t0:.2f} s, "
+              f"{path.relative_to(ROOT)}")
+        if not (ok and path.parent == ROOT / "open3dsot_tpu_torch" / "_build"):
+            fail(f"phase 25: the native library is not built in open3dsot_tpu_torch/_build: {path}")
+        cfg = split_cfg("m2track", SPLIT_B)
+        model, _ = make_model(cfg, fused_eval=True)
+        sampler = get_dataset(cfg, "test", "test")
+        seqs = [sampler[i] for i in range(SPLIT_B)]
+        host = scan_tracker_of(model, cfg)._prepare(seqs)[2]
+        pts, counts = host[0].numpy(), host[1].numpy()
+        valid = np.arange(pts.shape[2]) < counts[..., None]
+        got = native.quantize_per_sample_native(pts, valid)
+        want = quant._quantize_per_sample_numpy(pts, valid)
+        equal = all(np.array_equal(a, b) for a, b in zip(got, want))
+        t_n = host_ms(lambda: native.quantize_per_sample_native(pts, valid))
+        t_p = host_ms(lambda: quant._quantize_per_sample_numpy(pts, valid))
+        int16 = scan_tracker_of(model, cfg, transfer_dtype="int16")
+        packing = {}
+        for switch in ("1", "0"):
+            os.environ["OPEN3DSOT_TPU_NATIVE"] = switch
+            packing[switch] = host_ms(lambda: int16._prepare(seqs), repeats=3)
+        say25(f"  25 native int16 encoder on an M2 scan batch {tuple(pts.shape)}: "
+              f"{'bit-identical to' if equal else 'DIFFERS from'} numpy; {t_n:.2f} ms against "
+              f"{t_p:.2f}; the int16 scan batch's host packing (_prepare) {packing['1']:.2f} ms "
+              f"native, {packing['0']:.2f} ms numpy (host)")
+        if not equal:
+            fail("phase 25: the native int16 encoder differs from numpy")
+        data = tmp / "kitti"
+        write_real_kitti(data)
+        _, bat_cfg = real_cfg("bat", tmp, data)
+        bat, _ = make_model(bat_cfg, fused_eval=True)
+        kitti = get_dataset(bat_cfg, "test", bat_cfg.test_split)
+        n = REAL_NATIVE_TRACKLETS
+        frames = sum(len(kitti[i]) - 1 for i in range(n))
+        seq = kitti[0]
+        bbs = [f["3d_bbox"] for f in seq]
+        parts = {}
+        for switch in ("1", "0"):  # the host's input building a frame, by part
+            os.environ["OPEN3DSOT_TPU_NATIVE"] = switch
+            parts[switch] = [statistics.median(
+                host_ms(lambda: fn(seq, f, bbs[:f]), repeats=1) for f in range(1, len(seq)))
+                for fn in (bat.generate_search_area, bat.generate_template,
+                           bat.build_input_dict)]
+        say25(f"  25 BAT input building a frame on the sweeps (median over {len(seq) - 1} "
+              f"frames, host ms): search area {parts['1'][0]:.2f} native / {parts['0'][0]:.2f} "
+              f"numpy, template {parts['1'][1]:.2f} / {parts['0'][1]:.2f}, build_input_dict "
+              f"{parts['1'][2]:.2f} / {parts['0'][2]:.2f}")
+        evaluate_dataset(bat, kitti, bat_cfg, max_tracklets=1)  # warm-up
+        runs = {}
+        for switch in ("1", "0"):
+            os.environ["OPEN3DSOT_TPU_NATIVE"] = switch
+            native.reset_call_counts()
+            sync_card()
+            t0 = time.perf_counter()
+            sp = evaluate_dataset(bat, kitti, bat_cfg, max_tracklets=n)
+            sync_card()
+            runs[switch] = (sp, frames / (time.perf_counter() - t0), native.crop_canonical.calls)
+        (sp1, r1, c1), (sp0, r0, c0) = runs["1"], runs["0"]
+        say25(f"  25 BAT host loop on KITTI-format sweeps ({n} tracklets, {frames} frames): "
+              f"OPEN3DSOT_TPU_NATIVE=1 {r1:.1f} frames/s, {c1} native crops, success "
+              f"{sp1[0]:.4f} precision {sp1[1]:.4f}; =0 {r0:.1f} frames/s, {c0} native crops, "
+              f"success {sp0[0]:.4f} precision {sp0[1]:.4f} [{card}]")
+        if not (c1 > 0 and c0 == 0 and np.isfinite(sp1 + sp0).all()):
+            fail(f"phase 25: the host loop's crops did not follow OPEN3DSOT_TPU_NATIVE ({c1}, {c0})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if before is None:
+            os.environ.pop("OPEN3DSOT_TPU_NATIVE", None)
+        else:
+            os.environ["OPEN3DSOT_TPU_NATIVE"] = before
+
+
+def enqueue_ms(fn, repeats: int = 5) -> float:
+    """Median host time of fn() from idle cards until it returns (its work
+    queued, not done), in ms; every card synchronized between calls."""
+    import torch
+
+    def sync_all():
+        for d in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(d)
+
+    fn()
+    times = []
+    for _ in range(repeats):
+        sync_all()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    sync_all()
+    return statistics.median(times)
+
+
+def host_ms(fn, repeats: int = 5) -> float:
+    """Median host wall time of fn(), in ms (no device work)."""
+    fn()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def sync_card() -> None:
+    import torch
+
+    if torch.device(SPLIT_DEVICE).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def layer_library_on_card(card: str) -> None:
+    """25d: SetAbstractionMSG (FPS: K3 on the card), SetAbstractionAll,
+    FeaturePropagation, FlowEmbedding and PointNetSetUpConv at small widths
+    on the card against the same modules on the CPU (seeded weights and
+    inputs), forward in eval and in training mode."""
+    import copy
+
+    import torch
+
+    from open3dsot_tpu_torch.models import flow, pointnet
+    from open3dsot_tpu_torch.weights import random_variables, state_dict_from_jax
+
+    gen = torch.Generator().manual_seed(SEED)
+    B, C = 4, 16
+    xyz, feats = torch.rand(B, 512, 3, generator=gen) * 2 - 1, torch.randn(B, 512, C, generator=gen)
+    xyz2, feats2 = torch.rand(B, 128, 3, generator=gen) * 2 - 1, torch.randn(B, 128, C,
+                                                                             generator=gen)
+    cases = (
+        ("SetAbstractionMSG", pointnet.SetAbstractionMSG(
+            C, [[32, 64], [32, 48, 64]], [0.2, 0.4], [16, 32], use_fps=True),
+         (xyz, feats, 128), 1),
+        ("SetAbstractionAll", pointnet.SetAbstractionAll(C, [32, 64]), (xyz, feats), 1),
+        ("FeaturePropagation", pointnet.FeaturePropagation(2 * C, [64, 32]),
+         (xyz, xyz2, feats, feats2), None),
+        ("FlowEmbedding", flow.FlowEmbedding(0.5, 16, C, [32, 32]), (xyz, xyz2, feats, feats2), 1),
+        ("PointNetSetUpConv", flow.PointNetSetUpConv(16, 0.6, C, C, [32], [32], use_knn=False),
+         (xyz, xyz2, feats, feats2), None),
+    )
+    for name, cpu, args, i in cases:
+        cpu.load_state_dict(state_dict_from_jax(random_variables(cpu, SEED)), strict=True)
+        card_mod = copy.deepcopy(cpu).to(SPLIT_DEVICE)
+        on_card = [a.to(SPLIT_DEVICE) if isinstance(a, torch.Tensor) else a for a in args]
+        for mode in ("eval", "train"):
+            for m in (cpu, card_mod):
+                m.train(mode == "train")
+            with torch.no_grad():
+                want, got = cpu(*args), card_mod(*on_card)
+            want, got = (w if i is None else w[i] for w in (want, got))
+            compare(f"25 layer {name} {mode} on {SPLIT_DEVICE} against the CPU", got.cpu(), want)
+        stats = [(b.cpu().flatten(), a.flatten()) for (k, a), b in
+                 zip(cpu.named_buffers(), card_mod.buffers()) if "running" in k]
+        compare(f"25 layer {name} running statistics after the training forward",
+                torch.cat([g for g, _ in stats]), torch.cat([w for _, w in stats]))
+
+
+def scan_split_phase(card: str) -> None:
+    """Phase 25 (see the module docstring), its lines also in
+    chiprun_out/phase25.txt, which each run writes anew."""
+    import torch
+
+    t_phase = time.perf_counter()
+    PHASE25_LOG.parent.mkdir(exist_ok=True)
+    if PHASE25_LOG.exists():
+        PHASE25_LOG.unlink()
+    devices = [SPLIT_DEVICE, SPLIT_DEVICE]
+    for name, label, kw in (("m2track", "M2 f32", {}),
+                            ("m2track", "M2 bf16", {"compute_dtype": torch.bfloat16}),
+                            ("bat", "BAT_Car", {}), ("p2b", "P2B_Car", {})):
+        split_case(name, label, devices, card, **kw)
+    scan_split_cards(card)
+    native_phase(card)
+    layer_library_on_card(card)
+    say25(f"phase 25 ok in {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

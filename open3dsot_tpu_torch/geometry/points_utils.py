@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from open3dsot_tpu_torch import native
 from open3dsot_tpu_torch.geometry.data_classes import Box, PointCloud
 from open3dsot_tpu_torch.geometry.quaternion import Quaternion
 
@@ -190,12 +191,19 @@ def crop_pc_oriented(PC: PointCloud, box: Box, offset=0, scale=1.0, return_mask=
 def generate_subwindow(pc: PointCloud, sample_bb: Box, scale, offset=2, oriented=True) -> PointCloud:
     """Crop the search region around sample_bb, canonicalized to its frame.
 
-    Hot path of the eval input builder. This is the numpy path only; the
-    JAX package's fused C++ crop has the same strict-bound semantics
-    (tests/test_native.py pins the two against each other).
+    Hot path of both samplers and the eval input builders; unless
+    OPEN3DSOT_TPU_NATIVE=0 the translate+rotate+crop runs as one fused C++
+    pass (open3dsot_tpu_torch/native), else the numpy path below (the same
+    strict bounds, other rounding; tests/test_torch_native.py).
     """
     rot_mat = np.transpose(sample_bb.rotation_matrix)
     trans = -sample_bb.center
+    if oriented and native.enabled():
+        box_tmp = transform_box(sample_bb, sample_bb)
+        box_tmp.wlh = box_tmp.wlh * scale
+        maxi = np.max(box_tmp.corners(), 1) + offset
+        cropped = native.crop_canonical(pc.points.T, rot_mat, sample_bb.center, maxi)
+        return PointCloud(cropped.T)
     if oriented:
         new_pc = pc.copy()
         box_tmp = sample_bb.copy()

@@ -1,7 +1,12 @@
 """PointNet encoders, port of `open3dsot_tpu/models/pointnet.py`:
 MiniPointNet and SegPointNet of M2-Track (reference
 models/backbone/pointnet.py:91-204), SetAbstraction and PointnetBackbone of
-BAT/P2B (pointnet2_modules.py:24-149, pointnet.py:12-88).
+BAT/P2B (pointnet2_modules.py:24-149, pointnet.py:12-88), and the rest of
+the layer library, which no tracker instantiates (in the reference or
+here): SetAbstractionMSG, SetAbstractionAll and FeaturePropagation
+(pointnet2_modules.py:82-118, pointnet2_utils.py:342-385,
+pointnet2_modules.py:152-212), plain PyTorch in eval and in training, as
+JAX's are unfused.
 
 With `fused_eval` (the default) the eval forward goes through the kernels:
 K1/K2 (ops/chain_fused.py) for the M2 encoders, K3 (ops/sampling.py) and
@@ -48,6 +53,7 @@ from open3dsot_tpu_torch.ops.chain_fused import (
     fused_seg_head,
 )
 from open3dsot_tpu_torch.ops.grouping import gather_points
+from open3dsot_tpu_torch.ops.interpolate import three_interpolate, three_nn
 from open3dsot_tpu_torch.ops.neighbors import ball_query
 from open3dsot_tpu_torch.ops.sa_fused import FoldedSA, fused_sa_apply, group_inputs
 from open3dsot_tpu_torch.ops.sa_fused_train import Packs, fused_sa_train_apply
@@ -209,8 +215,7 @@ class SetAbstraction(_FoldCache):
                  use_xyz: bool = True, use_fps: bool = False, normalize_xyz: bool = False,
                  fused_eval: bool = True, fused_train: bool = False, device=None, dtype=None):
         super().__init__()
-        c_in = in_features + 3 if (use_xyz or in_features == 0) else in_features
-        self.mlp_shared = MLP(c_in, mlp, device=device, dtype=dtype)
+        self.mlp_shared = MLP(_sa_in_width(in_features, use_xyz), mlp, device=device, dtype=dtype)
         self.radius, self.nsample = radius, nsample
         self.use_xyz, self.use_fps, self.normalize_xyz = use_xyz, use_fps, normalize_xyz
         self.fused_eval, self.fused_train = fused_eval, fused_train
@@ -235,15 +240,9 @@ class SetAbstraction(_FoldCache):
         """xyz (B, N, 3), features (B, N, C) or None -> (new_xyz (B, S, 3),
         new_features (B, S, mlp[-1]) (bf16 in the bf16 mode), sample_idxs (B, S)
         int32)."""
-        B = xyz.shape[0]
         xyz = xyz.contiguous()
-        if self.use_fps:
-            fps = furthest_point_sample if self.fused_eval else furthest_point_sample_plain
-            sample_idxs = fps(xyz, npoint)
-        else:
-            sample_idxs = torch.arange(npoint, dtype=torch.int32,
-                                       device=xyz.device)[None].expand(B, npoint)
-        new_xyz = gather_points(xyz, sample_idxs)
+        fps = furthest_point_sample if self.fused_eval else furthest_point_sample_plain
+        new_xyz, sample_idxs = _centroids(xyz, npoint, fps if self.use_fps else None)
         kw = dict(radius=self.radius, normalize_xyz=self.normalize_xyz, use_xyz=self.use_xyz)
         if self.training:
             idx = ball_query(self.radius, self.nsample, xyz.detach(), new_xyz.detach())
@@ -263,6 +262,106 @@ class SetAbstraction(_FoldCache):
         idx = ball_query(self.radius, self.nsample, xyz, new_xyz)  # (B, S, K)
         grouped = group_inputs(xyz, features, new_xyz, idx, **kw)
         return new_xyz, self.mlp_shared(grouped).amax(dim=2), sample_idxs
+
+
+def _centroids(xyz: torch.Tensor, npoint: int, fps=None):
+    """An SA layer's centroids (B, S, 3) and their indices (B, S) int32: by
+    `fps`, or the first `npoint` points where it is None."""
+    if fps is not None:
+        sample_idxs = fps(xyz, npoint)
+    else:
+        sample_idxs = torch.arange(npoint, dtype=torch.int32,
+                                   device=xyz.device)[None].expand(xyz.shape[0], npoint)
+    return gather_points(xyz, sample_idxs), sample_idxs
+
+
+def _sa_in_width(in_features: int, use_xyz: bool) -> int:
+    """The width of an SA MLP's input: centred xyz || features, or either alone."""
+    return in_features + 3 if (use_xyz or in_features == 0) else in_features
+
+
+class SetAbstractionMSG(nn.Module):
+    """Multi-scale-grouping SA layer: one centroid set (FPS when use_fps,
+    else the first `npoint` points), one branch `mlp_shared_{i}` per
+    (radius, nsample, mlp) (ball query, grouping, shared MLP, max over the
+    neighbours), the branches' outputs concatenated along the features.
+    The plain path only (JAX pointnet.py:236-250): FPS is K3 on the card, as
+    JAX's FPS is its Pallas kernel on the TPU; there is no fused branch."""
+
+    def __init__(self, in_features: int, mlps: Sequence[Sequence[int]], radii: Sequence[float],
+                 nsamples: Sequence[int], use_xyz: bool = True, use_fps: bool = False,
+                 normalize_xyz: bool = False, device=None, dtype=None):
+        super().__init__()
+        if not len(mlps) == len(radii) == len(nsamples):
+            raise ValueError("mlps / radii / nsamples must align (pointnet2_modules.py:104)")
+        for i, mlp in enumerate(mlps):
+            self.add_module(f"mlp_shared_{i}", MLP(_sa_in_width(in_features, use_xyz), mlp,
+                                                   device=device, dtype=dtype))
+        self.radii, self.nsamples = list(radii), list(nsamples)
+        self.use_xyz, self.use_fps, self.normalize_xyz = use_xyz, use_fps, normalize_xyz
+
+    def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor], npoint: int):
+        """xyz (B, N, 3), features (B, N, C) or None -> (new_xyz (B, S, 3),
+        new_features (B, S, sum of the branches' mlp[-1]), sample_idxs (B, S))."""
+        xyz = xyz.contiguous()
+        new_xyz, sample_idxs = _centroids(xyz, npoint,
+                                          furthest_point_sample if self.use_fps else None)
+        outs = []
+        for i, (radius, nsample) in enumerate(zip(self.radii, self.nsamples)):
+            idx = ball_query(radius, nsample, xyz.detach(), new_xyz.detach())
+            grouped = group_inputs(xyz, features, new_xyz, idx, radius=radius,
+                                   normalize_xyz=self.normalize_xyz, use_xyz=self.use_xyz)
+            outs.append(getattr(self, f"mlp_shared_{i}")(grouped).amax(dim=2))
+        return new_xyz, torch.cat(outs, dim=-1), sample_idxs
+
+
+class SetAbstractionAll(nn.Module):
+    """GroupAll SA layer: one group of every point, [xyz || features] ->
+    shared MLP -> max over all N (pointnet2_utils.py:342-385)."""
+
+    def __init__(self, in_features: int, mlp: Sequence[int], use_xyz: bool = True, device=None,
+                 dtype=None):
+        super().__init__()
+        self.mlp_shared = MLP(_sa_in_width(in_features, use_xyz), mlp, device=device,
+                              dtype=dtype)
+        self.use_xyz = use_xyz
+
+    def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor]):
+        """xyz (B, N, 3), features (B, N, C) or None -> (new_xyz (B, 1, 3)
+        zeros, new_features (B, 1, mlp[-1]))."""
+        grouped = xyz
+        if features is not None:
+            grouped = torch.cat([xyz, features], dim=-1) if self.use_xyz else features
+        out = self.mlp_shared(grouped[:, None]).amax(dim=2)
+        return xyz.new_zeros(xyz.shape[0], 1, 3), out
+
+
+class FeaturePropagation(nn.Module):
+    """3-NN inverse-distance feature propagation (pointnet2_modules.py:152-212):
+    the known features interpolated at the unknown points with weights
+    1 / (d + 1e-8), normalised (or, where `known` is None, the known features
+    broadcast over the unknown points), || the unknown points' own features,
+    -> shared MLP. `in_features` is the MLP's input width."""
+
+    def __init__(self, in_features: int, mlp: Sequence[int], device=None, dtype=None):
+        super().__init__()
+        self.mlp_shared = MLP(in_features, mlp, device=device, dtype=dtype)
+
+    def forward(self, unknown: torch.Tensor, known: Optional[torch.Tensor],
+                unknown_feats: Optional[torch.Tensor], known_feats: torch.Tensor) -> torch.Tensor:
+        """unknown (B, n, 3), known (B, m, 3) or None, unknown_feats (B, n, C1)
+        or None, known_feats (B, m, C2) ((B, 1, C2) where known is None) ->
+        (B, n, mlp[-1])."""
+        if known is not None:
+            dist, idx = three_nn(unknown, known)
+            recip = 1.0 / (dist + 1e-8)
+            interpolated = three_interpolate(known_feats, idx, recip / recip.sum(2, keepdim=True))
+        else:
+            interpolated = known_feats.expand(known_feats.shape[0], unknown.shape[1],
+                                              known_feats.shape[-1])
+        if unknown_feats is not None:
+            interpolated = torch.cat([interpolated, unknown_feats], dim=-1)
+        return self.mlp_shared(interpolated)
 
 
 class PointnetBackbone(nn.Module):

@@ -45,8 +45,6 @@ in ('float32' or 'bfloat16').
 
 from __future__ import annotations
 
-import contextlib
-import copy
 import math
 from typing import Dict, Optional, Sequence
 
@@ -69,6 +67,8 @@ from open3dsot_tpu_torch.tracking.scan_tracker import (
     _expand_counts,
     _pack_transfer,
     make_m2_step,
+    model_on,
+    on_card,
     pad_frame,
     redraws_uniform,
 )
@@ -121,23 +121,6 @@ class _SlotStepGraph(_CapturedStep):
 def compute_mode(model) -> str:
     """'bfloat16' where the model's net computes in bf16, else 'float32'."""
     return "bfloat16" if computes_in_bf16(model.net) else "float32"
-
-
-def on_card(device: torch.device):
-    """A context with `device` current where it is a card; nothing on the CPU."""
-    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
-
-
-def model_on(model, device):
-    """The model wrapper with its net on `device`: itself where it is there,
-    else a copy (the wrapper's attributes shared, the net copied)."""
-    device = torch.device(device)
-    if model.device == device:
-        return model
-    moved = copy.copy(model)
-    moved.net = copy.deepcopy(model.net).to(device)
-    moved.device = device
-    return moved
 
 
 class _OnlineBase(_DeviceTracker):

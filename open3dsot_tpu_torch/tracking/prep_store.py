@@ -229,6 +229,8 @@ def eval_store(path: str, config, tracker, n: int, batch_tracklets: int,
         "transfer": str(tracker.transfer_dtype or "f32"),
         "shard": shard,
         "first_crop": int(getattr(tracker, "first_crop_points", 0)),
+        # a split tracker's batches are padded to a multiple of its card count
+        "cards": int(getattr(tracker, "cards", 1)),
     }
     if extra:
         fp.update(extra)

@@ -28,15 +28,18 @@ runs. Host plumbing, scoring and the dataset loop are shared with the M2
 tracker (tracking/scan_tracker.py). A model made under `bf16: true` runs in
 its bf16 mode inside the graph as it does eagerly (the JAX tracker has no
 compute_dtype of its own here). The dataset loop takes the disk prep store,
-the results writer and `shard_across_processes` as the M2 tracker's does;
-the JAX tracker's in-process `mesh=` is not ported (one rank a card
-instead, main.py --num_devices).
+the results writer and `shard_across_processes` as the M2 tracker's does.
+`devices=[card, ...]` (the JAX tracker's `mesh=`) splits each batch over
+several cards in one process as the M2 tracker's does: each part keeps its
+own carry ('all' reservoir included), first crops and gt inputs. The
+reservoir's and the redraw's draws are keyed on each row's age, not on its
+place in the batch, so a part tracks its rows as JAX's shard_map does.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -218,13 +221,14 @@ class _MatchStepGraph(_CapturedStep):
 
 class MatchScanTracker(_ScanTracker):
     """Batched tracker for P2B/BAT (B tracklets per batch) on the model's
-    device, in every shape_aggregation and reference_BB mode. `cuda_graph`
-    (the default) replays a captured step on the card; False runs the eager
-    loop there too. A capture that fails raises."""
+    device, or split over `devices` (JAX `mesh=`; scan_tracker._ScanTracker),
+    in every shape_aggregation and reference_BB mode. `cuda_graph` (the
+    default) replays a captured step on the card; False runs the eager loop
+    there too. A capture that fails raises."""
 
     def __init__(self, model, config, max_points: int = 4096, first_crop_points: int = 1024,
                  frame_bucket: int = 16, transfer_dtype=None, template_pool: int = 4096,
-                 cuda_graph: bool = True):
+                 cuda_graph: bool = True, devices: Optional[Sequence] = None):
         self._agg_mode = parse_agg_mode(config.shape_aggregation)
         self._ref_mode = parse_ref_mode(config.reference_BB)
         self.gt_inputs = self._ref_mode != "previous_result"
@@ -234,7 +238,11 @@ class MatchScanTracker(_ScanTracker):
         self.first_crop_points = first_crop_points
         self.template_pool = int(getattr(config, "template_pool", template_pool))
         self.is_bat = model.name == "bat"
-        super().__init__(model, config, max_points, frame_bucket, transfer_dtype, cuda_graph)
+        part_kw = dict(max_points=max_points, first_crop_points=first_crop_points,
+                       frame_bucket=frame_bucket, transfer_dtype=transfer_dtype,
+                       template_pool=template_pool, cuda_graph=cuda_graph)
+        super().__init__(model, config, max_points, frame_bucket, transfer_dtype, cuda_graph,
+                         devices, part_kw)
 
     def _make_step(self, model):
         return make_match_step(model.net, self.config, self._A, self.is_bat, self._agg_mode,

@@ -32,13 +32,23 @@ The dataset loop takes the disk prep store (`prep_store_path`,
 tracking/prep_store.py), the results writer (`results_writer`,
 tracking/results.py) and `shard_across_processes` (each rank of the process
 group tracks its stripe of the tracklets, and the metric states are summed
-over the ranks, as the JAX package's). Several cards in one process (the
-JAX scan trackers' `mesh=`) are not ported: a multi-card eval runs one rank
-a card (main.py --num_devices).
+over the ranks, as the JAX package's).
+
+`devices=[card, ...]` (the JAX scan trackers' `mesh=`) splits each batch
+over several cards in one process: one part a card, each a tracker of its
+own class on its card with its own model copy (`model_on`), bf16 copy and
+captured graphs. A batch is padded to a multiple of the card count by
+repeating its last tracklet (the padding's boxes are dropped), each part's
+rows go to its card, and every card's frame loop is launched before
+anything is fetched; the boxes (and `dispatch_scored`'s scores) come back on
+the first card. A part at B / n gives an unsplit tracker's boxes at B / n bit
+for bit. A multi-card eval can also run one rank a card (main.py
+--num_devices).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from collections import defaultdict, deque
 from typing import List, Optional, Sequence
@@ -194,6 +204,32 @@ def _make_scorer(config):
     return score
 
 
+def on_card(device: torch.device):
+    """A context with `device` current where it is a card; nothing on the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def canonical_device(device) -> torch.device:
+    """`device` as a torch.device, a card with its index ('cuda' is the
+    current card)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def model_on(model, device):
+    """The model wrapper with its net on `device`: itself where it is there,
+    else a copy (the wrapper's attributes shared, the net copied)."""
+    device = canonical_device(device)
+    if canonical_device(model.device) == device:
+        return model
+    moved = copy.copy(model)
+    moved.net = copy.deepcopy(model.net).to(device)
+    moved.device = device
+    return moved
+
+
 def _fetch_async(*tensors: torch.Tensor):
     """Start copies of device tensors into pinned host buffers without
     blocking; returns the host tensors and an event recorded behind the
@@ -201,10 +237,11 @@ def _fetch_async(*tensors: torch.Tensor):
     if tensors[0].device.type != "cuda":
         return (*tensors, None)
     host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
-    for h, t in zip(host, tensors):
-        h.copy_(t, non_blocking=True)
-    ready = torch.cuda.Event()
-    ready.record()
+    with on_card(tensors[0].device):
+        for h, t in zip(host, tensors):
+            h.copy_(t, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
     return (*host, ready)
 
 
@@ -382,9 +419,9 @@ class _DeviceTracker:
     """What the scan trackers and the online ones (tracking/online.py) share:
     the transfer codec, the model's device and up frame, pinned host tensors,
     and captured graphs keyed on the weights. A subclass gives
-    `_make_step(model)`. A tracker with no model (a loaded serving bundle)
-    runs on `device` and keys its graphs on nothing: its weights never
-    change."""
+    `_make_step(model)`. A tracker runs on `device` where it is given, else
+    on its model's; a tracker with no model (a loaded serving bundle) keys
+    its graphs on nothing: its weights never change."""
 
     def __init__(self, model, config, transfer_dtype, cuda_graph: bool, device=None):
         # 'int16' ships fixed-point frame points (half the H2D bytes,
@@ -396,7 +433,7 @@ class _DeviceTracker:
             raise ValueError(f"transfer_dtype must be None or 'int16', got {transfer_dtype!r}")
         self.transfer_dtype = transfer_dtype
         self.config = config
-        self.device = model.device if model is not None else torch.device(device)
+        self.device = torch.device(device) if device is not None else model.device
         self._A = rigid.up_frame(config.up_axis, device=self.device)
         self._A_np = None if self._A is None else self._A.cpu().numpy()
         self.cuda_graph = cuda_graph and self.device.type == "cuda"
@@ -449,16 +486,57 @@ class _ScanTracker(_DeviceTracker):
     A subclass gives `_make_step(model)`, `track_frames(pts, counts, wlh,
     init, *extra[, gt_params, gt_wlh])` (the gt arrays when `gt_inputs`),
     `_extra_inputs(sequences)` (host arrays shipped after init) and
-    `_frame_wlh(sequence)` (each predicted box's wlh, host scoring)."""
+    `_frame_wlh(sequence)` (each predicted box's wlh, host scoring).
+
+    `devices`: one device runs the tracker there; several split each batch
+    over them (`parts`: a tracker of the subclass on each device, made with
+    `part_kw`, the subclass's own arguments). A split tracker tracks
+    through `track_batch` / `dispatch_scored` / the dataset loop; each part
+    runs its own frame loop (`track_frames`) on its rows."""
 
     gt_inputs = False  # whether tracking reads the per-frame gt boxes
 
     def __init__(self, model, config, max_points: int, frame_bucket: int, transfer_dtype,
-                 cuda_graph: bool):
+                 cuda_graph: bool, devices: Optional[Sequence] = None,
+                 part_kw: Optional[dict] = None):
         self.max_points = max_points
         self.frame_bucket = frame_bucket
         self._scorer = None  # built lazily by dispatch_scored
-        super().__init__(model, config, transfer_dtype, cuda_graph)
+        devices = [canonical_device(d) for d in devices or ()]
+        # the devices a batch is split over (none: unsplit); set_model makes the
+        # parts. One device other than the model's is a split into one part, so
+        # that the tracker keeps the caller's model (the dataset loop's check).
+        split = len(devices) > 1 or devices[:1] not in ([], [canonical_device(model.device)])
+        self.devices, self._part_kw = (devices if split else []), part_kw
+        self.parts = []
+        super().__init__(model, config, transfer_dtype, cuda_graph,
+                         self.devices[0] if self.devices else None)
+
+    @property
+    def cards(self) -> int:
+        """The number of parts a batch is split into (1: unsplit)."""
+        return max(1, len(self.parts))
+
+    def set_model(self, model) -> None:
+        """Track with `model`'s net from now on; a split tracker makes its
+        parts anew, each with the model on its device."""
+        if not self.devices:
+            super().set_model(model)
+            return
+        self.model = model
+        self.parts = [type(self)(model_on(model, d), self.config, **self._part_kw)
+                      for d in self.devices]
+        self._parts_key = weights_key(model.net)
+        self.reset_graphs()
+
+    def graph_launches(self) -> dict:
+        """As _DeviceTracker's; a split tracker's over all its parts, with
+        each part's own under "parts"."""
+        if not self.parts:
+            return super().graph_launches()
+        parts = [p.graph_launches() for p in self.parts]
+        return {"captured_per_replay": [c for p in parts for c in p["captured_per_replay"]],
+                "replays": sum(p["replays"] for p in parts), "parts": parts}
 
     # --- host-side driver -------------------------------------------------
     def _bucket_len(self, T: int) -> int:
@@ -469,8 +547,11 @@ class _ScanTracker(_DeviceTracker):
 
     def _prepare(self, sequences: Sequence[list]):
         """Pad a tracklet batch and pack it for the transfer: (sequences,
-        T_pad, host tensors [*packed points, counts, wlh, init, *extra])."""
+        T_pad, host tensors [*packed points, counts, wlh, init, *extra]). A
+        split tracker's batch is padded to a multiple of its card count by
+        repeating the last tracklet (JAX scan_tracker.py:442-446)."""
         sequences = list(sequences)
+        sequences += sequences[-1:] * (-len(sequences) % self.cards)
         B = len(sequences)
         T_pad = max(self._bucket_len(len(s)) for s in sequences)
         P = self.max_points
@@ -500,12 +581,34 @@ class _ScanTracker(_DeviceTracker):
 
     def _dispatch(self, host: list, gt: list):
         """Copy a batch to the device and track it: -> (boxes, wlh, init,
-        gt on the device)."""
-        pts, counts, wlh, init, *extra = self._on_device(host)
-        gt_dev = [t.to(self.device, non_blocking=True) for t in gt]
-        boxes = self.track_frames(pts, counts, wlh, init, *extra,
-                                  *(gt_dev if self.gt_inputs else ()))
+        gt on the device). A split tracker hands each part its rows and
+        brings the boxes back to the first card."""
+        if self.parts:
+            k = 1 if self.transfer_dtype is None else 3  # host: [*packed points, counts, wlh, init, ...]
+            wlh, init, *gt_dev = (t.to(self.device, non_blocking=True)
+                                  for t in (host[k + 1], host[k + 2], *gt))
+            return self._track_split(host, gt if self.gt_inputs else []), wlh, init, gt_dev
+        with on_card(self.device):
+            pts, counts, wlh, init, *extra = self._on_device(host)
+            gt_dev = [t.to(self.device, non_blocking=True) for t in gt]
+            boxes = self.track_frames(pts, counts, wlh, init, *extra,
+                                      *(gt_dev if self.gt_inputs else ()))
         return boxes, wlh, init, gt_dev
+
+    def _track_split(self, host: list, gt: list) -> torch.Tensor:
+        """Each part's rows of the batch copied to its card and tracked there,
+        every part's frame loop launched before any box is fetched; -> the
+        (B, T - 1, 4) boxes on the first card. The parts are made anew
+        first where the model's weights have changed (a part with a copy of
+        the model would keep the old ones)."""
+        if weights_key(self.model.net) != self._parts_key:
+            self.set_model(self.model)
+        b = host[0].shape[0] // len(self.parts)
+        boxes = []
+        for i, part in enumerate(self.parts):
+            rows = slice(i * b, (i + 1) * b)
+            boxes.append(part._dispatch([t[rows] for t in host], [t[rows] for t in gt])[0])
+        return torch.cat([x.to(self.device, non_blocking=True) for x in boxes])
 
     def _gt_host(self, sequences, T_pad: int) -> list:
         return self._host(*_gt_arrays(sequences, T_pad, self._A_np))
@@ -515,10 +618,11 @@ class _ScanTracker(_DeviceTracker):
 
         Returns a list of (T_i - 1, 4) world-frame box parameter arrays.
         """
+        n = len(sequences)
         sequences, T_pad, host = self._prepare(sequences)
         gt = self._gt_host(sequences, T_pad) if self.gt_inputs else []
         boxes = self._dispatch(host, gt)[0].cpu().numpy()
-        return [boxes[b, : len(seq) - 1] for b, seq in enumerate(sequences)]
+        return [boxes[b, : len(seq) - 1] for b, seq in enumerate(sequences[:n])]
 
     def _pred_wlh(self, wlh: torch.Tensor, gt_wlh: torch.Tensor) -> torch.Tensor:
         """The predicted boxes' wlh for the scorer: (B, 3), or (B, T, 3)."""
@@ -528,8 +632,9 @@ class _ScanTracker(_DeviceTracker):
         """Track AND score a batch on the device; no host sync.
 
         Returns (iou, dist) (B, T_pad) device tensors (slice [b, :len(seq)]
-        per tracklet). prep_cache/cache_key: optional dict + key caching the
-        packed host tensors across calls (the caller owns invalidation).
+        per tracklet; a split tracker's B is padded, its scores on the first
+        card). prep_cache/cache_key: optional dict + key caching the packed
+        host tensors across calls (the caller owns invalidation).
         """
         if prep_cache is not None and cache_key in prep_cache:
             host, gt = prep_cache[cache_key]
@@ -570,16 +675,23 @@ def rounded_net(net: torch.nn.Module, dtype) -> torch.nn.Module:
 
 class M2ScanTracker(_ScanTracker):
     """Batched tracker for M2-Track (B tracklets per batch) on the model's
-    device. `cuda_graph` (the default) replays a captured step on the card;
-    False runs the eager loop there too. A capture that fails raises.
-    `compute_dtype` torch.bfloat16 tracks with `rounded_net(model.net)`,
-    made again whenever the model's weights change."""
+    device, or split over `devices` (JAX `mesh=`; _ScanTracker). `cuda_graph`
+    (the default) replays a captured step on the card; False runs the eager
+    loop there too. A capture that fails raises. `compute_dtype`
+    torch.bfloat16 tracks with `rounded_net(model.net)`, made again whenever
+    the model's weights change (by each part of a split tracker: a part
+    keeps its own rounded copy)."""
 
     def __init__(self, model, config, max_points: int = 4096, frame_bucket: int = 16,
-                 compute_dtype=None, transfer_dtype=None, cuda_graph: bool = True):
+                 compute_dtype=None, transfer_dtype=None, cuda_graph: bool = True,
+                 devices: Optional[Sequence] = None):
         self.compute_dtype = BF16 if is_bf16(compute_dtype) else None
         self.box_aware = bool(getattr(config, "box_aware", False))
-        super().__init__(model, config, max_points, frame_bucket, transfer_dtype, cuda_graph)
+        part_kw = dict(max_points=max_points, frame_bucket=frame_bucket,
+                       compute_dtype=compute_dtype, transfer_dtype=transfer_dtype,
+                       cuda_graph=cuda_graph)
+        super().__init__(model, config, max_points, frame_bucket, transfer_dtype, cuda_graph,
+                         devices, part_kw)
 
     def _make_step(self, model):
         net = model.net

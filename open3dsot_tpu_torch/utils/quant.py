@@ -1,6 +1,6 @@
 """Fixed-point int16 transfer codec (config.transfer_quant), copy of
-`open3dsot_tpu/utils/quant.py`: the host encoder (numpy) and the device
-decoder (tensors) of the scan tracker's point transfer.
+`open3dsot_tpu/utils/quant.py`: the host encoder (native, or numpy) and the
+device decoder (tensors) of the scan tracker's point transfer.
 
 Per-SAMPLE (leading-axis) ranges: each tracklet gets its own midrange
 offset and symmetric scale over its VALID points, so the step is at most
@@ -14,11 +14,25 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from open3dsot_tpu_torch import native
+
 
 def quantize_per_sample(pts: np.ndarray, valid: np.ndarray):
     """pts (B, ..., 3) f32 + valid (B, ...) bool -> (q int16 like pts,
     scale (B,), off (B, 3)). Ranges over valid rows per leading-axis sample;
-    an all-invalid sample gets off=0, scale=1e-6."""
+    an all-invalid sample gets off=0, scale=1e-6.
+
+    Takes the single-pass native encoder unless OPEN3DSOT_TPU_NATIVE=0
+    (native/geomlib.cpp::quantize_per_sample, bit for bit the numpy path
+    below, which makes about eight passes over the batch on the eval
+    pipeline's host side)."""
+    if native.enabled():
+        return native.quantize_per_sample_native(pts, valid)
+    return _quantize_per_sample_numpy(pts, valid)
+
+
+def _quantize_per_sample_numpy(pts: np.ndarray, valid: np.ndarray):
+    """The numpy encoder: the native one's plain version."""
     pts = np.asarray(pts, np.float32)
     B = pts.shape[0]
     flat = pts.reshape(B, -1, 3)

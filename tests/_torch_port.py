@@ -70,3 +70,18 @@ def assert_f32_fails_bf16(f32, want) -> None:
     that quietly computed in f32 would fail `assert_close_bf16`."""
     worst, mean = bf16_errors(f32, want)
     assert worst > BF16_MAX_REL or mean > BF16_MEAN_REL, (worst, mean)
+
+
+def jax_native_library():
+    """The JAX package's native library, built and loaded. It builds next to
+    its source and loads what it finds there: a worker that finds another
+    worker's build half-written gets None, so a few tries are made."""
+    import time
+
+    from open3dsot_tpu import native
+
+    for _ in range(20):
+        if native.available():
+            return native._load()
+        time.sleep(0.5)
+    raise AssertionError("the JAX package's native library did not build or load")

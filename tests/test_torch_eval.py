@@ -80,14 +80,33 @@ def bat_pair():
 
 @pytest.fixture
 def numpy_crop(monkeypatch):
-    """The JAX package crops search areas with its native C++ library when it
-    is built (same points, other rounding; tests/test_native.py); the port
-    copies the numpy path, so the JAX side takes it too: the inputs are then
-    bit-equal and FPS indices can be compared."""
+    """Both packages crop search areas with their numpy paths. FPS indices
+    are compared, so the inputs must be bit-equal: the native C++ crop
+    (tests/test_native.py, tests/test_torch_native.py) rounds otherwise than
+    numpy, and each package's library falls back or raises differently
+    where it cannot build (test_bat_trajectories_match_with_the_native_crop
+    runs both libraries)."""
     monkeypatch.setenv("OPEN3DSOT_TPU_NATIVE", "0")
 
 
 def test_bat_trajectories_and_metrics_match(bat_pair, numpy_crop):
+    _bat_trajectories_match(bat_pair)
+
+
+def test_bat_trajectories_match_with_the_native_crop(bat_pair, monkeypatch):
+    """The same with the native library on in both packages: the two
+    libraries crop bit for bit alike, so the inputs are bit-equal again."""
+    from open3dsot_tpu_torch import native
+    from tests._torch_port import jax_native_library
+
+    monkeypatch.delenv("OPEN3DSOT_TPU_NATIVE", raising=False)
+    jax_native_library()
+    native.reset_call_counts()
+    _bat_trajectories_match(bat_pair)
+    assert native.crop_canonical.calls > 0
+
+
+def _bat_trajectories_match(bat_pair):
     (jm, variables, jcfg), (port, pcfg) = bat_pair
     jt = jax_eval.Tracker(jm, variables)
     pt = port_eval.Tracker(port)

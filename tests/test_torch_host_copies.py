@@ -1,9 +1,10 @@
 """Each numpy host module that the port carries as a copy gives the
 original's output on seeded inputs (config, quaternion, data_classes,
 points_utils, iou, metrics, synthetic data, the test and siamese training
-samplers, the Kalman search space, the batch loader, the scalar logger, the
-visualization writers, the nuScenes split and category tables; the real
-datasets' loaders are held in tests/test_torch_datasets.py)."""
+samplers, the search spaces, the batch loader, the scalar logger, the
+visualization writers, the nuScenes split and category tables, the ops'
+numpy references, the Stopwatch; the real datasets' loaders are held in
+tests/test_torch_datasets.py)."""
 
 from __future__ import annotations
 
@@ -260,6 +261,87 @@ def test_kalman_search_space_copy():
     want = jk.sample(7)
     np.random.seed(2)
     np.testing.assert_array_equal(pk.sample(7), want)
+
+
+def test_other_search_spaces_copy():
+    """ExhaustiveSearch's grid, ParticleFiltering's draws around its scored
+    data, and the Gaussian mixture: the weighted EM fit (weights, means,
+    covariances) and the draws from it, unfitted and fitted, under one
+    numpy seed."""
+    import open3dsot_tpu.data.searchspace as j_ss
+    import open3dsot_tpu_torch.data.searchspace as p_ss
+
+    for kw in ({}, dict(search_space=((-1.0, 2.0), (-2.0, 2.0), (-5.0, 5.0)),
+                        search_dims=(3, 4, 5))):
+        np.testing.assert_array_equal(p_ss.ExhaustiveSearch(**kw).sample(),
+                                      j_ss.ExhaustiveSearch(**kw).sample())
+    rng = np.random.default_rng(8)
+    data, score = rng.standard_normal((30, 3)) * [1.0, 1.0, 5.0], rng.uniform(0, 1, 30)
+
+    def draws(space, n):
+        np.random.seed(4)
+        return space.sample(n)
+
+    spaces = [(cls(bnd=[1, 1, 5]), getattr(j_ss, cls.__name__)(bnd=[1, 1, 5]))
+              for cls in (p_ss.ParticleFiltering, p_ss.KalmanFiltering)]
+    spaces.append((p_ss.GaussianMixtureModel(n_comp=3), j_ss.GaussianMixtureModel(n_comp=3)))
+    for ps_, js_ in spaces:
+        assert isinstance(ps_, p_ss.SearchSpace)
+        np.testing.assert_array_equal(draws(ps_, 10), draws(js_, 10))  # before any data
+        ps_.addData(data, score)
+        js_.addData(data, score)
+        np.testing.assert_array_equal(draws(ps_, 10), draws(js_, 10))
+    gp, gj = spaces[-1]
+    for a, b in zip((gp._pi, gp._means, gp._covs), (gj._pi, gj._means, gj._covs)):
+        np.testing.assert_array_equal(a, b)
+    w = score / score.sum()
+    for a, b in zip(p_ss._weighted_em_gmm(data, w, 4, iters=20, seed=3),
+                    j_ss._weighted_em_gmm(data, w, 4, iters=20, seed=3)):
+        np.testing.assert_array_equal(a, b)
+    assert np.isclose(gp._pi.sum(), 1.0) and gp._means.shape == (3, 3)
+
+
+def test_op_references_copy():
+    """ops/reference.py's golden models: FPS, ball query, kNN and 3-NN."""
+    import open3dsot_tpu.ops.reference as j_ref
+    import open3dsot_tpu_torch.ops.reference as p_ref
+
+    rng = np.random.default_rng(9)
+    xyz = rng.uniform(-1, 1, (2, 64, 3)).astype(np.float32)
+    new = xyz[:, :10]
+    np.testing.assert_array_equal(p_ref.fps_ref(xyz, 16), j_ref.fps_ref(xyz, 16))
+    np.testing.assert_array_equal(p_ref.ball_query_ref(0.4, 8, xyz, new),
+                                  j_ref.ball_query_ref(0.4, 8, xyz, new))
+    np.testing.assert_array_equal(p_ref.knn_ref(new, xyz, 5), j_ref.knn_ref(new, xyz, 5))
+    for a, b in zip(p_ref.three_nn_ref(new, xyz), j_ref.three_nn_ref(new, xyz)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_stopwatch_copy_and_trace(tmp_path):
+    """Stopwatch accumulates as the original (counts and keys; the times are
+    the clock's); trace writes a Chrome trace holding annotate's span."""
+    import json
+
+    from open3dsot_tpu.utils.profiling import Stopwatch as JS
+    from open3dsot_tpu_torch.utils.profiling import Stopwatch as PS
+    from open3dsot_tpu_torch.utils.profiling import annotate, trace
+
+    summaries = []
+    for sw in (PS(), JS()):
+        for name in ("sample", "step", "sample"):
+            with sw(name):
+                pass
+        summaries.append(sw.summary())
+    for got, want in zip(*(sorted(s.items()) for s in summaries)):
+        assert got[0] == want[0] and got[1]["count"] == want[1]["count"]
+        assert set(got[1]) == set(want[1]) == {"total_s", "count", "mean_ms"}
+    import torch
+
+    with trace(str(tmp_path / "tr")):
+        with annotate("span_of_the_test"):
+            torch.ones(8).sum()
+    events = json.loads((tmp_path / "tr" / "trace.json").read_text())["traceEvents"]
+    assert any(e.get("name") == "span_of_the_test" for e in events)
 
 
 @pytest.mark.parametrize("cfg_path", ["cfgs/BAT_synthetic.yaml", "cfgs/P2B_synthetic.yaml"])

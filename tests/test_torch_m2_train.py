@@ -179,7 +179,14 @@ def _dist(got: dict, truth: dict) -> float:
     return float(np.abs(g - t).mean() / np.abs(t).max())
 
 
-def test_bf16_train_step_against_jax_bf16():
+def test_bf16_train_step_against_jax_bf16(monkeypatch):
+    # The batch this test was built on, cropped by numpy: the native crop's
+    # batch (a few bits apart) makes the float32 step ill-conditioned here.
+    # Its hidden MLPs' BatchNorms see B = 3 rows, where flax's variance
+    # E[x^2] - E[x]^2 (both packages) loses about four digits, and the f32
+    # step lands 3.2e-3 from float64 against JAX bf16's 1.5e-3, so the
+    # control below cannot tell f32 from bf16 on it.
+    monkeypatch.setenv("OPEN3DSOT_TPU_NATIVE", "0")
     port16, lg16, batch, variables = _pair(True)
     port32 = _pair(False)[0]
     params, stats = to_numpy(variables["params"]), to_numpy(variables["batch_stats"])

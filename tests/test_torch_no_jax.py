@@ -38,7 +38,8 @@ def test_slice_imports_no_jax():
               "models.losses", "utils.logging", "probes.gather", "probes.gather_bf16",
               "data.kitti", "data.nuscenes_data", "data.waymo_data", "import_torch",
               "export_torch", "eval_released_ckpt", "tracking.prep_store", "tracking.results",
-              "utils.visualization", "reference_layout"):
+              "utils.visualization", "reference_layout", "native", "ops.interpolate",
+              "ops.reference", "models.flow", "data.searchspace", "utils.profiling"):
         assert f"open3dsot_tpu_torch.{m}" in names.split(","), m
 
 
