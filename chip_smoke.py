@@ -19,6 +19,7 @@
     python3 chip_smoke.py --distributed-times  # phases 1, 2 and 24 (multi-device runs), no result
     python3 chip_smoke.py --split-cards   # phases 1, 2, 24c and 25b over every card present, no result
     python3 chip_smoke.py --scan-split-times  # phases 1, 2 and 25 (split scans, native, layers), no result
+    python3 chip_smoke.py --domain-times  # phases 1, 2 and 26 (the kernels' edge shapes), no result
 
 Phases, one line or a few each; any failure exits non-zero:
   1. environment: torch / CUDA versions, the card's name and power limit;
@@ -68,7 +69,7 @@ Phases, one line or a few each; any failure exits non-zero:
      synthetic dataset at BAT_Car widths (both paths), a profiler window
      (K3's launches in it beside the profiler's records of them), and the
      CLI on cfgs/BAT_synthetic.yaml.
- 10. printed last, after phase 25: one JSON line of the kernels K1-K6 and
+ 10. printed last, after phase 26: one JSON line of the kernels K1-K6 and
      the probes P1/P2, then K1/K2/K4/K5 and K6 (forward, backward) in the
      bf16 mode (each with its bound from this run's shapes), the card line,
      then the result line.
@@ -298,6 +299,29 @@ Phases, one line or a few each; any failure exits non-zero:
      FeaturePropagation, FlowEmbedding and PointNetSetUpConv at small
      widths on the card against the CPU, eval and training forward. Its
      lines also go to chiprun_out/phase25.txt.
+ 26. the shapes beyond the shipped configs that the Pallas kernels take,
+     each on a hand kernel against its plain version at its phase's
+     tolerance, with the launch counts that show which kernel ran: (a) K6
+     forward and backward, f32 and bf16, at widths 512-512-512 and 30-50-70
+     (B 4, N 256, S 64, K 32), at 512 in f32 also the ordered da and the
+     staged entries in a world of one, and at 8-8-8 with B 2048, S 2100, K
+     8 (more partial sums than a grid's y holds; its backward held to
+     float64, f32 as phase 12 holds a step, bf16 at 10x the plain bf16
+     path's distance); (b) K4 in both modes at nsample 128 (the rows
+     path), at 512-512-1024, at 30-50-70 and at 64-1536-128 (the rows path
+     in both modes), and K5 past one tile with an index out of range (its
+     centroid NaN); (c) K1/K2 in both modes
+     with a tap of 60 (K2's first width 36) and a 2048-wide layer, and with
+     a 4096-wide layer's input streamed; (d) K3 at N = 65536, npoint 1024, B
+     = 2 (a cluster of blocks), index for index; (e) the model-level paths:
+     a BAT SetAbstraction in training at width 512 (K6) against its plain
+     path, and one in eval at nsample 128 on clouds of 65536 points (K3's
+     cluster, K4's rows path), f32 and bf16; (f) K4 at B = 16 over BAT's
+     seven SA calls and K6 at B = 50 over a train step's four calls on the
+     shipped widths, device time by queued events, beside PERF.md's. One
+     line a shape: kernel and plain times, the bound, the card. The kernels
+     line gains the rows of these paths. Its lines also go to
+     chiprun_out/phase26.txt.
 
 Weights are random, made with numpy from a seed in the JAX tree's shape
 (open3dsot_tpu_torch.weights). Needs one card; no network.
@@ -729,6 +753,7 @@ def main(argv=None) -> None:
     dist_only = "--distributed-times" in args
     split_only = "--split-cards" in args
     scan_split_only = "--scan-split-times" in args
+    domain_only = "--domain-times" in args
     if "--rank-worker" in args:  # a rank of phase 24's two-rank world
         rank_worker(args[args.index("--rank-worker") + 1])
         return
@@ -764,6 +789,8 @@ def main(argv=None) -> None:
                           bf16_eval + ["sa_fused_train", "sa_fused_train_bf16"]
                           if train_only or dist_only else
                           ["sa_fused"] if k4_only else ["fps", "fps_floor"] if k3_only else
+                          bf16_eval + ["sa_fused_train", "sa_fused_train_bf16"]
+                          if domain_only else
                           bf16_eval + ["sa_fused_train", "sa_fused_train_bf16", "gather_probe",
                                        "fps_floor"])
     print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -804,6 +831,11 @@ def main(argv=None) -> None:
     if scan_split_only:
         scan_split_phase(card)
         print("scan split times done: phases 1, 2 and 25 only", flush=True)
+        return
+    if domain_only:
+        for row in domain_phase(card):
+            print(f"  26 kernels line row: {json.dumps(row)}", flush=True)
+        print("domain times done: phases 1, 2 and 26 only", flush=True)
         return
     if dist_only:
         for row in distributed_phase(card):
@@ -974,6 +1006,9 @@ def main(argv=None) -> None:
 
     # --- 25. split scan trackers, the native host library, the layer library -------
     scan_split_phase(card)
+
+    # --- 26. every shape the Pallas kernels take ----------------------------------------
+    bf16_kernels.extend(domain_phase(card))
     replaces = "open3dsot_tpu/ops/sa_fused_train.py:608-776 (cdt bfloat16)"
     for what in ("fwd", "bwd"):
         bf16_kernels.append(kernel_entry(
@@ -6294,6 +6329,554 @@ def scan_split_phase(card: str) -> None:
     native_phase(card)
     layer_library_on_card(card)
     say25(f"phase 25 ok in {time.perf_counter() - t_phase:.1f} s")
+
+
+# --- 26. every shape the Pallas kernels take ------------------------------------
+# K6 forward and backward: (C1, C2, C3), (B, N, S, K), timed. The last has more
+# than 65535 partials of y1's statistics (R > 65535 x 512 rows) and of the max
+# gradient's (B S > 65535 x 64 centroids): more than a grid's y holds
+DOMAIN_K6 = (((512, 512, 512), (4, 256, 64, 32), True), ((30, 50, 70), (4, 256, 64, 32), True),
+             ((8, 8, 8), (2048, 64, 2100, 8), False))
+# K4: (label, widths, nsample) on B clouds of N points with 13 feature channels, S centroids
+DOMAIN_K4 = (("nsample 128", (64, 64, 128), 128), ("wide", (512, 512, 1024), 32),
+             ("ragged", (30, 50, 70), 20), ("wider than a bf16 h2 tile", (64, 1536, 128), 32))
+DOMAIN_K4_SHAPE = (4, 4096, 256)
+# K1 (label, widths, tap_at) on (B, N); a tap is followed by K2 (its first width 36)
+DOMAIN_CHAINS = (("a tap of 60 and a 2048-wide layer", [13, 60, 2048, 256], 0),
+                 ("a 4096-wide layer's input streamed", [13, 64, 4096, 128], None))
+DOMAIN_CHAIN_SHAPE = (2, 4096)
+DOMAIN_K3 = (2, 65536, 1024)  # B, N, npoint
+PHASE26_LOG = ROOT / "chiprun_out" / "phase26.txt"
+
+
+def say26(line: str) -> None:
+    say(line, PHASE26_LOG)
+
+
+def domain_time(kernel, plain, bound, card: str, what: str) -> tuple:
+    """Event times of a kernel call and its plain version (plain, kernel,
+    plain), printed with the bound (ms, what bounds it) -> (ms, plain ms)."""
+    t_p = time_ms(plain, iters=3, repeats=3)
+    t_k = time_ms(kernel, iters=3, repeats=3)
+    t_p = min(t_p, time_ms(plain, iters=3, repeats=3))
+    say26(f"  time {what}: kernel {t_k:.4f} ms plain {t_p:.4f} ms; bound {bound[0]:.5f} ms "
+          f"by {bound[1]} [{card}]")
+    return t_k, t_p
+
+
+def domain_k6(card: str, rows: dict) -> None:
+    """26a: K6 forward and backward, f32 (3xTF32) and bf16, at DOMAIN_K6 on
+    random inputs against the plain versions (phases 11 and 19's tolerances
+    and checks); at 512 in f32 also the ordered da and the staged entries in
+    a world of one."""
+    import torch
+
+    from open3dsot_tpu_torch.ops import sa_fused_train as k6
+    from open3dsot_tpu_torch.ops.chain_fused import pad_to, round4
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+
+    for widths, (B, N, S, K), timed in DOMAIN_K6:
+        first = widths == DOMAIN_K6[0][0]
+        c1, c2, c3 = widths
+        P = [round4(c) for c in widths]
+        a, ct = rnd(B, N, c1), rnd(B, S, c1, scale=0.1)
+        ab = a.to(torch.bfloat16).float()
+        idx = torch.randint(0, N, (B, S, K), device="cuda", generator=gen, dtype=torch.int32)
+        w2, w3 = rnd(c1, c2, scale=c1 ** -0.5), rnd(c2, c3, scale=c2 ** -0.5)
+        b2, b3 = rnd(c2, scale=0.1), rnd(c3, scale=0.1)
+        bn = [1.0 + rnd(c, scale=0.1) if i == 0 else rnd(c, scale=0.1)
+              for c in widths for i in range(2)]
+        wb = (w2, b2, w3, b3, bn)
+        g = rnd(B, S, c3).to(torch.bfloat16).float()
+        shape = f"B={B} N={N} S={S} K={K} C={c1},{c2},{c3}"
+        work = k6_work(B, N, S, K, c1, c2, c3)
+        # f32
+        packs = k6.Packs(w2, w3, False)
+        k6.reset_launch_counts()
+        out_k, st_k, _ = k6.sa_train_fwd_kernel(a, ct, idx, *wb, packs)
+        out_p, st_p, grids = k6.sa_train_fwd_plain(a, ct, idx, *wb)
+        grids_k = tuple(pad_to(y, p) for y, p in zip(grids, P[1:]))  # the kernel's widths
+        bargs = (g, a, ct, idx)
+        bwd_k = lambda: k6.sa_train_bwd_kernel(*bargs, grids_k, st_p, *wb, packs)  # noqa: E731
+        gk = bwd_k()
+        gp = k6.sa_train_bwd_plain(*bargs, grids, st_p, *wb)
+        torch.cuda.synchronize()
+        launches = (k6.fused_sa_train_apply.fwd_launches, k6.fused_sa_train_apply.bwd_launches)
+        say26(f"  26a K6 f32 {shape}: launches (fwd, bwd) {launches}")
+        if launches != (1, 1):
+            fail(f"K6 f32 {shape}: launched {launches}, expected one forward and one backward")
+        e_f = max([compare(f"26a K6 f32 fwd {shape} out", out_k, out_p)] +
+                  [compare(f"26a K6 f32 fwd {shape} stat {i}", x, y)
+                   for i, (x, y) in enumerate(zip(st_k, st_p))])
+        names = ("da", "dct", "dW2", "dW3", "dgamma,dbeta")
+        pairs = [(gk[i], gp[i]) for i in range(4)] + [(torch.cat(gk[4]), torch.cat(gp[4]))]
+        if timed:
+            e_b = max(compare(f"26a K6 f32 bwd {shape} {n}", x, y) for n, (x, y) in
+                      zip(names, pairs))
+        else:  # sums over 34M rows in f32 part from float64 by ~1e-4 on both paths (the
+            # plain one's cuBLAS too): each held to at most 4x the plain path's distance
+            # from the float64 backward on the same inputs (phase 12's rule)
+            d = lambda t: t.double()  # noqa: E731
+            t64 = k6.sa_train_bwd_plain(d(g), d(a), d(ct), idx, tuple(map(d, grids)),
+                                        [d(x) for x in st_p], d(w2), d(b2), d(w3), d(b3),
+                                        [d(x) for x in bn])
+            e_b = 0.0
+            for n, (x, y), w in zip(names, pairs, [t64[i] for i in range(4)] + [torch.cat(t64[4])]):
+                e_k, e_p = rel_err(d(x), w), rel_err(d(y), w)
+                e_b = max(e_b, (x - y).abs().max().item())
+                say26(f"  26a K6 f32 bwd {shape} {n}: rel err vs float64 kernel {e_k:.3e} plain "
+                      f"{e_p:.3e}")
+                if e_k > max(4 * e_p, 1e-4):
+                    fail(f"26a K6 f32 bwd {shape} {n}: {e_k:.3e} from float64, plain {e_p:.3e}")
+            del t64
+        if first:
+            da_o = check_ordered(f"26a K6 f32 bwd {shape}", bwd_k, gk, compare)
+            e_b = max(e_b, compare(f"26a K6 f32 bwd {shape} da ordered", da_o, gp[0]))
+            k6.reset_launch_counts()
+            out_s, st_s, grids_s = k6.sa_train_fwd_kernel(a, ct, idx, *wb, packs, staged=True)
+            gs = k6.sa_train_bwd_kernel(*bargs, grids_k, st_p, *wb, packs, staged=True)
+            torch.cuda.synchronize()
+            staged = (k6.fused_sa_train_apply.staged_fwd_launches,
+                      k6.fused_sa_train_apply.staged_bwd_launches)
+            if staged != (1, 1):
+                fail(f"26a K6 staged {shape}: launched {staged}, expected (1, 1)")
+            if not (torch.equal(out_s, out_k) and all(map(torch.equal, st_s, st_k))):
+                fail(f"26a K6 staged forward {shape}: not the single call's bit for bit")
+            for i, name in enumerate(("dct", "dW2", "dW3")):
+                e_b = max(e_b, compare(f"26a K6 f32 staged bwd {shape} {name}", gs[i + 1],
+                                       gp[i + 1]))
+            e_b = max(e_b, compare(f"26a K6 f32 staged bwd {shape} da", gs[0], gp[0]))
+            say26(f"  26a K6 staged {shape} in a world of one: forward the single call's bit for "
+                  f"bit; backward within tolerance of the plain version")
+        fns = (lambda: k6.sa_train_fwd_kernel(a, ct, idx, *wb, packs),
+               lambda: k6.sa_train_fwd_plain(a, ct, idx, *wb), bwd_k,
+               lambda: k6.sa_train_bwd_plain(*bargs, grids, st_p, *wb))
+        if timed:
+            t_f = domain_time(fns[0], fns[1], tc_bound_of(*work[0]), card,
+                              f"26a K6 f32 fwd {shape}")
+            t_b = domain_time(fns[2], fns[3], tc_bound_of(*work[1]), card,
+                              f"26a K6 f32 bwd {shape}")
+        if first:
+            rows["k6"] = dict(err=(e_f, e_b), fwd=t_f, bwd=t_b, work=work)
+        # bf16
+        packs_b = k6.Packs(w2, w3, True)
+        y3_k = torch.empty(B, S, K, c3, device="cuda")
+        k6.reset_launch_counts()
+        out_k, st_k, grids_k = k6.sa_train_fwd_kernel(a, ct, idx, *wb, packs_b, y3_out=y3_k)
+        out_p, st_p, grids_p = k6.sa_train_fwd_plain(ab, ct, idx, *wb, True)
+        out_f, st_f, grids_f = k6.sa_train_fwd_plain(a, ct, idx, *wb)
+        gk = k6.sa_train_bwd_kernel(*bargs, grids_k, st_k, *wb, packs_b)
+        gp = k6.sa_train_bwd_plain(g, ab, ct, idx, grids_k, st_k, *wb, True, y3=y3_k)
+        gf = k6.sa_train_bwd_plain(*bargs, grids_f, st_f, *wb)
+        torch.cuda.synchronize()
+        launches = (k6.fused_sa_train_apply.bf16_fwd_launches,
+                    k6.fused_sa_train_apply.bf16_bwd_launches)
+        say26(f"  26a K6 bf16 {shape}: launches (fwd, bwd) {launches}")
+        if launches != (1, 1):
+            fail(f"K6 bf16 {shape}: launched {launches}, expected one forward and one backward")
+        compare_bf16(f"26a K6 bf16 fwd {shape} out", out_k, out_p, out_f)
+        y3_h2 = grids_k[1][..., :c2].float() @ w3.to(torch.bfloat16).float() + b3
+        compare_y3(f"26a K6 bf16 fwd {shape} y3 of the max pass", y3_k, y3_h2)
+        cat = lambda x: [x[i] for i in range(4)] + [torch.cat(x[4])]  # noqa: E731
+        if not timed:
+            # 34M rows: the bf16 products' f32 sums part from float64 as the f32 mode's do
+            # (the f32 case above); each held to 10x the plain bf16 path's distance from the
+            # same function summed in float64 (tests/test_torch_train_bf16.py's factor for a
+            # bf16 step's distance from float64)
+            d = lambda t: t.double()  # noqa: E731
+            t64 = k6.sa_train_bwd_plain(d(g), d(ab), d(ct), idx, grids_k, [d(x) for x in st_k],
+                                        d(w2), d(b2), d(w3), d(b3), [d(x) for x in bn], True,
+                                        y3=d(y3_k))
+            for name, x, y, w in zip(names, cat(gk), cat(gp), cat(t64)):
+                e_k, e_p = rel_err(d(x), w), rel_err(d(y), w)
+                say26(f"  26a K6 bf16 bwd {shape} {name}: rel err vs float64 kernel {e_k:.3e} "
+                      f"plain {e_p:.3e}")
+                if e_k > max(10 * e_p, 1e-4):
+                    fail(f"26a K6 bf16 bwd {shape} {name}: {e_k:.3e} from float64, plain "
+                         f"{e_p:.3e}")
+            continue
+        for name, x, y, f in zip(names, cat(gk), cat(gp), cat(gf)):
+            compare_bf16(f"26a K6 bf16 bwd {shape} {name}", x, y, f)
+        work_b = k6_work(B, N, S, K, c1, c2, c3, bf16=True)
+        domain_time(lambda: k6.sa_train_fwd_kernel(a, ct, idx, *wb, packs_b),
+                    lambda: k6.sa_train_fwd_plain(ab, ct, idx, *wb, True), bf16_bound(work_b[0]),
+                    card, f"26a K6 bf16 fwd {shape}")
+        domain_time(lambda: k6.sa_train_bwd_kernel(*bargs, grids_k, st_k, *wb, packs_b),
+                    lambda: k6.sa_train_bwd_plain(g, ab, ct, idx, grids_k, st_k, *wb, True,
+                                                  y3=y3_k),
+                    bf16_bound(work_b[1]), card, f"26a K6 bf16 bwd {shape}")
+
+
+def domain_k4(card: str, rows: dict) -> None:
+    """26b: K4 (ball query in the kernel) in both modes at DOMAIN_K4 against
+    sa_eval_plain; which path took each shape (the rows path where K > 64 or
+    the tiles do not fit); K5 past one tile with an index out of range (its
+    centroid NaN, the others unchanged)."""
+    import torch
+
+    from open3dsot_tpu_torch.ops import sa_fused as saf
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    B, N, S = DOMAIN_K4_SHAPE
+    xyz = torch.rand(B, N, 3, device="cuda", generator=gen)
+    feats = torch.randn(B, N, 13, device="cuda", generator=gen)
+    new = xyz[:, :S].contiguous()
+    kw = dict(radius=0.3, normalize_xyz=True, use_xyz=True)
+    for label, widths, K in DOMAIN_K4:
+        dims = (16,) + widths
+        layers = [(torch.randn(k, c, device="cuda", generator=gen) * k ** -0.5,
+                   torch.randn(c, device="cuda", generator=gen) * 0.1)
+                  for k, c in zip(dims[:-1], dims[1:])]
+        walked = bq_walked(xyz, new, kw["radius"], K)
+        for bf16 in (False, True):
+            mode = "bf16" if bf16 else "f32"
+            folded = saf.FoldedSA(layers, dtype=torch.bfloat16 if bf16 else None)
+            shape = f"{label} B={B} N={N} S={S} K={K} C={','.join(map(str, widths))} {mode}"
+            k4 = lambda: saf.fused_sa_apply(xyz, feats, new, None, folded, nsample=K, **kw)  # noqa: E731
+            plain = lambda: saf.sa_eval_plain(xyz, feats, new, None, folded, nsample=K,  # noqa: E731
+                                              dtype=folded.dtype, **kw)
+            saf.reset_launch_counts()
+            got = k4()
+            torch.cuda.synchronize()
+            launches = (saf.fused_sa_apply.launches, saf.fused_sa_apply.rows_launches)
+            want = plain()
+            if bf16:
+                f32 = saf.sa_eval_plain(xyz, feats, new, None, layers, nsample=K, **kw)
+                err = compare_bf16(f"26b K4 {shape}", got, want, f32)
+            else:
+                err = compare(f"26b K4 {shape}", got, want)
+            rows_path = launches[1] == 1
+            say26(f"  26b K4 {shape}: launches {launches[0]}, on the "
+                  f"{'rows path' if rows_path else 'tile kernel'}")
+            if launches[0] != 1 or (K > saf.TILE_K and not rows_path):
+                fail(f"26b K4 {shape}: launches {launches}; K > {saf.TILE_K} takes the rows path")
+            work = (bf16_sa_work if bf16 else sa_work)(xyz, feats, new, folded, K, walked)
+            bound = bf16_bound(work) if bf16 else tc_bound_of(*work)
+            t = domain_time(k4, plain, bound, card, f"26b K4 {shape}")
+            if label == "nsample 128":
+                rows[f"k4 {mode}"] = dict(err=err, t=t, work=work, bf16=bf16)
+    # K5 past one tile: an index outside [0, N) makes its centroid NaN alone
+    folded = saf.FoldedSA(layers)
+    K = DOMAIN_K4[0][2]
+    from open3dsot_tpu_torch.ops.neighbors import ball_query
+
+    idx = ball_query(kw["radius"], K, xyz, new)
+    good = saf.fused_sa_apply(xyz, feats, new, idx, folded, **kw)
+    idx[1, 5, 100] = N
+    bad = saf.fused_sa_apply(xyz, feats, new, idx, folded, **kw)
+    keep = torch.ones(bad.shape[:2], dtype=torch.bool, device=bad.device)
+    keep[1, 5] = False
+    ok = bool(torch.isnan(bad[1, 5]).all()) and torch.equal(bad[keep], good[keep])
+    say26(f"  26b K5 K={K}, index {N} at centroid 5 of cloud 1 (rows path): its output "
+          f"{'NaN' if torch.isnan(bad[1, 5]).all() else 'not NaN'}, the others "
+          f"{'unchanged' if torch.equal(bad[keep], good[keep]) else 'changed'}")
+    if not ok:
+        fail("26b K5 past one tile: an index outside [0, N) did not give its centroid NaN alone")
+
+
+def domain_chains(card: str, rows: dict) -> None:
+    """26c: K1 (and K2 after a tap) in both modes at DOMAIN_CHAINS against
+    their plain versions: a ragged tap of 60 with K2's first width 36, and a
+    layer whose input (4096 channels) is streamed from device memory."""
+    import torch
+
+    from open3dsot_tpu_torch.ops import chain_fused as cf
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    B, N = DOMAIN_CHAIN_SHAPE
+
+    def layers_of(widths):
+        return [(torch.randn(k, c, device="cuda", generator=gen) * (2.0 / k) ** 0.5,
+                 torch.randn(c, device="cuda", generator=gen) * 0.1)
+                for k, c in zip(widths[:-1], widths[1:])]
+
+    x = torch.randn(B, N, 13, device="cuda", generator=gen)
+    for label, widths, tap_at in DOMAIN_CHAINS:
+        layers = layers_of(widths)
+        head = None
+        if tap_at is not None:
+            head = layers_of([widths[tap_at + 1] + widths[-1], 36, 11])
+        for bf16 in (False, True):
+            mode = "bf16" if bf16 else "f32"
+            dtype = torch.bfloat16 if bf16 else None
+            chain = cf.FoldedChain(layers, dtype=dtype)
+            shape = f"{label} B={B} N={N} widths {'-'.join(map(str, widths))} {mode}"
+            cf.reset_launch_counts()
+            tap, pooled = cf.fused_pointnet_encoder(x, chain, tap_at=tap_at)
+            torch.cuda.synchronize()
+            launches = cf.fused_pointnet_encoder.launches
+            p_tap, p_pooled = cf.pointnet_encoder_plain(x, chain, tap_at=tap_at)
+            f_tap, f_pooled = cf.pointnet_encoder_plain(x, cf.FoldedChain(layers), tap_at=tap_at)
+            cmp = ((lambda n, a, b, f: compare_bf16(n, a, b, f, control=False)) if bf16 else
+                   (lambda n, a, b, f: compare(n, a, b)))
+            err = cmp(f"26c K1 {shape} pooled", pooled, p_pooled, f_pooled)
+            if tap_at is not None:
+                err = max(err, cmp(f"26c K1 {shape} tap", tap, p_tap, f_tap))
+                hchain = cf.FoldedChain(head, split=widths[tap_at + 1], dtype=dtype)
+                cf.reset_launch_counts()
+                out = cf.fused_seg_head(tap, pooled, hchain)
+                torch.cuda.synchronize()
+                launches = (launches, cf.fused_seg_head.launches)
+                cmp(f"26c K2 {shape} logits (first width 36)", out,
+                    cf.seg_head_plain(tap, pooled, hchain),
+                    cf.seg_head_plain(tap, pooled, cf.FoldedChain(head, split=widths[tap_at + 1])))
+            say26(f"  26c {shape}: launches (K1, K2) {launches}")
+            if launches not in (1, (1, 1)):
+                fail(f"26c {shape}: launches {launches}, expected one of each")
+            k1 = lambda: cf.fused_pointnet_encoder(x, chain, tap_at=tap_at)  # noqa: E731
+            pl = lambda: cf.pointnet_encoder_plain(x, chain, tap_at=tap_at)  # noqa: E731
+            tap_elems = 0 if tap_at is None else B * N * widths[tap_at + 1]
+            work = (bf16_chain_work(chain, B, N, B * widths[-1], tap_elems) if bf16 else
+                    k1_work(chain, B, N, tap_at))
+            bound = bf16_bound(work) if bf16 else tc_bound_of(*work)
+            t = domain_time(k1, pl, bound, card, f"26c K1 {shape}")
+            if tap_at is None and not bf16:
+                rows["k1"] = dict(err=err, t=t, work=work)
+
+
+def domain_k3(card: str, rows: dict) -> None:
+    """26d: K3 past 32768 points (a cluster of blocks) against its plain
+    version, index for index."""
+    import torch
+
+    from open3dsot_tpu_torch.ops import sampling
+
+    B, N, npoint = DOMAIN_K3
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    xyz = torch.randn(B, N, 3, device="cuda", generator=gen)
+    sampling.reset_launch_counts()
+    got = sampling.furthest_point_sample(xyz, npoint)
+    torch.cuda.synchronize()
+    launches = (sampling.furthest_point_sample.launches,
+                sampling.furthest_point_sample.cluster_launches)
+    want = sampling.furthest_point_sample_plain(xyz, npoint)
+    same = int((got != want).sum())
+    say26(f"  26d K3 B={B} N={N} npoint={npoint}: launches (all, cluster) {launches}; "
+          f"{same} of {got.numel()} indices differ from the plain version's")
+    if launches != (1, 1) or same:
+        fail(f"26d K3 N={N}: launches {launches}, {same} indices differ")
+    k3 = lambda: sampling.furthest_point_sample(xyz, npoint)  # noqa: E731
+    pl = lambda: sampling.furthest_point_sample_plain(xyz, npoint)  # noqa: E731
+    work = k3_work(B, N, npoint)
+    rows["k3"] = dict(t=domain_time(k3, pl, bound_of(*work), card,
+                                    f"26d K3 B={B} N={N} npoint={npoint}"), work=work)
+
+
+def domain_layers(card: str, rows: dict) -> None:
+    """26e: the model-level paths, counts set to 0 before each and read after:
+    a BAT SetAbstraction in training at width 512 (K6 forward and backward)
+    against the same layer's plain path, and one in eval at nsample 128 on
+    clouds of 65536 points (K3 over a cluster, K4 on the rows path) in f32
+    and bf16 against its plain path."""
+    import copy
+
+    import torch
+
+    from open3dsot_tpu_torch.models.layers import set_compute_dtype
+    from open3dsot_tpu_torch.models.pointnet import SetAbstraction
+    from open3dsot_tpu_torch.ops import sa_fused as saf
+    from open3dsot_tpu_torch.ops import sa_fused_train as k6
+    from open3dsot_tpu_torch.ops import sampling
+
+    torch.manual_seed(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    # training, width 512: BAT's SA2 with its MLP widened
+    B, N, S = 4, 1024, 128
+    xyz = torch.rand(B, N, 3, device="cuda", generator=gen)
+    feats = torch.randn(B, N, 128, device="cuda", generator=gen)
+    sa = SetAbstraction(128, [512, 512, 512], 0.3, 32, use_fps=True, normalize_xyz=True,
+                        fused_train=True).cuda().train()
+    plain = copy.deepcopy(sa)
+    plain.fused_train = False
+    truth = copy.deepcopy(plain).double()
+    truth.fused_eval = False  # the plain FPS (K3 takes f32): the same indices
+    g = torch.randn(B, S, 512, device="cuda", generator=gen)
+    res = {}
+    for name, mod in (("kernel", sa), ("plain", plain), ("float64", truth)):
+        dt = torch.float64 if name == "float64" else torch.float32
+        tx, tf = (t.to(dt).clone().requires_grad_() for t in (xyz, feats))
+        k6.reset_launch_counts()
+        _, out, _ = mod(tx, tf, S)
+        (out * g.to(dt)).sum().backward()
+        torch.cuda.synchronize()
+        res[name] = dict({"out": out.detach(), "grad xyz": tx.grad, "grad features": tf.grad},
+                         **{f"grad {n}": p.grad for n, p in mod.named_parameters()},
+                         **{n: b for n, b in mod.named_buffers() if "running" in n})
+        if name == "kernel":
+            rows["k6 launches"] = (k6.fused_sa_train_apply.fwd_launches,
+                                   k6.fused_sa_train_apply.bwd_launches)
+    say26(f"  26e SA training at width 512 (B={B} N={N} S={S} K=32): K6 launches (fwd, bwd) "
+          f"{rows['k6 launches']}")
+    if rows["k6 launches"] != (1, 1):
+        fail(f"26e SA training at width 512: K6 launched {rows['k6 launches']}, expected (1, 1)")
+    got, ref, f64 = res["kernel"], res["plain"], res["float64"]
+    compare("26e SA train 512 out", got["out"], ref["out"])
+    for k in got:
+        if "running" in k:
+            compare(f"26e SA train 512 {k}", got[k], ref[k])
+    # the gradients against the float64 path, as phase 12 holds a train step's: a near-tie
+    # of the max that the two f32 paths break apart routes one share of a gradient to
+    # another neighbour, so each is held to at most 4x the plain f32 path's distance
+    # each against at least 1e-3 of the largest gradient (phase 12's floor): every Dense
+    # bias here feeds a BatchNorm, so its gradient is 0 in exact arithmetic
+    floor = 1e-3 * max(torch.linalg.vector_norm(v).item() for k, v in f64.items()
+                       if k.startswith("grad "))
+    for k in (k for k in got if k.startswith("grad ")):
+        if k.endswith(("layer1.dense.bias", "layer2.dense.bias")):
+            if got[k].any():  # K6 returns these two as exact zeros
+                fail(f"26e SA train 512: {k} is not 0")
+            continue
+        e_k, e_p = (rel_err(x[k].double(), f64[k], floor) for x in (got, ref))
+        limit = max(4 * e_p, 1e-4)
+        if e_k > limit:
+            fail(f"26e SA train 512 {k}: {e_k:.3e} from float64, the plain path {e_p:.3e}")
+        say26(f"  26e SA train 512 {k}: rel err vs float64 kernel path {e_k:.3e} plain path "
+              f"{e_p:.3e} ok")
+    # eval, nsample 128, 65536 points a cloud
+    B, N, S = DOMAIN_K3[0], DOMAIN_K3[1], DOMAIN_K3[2]
+    xyz = torch.rand(B, N, 3, device="cuda", generator=gen)
+    feats = torch.randn(B, N, 32, device="cuda", generator=gen)
+    sa = SetAbstraction(32, [64, 64, 128], 0.1, 128, use_fps=True, normalize_xyz=True).cuda().eval()
+    for mode in ("f32", "bf16"):
+        if mode == "bf16":
+            set_compute_dtype(sa, torch.bfloat16)
+        sa.fused_eval = True
+        saf.reset_launch_counts()
+        sampling.reset_launch_counts()
+        with torch.no_grad():
+            new_k, out_k, _ = sa(xyz, feats, S)
+        torch.cuda.synchronize()
+        launches = (sampling.furthest_point_sample.cluster_launches,
+                    saf.fused_sa_apply.launches, saf.fused_sa_apply.rows_launches)
+        rows[f"eval launches {mode}"] = launches
+        sa.fused_eval = False
+        with torch.no_grad():
+            new_p, out_p, _ = sa(xyz, feats, S)
+        torch.cuda.synchronize()
+        say26(f"  26e SA eval at nsample 128 ({mode}, B={B} N={N} S={S}): launches (K3 cluster, "
+              f"K4, K4 rows path) {launches}; centroids "
+              f"{'equal' if torch.equal(new_k, new_p) else 'DIFFER'}")
+        if launches != (1, 1, 1) or not torch.equal(new_k, new_p):
+            fail(f"26e SA eval at nsample 128 ({mode}): launches {launches}, or centroids differ")
+        if mode == "bf16":  # against the plain bf16 version in A-form, the f32 one outside
+            kw = dict(radius=sa.radius, normalize_xyz=sa.normalize_xyz, use_xyz=sa.use_xyz,
+                      nsample=sa.nsample)
+            want = saf.sa_eval_plain(xyz, feats, new_k, None, sa.folded_chains(),
+                                     dtype=torch.bfloat16, **kw)
+            set_compute_dtype(sa, None)
+            f32 = saf.sa_eval_plain(xyz, feats, new_k, None, sa.folded_chains(), **kw)
+            compare_bf16("26e SA eval nsample 128 bf16 out", out_k, want, f32)
+        else:
+            compare("26e SA eval nsample 128 out", out_k, out_p)
+
+
+def domain_shipped(card: str) -> None:
+    """26f: K4 at B = 16 (the 7 SA calls of a BAT forward back to back) and
+    K6 at B = TRAIN_B (the 4 calls of a BAT train step) on the shipped widths,
+    device time, to set beside PERF.md's (1.3141 ms; 3.3756 / 9.2754 ms). By
+    events behind a queued sleep (`queued_ms`), as phase 19 times: late in a
+    whole run the profiler's windows here came back short (a K6 backward of
+    3.07 ms against 9.2 in my chip call 12, PR 19)."""
+    import numpy as np
+    import torch
+
+    from open3dsot_tpu_torch.data import get_dataset
+    from open3dsot_tpu_torch.ops import sa_fused as saf
+    from open3dsot_tpu_torch.ops import sa_fused_train as k6
+    from open3dsot_tpu_torch.ops.neighbors import ball_query
+    from open3dsot_tpu_torch.ops.sa_fused import a_form
+
+    cfg = matching_cfg("bat")
+    model, variables = make_model(cfg, fused_eval=True)
+    plain_model, _ = make_model(cfg, fused_eval=False, variables=variables)
+    frames = matching_frames(model, get_dataset(cfg, "test", "test"), 16)
+    batch16 = {k: np.concatenate([f[k] for f in frames]) for k in frames[0]}
+    calls = []
+    for label, mod, xyz, feats, new in sa_calls(plain_model, batch16):
+        kw = dict(radius=mod.radius, normalize_xyz=mod.normalize_xyz, use_xyz=mod.use_xyz,
+                  nsample=mod.nsample)
+        calls.append(lambda xyz=xyz, feats=feats, new=new, f=mod.folded_chains(), kw=kw:
+                     saf.fused_sa_apply(xyz, feats, new, None, f, **kw))
+    # a sleep of about 10 ms: the host enqueues the 70 calls (each with a_rows' matmuls and
+    # allocations) before the card reaches them; behind the default 1 ms it set the pace
+    # (1.6198 ms against the profiler's 1.3143 in phase 7, my chip call 13, PR 19)
+    total = queued_ms(lambda: [f() for f in calls], iters=10, sleep=20_000_000)
+    say26(f"  26f K4, the 7 SA calls of a BAT forward back to back, B=16: device (queued "
+          f"events) {total:.4f} ms (PERF.md: 1.3141 ms, PR 6) [{card}]")
+    sums = [0.0, 0.0]
+    for label, mod, xyz, feats, new in bat_k6_calls():
+        layers = list(mod.mlp_shared.children())
+        w2, w3 = (l.dense.weight.detach().t().contiguous() for l in layers[1:])
+        b2, b3 = (l.dense.bias.detach() for l in layers[1:])
+        bn = [p.detach() for l in layers for p in (l.bn.weight, l.bn.bias)]
+        idx = ball_query(mod.radius, mod.nsample, xyz, new)
+        inv_r = 1.0 / mod.radius if mod.normalize_xyz else 1.0
+        a, ct = a_form(xyz, feats, new, layers[0].dense.weight.detach().t(),
+                       layers[0].dense.bias.detach(), inv_r=inv_r, use_xyz=mod.use_xyz)
+        packs = k6.Packs(w2, w3, False)
+        with torch.no_grad():
+            out, st, grids = k6.sa_train_fwd_kernel(a, ct, idx, w2, b2, w3, b3, bn, packs)
+            g = torch.randn_like(out)
+            d_f = queued_ms(lambda: k6.sa_train_fwd_kernel(a, ct, idx, w2, b2, w3, b3, bn, packs),
+                            iters=5)
+            d_b = queued_ms(lambda: k6.sa_train_bwd_kernel(g, a, ct, idx, grids, st, w2, b2, w3,
+                                                           b3, bn, packs), iters=5)
+        sums = [sums[0] + d_f, sums[1] + d_b]
+    say26(f"  26f K6, the 4 calls of a BAT train step, B={TRAIN_B}: device (queued events) "
+          f"forward {sums[0]:.4f} ms, backward {sums[1]:.4f} ms (PERF.md: 3.3756 / 9.2754 ms, "
+          f"PR 12) [{card}]")
+
+
+def domain_phase(card: str) -> list:
+    """Phase 26 (see the module docstring); its lines also in
+    chiprun_out/phase26.txt. Returns the kernels line's rows of the paths
+    this phase adds."""
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # 26a's 34M-row K6 case holds about 43 GB at its peak
+    PHASE26_LOG.parent.mkdir(exist_ok=True)
+    if PHASE26_LOG.exists():
+        PHASE26_LOG.unlink()
+    say26(f"phase 26 on {card}")
+    rows = {}
+    domain_layers(card, rows)
+    domain_k6(card, rows)
+    domain_k4(card, rows)
+    domain_chains(card, rows)
+    domain_k3(card, rows)
+    domain_shipped(card)
+    k6r = rows["k6"]
+    entries = [
+        kernel_entry("K6 fused_sa_train_apply (forward, width 512: vectors in device memory)",
+                     "sa_fused_train.cu", "open3dsot_tpu/ops/sa_fused_train.py:608-668",
+                     rows["k6 launches"][0], k6r["err"][0], *k6r["fwd"], k6r["work"][0],
+                     tensor_core=True),
+        kernel_entry("K6 fused_sa_train_apply (backward, width 512: vectors in device memory)",
+                     "sa_fused_train.cu", "open3dsot_tpu/ops/sa_fused_train.py:709-776",
+                     rows["k6 launches"][1], k6r["err"][1], *k6r["bwd"], k6r["work"][1],
+                     tensor_core=True),
+        kernel_entry("K3 furthest_point_sample (a cluster of 8 blocks, N > 32768)", "fps.cu",
+                     "open3dsot_tpu/ops/fps_pallas.py:69", rows["eval launches f32"][0], 0.0,
+                     *rows["k3"]["t"], rows["k3"]["work"]),
+        kernel_entry("K1 fused_pointnet_encoder (a layer's input streamed, 4096 wide)",
+                     "chain_fused.cu", "open3dsot_tpu/ops/chain_fused.py:150", 1,
+                     rows["k1"]["err"], *rows["k1"]["t"], rows["k1"]["work"], tensor_core=True),
+    ]
+    for mode in ("f32", "bf16"):
+        r = rows[f"k4 {mode}"]
+        entries.append(kernel_entry(
+            f"K4/K5 fused_sa_apply, the rows path (K > 64 or wide tiles, {mode})",
+            "sa_fused_train.cu", "open3dsot_tpu/ops/sa_fused.py:384, 415",
+            rows[f"eval launches {mode}"][2], r["err"], *r["t"], r["work"],
+            tensor_core=not r["bf16"], peak=PEAK_BF16_FLOPS))
+    say26(f"phase 26 ok in {time.perf_counter() - t_phase:.1f} s: every edge shape on a hand "
+          f"kernel within its tolerance")
+    return entries
 
 
 if __name__ == "__main__":

@@ -73,6 +73,12 @@
 //    and W_pool. g[b] = pooled[b] W_pool + b'_0 is computed once per batch
 //    element by pool_bias_kernel (an f32 GEMV split over input channels), and
 //    the per-point chain then starts from relu(tap W_tap + g[b]).
+//  - A layer whose input tile does not fit in shared memory beside the weight
+//    stages (an input above about 2600 channels at TP = 16) runs as a stage
+//    of its own that streams its input (chain_tc_kernel<TP, true>): each A
+//    fragment is read from the (B, N, C) input in device memory (L2) as the
+//    products load it, zero past N and past the input's width, so no width is
+//    too wide; only the weight stages take shared memory.
 //  - Host work per launch is the plan and the launches: the device's SM count
 //    and the kernels' shared-memory limit are set once per device.
 //
@@ -188,7 +194,9 @@ __device__ __forceinline__ bool next_chunk(const StageArgs& a, int& l, int& cb, 
 // (warp w of a warpgroup holds rows 16w..16w+15 of the D fragment). TP = 16,
 // 32: eight warps side by side over the chunk's channels, mma.sync m16n8k8,
 // for the small point tiles that wgmma's 64 rows would leave mostly empty.
-template <int TP>
+// ST: one layer whose input is read from device memory as the products load
+// it (the note at the top), not copied into shared memory first.
+template <int TP, bool ST>
 __global__ void __launch_bounds__(kThreads) chain_tc_kernel(const StageArgs a) {
   constexpr bool WG = TP == 64;
   constexpr int WN = WG ? 2 : kWarps;  // warp columns over a chunk
@@ -224,7 +232,12 @@ __global__ void __launch_bounds__(kThreads) chain_tc_kernel(const StageArgs a) {
   }
   __syncthreads();  // the barriers are initialised before anyone waits on them
 
-  {  // input tile -> buffer 0; rows past N and columns past in_width are zeros
+  // ST: the tile's input rows in device memory, A element (r, k) of the layer
+  const float* gin = a.in + (static_cast<size_t>(b) * a.N + p0) * a.in_width;
+  const auto ain = [&](int r, int k) {
+    return r < nv && k < a.in_width ? __ldg(gin + static_cast<size_t>(r) * a.in_width + k) : 0.f;
+  };
+  if constexpr (!ST) {  // input tile -> buffer 0; rows past N and columns past in_width are zeros
     const int kp = a.ch.kp[a.l0], s = kp + 4, w = a.in_width;
     const float* src = a.in + (static_cast<size_t>(b) * a.N + p0) * w;
     if (w == kp) {  // a stage's buffer from device memory, rows of kp floats
@@ -299,12 +312,23 @@ __global__ void __launch_bounds__(kThreads) chain_tc_kernel(const StageArgs a) {
           uint32_t ah[kKC / 8][4], al[kKC / 8][4];
 #pragma unroll
           for (int ks = 0; ks < kKC / 8; ++ks) {
-            const float* pa = hin + (rbase + g) * sin + kb * kKC + ks * 8 + q;
             const bool in = ks < ks_n;
-            split_tf32(in ? pa[0] : 0.f, ah[ks][0], al[ks][0]);
-            split_tf32(in ? pa[8 * sin] : 0.f, ah[ks][1], al[ks][1]);
-            split_tf32(in ? pa[4] : 0.f, ah[ks][2], al[ks][2]);
-            split_tf32(in ? pa[8 * sin + 4] : 0.f, ah[ks][3], al[ks][3]);
+            float v[4];
+            if constexpr (ST) {
+              const int k = kb * kKC + ks * 8 + q, r = rbase + g;
+              v[0] = ain(r, k);
+              v[1] = ain(r + 8, k);
+              v[2] = ain(r, k + 4);
+              v[3] = ain(r + 8, k + 4);
+            } else {
+              const float* pa = hin + (rbase + g) * sin + kb * kKC + ks * 8 + q;
+              v[0] = in ? pa[0] : 0.f;
+              v[1] = in ? pa[8 * sin] : 0.f;
+              v[2] = in ? pa[4] : 0.f;
+              v[3] = in ? pa[8 * sin + 4] : 0.f;
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i) split_tf32(v[i], ah[ks][i], al[ks][i]);
           }
           float bg[2][NT][4];
 #pragma unroll
@@ -346,12 +370,20 @@ __global__ void __launch_bounds__(kThreads) chain_tc_kernel(const StageArgs a) {
               }
 #pragma unroll
               for (int mt = 0; mt < MT; ++mt) {
-                const float* pa = hin + (rbase + mt * 16 + g) * sin + kb * kKC + ks * 8 + q;
                 uint32_t ah[4], al[4];
-                split_tf32(pa[0], ah[0], al[0]);
-                split_tf32(pa[8 * sin], ah[1], al[1]);
-                split_tf32(pa[4], ah[2], al[2]);
-                split_tf32(pa[8 * sin + 4], ah[3], al[3]);
+                if constexpr (ST) {
+                  const int k = kb * kKC + ks * 8 + q, r = rbase + mt * 16 + g;
+                  split_tf32(ain(r, k), ah[0], al[0]);
+                  split_tf32(ain(r + 8, k), ah[1], al[1]);
+                  split_tf32(ain(r, k + 4), ah[2], al[2]);
+                  split_tf32(ain(r + 8, k + 4), ah[3], al[3]);
+                } else {
+                  const float* pa = hin + (rbase + mt * 16 + g) * sin + kb * kKC + ks * 8 + q;
+                  split_tf32(pa[0], ah[0], al[0]);
+                  split_tf32(pa[8 * sin], ah[1], al[1]);
+                  split_tf32(pa[4], ah[2], al[2]);
+                  split_tf32(pa[8 * sin + 4], ah[3], al[3]);
+                }
 #pragma unroll
                 for (int nt = 0; nt < NT; ++nt) {
                   if (cbase + nt * 8 < cw) {
@@ -481,9 +513,12 @@ const DeviceInfo& device_info() {
   return per_device<DeviceInfo>([](int dev) {
     DeviceInfo d{132, 0};
     cudaError_t e = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
-    const void* kernels[] = {reinterpret_cast<const void*>(chain_tc_kernel<16>),
-                             reinterpret_cast<const void*>(chain_tc_kernel<32>),
-                             reinterpret_cast<const void*>(chain_tc_kernel<64>)};
+    const void* kernels[] = {reinterpret_cast<const void*>(chain_tc_kernel<16, false>),
+                             reinterpret_cast<const void*>(chain_tc_kernel<32, false>),
+                             reinterpret_cast<const void*>(chain_tc_kernel<64, false>),
+                             reinterpret_cast<const void*>(chain_tc_kernel<16, true>),
+                             reinterpret_cast<const void*>(chain_tc_kernel<32, true>),
+                             reinterpret_cast<const void*>(chain_tc_kernel<64, true>)};
     for (const void* k : kernels)
       if (e == cudaSuccess)
         e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
@@ -494,6 +529,7 @@ const DeviceInfo& device_info() {
 
 struct Stage {
   int l0, l1, tp, cpz, nz;
+  int stream;  // one layer, its input streamed from device memory (chain_tc_kernel<TP, true>)
   int buf1, wbase, bars;
   size_t smem;
 };
@@ -504,10 +540,11 @@ struct Plan {
 };
 
 // Shared memory of layers [l0, l1) on TP-point tiles: buffer 0 holds the
-// input of layers l0, l0 + 2, ...; buffer 1 of l0 + 1, ...; then two weight stages.
-bool stage_fits(const Chain& ch, int l0, int l1, int tp, Stage* st) {
+// input of layers l0, l0 + 2, ...; buffer 1 of l0 + 1, ...; then two weight
+// stages. stream (one layer): no buffer, the input read from device memory.
+bool stage_fits(const Chain& ch, int l0, int l1, int tp, Stage* st, bool stream = false) {
   long long w[2] = {0, 0};
-  for (int l = l0; l < l1; ++l) {
+  for (int l = l0; l < l1 && !stream; ++l) {
     const long long f = static_cast<long long>(tp) * (ch.kp[l] + 4);
     const int i = (l - l0) & 1;
     if (f > w[i]) w[i] = f;
@@ -519,6 +556,7 @@ bool stage_fits(const Chain& ch, int l0, int l1, int tp, Stage* st) {
   st->l0 = l0;
   st->l1 = l1;
   st->tp = tp;
+  st->stream = stream;
   st->buf1 = static_cast<int>(w[0]);
   st->wbase = static_cast<int>(wbase);
   st->bars = static_cast<int>(bars);
@@ -531,6 +569,10 @@ int make_plan(const Chain& ch, int B, int N, int sms, Plan* plan) {
   const auto tiles = [&](int tp) { return static_cast<long long>(B) * ((N + tp - 1) / tp); };
   const auto wide = [&](int l) { return static_cast<long long>(ch.kp[l]) * ch.cp[l] > kWideMacs; };
   const bool full = tiles(64) >= sms;
+  // layer l0 alone on tp-point tiles: its input in shared memory, else streamed
+  const auto one_layer = [&](int l0, int tp, Stage* st) {
+    return stage_fits(ch, l0, l0 + 1, tp, st) || stage_fits(ch, l0, l0 + 1, tp, st, true);
+  };
   plan->n = 0;
   for (int l0 = 0; l0 < L;) {
     Stage st{};
@@ -538,16 +580,16 @@ int make_plan(const Chain& ch, int B, int N, int sms, Plan* plan) {
       const int nz = (ch.cp[l0] + kCC - 1) / kCC;
       int tp = 64;
       while (tp > 16 && !stage_fits(ch, l0, l0 + 1, tp, &st)) tp /= 2;
-      if (!stage_fits(ch, l0, l0 + 1, tp, &st)) return kErrSmem;
+      if (!one_layer(l0, tp, &st)) return kErrSmem;
       st.cpz = 1;
       st.nz = nz;
     } else {  // as many layers as fit, on the largest tile that fills the card
       int tp = 64;
       while (tp > 16 && !(tiles(tp) >= sms && stage_fits(ch, l0, l0 + 1, tp, &st))) tp /= 2;
-      if (!stage_fits(ch, l0, l0 + 1, tp, &st)) return kErrSmem;
+      if (!one_layer(l0, tp, &st)) return kErrSmem;
       int l1 = l0 + 1;
       Stage longer{};
-      while (l1 < L && (full || !wide(l1)) && stage_fits(ch, l0, l1 + 1, tp, &longer)) {
+      while (!st.stream && l1 < L && (full || !wide(l1)) && stage_fits(ch, l0, l1 + 1, tp, &longer)) {
         st = longer;
         ++l1;
       }
@@ -592,9 +634,17 @@ int run_plan(StageArgs a, int final_mode, float* final_out, float* ws, long long
     a.mode = final_stage ? final_mode : kStore;
     a.out = final_stage ? final_out : ws + (i & 1) * half;
     const dim3 grid((a.N + st.tp - 1) / st.tp, a.B, st.nz);
-    if (st.tp == 64) chain_tc_kernel<64><<<grid, kThreads, st.smem, stream>>>(a);
-    else if (st.tp == 32) chain_tc_kernel<32><<<grid, kThreads, st.smem, stream>>>(a);
-    else chain_tc_kernel<16><<<grid, kThreads, st.smem, stream>>>(a);
+    if (st.stream) {
+      if (st.tp == 64) chain_tc_kernel<64, true><<<grid, kThreads, st.smem, stream>>>(a);
+      else if (st.tp == 32) chain_tc_kernel<32, true><<<grid, kThreads, st.smem, stream>>>(a);
+      else chain_tc_kernel<16, true><<<grid, kThreads, st.smem, stream>>>(a);
+    } else if (st.tp == 64) {
+      chain_tc_kernel<64, false><<<grid, kThreads, st.smem, stream>>>(a);
+    } else if (st.tp == 32) {
+      chain_tc_kernel<32, false><<<grid, kThreads, st.smem, stream>>>(a);
+    } else {
+      chain_tc_kernel<16, false><<<grid, kThreads, st.smem, stream>>>(a);
+    }
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
     a.in = a.out;

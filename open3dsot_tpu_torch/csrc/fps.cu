@@ -46,15 +46,30 @@
 //    not contract into FMAs.
 //  - The TPU kernel padded N with copies of point 0 and B to 8; here the
 //    slots past N are masked and B is the grid.
+//  - Clouds above kMaxN points (fps_k3_cluster): one block holds at most
+//    1024 x 32 points in registers, so a cloud is split over a thread-block
+//    cluster of kClusterBlocks blocks on one GPC, block r holding points [r
+//    Nb, r Nb + Nb), Nb = 1024 PPT. Each step every block takes its own
+//    argmax as above (the slots, one barrier), its thread 0 writes the
+//    block's (key, index) into the block's cluster slot (double-buffered by
+//    step parity), one cluster barrier, and every warp reads the
+//    kClusterBlocks slots through distributed shared memory (lane r reads
+//    block r's) and reduces them with the same two redux.sync. The winner's
+//    coordinates are read from the cloud in device memory (L2): a load on
+//    the step's chain, not a third barrier. Up to kClusterBlocks x 1024 x 32
+//    = 262144 points.
 //
 // Interface: plain C, loaded with ctypes; pointers are device pointers and the
 // stream is PyTorch's current stream. Returns 0, a CUDA error code, or a
 // negative code for arguments the kernel does not take.
 
 #include <climits>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "fps_step.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -68,6 +83,9 @@ constexpr int kSlot = 0, kShared = 1;  // where the winner's coordinates come fr
 // take 1280 bytes of it
 constexpr int kStatic = 1280;
 constexpr int kMaxShared = 232448 - kStatic;
+constexpr int kClusterBlocks = 8;       // the blocks of a cloud above kMaxN (portable cluster size)
+constexpr int kClusterThreads = 1024;
+constexpr long long kMaxClusterN = static_cast<long long>(kClusterBlocks) * kClusterThreads * kMaxPPT;
 
 __device__ __forceinline__ float sqdist(float ax, float ay, float az, float bx, float by,
                                         float bz) {
@@ -171,6 +189,82 @@ __global__ void __launch_bounds__(MAXT)
   }
 }
 
+// A cloud over a cluster of kClusterBlocks blocks (the note at the top):
+// block rank r of cloud blockIdx.x / kClusterBlocks holds points r Nb + tid +
+// i T, Nb = T PPT.
+template <int PPT>
+__global__ void __cluster_dims__(kClusterBlocks, 1, 1) __launch_bounds__(kClusterThreads, 1)
+    fps_cluster_kernel(const float* __restrict__ xyz, int N, int npoint, int* __restrict__ out) {
+  __shared__ unsigned slots[2][2][32];  // [key, index][step parity][warp]
+  __shared__ unsigned cslot[2][2];      // [step parity][key, index]: this block's winner
+  const cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  constexpr int T = kClusterThreads;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cloud = blockIdx.x / kClusterBlocks;
+  const int base = static_cast<int>(rank) * T * PPT;
+  const float* p = xyz + static_cast<size_t>(cloud) * N * 3;
+  int* o = out + static_cast<size_t>(cloud) * npoint;
+  const unsigned s_slots = smem_u32(slots);
+  // lane r < kClusterBlocks reads block r's cluster slot
+  const unsigned* remote =
+      cluster.map_shared_rank(&cslot[0][0], lane < kClusterBlocks ? static_cast<unsigned>(lane) : 0u);
+
+  float px[PPT], py[PPT], pz[PPT], md[PPT];
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    const int j = base + tid + i * T;
+    const bool valid = j < N;
+    px[i] = valid ? p[3 * j] : 0.f;
+    py[i] = valid ? p[3 * j + 1] : 0.f;
+    pz[i] = valid ? p[3 * j + 2] : 0.f;
+    md[i] = valid ? 1e10f : 0.f;  // a masked slot stays at +0: key 0
+  }
+  float lx = p[0], ly = p[1], lz = p[2];
+  if (rank == 0 && tid == 0) o[0] = 0;
+  cluster.sync();  // every block of the cluster runs before any reads another's slot
+
+  for (int s = 1; s < npoint; ++s) {
+    const int buf = s & 1;
+    float v[PPT];
+    int k[PPT];
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) {
+      md[i] = fminf(md[i], sqdist(px[i], py[i], pz[i], lx, ly, lz));
+      v[i] = md[i];
+      k[i] = i;
+    }
+#pragma unroll
+    for (int w = 1; w < PPT; w *= 2) {
+#pragma unroll
+      for (int i = 0; i + w < PPT; i += 2 * w) {
+        if (v[i + w] > v[i]) {
+          v[i] = v[i + w];
+          k[i] = k[i + w];
+        }
+      }
+    }
+    const unsigned idx = static_cast<unsigned>(base + tid + k[0] * T);
+    unsigned wkey, widx;
+    warp_argmax(__float_as_uint(v[0]), idx, wkey, widx);
+    block_argmax(s_slots, buf, lane, warp, idx, wkey, widx);
+    if (tid == 0) {
+      cslot[buf][0] = wkey;
+      cslot[buf][1] = widx;
+    }
+    // the slots of step s are written; every block has read those of step s - 1
+    cluster.sync();
+    const unsigned ck = lane < kClusterBlocks ? remote[2 * buf] : 0u;
+    const unsigned ci = lane < kClusterBlocks ? remote[2 * buf + 1] : UINT_MAX;
+    warp_argmax(ck, ci, wkey, widx);
+    lx = __ldg(p + 3 * widx);
+    ly = __ldg(p + 3 * widx + 1);
+    lz = __ldg(p + 3 * widx + 2);
+    if (rank == 0 && tid == 0) o[s] = static_cast<int>(widx);
+  }
+  cluster.sync();  // no block leaves while another may read its slots
+}
+
 template <int PPT, int MAXT, int WIN>
 int launch(const float* xyz, int B, int N, int npoint, int* out, int threads, cudaStream_t s) {
   auto kernel = fps_kernel<PPT, MAXT, WIN>;
@@ -223,4 +317,23 @@ extern "C" int fps_k3(const float* xyz, int B, int N, int npoint, int threads, i
   }
   if (winner != kSlot) return kErrArgs;
   return launch_win<kSlot>(xyz, B, N, npoint, out, threads, ppt, s);
+}
+
+// A cloud of kMaxN < N <= kMaxClusterN points over a cluster of kClusterBlocks
+// blocks of 1024 threads; ppt (8, 16 or 32) the points a thread holds,
+// kClusterBlocks x 1024 x ppt >= N (ops/sampling.py::fps_cluster_ppt).
+extern "C" int fps_k3_cluster(const float* xyz, int B, int N, int npoint, int ppt, int* out,
+                              void* stream) {
+  if (B < 1 || N < 1 || npoint < 1 || N > kMaxClusterN ||
+      static_cast<long long>(B) * kClusterBlocks > 0x7fffffffLL)
+    return kErrArgs;
+  if ((ppt != 8 && ppt != 16 && ppt != 32) ||
+      static_cast<long long>(kClusterBlocks) * kClusterThreads * ppt < N)
+    return kErrBlock;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(B) * kClusterBlocks);
+  if (ppt == 8) fps_cluster_kernel<8><<<grid, kClusterThreads, 0, s>>>(xyz, N, npoint, out);
+  else if (ppt == 16) fps_cluster_kernel<16><<<grid, kClusterThreads, 0, s>>>(xyz, N, npoint, out);
+  else fps_cluster_kernel<32><<<grid, kClusterThreads, 0, s>>>(xyz, N, npoint, out);
+  return static_cast<int>(cudaGetLastError());
 }

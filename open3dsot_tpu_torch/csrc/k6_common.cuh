@@ -24,6 +24,7 @@ constexpr float kEps = 1e-5f;
 constexpr int kStatRows = 512;  // rows of one partial of y1's sums
 constexpr int kFinWarps = 32;   // finalize: warps over the partials of a block
 constexpr int kFinSlices = 16;  // finalize: blocks over the partials of 32 channels
+constexpr long long kMaxGridY = 65535;  // blocks a grid may have along y
 
 struct Dims {
   long long R;  // B * S * K
@@ -66,17 +67,18 @@ __device__ __forceinline__ unsigned centroid_of(const Dims& d, int r) {
 
 // ---- y1's (sum, sum of squares), one partial per kStatRows rows --------------
 // y1 = a[b, idx[r]] + ct[b, s], RA: a rounded to bf16 as it is read (the bf16
-// mode). Block (32, 8): 32 channels, 8 row lanes; grid (C1 / 32, partials).
-// The rows' gather offsets are computed once per block; an index outside [0, N)
-// gives a NaN row.
+// mode). Block (32, 8): 32 channels, 8 row lanes; grid (C1 / 32, up to
+// kMaxGridY), block y taking partials y, y + gridDim.y, ... The rows' gather
+// offsets are computed once per partial; an index outside [0, N) gives a NaN row.
 template <bool RA>
-__global__ void y1_stats_kernel(const float* __restrict__ a, const float* __restrict__ ct,
-                                const int* __restrict__ idx, const Dims d,
-                                double* __restrict__ part) {
+__device__ __forceinline__ void y1_stats_chunk(const float* __restrict__ a,
+                                               const float* __restrict__ ct,
+                                               const int* __restrict__ idx, const Dims& d,
+                                               double* __restrict__ part, long long chunk) {
   __shared__ double sh[2][8][33];
   __shared__ long long off_a[kStatRows], off_c[kStatRows];  // off_a -1: index outside [0, N)
   const int tx = threadIdx.x, ty = threadIdx.y, C = d.C1;
-  const int r0 = blockIdx.y * kStatRows, n = min(static_cast<int>(d.R) - r0, kStatRows);
+  const int r0 = static_cast<int>(chunk) * kStatRows, n = min(static_cast<int>(d.R) - r0, kStatRows);
   for (int i = ty * 32 + tx; i < n; i += 256) {
     const unsigned bs = centroid_of(d, r0 + i), b = bs / static_cast<unsigned>(d.S);
     const int j = __ldg(idx + r0 + i);
@@ -105,9 +107,19 @@ __global__ void y1_stats_kernel(const float* __restrict__ a, const float* __rest
       s += sh[0][i][tx];
       q += sh[1][i][tx];
     }
-    part[(static_cast<long long>(blockIdx.y) * 2) * C + c] = s;
-    part[(static_cast<long long>(blockIdx.y) * 2 + 1) * C + c] = q;
+    part[(chunk * 2) * C + c] = s;
+    part[(chunk * 2 + 1) * C + c] = q;
   }
+  __syncthreads();  // sh and the offsets are read before the next partial writes them
+}
+
+template <bool RA>
+__global__ void y1_stats_kernel(const float* __restrict__ a, const float* __restrict__ ct,
+                                const int* __restrict__ idx, const Dims d,
+                                double* __restrict__ part) {
+  const long long chunks = (d.R + kStatRows - 1) / kStatRows;
+  for (long long chunk = blockIdx.y; chunk < chunks; chunk += gridDim.y)
+    y1_stats_chunk<RA>(a, ct, idx, d, part, chunk);
 }
 
 // Sum the P partials (P x 2 x C doubles) of channels blockIdx.x * 32 + lane in
@@ -216,6 +228,8 @@ __global__ void sum_partials_kernel(const float* __restrict__ part, float* __res
 
 // ---- host side ---------------------------------------------------------------
 inline long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
+// grid.y of a kernel over n partials (it strides over them by gridDim.y)
+inline unsigned grid_y(long long n) { return static_cast<unsigned>(n < kMaxGridY ? n : kMaxGridY); }
 inline size_t align256(size_t n) { return (n + 255) / 256 * 256; }
 
 // The finalize kernels' scratch: the slices' sums and the per-block counters

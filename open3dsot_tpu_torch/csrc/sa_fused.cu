@@ -90,6 +90,11 @@
 //    them, and they stay out of the max and the output. An index outside
 //    [0, N) in K5's idx reads nothing; its centroid's output is NaN.
 //
+//  - Shapes the tiles do not hold: K > 64, or h1's and h2's tiles beside two
+//    weight stages past 227 KB (C1 + C2 above about 600), run on the eval
+//    rows path (sa_fused_train.cu::sa_rows_eval), which the wrapper
+//    (ops/sa_fused.py::_launch) takes for K > 64 and for kErrSmem.
+//
 // The bf16 mode is sa_fused_bf16.cu; the ball query is ball_query.cuh.
 //
 // Interface: plain C, loaded with ctypes; pointers are device pointers and the

@@ -57,7 +57,9 @@
 //    panels do not fit (C1 = C2 = 704 at K = 64; ct's ts x C1 at small K),
 //    one warpgroup, then a ring of two, then h1 streamed (sa_bf16_kernel<1,
 //    true>): only h2's tile stays whole, so every shape whose h2 tile fits
-//    beside a ring of two panels runs (C2 up to 1408 at C1 = 8).
+//    beside a ring of two panels runs (C2 up to 1408 at C1 = 8). Wider
+//    ones, and K > 64, run on the eval rows path in its bf16 mode
+//    (sa_fused_train.cu::sa_rows_eval; ops/sa_fused.py::_launch).
 //  - Conventions kept from the 3xTF32 mode: a centroid with no point in the
 //    ball gets index 0; an index outside [0, N) in K5's idx reads nothing and
 //    gives its centroid NaN; rows past a ragged tile stay out of the max.

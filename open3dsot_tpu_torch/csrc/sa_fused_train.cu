@@ -92,6 +92,11 @@
 //    order that changes from run to run, about K * 2^-24 of its magnitude);
 //    under torch's deterministic algorithms the entry's `ordered` flag sums
 //    each row of da in the order of r instead (k6_common.cuh::ordered_da).
+//  - Widths. A row product keeps its per-channel vectors (folds, means, the
+//    BN backward's coefficients, the bias) in shared memory beside its
+//    stages, which leaves room for kin + nout up to about 900; a wider
+//    product (GV) reads them from device memory, filled before it runs by
+//    row_vectors_kernel, so any width runs and the narrower keep their plan.
 //  - Rounding pinned where a decision depends on it: relu(y * s + t) with
 //    __fmul_rn/__fadd_rn, s and t from 1 / sqrt(var + eps) rounded as IEEE
 //    division and square root, the tie split g / cnt as IEEE division. The
@@ -99,7 +104,8 @@
 //    so on the same grids the max masks, ties and ReLU masks agree bit for bit.
 //
 // The bf16 mode lives in sa_fused_train_bf16.cu; what both modes share is in
-// k6_common.cuh.
+// k6_common.cuh. The eval rows path of K4/K5 (sa_rows_eval, at the end) runs
+// on these row products too.
 //
 // Interface: plain C, loaded with ctypes; pointers are device pointers and
 // the stream is PyTorch's current stream. The caller allocates outputs and
@@ -111,6 +117,7 @@
 
 #include "tf32_tc.cuh"  // kCC x kKC weight chunks, the TF32 split, mma.sync, wgmma, TMA
 #include "k6_common.cuh"  // Dims, the BatchNorm arithmetic, y1's statistics, the finalizes
+#include "ball_query.cuh"  // K4's ball query, for the eval rows path
 #include "per_device.cuh"  // per_device: set-up once for each card
 
 namespace {
@@ -118,7 +125,6 @@ namespace {
 constexpr int kErrArgs = -1;   // B, N, S, K or widths not accepted
 constexpr int kErrWidth = -2;  // a width is not a multiple of 4
 constexpr int kErrPacked = -3;  // a packed weight has the wrong size
-constexpr int kErrWide = -4;    // a width too large for the products' shared memory
 constexpr int kThreads = 256;
 constexpr int kTile = 128;         // rows of a row-product block: two warpgroups of 64
 constexpr int kCent = 64;          // centroids of one partial of the max gradient pass
@@ -185,12 +191,14 @@ __device__ __forceinline__ int width_of(const Dims& d, int l) {
   return l == 0 ? d.C1 : l == 1 ? d.C2 : d.C3;
 }
 
-// Vectors of loader L for channels c0 .. c0 + Cv of its layer, zero past its width.
+// Vectors of loader L for channels c0 .. c0 + Cv of its layer, zero past its
+// width; elements i0, i0 + step, ... (a block's threads, or a grid's).
 template <int L>
-__device__ __forceinline__ void fill_vec(float* vec, const Ctx& x, int c0, int Cv) {
+__device__ __forceinline__ void fill_vec(float* vec, const Ctx& x, int c0, int Cv, int i0,
+                                         int step) {
   constexpr int l = layer_of<L>();
   const int C = width_of(x.d, l);
-  for (int i = threadIdx.x; i < n_vec<L>() * Cv; i += blockDim.x) {
+  for (int i = i0; i < n_vec<L>() * Cv; i += step) {
     const int k = i / Cv, c = c0 + i % Cv;
     float v = 0.f;
     if (c < C) {
@@ -309,8 +317,9 @@ __device__ __forceinline__ Aux aux_raw(const float* src, int stride, int o) {
 }
 
 // The operand from the raw arrays at offset o, vec (n_vec x Cv) at channel cl
-// and aux from aux_at.
-template <int L>
+// and aux from aux_at. RB (the forward loaders of the eval rows path in its
+// bf16 mode): a rounded to bf16 as it is read, and the operand rounded to bf16.
+template <int L, bool RB = false>
 __device__ __forceinline__ float4 transform(const float* src, int stride, int o, const float* vec,
                                             int Cv, int cl, const Aux& aux) {
   const float4 s = *reinterpret_cast<const float4*>(vec + cl);
@@ -319,10 +328,14 @@ __device__ __forceinline__ float4 transform(const float* src, int stride, int o,
   if constexpr (L == kLoadH1 || L == kLoadH2) {
     if constexpr (L == kLoadH1) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) el(u, j) = __fadd_rn(el(u, j), el(aux.a, j));
+      for (int j = 0; j < 4; ++j)
+        el(u, j) = __fadd_rn(RB ? round_bf16(el(u, j)) : el(u, j), el(aux.a, j));
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) el(out, j) = fold_relu(el(u, j), el(s, j), el(t, j));
+    for (int j = 0; j < 4; ++j) {
+      el(out, j) = fold_relu(el(u, j), el(s, j), el(t, j));
+      if (RB) el(out, j) = round_bf16(el(out, j));
+    }
   } else {
     const float4 inv = *reinterpret_cast<const float4*>(vec + 2 * Cv + cl);
     const float4 mu = *reinterpret_cast<const float4*>(vec + 3 * Cv + cl);
@@ -357,6 +370,7 @@ struct RowArgs {
   const float* bias;  // kEpiBias: (nout)
   float* out;         // (R, nout)
   double* part;       // (tiles, 2, nout): the epilogue's sums
+  float* gvec;        // GV: the loader's then the epilogue's vectors in device memory
   int kin, nout, nk, nc;  // widths; input and output chunks
   int kinp, noutp;        // widths padded to whole chunks
   int tiles;              // 128-row tiles
@@ -376,13 +390,20 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumerWarps * 32) : "memory");
 }
 
-// rowmm_kernel's shared memory in floats: two weight stages, two A stages, two
-// raw stages, the epilogue's sums, the loader's vectors, the epilogue's vectors
-// (bias, or s, t, inv, mean), eight mbarriers.
+// Floats of the per-channel vectors of a row product: the loader's (n_vec x
+// kinp), then the epilogue's (bias, or s, t, inv, mean: 4 x noutp).
 template <int L>
-constexpr long long row_smem_floats(int kinp, int noutp) {
-  return 2LL * kWStage + 2 * kAStage + 2LL * n_raw<L>() * kRaw + kRed + n_vec<L>() * kinp +
-         4LL * noutp + 16;
+__host__ __device__ constexpr long long row_vec_floats(int kinp, int noutp) {
+  return static_cast<long long>(n_vec<L>()) * kinp + 4LL * noutp;
+}
+
+// rowmm_kernel's shared memory in floats: two weight stages, two A stages, two
+// raw stages, the epilogue's sums, the vectors (not with GV: then they are
+// read from device memory, so that no width is too wide), eight mbarriers.
+template <int L>
+constexpr long long row_smem_floats(int kinp, int noutp, bool gv) {
+  return 2LL * kWStage + 2 * kAStage + 2LL * n_raw<L>() * kRaw + kRed +
+         (gv ? 0 : row_vec_floats<L>(kinp, noutp)) + 16;
 }
 
 // One step of a reduction over lanes by halving: the lane keeps vs[H..2H) if
@@ -507,6 +528,33 @@ __device__ __forceinline__ void row_epilogue(const RowArgs& p, const float (&acc
   consumer_sync();  // red is read before it is written again
 }
 
+// The vectors of a row product (row_vec_floats): loader L's, then epilogue
+// E's (bias, or s, t, inv, mean of the output layer); elements i0, i0 + step, ...
+template <int L, int E>
+__device__ __forceinline__ void fill_vectors(const RowArgs& p, float* vec, int i0, int step) {
+  const Ctx& x = p.x;
+  fill_vec<L>(vec, x, 0, p.kinp, i0, step);
+  float* evec = vec + n_vec<L>() * p.kinp;
+  for (int i = i0; i < 4 * p.noutp; i += step) {
+    const int k = i / p.noutp, c = i % p.noutp;
+    float v = 0.f;
+    if (c < p.nout) {
+      if constexpr (E == kEpiBias) v = k == 0 ? p.bias[c] : 0.f;
+      else {
+        constexpr int l = E == kEpiMaskY2 ? 1 : 0;
+        v = k < 3 ? x.fold[l][k * p.nout + c] : x.mean[l][c];
+      }
+    }
+    evec[i] = v;
+  }
+}
+
+// The vectors of a GV row product into p.gvec, before it runs.
+template <int L, int E>
+__global__ void row_vectors_kernel(const RowArgs p) {
+  fill_vectors<L, E>(p, p.gvec, blockIdx.x * blockDim.x + threadIdx.x, gridDim.x * blockDim.x);
+}
+
 // out = op(A) W with the A rows transformed by loader L as they are stored,
 // and the epilogue E (row_epilogue). Persistent: block z takes tiles z, z +
 // grid, ...; its chunks (tile, output chunk, input chunk) run as one sequence
@@ -517,7 +565,11 @@ __device__ __forceinline__ void row_epilogue(const RowArgs& p, const float (&acc
 // memory), add them to their sums and run the epilogues. Full and empty
 // mbarriers of each stage pass it between them. Consumer warp w holds tile
 // rows 16 w + g and + 8 (warpgroup w / 4 owns 64 of them).
-template <int L, int E>
+// GV: the per-channel vectors are read from device memory (p.gvec, filled by
+// row_vectors_kernel) where in shared memory they would not fit beside the
+// stages (kin + nout above about 900). RB: the loader rounds to bf16 (the
+// eval rows path's bf16 mode, transform).
+template <int L, int E, bool GV, bool RB>
 __global__ void __launch_bounds__(kRowThreads, 1) rowmm_kernel(const RowArgs p) {
   constexpr int NR = n_raw<L>();
   extern __shared__ float4 smem4[];
@@ -525,9 +577,10 @@ __global__ void __launch_bounds__(kRowThreads, 1) rowmm_kernel(const RowArgs p) 
   float* asm0 = wsm + 2 * kWStage;
   float* raw0 = asm0 + 2 * kAStage;
   double* red = reinterpret_cast<double*>(raw0 + 2 * NR * kRaw);
-  float* vec = raw0 + 2 * NR * kRaw + kRed;
+  float* vec = GV ? p.gvec : raw0 + 2 * NR * kRaw + kRed;
   float* evec = vec + n_vec<L>() * p.kinp;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(evec + 4 * p.noutp);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      raw0 + 2 * NR * kRaw + kRed + (GV ? 0 : row_vec_floats<L>(p.kinp, p.noutp)));
   uint64_t *wfull = bars, *wempty = bars + 2, *afull = bars + 4, *aempty = bars + 6;
   const Ctx& x = p.x;
   const int R = static_cast<int>(x.d.R);
@@ -544,20 +597,7 @@ __global__ void __launch_bounds__(kRowThreads, 1) rowmm_kernel(const RowArgs p) 
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  fill_vec<L>(vec, x, 0, p.kinp);
-  // bias, or s, t, inv, mean of the output layer
-  for (int i = tid; i < 4 * p.noutp; i += blockDim.x) {
-    const int k = i / p.noutp, c = i % p.noutp;
-    float v = 0.f;
-    if (c < p.nout) {
-      if constexpr (E == kEpiBias) v = k == 0 ? p.bias[c] : 0.f;
-      else {
-        constexpr int l = E == kEpiMaskY2 ? 1 : 0;
-        v = k < 3 ? x.fold[l][k * p.nout + c] : x.mean[l][c];
-      }
-    }
-    evec[i] = v;
-  }
+  if constexpr (!GV) fill_vectors<L, E>(p, vec, tid, blockDim.x);
   __syncthreads();  // the vectors are in place, the barriers initialised
 
   if (warp >= kConsumerWarps) {
@@ -626,8 +666,8 @@ __global__ void __launch_bounds__(kRowThreads, 1) rowmm_kernel(const RowArgs p) 
 #pragma unroll 4
       for (int i = 0; i < kPE; ++i) {
         const int row = rl + kRowStep * i;
-        const float4 a = transform<L>(st, kRaw, (pt + kProducerThreads * i) * 4, vec, p.kinp,
-                                      cl, aux_at<L>(x, cent[i], cl));
+        const float4 a = transform<L, RB>(st, kRaw, (pt + kProducerThreads * i) * 4, vec,
+                                          p.kinp, cl, aux_at<L>(x, cent[i], cl));
         uint32_t h[4], l[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) split_tf32(el(a, j), h[j], l[j]);
@@ -771,8 +811,8 @@ __global__ void __launch_bounds__(kThreads, 1) dw_kernel(const DwArgs p) {
   // this thread's elements: rows er + 8 i, channels ec..ec+3
   const int er = tid >> 5, ec = (tid & 31) * 4;
 
-  fill_vec<LX>(vx, x, i0, kDwT);
-  fill_vec<LD>(vd, x, j0, kDwT);
+  fill_vec<LX>(vx, x, i0, kDwT, tid, blockDim.x);
+  fill_vec<LD>(vd, x, j0, kDwT, tid, blockDim.x);
   int jq[4] = {0, 0, 0, 0};  // LX == H1: idx of the rows of the step fetched next
   const auto load_idx = [&](int s) {
 #pragma unroll
@@ -903,9 +943,11 @@ __global__ void maxpool_kernel(const float* __restrict__ y3, const float* __rest
 // ---- B1: per (b, s, c) the max of h3 and g / (number of tied maxima); dz3 =
 // that share at the maxima where h3 > 0, else 0, and its sums (dz3, dz3 *
 // yhat3), one partial per kCent centroids. Block (32, 8): 32 channels, 8
-// centroid lanes; grid (C3 / 32, partials).
-__global__ void maxgrad_kernel(const Ctx x, const float* __restrict__ g, float* __restrict__ mx3,
-                               float* __restrict__ sh3, double* __restrict__ part) {
+// centroid lanes; grid (C3 / 32, up to kMaxGridY), block y taking partials y,
+// y + gridDim.y, ...
+__device__ __forceinline__ void maxgrad_chunk(const Ctx& x, const float* __restrict__ g,
+                                              float* __restrict__ mx3, float* __restrict__ sh3,
+                                              double* __restrict__ part, long long chunk) {
   __shared__ double sh[2][8][33];
   const int tx = threadIdx.x, ty = threadIdx.y, C = x.d.C3, K = x.d.K;
   const long long BS = static_cast<long long>(x.d.B) * x.d.S;
@@ -915,7 +957,7 @@ __global__ void maxgrad_kernel(const Ctx x, const float* __restrict__ g, float* 
     const float s = x.fold[2][c], t = x.fold[2][C + c], inv = x.fold[2][2 * C + c];
     const float mu = x.mean[2][c];
     for (int i = 0; i < kCent / 8; ++i) {
-      const long long bs = static_cast<long long>(blockIdx.y) * kCent + ty + 8 * i;
+      const long long bs = chunk * kCent + ty + 8 * i;
       if (bs >= BS) break;
       const float* y = x.y3 + bs * K * C + c;
       float m = 0.f;
@@ -944,9 +986,17 @@ __global__ void maxgrad_kernel(const Ctx x, const float* __restrict__ g, float* 
       a += sh[0][i][tx];
       b += sh[1][i][tx];
     }
-    part[(static_cast<long long>(blockIdx.y) * 2) * C + c] = a;
-    part[(static_cast<long long>(blockIdx.y) * 2 + 1) * C + c] = b;
+    part[(chunk * 2) * C + c] = a;
+    part[(chunk * 2 + 1) * C + c] = b;
   }
+  __syncthreads();  // sh is read before the next partial writes it
+}
+
+__global__ void maxgrad_kernel(const Ctx x, const float* __restrict__ g, float* __restrict__ mx3,
+                               float* __restrict__ sh3, double* __restrict__ part) {
+  const long long chunks = (static_cast<long long>(x.d.B) * x.d.S + kCent - 1) / kCent;
+  for (long long chunk = blockIdx.y; chunk < chunks; chunk += gridDim.y)
+    maxgrad_chunk(x, g, mx3, sh3, part, chunk);
 }
 
 // ---- B4: dy1 = BN backward of dz1; da[b, idx[r]] += dy1[r]; dct[bs] = sum_k dy1.
@@ -996,12 +1046,24 @@ long long packed_floats(int k_in, int n_out) {
   return cdiv(round8(n_out), kCC) * cdiv(round8(k_in), kKC) * kWStage;
 }
 
+int pad_in(int kin) { return static_cast<int>(cdiv(round8(kin), kKC)) * kKC; }
+int pad_out(int nout) { return static_cast<int>(cdiv(round8(nout), kCC)) * kCC; }
+
+// Whether a row product kin -> nout with loader L reads its vectors from
+// device memory (GV): where in shared memory they do not fit.
+template <int L>
+bool row_gv(int kin, int nout) {
+  return 4 * row_smem_floats<L>(pad_in(kin), pad_out(nout), false) > kSmemMax;
+}
+
 // Bytes of shared memory of a row product kin -> nout with loader L.
 template <int L>
 long long row_smem(int kin, int nout) {
-  return 4 * row_smem_floats<L>(static_cast<int>(cdiv(round8(kin), kKC)) * kKC,
-                                static_cast<int>(cdiv(round8(nout), kCC)) * kCC);
+  return 4 * row_smem_floats<L>(pad_in(kin), pad_out(nout), row_gv<L>(kin, nout));
 }
+
+// Floats of device memory for the vectors of any row product of widths up to C.
+long long vec_floats(int C) { return row_vec_floats<kLoadDy3>(pad_in(C), pad_out(C)); }
 
 // dW row split: about kWantBlocks blocks over the tiles, chunks of whole steps
 void dw_split(const Dims& d, int I, int J, int* P, long long* chunk) {
@@ -1014,7 +1076,7 @@ void dw_split(const Dims& d, int I, int J, int* P, long long* chunk) {
 }
 
 struct Workspace {  // byte offsets into one buffer
-  size_t part, part2, count, fold, coef, mx, sh, dwpart, dz2, dz1, ordered, total;
+  size_t part, part2, count, fold, vec, coef, mx, sh, dwpart, dz2, dz1, ordered, total;
 };
 
 Workspace layout(const Dims& d, bool backward) {
@@ -1033,6 +1095,7 @@ Workspace layout(const Dims& d, bool backward) {
   w.part2 = take(static_cast<size_t>(kFinSlices) * 2 * C * sizeof(double));
   w.count = take(cdiv(C, 32) * sizeof(unsigned));
   w.fold = take(9 * C * sizeof(float));  // (s, t, inv) of each of the 3 layers
+  w.vec = take(static_cast<size_t>(vec_floats(static_cast<int>(C))) * sizeof(float));
   if (backward) {
     w.coef = take(6 * C * sizeof(float));
     const size_t cent = static_cast<size_t>(centroids(d)) * d.C3 * sizeof(float);
@@ -1057,15 +1120,12 @@ int check(int B, int N, int S, int K, int C1, int C2, int C3, Dims* d) {
   if (C1 % 4 || C2 % 4 || C3 % 4) return kErrWidth;
   *d = Dims{static_cast<long long>(B) * S * K, B, N, S, K, C1, C2, C3};
   // rows are 32-bit in the kernels, with a tile's worth to spare
-  if (d->R > 0x7fffffffLL - kTile || stat_chunks(*d) > 65535 || cent_chunks(*d) > 65535)
-    return kErrArgs;
+  if (d->R > 0x7fffffffLL - kTile) return kErrArgs;
   int P;
   long long ch;
   dw_split(*d, d->C2, d->C3, &P, &ch);  // the larger split of the two dW
   if (P > 65535) return kErrArgs;
-  if (row_smem<kLoadH1>(C1, C2) > kSmemMax || row_smem<kLoadH2>(C2, C3) > kSmemMax ||
-      row_smem<kLoadDy3>(C3, C2) > kSmemMax || row_smem<kLoadDy2>(C2, C1) > kSmemMax)
-    return kErrWide;
+  // every width fits: a product whose vectors would not reads them from device memory
   return 0;
 }
 
@@ -1080,10 +1140,18 @@ const DeviceInfo& device_info() {
     DeviceInfo d{132, 0};
     cudaError_t e = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
     const void* kernels[] = {
-        reinterpret_cast<const void*>(rowmm_kernel<kLoadH1, kEpiBias>),
-        reinterpret_cast<const void*>(rowmm_kernel<kLoadH2, kEpiBias>),
-        reinterpret_cast<const void*>(rowmm_kernel<kLoadDy3, kEpiMaskY2>),
-        reinterpret_cast<const void*>(rowmm_kernel<kLoadDy2, kEpiMaskY1>),
+        reinterpret_cast<const void*>(rowmm_kernel<kLoadH1, kEpiBias, false, false>),
+        reinterpret_cast<const void*>(rowmm_kernel<kLoadH2, kEpiBias, false, false>),
+        reinterpret_cast<const void*>(rowmm_kernel<kLoadDy3, kEpiMaskY2, false, false>),
+        reinterpret_cast<const void*>(rowmm_kernel<kLoadDy2, kEpiMaskY1, false, false>),
+        reinterpret_cast<const void*>(rowmm_kernel<kLoadH1, kEpiBias, true, false>),
+        reinterpret_cast<const void*>(rowmm_kernel<kLoadH2, kEpiBias, true, false>),
+        reinterpret_cast<const void*>(rowmm_kernel<kLoadDy3, kEpiMaskY2, true, false>),
+        reinterpret_cast<const void*>(rowmm_kernel<kLoadDy2, kEpiMaskY1, true, false>),
+        reinterpret_cast<const void*>(rowmm_kernel<kLoadH1, kEpiBias, false, true>),
+        reinterpret_cast<const void*>(rowmm_kernel<kLoadH2, kEpiBias, false, true>),
+        reinterpret_cast<const void*>(rowmm_kernel<kLoadH1, kEpiBias, true, true>),
+        reinterpret_cast<const void*>(rowmm_kernel<kLoadH2, kEpiBias, true, true>),
         reinterpret_cast<const void*>(dw_kernel<kLoadH2, kLoadDy3>),
         reinterpret_cast<const void*>(dw_kernel<kLoadH1, kLoadDy2>)};
     for (const void* k : kernels)
@@ -1094,17 +1162,26 @@ const DeviceInfo& device_info() {
   });
 }
 
-template <int L, int E>
+// A row product; vec: device memory for its vectors (vec_floats) should they
+// not fit in shared memory. RB: the eval rows path's bf16 loaders.
+template <int L, int E, bool RB = false>
 int rowmm(const Ctx& x, const float* w, const float* bias, float* out, double* part, int kin,
-          int nout, cudaStream_t st) {
+          int nout, float* vec, cudaStream_t st) {
   const int nk = static_cast<int>(cdiv(round8(kin), kKC));
   const int nc = static_cast<int>(cdiv(round8(nout), kCC));
-  const RowArgs p{x, w, bias, out, part, kin, nout, nk, nc, nk * kKC, nc * kCC,
+  const RowArgs p{x, w, bias, out, part, vec, kin, nout, nk, nc, nk * kKC, nc * kCC,
                     static_cast<int>(row_tiles(x.d))};
   const int sms = device_info().sms;
   const unsigned blocks = static_cast<unsigned>(p.tiles < sms ? p.tiles : sms);
   const size_t smem = static_cast<size_t>(row_smem<L>(kin, nout));
-  rowmm_kernel<L, E><<<blocks, kRowThreads, smem, st>>>(p);
+  if (row_gv<L>(kin, nout)) {
+    const long long n = row_vec_floats<L>(p.kinp, p.noutp);
+    row_vectors_kernel<L, E><<<cdiv(n, kThreads), kThreads, 0, st>>>(p);
+    LAUNCH_CHECK();
+    rowmm_kernel<L, E, true, RB><<<blocks, kRowThreads, smem, st>>>(p);
+  } else {
+    rowmm_kernel<L, E, false, RB><<<blocks, kRowThreads, smem, st>>>(p);
+  }
   LAUNCH_CHECK();
   return 0;
 }
@@ -1180,18 +1257,19 @@ static int fwd_impl(const float* a, const float* ct, const int* idx, const float
   bool stop = false;
   // F1: y1's statistics, gathered
   if (in(0)) {
-    y1_stats_kernel<false><<<dim3(cdiv(C1, 32), stat_chunks(d)), dim3(32, 8), 0, st>>>(a, ct, idx,
+    y1_stats_kernel<false><<<dim3(cdiv(C1, 32), grid_y(stat_chunks(d))), dim3(32, 8), 0, st>>>(a, ct, idx,
                                                                                         d, part);
     LAUNCH_CHECK();
   }
   RUN(sync_fwd(sg, 0, part, stat_chunks(d), C1, d, fin, g1, bt1, mu1, v1, fold, st, &stop));
   if (stop) return 0;
   // F2, F3: the products, their statistics from the epilogues
-  if (in(1)) RUN((rowmm<kLoadH1, kEpiBias>(x, w2p, b2, y2, part, C1, C2, st)));
+  float* vec = reinterpret_cast<float*>(base + w.vec);
+  if (in(1)) RUN((rowmm<kLoadH1, kEpiBias>(x, w2p, b2, y2, part, C1, C2, vec, st)));
   RUN(sync_fwd(sg, 1, part, row_tiles(d), C2, d, fin, g2, bt2, mu2, v2, fold + 3 * Cm, st,
                &stop));
   if (stop) return 0;
-  if (in(2)) RUN((rowmm<kLoadH2, kEpiBias>(x, w3p, b3, y3, part, C2, C3, st)));
+  if (in(2)) RUN((rowmm<kLoadH2, kEpiBias>(x, w3p, b3, y3, part, C2, C3, vec, st)));
   RUN(sync_fwd(sg, 2, part, row_tiles(d), C3, d, fin, g3, bt3, mu3, v3, fold + 6 * Cm, st,
                &stop));
   if (stop) return 0;
@@ -1254,6 +1332,7 @@ static int bwd_impl(const float* g, const float* a, const float* ct, const int* 
   float* dwpart = reinterpret_cast<float*>(base + w.dwpart);
   float* dz2 = reinterpret_cast<float*>(base + w.dz2);
   float* dz1 = reinterpret_cast<float*>(base + w.dz1);
+  float* vec = reinterpret_cast<float*>(base + w.vec);
   const int Cm = cmax(d);
   const int Cs[3] = {C1, C2, C3};
   float* dbn_l[3] = {dbn, dbn + 2 * C1, dbn + 2 * (C1 + C2)};  // (dgamma, dbeta) of each layer
@@ -1287,7 +1366,8 @@ static int bwd_impl(const float* g, const float* a, const float* ct, const int* 
   float* coef_l[3] = {coef, coef + 2 * Cm, coef + 4 * Cm};
   // B1: the max, the tie shares and dz3's sums
   if (in(0)) {
-    maxgrad_kernel<<<dim3(cdiv(C3, 32), cent_chunks(d)), dim3(32, 8), 0, st>>>(x, g, mx, sh, part);
+    maxgrad_kernel<<<dim3(cdiv(C3, 32), grid_y(cent_chunks(d))), dim3(32, 8), 0, st>>>(x, g, mx, sh,
+                                                                                     part);
     LAUNCH_CHECK();
   }
   RUN(sync_bwd(sg, 0, part, cent_chunks(d), C3, d, fin, dbn_l[2], dbn_l[2] + C3, coef_l[2], st,
@@ -1296,7 +1376,7 @@ static int bwd_impl(const float* g, const float* a, const float* ct, const int* 
   // B2: dW3 = h2^T dy3; dz2 = (dy3 W3^T) * relu'(h2) and its sums; dy3 from y3 as it loads
   if (in(1)) {
     RUN((dw<kLoadH2, kLoadDy3>(x, dwpart, dw3, C2, C3, st)));
-    RUN((rowmm<kLoadDy3, kEpiMaskY2>(x, w3tp, nullptr, dz2, part, C3, C2, st)));
+    RUN((rowmm<kLoadDy3, kEpiMaskY2>(x, w3tp, nullptr, dz2, part, C3, C2, vec, st)));
   }
   RUN(sync_bwd(sg, 1, part, row_tiles(d), C2, d, fin, dbn_l[1], dbn_l[1] + C2, coef_l[1], st,
                &stop));
@@ -1304,7 +1384,7 @@ static int bwd_impl(const float* g, const float* a, const float* ct, const int* 
   // B3: dW2 = h1^T dy2; dz1 = (dy2 W2^T) * relu'(h1) and its sums; dy2 from dz2 as it loads
   if (in(2)) {
     RUN((dw<kLoadH1, kLoadDy2>(x, dwpart, dw2, C1, C2, st)));
-    RUN((rowmm<kLoadDy2, kEpiMaskY1>(x, w2tp, nullptr, dz1, part, C2, C1, st)));
+    RUN((rowmm<kLoadDy2, kEpiMaskY1>(x, w2tp, nullptr, dz1, part, C2, C1, vec, st)));
   }
   RUN(sync_bwd(sg, 2, part, row_tiles(d), C1, d, fin, dbn_l[0], dbn_l[0] + C1, coef_l[0], st,
                &stop));
@@ -1350,4 +1430,178 @@ extern "C" int sa_train_bwd_staged(const float* g, const float* a, const float* 
   if (stage < 0 || stage > 3) return kErrArgs;
   return bwd_impl(g, a, ct, idx, y2, y3, stats, w2tp, n2, w3tp, n3, bn, da, dct, dw2, dw3, dbn, ws,
                   B, N, S, K, C1, C2, C3, ordered, Staging{stage, sums}, stream);
+}
+
+namespace {
+
+// ---- the eval rows path of K4/K5 ----------------------------------------------
+// K4/K5 (sa_fused.cu, sa_fused_bf16.cu) hold a 64-row tile of whole centroids
+// and its layer-2 activations in shared memory, which takes K <= 64 and widths
+// whose tiles fit. Every other shape runs here, on the row products above with
+// the BatchNorm folds set to the identity (s = 1, t = 0: relu(y * 1 + 0) is
+// relu(y) exactly): y2 = relu(A[idx] + ct) W2 + b2 over all R = B S K rows
+// (the A-form rows gathered by the loader, ct computed first as K4 computes
+// it), y3 = relu(y2) W3 + b3, then out = max_k relu(y3) a centroid, NaN where
+// an index lies outside [0, N). Any K, any width: a centroid's rows span as
+// many 128-row tiles as they need and its max is taken over all of them from
+// y3, and a product whose vectors do not fit in shared memory reads them from
+// device memory (GV). The bf16 mode (RB) rounds as sa_fused_bf16.cu does: A as
+// it is gathered, h1 and h2 to bf16 (the row products then multiply bf16
+// values exactly in 3xTF32, from weights rounded to bf16 before they are
+// packed), the output to bf16. The epilogues' BatchNorm sums are computed and
+// not read.
+
+// ct[bs, c] = b1 - ((x W1x0 + y W1x1) + z W1x2), (x, y, z) the centroid times
+// inv_r (K4's order), b1 where layer 1 reads no xyz; and the identity folds
+// (s = 1, t = 0) of layers 1 and 2.
+__global__ void rows_setup_kernel(const float* __restrict__ centers, const float* __restrict__ w1x,
+                                  const float* __restrict__ b1, float* __restrict__ ct,
+                                  float* __restrict__ fold, long long BS, int C1, int C2, int Cf,
+                                  float inv_r) {
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; e < BS * C1;
+       e += step) {
+    const long long bs = e / C1;
+    const int c = static_cast<int>(e - bs * C1);
+    float v = __ldg(b1 + c);
+    if (w1x) {
+      const float* cp = centers + bs * 3;
+      const float x = __fmul_rn(cp[0], inv_r), y = __fmul_rn(cp[1], inv_r),
+                  z = __fmul_rn(cp[2], inv_r);
+      v = __fsub_rn(v, __fmaf_rn(z, __ldg(w1x + 2 * C1 + c),
+                                 __fmaf_rn(y, __ldg(w1x + C1 + c), __fmul_rn(x, __ldg(w1x + c)))));
+    }
+    ct[e] = v;
+  }
+  // layer l's (s, t, inv), each C_l wide, from fold + 3 Cf l
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; e < 6LL * Cf;
+       e += step)
+    fold[e] = (e % (3LL * Cf)) < (e < 3LL * Cf ? C1 : C2) ? 1.f : 0.f;
+}
+
+// out[bs, c] = max_k relu(y3[bs K + k, c]), NaN where an index of centroid bs
+// lies outside [0, N); BF: as bf16 bits.
+template <bool BF>
+__global__ void rows_max_kernel(const float* __restrict__ y3, const int* __restrict__ idx,
+                                void* __restrict__ out, long long BS, int K, int C, int N) {
+  const long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (e >= BS * C) return;
+  const long long bs = e / C;
+  const int c = static_cast<int>(e - bs * C);
+  float m = 0.f;  // every value is a ReLU output, so >= 0
+  bool bad = false;
+  for (int k = 0; k < K; ++k) {
+    const int j = __ldg(idx + bs * K + k);
+    bad |= !(j >= 0 && j < N);
+    m = fmaxf(m, y3[(bs * K + k) * C + c]);
+  }
+  if constexpr (BF)
+    static_cast<uint16_t*>(out)[e] = bad ? static_cast<uint16_t>(0x7fc0) : bf16_bits(m);
+  else
+    static_cast<float*>(out)[e] = bad ? __int_as_float(0x7fc00000) : m;
+}
+
+struct RowsWorkspace {  // byte offsets into one buffer
+  size_t idx, ct, fold, part, vec, y2, y3, total;
+};
+
+RowsWorkspace rows_layout(const Dims& d) {
+  RowsWorkspace w{};
+  const int C = cmax(d);
+  size_t off = 0;
+  const auto take = [&off](size_t bytes) {
+    const size_t at = off;
+    off += align256(bytes);
+    return at;
+  };
+  w.idx = take(static_cast<size_t>(d.R) * sizeof(int));
+  w.ct = take(static_cast<size_t>(centroids(d)) * d.C1 * sizeof(float));
+  w.fold = take(6 * static_cast<size_t>(C) * sizeof(float));
+  w.part = take(static_cast<size_t>(row_tiles(d)) * 2 * C * sizeof(double));
+  w.vec = take(static_cast<size_t>(vec_floats(C)) * sizeof(float));
+  w.y2 = take(static_cast<size_t>(d.R) * d.C2 * sizeof(float));
+  w.y3 = take(static_cast<size_t>(d.R) * d.C3 * sizeof(float));
+  w.total = off;
+  return w;
+}
+
+int rows_check(int B, int N, int S, int K, int C1, int C2, int C3, Dims* d) {
+  if (B < 1 || B > 65535 || N < 1 || S < 1 || K < 1 || C1 < 1 || C2 < 1 || C3 < 1) return kErrArgs;
+  if (C1 % 4 || C2 % 4 || C3 % 4) return kErrWidth;
+  *d = Dims{static_cast<long long>(B) * S * K, B, N, S, K, C1, C2, C3};
+  // rows are 32-bit in the kernels, with a tile's worth to spare
+  if (d->R > 0x7fffffffLL - kTile) return kErrArgs;
+  return 0;
+}
+
+}  // namespace
+
+// Bytes of workspace that sa_rows_eval needs, or a negative error code.
+extern "C" long long sa_rows_workspace(int B, int N, int S, int K, int C1, int C2, int C3) {
+  Dims d;
+  const int rc = rows_check(B, N, S, K, C1, C2, C3, &d);
+  if (rc) return rc;
+  return static_cast<long long>(rows_layout(d).total);
+}
+
+// K4/K5 by row products (the note above), for the shapes sa_fused_k4 and
+// sa_fused_k4_bf16 do not take. Arguments as theirs, with w2p, w3p packed by
+// pack_chunks (of the weights rounded to bf16 in the bf16 mode), ws the
+// workspace (sa_rows_workspace bytes) and bf16 the mode: out is (B, S, C3) f32,
+// or bf16 where bf16 != 0. idx == nullptr: the ball query (r2) gives the
+// indices; otherwise idx (B, S, K) is K5's.
+extern "C" int sa_rows_eval(const float* xyz, const float* centers, const int* idx,
+                            const float* a_rows, const float* w1x, const float* b1,
+                            const float* w2p, long long n2, const float* b2, const float* w3p,
+                            long long n3, const float* b3, void* out, void* ws, int B, int N,
+                            int S, int K, int C1, int C2, int C3, float r2, float inv_r, int bf16,
+                            void* stream) {
+  Dims d;
+  RUN(rows_check(B, N, S, K, C1, C2, C3, &d));
+  if (!centers || !a_rows || !b1 || (!idx && !xyz)) return kErrArgs;
+  if (n2 != packed_floats(C1, C2) || n3 != packed_floats(C2, C3)) return kErrPacked;
+  RUN(device_info().err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const RowsWorkspace w = rows_layout(d);
+  char* base = static_cast<char*>(ws);
+  int* idx_ws = reinterpret_cast<int*>(base + w.idx);
+  float* ct = reinterpret_cast<float*>(base + w.ct);
+  float* fold = reinterpret_cast<float*>(base + w.fold);
+  double* part = reinterpret_cast<double*>(base + w.part);
+  float* vec = reinterpret_cast<float*>(base + w.vec);
+  float* y2 = reinterpret_cast<float*>(base + w.y2);
+  float* y3 = reinterpret_cast<float*>(base + w.y3);
+  if (!idx) {
+    bq_kernel<<<dim3(static_cast<unsigned>(cdiv(S, kBqThreads / 32)), B), kBqThreads, 0, st>>>(
+        xyz, centers, idx_ws, N, S, K, r2);
+    LAUNCH_CHECK();
+    idx = idx_ws;
+  }
+  const int Cm = cmax(d);
+  const long long BS = centroids(d);
+  const long long setup = cdiv(BS * C1 > 6LL * Cm ? BS * C1 : 6LL * Cm, kThreads);
+  rows_setup_kernel<<<static_cast<unsigned>(setup < 4096 ? setup : 4096), kThreads, 0, st>>>(
+      centers, w1x, b1, ct, fold, BS, C1, C2, Cm, inv_r);
+  LAUNCH_CHECK();
+  Ctx x{};
+  x.d = d;
+  x.a = a_rows;
+  x.ct = ct;
+  x.idx = idx;
+  x.y2 = y2;
+  x.fold[0] = fold;
+  x.fold[1] = fold + 3 * Cm;
+  if (bf16) {
+    RUN((rowmm<kLoadH1, kEpiBias, true>(x, w2p, b2, y2, part, C1, C2, vec, st)));
+    RUN((rowmm<kLoadH2, kEpiBias, true>(x, w3p, b3, y3, part, C2, C3, vec, st)));
+    rows_max_kernel<true><<<static_cast<unsigned>(cdiv(BS * C3, kThreads)), kThreads, 0, st>>>(
+        y3, idx, out, BS, K, C3, N);
+  } else {
+    RUN((rowmm<kLoadH1, kEpiBias>(x, w2p, b2, y2, part, C1, C2, vec, st)));
+    RUN((rowmm<kLoadH2, kEpiBias>(x, w3p, b3, y3, part, C2, C3, vec, st)));
+    rows_max_kernel<false><<<static_cast<unsigned>(cdiv(BS * C3, kThreads)), kThreads, 0, st>>>(
+        y3, idx, out, BS, K, C3, N);
+  }
+  LAUNCH_CHECK();
+  return 0;
 }

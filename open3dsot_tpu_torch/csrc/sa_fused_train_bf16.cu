@@ -104,6 +104,13 @@ constexpr int kSmemMax = 232448;  // 227 KB, the most a block may take
 constexpr int kDwStages = 4;     // dW: 64-row steps in flight
 constexpr int kDwStage = 4 * kABytes;  // dW step: two X boxes, two D boxes (32 KB)
 constexpr int kWantBlocks = 264;  // dW: about two blocks per SM over the tiles
+// dW: rows a block's accumulators sum at most. The tensor cores do not round
+// their f32 sums to nearest, so a longer chunk drifts: at 34M rows in 264
+// chunks of 130000 dW2 sat 3.7e-3 (relative norm) from its float64 value, 25x
+// the plain bf16 path's distance, in chunks of 8192 rows 9.0e-4 (chip_smoke.py
+// phase 26a). The shipped shapes' chunks are shorter (BAT_Car at B = 50: at
+// most 3136 rows), so their split is as before.
+constexpr long long kDwMaxRows = 4096;
 
 // ---- TMA, mbarriers, wgmma ---------------------------------------------------
 
@@ -818,16 +825,19 @@ __global__ void scan_kernel(const float* __restrict__ y3, const float* __restric
 
 // ---- B1: dz3's sums from the max pass's (max, ties, sum of yhat3 over them):
 // where the max is > 0, each of the ties has dz3 = g / ties. share = g / ties
-// for B2; one partial per kCent centroids. Block (32, 8), grid (C3 / 32, partials).
-__global__ void dz3_sums_kernel(const float* __restrict__ mxt, const float* __restrict__ g,
-                                float* __restrict__ share, double* __restrict__ part, long long BS,
-                                int C) {
+// for B2; one partial per kCent centroids. Block (32, 8), grid (C3 / 32, up to
+// kMaxGridY), block y taking partials y, y + gridDim.y, ...
+__device__ __forceinline__ void dz3_sums_chunk(const float* __restrict__ mxt,
+                                               const float* __restrict__ g,
+                                               float* __restrict__ share,
+                                               double* __restrict__ part, long long BS, int C,
+                                               long long chunk) {
   __shared__ double sh[2][8][33];
   const int tx = threadIdx.x, ty = threadIdx.y, c = blockIdx.x * 32 + tx;
   double s1 = 0.0, s2 = 0.0;
   if (c < C) {
     for (int i = 0; i < kCent / 8; ++i) {
-      const long long bs = static_cast<long long>(blockIdx.y) * kCent + ty + 8 * i;
+      const long long bs = chunk * kCent + ty + 8 * i;
       if (bs >= BS) break;
       const long long o = bs * C + c;
       const float m = mxt[o], ties = mxt[BS * C + o], ty3 = mxt[2 * BS * C + o];
@@ -849,9 +859,17 @@ __global__ void dz3_sums_kernel(const float* __restrict__ mxt, const float* __re
       a += sh[0][i][tx];
       b += sh[1][i][tx];
     }
-    part[(static_cast<long long>(blockIdx.y) * 2) * C + c] = a;
-    part[(static_cast<long long>(blockIdx.y) * 2 + 1) * C + c] = b;
+    part[(chunk * 2) * C + c] = a;
+    part[(chunk * 2 + 1) * C + c] = b;
   }
+  __syncthreads();  // sh is read before the next partial writes it
+}
+
+__global__ void dz3_sums_kernel(const float* __restrict__ mxt, const float* __restrict__ g,
+                                float* __restrict__ share, double* __restrict__ part, long long BS,
+                                int C) {
+  for (long long chunk = blockIdx.y; chunk < (BS + kCent - 1) / kCent; chunk += gridDim.y)
+    dz3_sums_chunk(mxt, g, share, part, BS, C, chunk);
 }
 
 // ---- dW = X^T D over a chunk of rows (X: R x I, D: R x J, bf16 grids) --------
@@ -1078,11 +1096,14 @@ int row_blocks(const Dims& d, int nout, int ns) {
   return static_cast<int>(x < pairs ? x : pairs);
 }
 
-// dW row split: about kWantBlocks blocks over the tiles, chunks of whole 64-row steps
+// dW row split: about kWantBlocks blocks over the tiles, chunks of whole 64-row
+// steps, of at most kDwMaxRows rows where the grid's z allows it
 void dw_split(const Dims& d, int I, int J, int* P, long long* chunk) {
   const long long tiles = cdiv(I, 128) * cdiv(J, 128);
   long long p = cdiv(kWantBlocks, tiles);
   p = p < tiles_of(d) ? p : tiles_of(d);
+  const long long most = cdiv(d.R, kDwMaxRows) < kMaxGridY ? cdiv(d.R, kDwMaxRows) : kMaxGridY;
+  if (p < most) p = most;
   const long long ch = cdiv(cdiv(d.R, p), kRows) * kRows;
   *P = static_cast<int>(cdiv(d.R, ch));
   *chunk = ch;
@@ -1134,8 +1155,7 @@ int check(int B, int N, int S, int K, int C1, int C2, int C3, Dims* d) {
   if (C1 % 4 || C2 % 4 || C3 % 4) return kErrWidth;
   *d = Dims{static_cast<long long>(B) * S * K, B, N, S, K, C1, C2, C3};
   // rows are 32-bit in the kernels, with a tile's worth to spare
-  if (d->R > 0x7fffffffLL - 2 * kRows || static_cast<long long>(B) * N > 0x7fffffffLL ||
-      stat_chunks(*d) > 65535 || cent_chunks(*d) > 65535)
+  if (d->R > 0x7fffffffLL - 2 * kRows || static_cast<long long>(B) * N > 0x7fffffffLL)
     return kErrArgs;
   int P;
   long long ch;
@@ -1231,8 +1251,8 @@ static int fwd_impl(const float* a, const float* ct, const int* idx, const uint1
   bool stop = false;
   // F1: y1's statistics, gathered
   if (in(0)) {
-    y1_stats_kernel<true><<<dim3(cdiv(C1, 32), stat_chunks(d)), dim3(32, 8), 0, st>>>(a, ct, idx,
-                                                                                       d, part);
+    y1_stats_kernel<true><<<dim3(cdiv(C1, 32), grid_y(stat_chunks(d))), dim3(32, 8), 0, st>>>(
+        a, ct, idx, d, part);
     LAUNCH_CHECK();
   }
   RUN(sync_fwd(sg, 0, part, stat_chunks(d), C1, d, fin, g1, bt1, mu1, v1, fold1, st, &stop));
@@ -1361,8 +1381,8 @@ static int bwd_impl(const float* g, const float* a, const float* ct, const int* 
   const long long BS = centroids(d);
   // B1: dz3's sums from the forward's ties, and the shares
   if (in(0)) {
-    dz3_sums_kernel<<<dim3(cdiv(C3, 32), cent_chunks(d)), dim3(32, 8), 0, st>>>(mxt, g, share,
-                                                                               part, BS, C3);
+    dz3_sums_kernel<<<dim3(cdiv(C3, 32), grid_y(cent_chunks(d))), dim3(32, 8), 0, st>>>(
+        mxt, g, share, part, BS, C3);
     LAUNCH_CHECK();
   }
   RUN(sync_bwd(sg, 0, part, cent_chunks(d), C3, d, fin, dbn_l[2], dbn_l[2] + C3, coef_l[2], st,

@@ -50,6 +50,7 @@ SIGNATURES = {
     },
     "fps": {
         "fps_k3": [_P, _I, _I, _I, _I, _I, _I, _P, _P],
+        "fps_k3_cluster": [_P, _I, _I, _I, _I, _P, _P],
     },
     "fps_floor": {
         "fps_chain_floor": [_I, _I, _I, _P, _P],
@@ -73,6 +74,8 @@ SIGNATURES = {
         "sa_train_bwd": [_P] * 8 + [_LL, _P, _LL] + [_P] * 7 + [_I] * 8 + [_P],
         "sa_train_fwd_staged": [_P] * 4 + [_LL, _P, _P, _LL] + [_P] * 7 + [_I] * 8 + [_P, _P],
         "sa_train_bwd_staged": [_P] * 8 + [_LL, _P, _LL] + [_P] * 7 + [_I] * 9 + [_P, _P],
+        "sa_rows_workspace": ([_I] * 7, _LL),
+        "sa_rows_eval": [_P] * 7 + [_LL, _P, _P, _LL, _P, _P, _P] + [_I] * 7 + [_F, _F, _I, _P],
     },
     "sa_fused_train_bf16": {
         "sa_train_bf16_workspace": ([_I] * 8, _LL),

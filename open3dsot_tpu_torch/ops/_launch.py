@@ -4,9 +4,19 @@ the C return code of a launch."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
+
+# Blocks a CUDA grid may have along y (and z): the kernels that put the batch
+# on grid.y (K1/K2, K4/K5) take at most this many clouds a launch, and their
+# wrappers split a larger batch (`batch_slices`).
+MAX_GRID_Y = 65535
+
+
+def batch_slices(B: int) -> List[Tuple[int, int]]:
+    """[b0, b1) ranges of at most MAX_GRID_Y clouds that cover a batch of B."""
+    return [(b0, min(B, b0 + MAX_GRID_Y)) for b0 in range(0, B, MAX_GRID_Y)]
 
 
 def on_cuda(x: torch.Tensor) -> bool:

@@ -24,6 +24,14 @@ directly for a CUDA tensor (`_launch.direct`), which spares the eager paths
 the dispatch. Each wrapper counts its kernel launches in a plain integer
 attribute, `<wrapper>.launches`.
 
+Widths the kernels read as padded rows: a tap width (K1) or a first width
+of K2 that is not a multiple of 8 runs at that width rounded up to 8. The
+packed weights are the same at both widths (`pack_layer` pads every width
+to whole chunks with zeros), the extra channels come out as relu(0 + 0) = 0
+and are sliced away (K1's tap), and K2's W_pool is zero-padded to match
+(`_padded_widths`). The batch is the kernels' grid.y: a batch of more than
+MAX_GRID_Y (65535) clouds runs a slice at a time.
+
 Layout is channels-last (B, N, C) at every function, as in the JAX package.
 Folded weights are (in, out) float32, as `fold_dense_bn` gives them; the
 kernels take them packed by `FoldedChain`: transposed to (out, in),
@@ -50,7 +58,8 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from open3dsot_tpu_torch.ops._launch import check, direct, on_cuda, raise_on, stream_of
+from open3dsot_tpu_torch.ops._launch import (MAX_GRID_Y, batch_slices, check, direct, on_cuda,
+                                             raise_on, stream_of)
 
 BN_EPS = 1e-5  # models/layers.py::DenseBNRelu epsilon, as on the JAX side
 
@@ -66,7 +75,7 @@ BF16 = torch.bfloat16
 TOL_3XTF32 = 1e-4
 
 _ERRORS = {-1: "layer count, widths or packed size not accepted",
-           -2: "the tap width or K2's first width is not a multiple of 8",
+           -2: "the tap width or K2's first width is not a multiple of 8 (the wrappers pad them)",
            -3: "a layer does not fit in shared memory",
            -4: "workspace smaller than the plan needs"}
 
@@ -87,6 +96,19 @@ def fold_dense_bn(weight: torch.Tensor, bias: torch.Tensor, scale: torch.Tensor,
 
 def round8(n: int) -> int:
     return -(-n // 8) * 8
+
+
+def round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def pad_to(t: torch.Tensor, *sizes: int) -> torch.Tensor:
+    """t zero-padded at the end of its last len(sizes) dims to `sizes` (the
+    wrappers' padded widths); t itself where it has them."""
+    pads = []
+    for dim, n in zip(range(t.dim() - 1, t.dim() - 1 - len(sizes), -1), reversed(sizes)):
+        pads += [0, n - t.shape[dim]]
+    return F.pad(t, pads) if any(pads) else t
 
 
 def tf32_rna(t: torch.Tensor) -> torch.Tensor:
@@ -290,6 +312,15 @@ def _workspace(workspace, widths, n_layers: int, B: int, N: int, dev, what: str)
     return torch.empty(max(n, 1), device=dev), n
 
 
+def _padded_widths(widths: Sequence[int], at: int) -> List[int]:
+    """`widths` with widths[at] rounded up to a multiple of 8, as the kernels
+    read the tap (K1) and K2's first layer output: the packed weights are the
+    same at both widths, so only the entries' widths change."""
+    out = list(widths)
+    out[at] = round8(out[at])
+    return out
+
+
 @torch.library.custom_op("open3dsot::fused_pointnet_encoder", mutates_args=(),
                          device_types="cpu")
 def _k1_op(x: torch.Tensor, packed: torch.Tensor, weights: List[torch.Tensor],
@@ -309,10 +340,17 @@ def _k1_fake(x, packed, weights, biases, widths, tap_at, bf16=False):
 @_k1_op.register_kernel("cuda")
 def _k1_cuda(x, packed, weights, biases, widths, tap_at, bf16=False):
     B, N, _ = x.shape
+    if B > MAX_GRID_Y:  # the batch is the grid's y: a launch a slice of it
+        parts = [_k1_cuda(x[b0:b1], packed, weights, biases, widths, tap_at, bf16)
+                 for b0, b1 in batch_slices(B)]
+        return tuple(torch.cat(p) for p in zip(*parts))
     dev = x.device
     check("x", x, dev)
     check("packed weights", packed, dev)
-    tap = torch.empty(B, N, widths[tap_at + 1] if tap_at >= 0 else 0, device=dev)
+    c_tap = widths[tap_at + 1] if tap_at >= 0 else 0
+    if c_tap % 8:  # the kernels write the tap at its padded width
+        widths = _padded_widths(widths, tap_at + 1)
+    tap = torch.empty(B, N, round8(c_tap), device=dev)
     pooled = torch.empty(B, widths[-1], device=dev)
     c_widths, n_layers = _c_widths(widths)
     workspace, k1, _ = _library(bf16)
@@ -323,7 +361,7 @@ def _k1_cuda(x, packed, weights, biases, widths, tap_at, bf16=False):
             stream_of(x))
     raise_on(rc, what, _ERRORS)
     fused_pointnet_encoder.launches += 1
-    return tap, pooled
+    return (tap[..., :c_tap].contiguous() if c_tap % 8 else tap), pooled
 
 
 @torch.library.custom_op("open3dsot::fused_seg_head", mutates_args=(), device_types="cpu")
@@ -342,11 +380,17 @@ def _k2_fake(tap, pooled, packed, w_pool, weights, biases, widths, bf16=False):
 @_k2_op.register_kernel("cuda")
 def _k2_cuda(tap, pooled, packed, w_pool, weights, biases, widths, bf16=False):
     B, N, _ = tap.shape
+    if B > MAX_GRID_Y:  # the batch is the grid's y: a launch a slice of it
+        return torch.cat([_k2_cuda(tap[b0:b1], pooled[b0:b1], packed, w_pool, weights, biases,
+                                   widths, bf16) for b0, b1 in batch_slices(B)])
     dev = tap.device
     check("tap", tap, dev)
     check("pooled", pooled, dev)
     check("packed weights", packed, dev)
     check("w_pool", w_pool, dev)
+    if widths[1] % 8:  # g and layer 0's output at the padded width, W_pool's columns padded
+        w_pool = pad_to(w_pool, round8(widths[1]))
+        widths = _padded_widths(widths, 1)
     g = torch.empty(B, widths[1], device=dev)
     out = torch.empty(B, N, widths[-1], device=dev)
     c_widths, n_layers = _c_widths(widths)

@@ -43,6 +43,22 @@ them (the kernel rounds them as it gathers them); then relu(g + ct) in f32,
 and layers 2-3 with bf16 operands and f32 sums, from weights packed in bf16
 panels (`pack_panels_bf16`); the max over K is returned as bf16.
 `sa_eval_plain(..., dtype=)` does the same by rounding, in A-form.
+
+Every shape the JAX kernels take runs on a hand kernel (`_launch`):
+  - widths that are not a multiple of 4 run at the widths rounded up to 4:
+    the packed weights are the same at both (`pack_chunks` and
+    `pack_panels_bf16` pad every width with zeros to whole chunks or panels),
+    layer 1's weight and the biases are zero-padded, so each extra channel
+    is relu(0 + 0) = 0 into zero weight rows, and the output's extra
+    channels are sliced away;
+  - K > 64 (a centroid past one 64-row tile), and widths whose tiles do not
+    fit in shared memory (the entries' kErrSmem), take the eval rows path
+    (`sa_rows_eval` in csrc/sa_fused_train.cu: K6's row products with
+    identity folds over the whole (B, S, K) grid in device memory, then the
+    max over each centroid's K rows), in both modes; counted in
+    `fused_sa_apply.rows_launches` too. Its weights are packed by
+    `pack_chunks` (rounded to bf16 first in the bf16 mode), once per
+    `FoldedSA` (`rows_packs`).
 """
 
 from __future__ import annotations
@@ -51,13 +67,16 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from open3dsot_tpu_torch.ops._launch import check, direct, on_cuda, raise_on, stream_of
+from open3dsot_tpu_torch.ops._launch import (MAX_GRID_Y, batch_slices, check, direct, on_cuda,
+                                             raise_on, stream_of)
 from open3dsot_tpu_torch.ops.chain_fused import (
     BF16,
     _dense,
     is_bf16,
     pack_chunks,
     pack_panels_bf16,
+    pad_to,
+    round4,
     round_bf16,
 )
 from open3dsot_tpu_torch.ops.grouping import group_points
@@ -68,10 +87,17 @@ Folded = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 # mode has one form
 GATHER_FORMS = ("ldg", "cp_async")
 
-_ERRORS = {-1: "B, N, S, K (1..64) or widths not accepted",
-           -2: "a width C1, C2 or C3 is not a multiple of 4",
+_ERRORS = {-1: "B, N, S, K or widths not accepted",
+           -2: "a width C1, C2 or C3 is not a multiple of 4 (the wrapper pads them)",
            -3: "the tiles and the weight stages do not fit in shared memory",
            -4: "a packed weight has the wrong size"}
+_ROWS_ERRORS = {-1: "B (up to 65535), S or K not accepted (B * S * K below 2^31 rows)",
+                -2: "a width C1, C2 or C3 is not a multiple of 4 (the wrapper pads them)",
+                -3: "a packed weight has the wrong size"}
+# the most neighbours K4/K5 hold in one 64-row tile (csrc/sa_fused.cu kTile,
+# csrc/sa_fused_bf16.cu kRows); more take the rows path
+TILE_K = 64
+_ERR_SMEM = -3  # the entries' kErrSmem: the tiles do not fit, the rows path takes the shape
 
 
 class PackedSA(NamedTuple):
@@ -189,6 +215,43 @@ def sa_eval_plain(xyz: torch.Tensor, features: Optional[torch.Tensor], new_xyz: 
     return grouped.amax(dim=2)
 
 
+def rows_packs(folded: Folded, bf16: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """W2 and W3 as the eval rows path reads them: `pack_chunks`, of the
+    weights rounded to bf16 in the bf16 mode; kept on a `FoldedSA` (its
+    weights do not change after it is made)."""
+    cache = getattr(folded, "_rows_packs", None)
+    if cache is not None and cache[0] == bf16:
+        return cache[1]
+    r = round_bf16 if bf16 else (lambda t: t)
+    packs = tuple(pack_chunks(r(w.detach().float().contiguous())) for w, _ in folded[1:])
+    if isinstance(folded, FoldedSA):
+        folded._rows_packs = (bf16, packs)
+    return packs
+
+
+def _launch_rows(xyz, new_xyz, idx, a, w1x, b1, w2p, b2, w3p, b3, out, *, radius: float,
+                 inv_r: float, K: int, bf16: bool) -> None:
+    """The eval rows path (csrc/sa_fused_train.cu::sa_rows_eval) into out, at
+    widths that are multiples of 4."""
+    from open3dsot_tpu_torch.ops._build import load_library
+
+    lib = load_library("sa_fused_train").lib
+    B, N, C1 = a.shape
+    S, C2, C3 = new_xyz.shape[1], b2.shape[0], b3.shape[0]
+    dims = (B, N, S, K, C1, C2, C3)
+    nbytes = lib.sa_rows_workspace(*dims)
+    raise_on(min(nbytes, 0), "K4/K5 rows path workspace", _ROWS_ERRORS)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=a.device)
+    rc = lib.sa_rows_eval(xyz.data_ptr(), new_xyz.data_ptr(),
+                          None if idx is None else idx.data_ptr(), a.data_ptr(),
+                          None if w1x is None else w1x.data_ptr(), b1.data_ptr(), w2p.data_ptr(),
+                          w2p.numel(), b2.data_ptr(), w3p.data_ptr(), w3p.numel(), b3.data_ptr(),
+                          out.data_ptr(), ws.data_ptr(), *dims, radius_sq(radius), inv_r,
+                          int(bf16), stream_of(a))
+    raise_on(rc, "K4/K5 sa_rows_eval (the rows path)", _ROWS_ERRORS)
+    fused_sa_apply.rows_launches += 1
+
+
 def _launch(xyz: torch.Tensor, features: Optional[torch.Tensor], new_xyz: torch.Tensor,
             idx: Optional[torch.Tensor], folded: Folded, packed: Optional[PackedSA], *,
             radius: float, normalize_xyz: bool, use_xyz: bool, K: int, gather: int,
@@ -196,10 +259,18 @@ def _launch(xyz: torch.Tensor, features: Optional[torch.Tensor], new_xyz: torch.
     """Check the inputs against the kernel's and launch it: K4 when idx is
     None (K neighbors by its ball query), else K5 (idx (B, S, K) int32); in
     the bf16 mode with `bf16` (packed weights of that mode, output bf16; its
-    one gather form takes no `gather`)."""
+    one gather form takes no `gather`). K > 64 and widths whose tiles do not
+    fit run on the rows path, widths not a multiple of 4 padded (the module
+    docstring), a batch of more than MAX_GRID_Y clouds a slice at a time."""
     from open3dsot_tpu_torch.ops._build import load_library
 
     B, N, _ = xyz.shape
+    if B > MAX_GRID_Y:  # the batch is the grid's y: a launch a slice of it
+        pick = lambda t, b0, b1: None if t is None else t[b0:b1]  # noqa: E731
+        return torch.cat([_launch(xyz[b0:b1], pick(features, b0, b1), new_xyz[b0:b1],
+                                  pick(idx, b0, b1), folded, packed, radius=radius,
+                                  normalize_xyz=normalize_xyz, use_xyz=use_xyz, K=K,
+                                  gather=gather, bf16=bf16) for b0, b1 in batch_slices(B)])
     S = new_xyz.shape[1]
     dev = xyz.device
     (w1, b1), (w2, b2), (w3, b3) = folded
@@ -222,24 +293,35 @@ def _launch(xyz: torch.Tensor, features: Optional[torch.Tensor], new_xyz: torch.
     if packed.w2.device != dev:
         raise ValueError(f"the packed weights are on {packed.w2.device}, expected {dev}")
     inv_r = 1.0 / radius if normalize_xyz else 1.0
-    a = a_rows(xyz, features, w1, inv_r=inv_r, use_xyz=use_xyz)  # f32; the bf16 kernel rounds it
-    idx_ws = torch.empty(B, S, K, dtype=torch.int32, device=dev) if idx is None else None
-    out = torch.empty(B, S, C3, device=dev, dtype=BF16 if bf16 else torch.float32)
-    args = (xyz.data_ptr(), new_xyz.data_ptr(), None if idx is None else idx.data_ptr(),
-            None if idx_ws is None else idx_ws.data_ptr(), a.data_ptr(),
-            packed.w1x.data_ptr() if reads_xyz else None, packed.b1.data_ptr(),
-            packed.w2.data_ptr(), packed.w2.numel(), packed.b2.data_ptr(), packed.w3.data_ptr(),
-            packed.w3.numel(), packed.b3.data_ptr(), out.data_ptr(), B, N, S, K, C1, C2, C3,
-            radius_sq(radius), inv_r)
-    if bf16:
-        entry = load_library("sa_fused_bf16").lib.sa_fused_k4_bf16
-        rc = entry(*args, stream_of(xyz))
-    else:
-        entry = load_library("sa_fused").lib.sa_fused_k4
-        rc = entry(*args, gather, stream_of(xyz))
-    raise_on(rc, f"K4 {entry.__name__} (ball query)" if idx is None
-             else f"K5 {entry.__name__} (idx given)", _ERRORS)
-    return out
+    # widths padded to multiples of 4: the packs are the same, the rest is zero-padded
+    P1, P2, P3 = round4(C1), round4(C2), round4(C3)
+    w1x, b1p = pad_to(packed.w1x, P1), pad_to(packed.b1, P1)
+    b2p, b3p = pad_to(packed.b2, P2), pad_to(packed.b3, P3)
+    a = a_rows(xyz, features, pad_to(w1, P1), inv_r=inv_r, use_xyz=use_xyz)  # f32; bf16 rounds it
+    out = torch.empty(B, S, P3, device=dev, dtype=BF16 if bf16 else torch.float32)
+    rc = _ERR_SMEM
+    if K <= TILE_K:
+        idx_ws = torch.empty(B, S, K, dtype=torch.int32, device=dev) if idx is None else None
+        args = (xyz.data_ptr(), new_xyz.data_ptr(), None if idx is None else idx.data_ptr(),
+                None if idx_ws is None else idx_ws.data_ptr(), a.data_ptr(),
+                w1x.data_ptr() if reads_xyz else None, b1p.data_ptr(),
+                packed.w2.data_ptr(), packed.w2.numel(), b2p.data_ptr(), packed.w3.data_ptr(),
+                packed.w3.numel(), b3p.data_ptr(), out.data_ptr(), B, N, S, K, P1, P2, P3,
+                radius_sq(radius), inv_r)
+        if bf16:
+            entry = load_library("sa_fused_bf16").lib.sa_fused_k4_bf16
+            rc = entry(*args, stream_of(xyz))
+        else:
+            entry = load_library("sa_fused").lib.sa_fused_k4
+            rc = entry(*args, gather, stream_of(xyz))
+        if rc != _ERR_SMEM:
+            raise_on(rc, f"K4 {entry.__name__} (ball query)" if idx is None
+                     else f"K5 {entry.__name__} (idx given)", _ERRORS)
+    if rc == _ERR_SMEM:  # K past one tile, or tiles that do not fit: the rows path
+        w2r, w3r = rows_packs(folded, bf16)
+        _launch_rows(xyz, new_xyz, idx, a, w1x if reads_xyz else None, b1p, w2r, b2p, w3r, b3p,
+                     out, radius=radius, inv_r=inv_r, K=K, bf16=bf16)
+    return out if P3 == C3 else out[..., :C3].contiguous()
 
 
 def _pairs(layers: Sequence[torch.Tensor]) -> tuple:
@@ -324,8 +406,10 @@ def fused_sa_apply(xyz: torch.Tensor, features: Optional[torch.Tensor], new_xyz:
 
 fused_sa_apply.launches = 0
 fused_sa_apply.idx_launches = 0
+fused_sa_apply.rows_launches = 0  # of either, on the rows path (K > 64, or wide tiles)
 
 
 def reset_launch_counts() -> None:
     fused_sa_apply.launches = 0
     fused_sa_apply.idx_launches = 0
+    fused_sa_apply.rows_launches = 0

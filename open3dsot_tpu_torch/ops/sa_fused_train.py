@@ -61,6 +61,14 @@ the stored bf16 h, da scatter-sums bf16-rounded dy1 with f32 sums and dct
 sums dy1 in f32. The mode comes from the MLP's layers (`DenseBNRelu.dtype`),
 as K4's from `FoldedSA.dtype`.
 
+Widths that are not a multiple of 4 run at the widths rounded up to 4
+(`_padded_call`): a, ct, W2, W3, the biases and the BatchNorm parameters
+zero-padded. A padded channel is 0 at every row, so its batch mean and
+variance are 0, and with gamma = beta = 0 its scale and shift are 0: it
+stays 0 through every layer, and its gradients are 0. The kernels' grids
+keep the padded widths (the backward takes them as they are); out, the
+statistics and the gradients are sliced to the real widths.
+
 Under a process group whose statistics are those of the global batch
 (`parallel/distributed.py::global_batch`, the trainer's default mode on
 several ranks, as JAX's GSPMD step, whose partitioner adds K6's per-shard
@@ -84,16 +92,15 @@ import torch
 import torch.nn as nn
 
 from open3dsot_tpu_torch.ops._launch import check, on_cuda, raise_on, stream_of
-from open3dsot_tpu_torch.ops.chain_fused import BF16, is_bf16, pack_chunks
+from open3dsot_tpu_torch.ops.chain_fused import BF16, is_bf16, pack_chunks, pad_to, round4
 from open3dsot_tpu_torch.ops.grouping import group_points
 from open3dsot_tpu_torch.ops.sa_fused import a_form
 from open3dsot_tpu_torch.parallel import distributed
 
 BN_EPS = 1e-5
 _ERRORS = {-1: "B, N, S or K not accepted (B * S * K below 2^31 rows)",
-           -2: "a width C1, C2 or C3 is not a multiple of 4 (in either mode)",
+           -2: "a width C1, C2 or C3 is not a multiple of 4 (the wrappers pad them)",
            -3: "a packed weight has the wrong size",
-           -4: "a width too large for the 3xTF32 products' shared memory (the f32 mode)",
            -6: "the CUDA driver refused a TMA tensor map of the bf16 mode"}
 
 Stats = Tuple[torch.Tensor, ...]  # (mean1, var1, mean2, var2, mean3, var3)
@@ -306,6 +313,19 @@ class Packs:
                 raise RuntimeError(f"K6: {name} packed to {p.numel()} floats, the kernel reads {n}")
 
 
+def _padded_call(widths, w2, b2, w3, b3, bn, packs: Packs):
+    """The weights, biases, BatchNorm parameters and packs of a K6 call at its
+    widths (C1, C2, C3) rounded up to multiples of 4 (the module docstring).
+    The 3xTF32 packs are the same at both widths (`pack_chunks` pads to whole
+    chunks); the bf16 mode's rows are packed again."""
+    C1, C2, C3 = widths
+    P = [round4(c) for c in widths]
+    w2p, w3p = pad_to(w2, P[0], P[1]), pad_to(w3, P[1], P[2])
+    bnp = [pad_to(t.reshape(-1), P[i // 2]) for i, t in enumerate(bn)]
+    packs_p = Packs(w2p, w3p, True) if packs.bf16 else packs
+    return P, w2p, pad_to(b2, P[1]), w3p, pad_to(b3, P[2]), bnp, packs_p
+
+
 def sa_train_fwd_kernel(a, ct, idx, w2, b2, w3, b3, bn: Sequence[torch.Tensor], packs: Packs,
                         y3_out: Optional[torch.Tensor] = None, staged: bool = False):
     """K6 forward on the card: the same function as `sa_train_fwd_plain` in
@@ -317,11 +337,21 @@ def sa_train_fwd_kernel(a, ct, idx, w2, b2, w3, b3, bn: Sequence[torch.Tensor], 
     plain backward (its `y3`) to the kernel's maxima and ties. `staged`: the
     staged entries, with the statistics summed over the process group
     between the stages (`_run_staged`; in a world of one the single call's
-    results, bit for bit)."""
+    results, bit for bit). At widths that are not a multiple of 4 the
+    grids keep the padded widths (`_padded_call`)."""
     B, N, C1 = a.shape
     S, K = idx.shape[1], idx.shape[2]
     C2, C3 = w2.shape[1], w3.shape[1]
     dev = a.device
+    if (C1 | C2 | C3) % 4:
+        P, w2p, b2p, w3p, b3p, bnp, packs_p = _padded_call((C1, C2, C3), w2, b2, w3, b3, bn, packs)
+        y3p = None if y3_out is None else torch.empty(B, S, K, P[2], device=dev)
+        out, stats, grids = sa_train_fwd_kernel(pad_to(a, P[0]), pad_to(ct, P[0]), idx, w2p, b2p,
+                                                w3p, b3p, bnp, packs_p, y3_out=y3p, staged=staged)
+        if y3_out is not None:
+            y3_out.copy_(y3p[..., :C3])
+        stats = tuple(s[:c] for s, c in zip(stats, (C1, C1, C2, C2, C3, C3)))
+        return out[..., :C3].contiguous(), stats, grids
     check("a", a, dev, (B, N, C1))
     check("ct", ct, dev, (B, S, C1))
     check("idx", idx, dev, (B, S, K), dtype=torch.int32)
@@ -370,12 +400,22 @@ def sa_train_bwd_kernel(g_out, a, ct, idx, grids, stats: Stats, w2, b2, w3, b3,
     Under `torch.use_deterministic_algorithms(True)` da is summed in a fixed
     order (the entries' `ordered` path), else by float atomics. `staged` as
     in `sa_train_fwd_kernel`: the BN backward's sums summed over the process
-    group, dgamma and dbeta this rank's own."""
+    group, dgamma and dbeta this rank's own. At widths that are not a
+    multiple of 4 the grids are the forward's padded ones."""
     B, N, C1 = a.shape
     S, K = idx.shape[1], idx.shape[2]
     C2, C3 = w2.shape[1], w3.shape[1]
     dev = a.device
     bf16 = packs.bf16
+    if (C1 | C2 | C3) % 4:
+        P, w2p, b2p, w3p, b3p, bnp, packs_p = _padded_call((C1, C2, C3), w2, b2, w3, b3, bn, packs)
+        stats_p = [pad_to(s, P[i // 2]) for i, s in enumerate(stats)]
+        da, dct, dw2, dw3, dbn = sa_train_bwd_kernel(
+            pad_to(g_out, P[2]), pad_to(a, P[0]), pad_to(ct, P[0]), idx, grids, stats_p,
+            w2p, b2p, w3p, b3p, bnp, packs_p, staged=staged)
+        return (da[..., :C1].contiguous(), dct[..., :C1].contiguous(),
+                dw2[:C1, :C2].contiguous(), dw3[:C2, :C3].contiguous(),
+                tuple(d[:c] for d, c in zip(dbn, (C1, C1, C2, C2, C3, C3))))
     check("g_out", g_out, dev, (B, S, C3))
     check("a", a, dev, (B, N, C1))
     check("ct", ct, dev, (B, S, C1))

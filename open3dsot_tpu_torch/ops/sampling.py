@@ -14,7 +14,10 @@ tensor, or it raises. `furthest_point_sample` calls the operator, or its
 CUDA function directly for a CUDA tensor that is not being traced. Launches are counted in
 `furthest_point_sample.launches`. K3's block (T threads, PPT points a
 thread) is chosen here, by `fps_block`, and where the winner's coordinates
-come from by `fps_winner`; the kernel only checks them.
+come from by `fps_winner`; the kernel only checks them. A cloud of more
+than MAX_N = 32768 points (one block's registers) runs on a cluster of 8
+blocks (`fps_k3_cluster`, PPT from `fps_cluster_ppt`), up to MAX_CLUSTER_N
+= 262144 points; counted in `furthest_point_sample.cluster_launches` too.
 """
 
 from __future__ import annotations
@@ -27,9 +30,11 @@ from open3dsot_tpu_torch.ops._launch import check, direct, on_cuda, raise_on, st
 
 MAX_N = 32768
 MAX_PPT = 32
+CLUSTER_BLOCKS, CLUSTER_THREADS = 8, 1024  # csrc/fps.cu: a cloud above MAX_N
+MAX_CLUSTER_N = CLUSTER_BLOCKS * CLUSTER_THREADS * MAX_PPT
 WINNERS = ("slot", "shared")  # the winner's coordinates: the warps' slots, or the cloud in smem
 _SHARED_BYTES = 232448 - 1280  # a block's shared memory less K3's slots (csrc/fps.cu)
-_ERRORS = {-1: "B, N or npoint not accepted (1 <= npoint, N <= 32768)",
+_ERRORS = {-1: f"B, N or npoint not accepted (1 <= npoint, N <= {MAX_CLUSTER_N})",
            -2: "block not accepted (T a power of two in [32, 1024], PPT one up to 32, T * PPT >= N)",
            -3: "the cloud does not fit in shared memory (12 N bytes)"}
 
@@ -56,6 +61,15 @@ def fps_block(n: int) -> tuple:
     else:
         threads = 1024
     return threads, _pow2_at_least(-(-n // threads))
+
+
+def fps_cluster_ppt(n: int) -> int:
+    """Points a thread holds when a cloud of MAX_N < n <= MAX_CLUSTER_N
+    points runs over a cluster of CLUSTER_BLOCKS blocks of CLUSTER_THREADS
+    (8, 16 or 32)."""
+    if not MAX_N < n <= MAX_CLUSTER_N:
+        raise ValueError(f"K3's cluster form takes {MAX_N} < N <= {MAX_CLUSTER_N}, got {n}")
+    return max(8, _pow2_at_least(-(-n // (CLUSTER_BLOCKS * CLUSTER_THREADS))))
 
 
 def fps_winner(n: int) -> str:
@@ -100,6 +114,17 @@ def _k3_cuda(xyz, npoint, threads, winner):
 
     B, N, _ = xyz.shape
     check("xyz", xyz, xyz.device)
+    if N > MAX_N:  # over a cluster of blocks; its one form takes no threads or winner
+        if threads >= 0 or winner >= 0:
+            raise ValueError(f"K3 above {MAX_N} points has one form: threads and winner must be None")
+        out = torch.empty(B, npoint, dtype=torch.int32, device=xyz.device)
+        rc = load_library("fps").lib.fps_k3_cluster(xyz.data_ptr(), B, N, npoint,
+                                                     fps_cluster_ppt(N), out.data_ptr(),
+                                                     stream_of(xyz))
+        raise_on(rc, "K3 fps_k3_cluster", _ERRORS)
+        furthest_point_sample.launches += 1
+        furthest_point_sample.cluster_launches += 1
+        return out
     T, ppt = fps_block(N)
     if threads >= 0:
         T, ppt = threads, _pow2_at_least(-(-N // threads))
@@ -128,7 +153,9 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int, threads: Optional[int]
 
 
 furthest_point_sample.launches = 0
+furthest_point_sample.cluster_launches = 0  # of them, over a cluster (N > MAX_N)
 
 
 def reset_launch_counts() -> None:
     furthest_point_sample.launches = 0
+    furthest_point_sample.cluster_launches = 0
