@@ -72,6 +72,7 @@ from open3dsot_tpu_torch.tracking.scan_tracker import (
     pad_frame,
     redraws_uniform,
 )
+from open3dsot_tpu_torch.utils import profiling
 from open3dsot_tpu_torch.utils.quant import dequantize
 
 # The wrappers whose launches a captured advance counts: K1, K2, K3, K4
@@ -226,7 +227,8 @@ class _OnlineBase(_DeviceTracker):
                 return
             graph = self._captured((self.max_streams, self.max_points),
                                    lambda: _SlotStepGraph(self))
-            graph.graph.replay()
+            with profiling.annotate("graph.replay"):
+                graph.graph.replay()
         self.replays += 1
 
     def step(self, frames: Dict[int, np.ndarray]) -> Dict[int, np.ndarray]:
@@ -237,9 +239,11 @@ class _OnlineBase(_DeviceTracker):
         as an empty array). Returns slot -> the predicted world-frame (cx,
         cy, cz, theta) for the new frame, (4,) float32.
         """
-        self._upload(self._pack(frames))
+        with profiling.annotate("online.pack"):
+            self._upload(self._pack(frames))
         self._advance()
-        boxes = self._state["ref"].cpu().numpy().copy()
+        with profiling.annotate("online.fetch"):
+            boxes = self._state["ref"].cpu().numpy().copy()
         return {slot: boxes[slot] for slot in frames}
 
     def current_box(self, slot: int) -> np.ndarray:
@@ -280,9 +284,10 @@ class OnlineM2Tracker(_OnlineBase):
         """Start tracking in `slot`: `points` is the first frame's (N, 3)
         cloud, `box` the first-frame geometry Box."""
         self._check_slot(slot)
-        pts, valid = pad_frame(points, self.max_points)
-        self._write_slot(slot, ref=self._init_params(box), prev_pts=pts,
-                         prev_count=valid.sum(), idx=0, wlh=box.wlh)
+        with profiling.annotate("online.reset"):
+            pts, valid = pad_frame(points, self.max_points)
+            self._write_slot(slot, ref=self._init_params(box), prev_pts=pts,
+                             prev_count=valid.sum(), idx=0, wlh=box.wlh)
 
 
 class OnlineMatchTracker(_OnlineBase):
@@ -352,23 +357,24 @@ class OnlineMatchTracker(_OnlineBase):
         (MatchScanTracker._extra_inputs); a fresh stream starts with an
         empty reservoir and age 0."""
         self._check_slot(slot)
-        cfg = self.config
-        if not isinstance(pc, PointCloud):
-            pc = PointCloud(np.asarray(pc, np.float32).reshape(-1, 3).T)
-        crop, _ = points_utils.cropAndCenterPC(pc, box, scale=cfg.model_bb_scale,
-                                               offset=cfg.model_bb_offset)
-        P1 = self.first_crop_points
-        fp = crop.points.T.astype(np.float32)[:P1]
-        first = np.zeros((P1, 3), np.float32)
-        first[: len(fp)] = fp
-        pts, valid = pad_frame(pc.points.T, self.max_points)
-        rows = dict(ref=self._init_params(box), wlh=box.wlh, prev_pts=pts,
-                    prev_count=valid.sum(), first_pts=first, first_count=len(fp))
-        if "pool_key" in self._state:
-            rows["pool_key"] = -math.inf
-        if "age" in self._state:
-            rows["age"] = 0
-        self._write_slot(slot, **rows)
+        with profiling.annotate("online.reset"):
+            cfg = self.config
+            if not isinstance(pc, PointCloud):
+                pc = PointCloud(np.asarray(pc, np.float32).reshape(-1, 3).T)
+            crop, _ = points_utils.cropAndCenterPC(pc, box, scale=cfg.model_bb_scale,
+                                                   offset=cfg.model_bb_offset)
+            P1 = self.first_crop_points
+            fp = crop.points.T.astype(np.float32)[:P1]
+            first = np.zeros((P1, 3), np.float32)
+            first[: len(fp)] = fp
+            pts, valid = pad_frame(pc.points.T, self.max_points)
+            rows = dict(ref=self._init_params(box), wlh=box.wlh, prev_pts=pts,
+                        prev_count=valid.sum(), first_pts=first, first_count=len(fp))
+            if "pool_key" in self._state:
+                rows["pool_key"] = -math.inf
+            if "age" in self._state:
+                rows["age"] = 0
+            self._write_slot(slot, **rows)
 
 
 class SplitOnlineTracker:
@@ -424,11 +430,13 @@ class SplitOnlineTracker:
             self._part(slot)
             split[slot // self.per][slot % self.per] = pts
         for part, own in zip(self.parts, split):
-            part._upload(part._pack(own))
+            with profiling.annotate("online.pack", card=part.device.index):
+                part._upload(part._pack(own))
             part._advance()
         out = {}
         for i, (part, own) in enumerate(zip(self.parts, split)):
-            boxes = part._state["ref"].cpu().numpy().copy()
+            with profiling.annotate("online.fetch", card=part.device.index):
+                boxes = part._state["ref"].cpu().numpy().copy()
             out.update({i * self.per + s: boxes[s] for s in own})
         return out
 

@@ -54,7 +54,7 @@ from open3dsot_tpu_torch.tracking.scan_tracker import (
     evaluate_with_tracker,
     redraws_uniform,
 )
-from open3dsot_tpu_torch.utils import prng
+from open3dsot_tpu_torch.utils import prng, profiling
 
 # The 'all' reservoir's priority key, jax.random.PRNGKey(1) in the JAX package
 POOL_KEY = prng.prng_key(1)
@@ -292,33 +292,35 @@ class MatchScanTracker(_ScanTracker):
         the device -> predicted world boxes (B, T - 1, 4) on the device. No
         host sync."""
         B, T, P, _ = pts.shape
-        boxes = pts.new_empty(B, T - 1, 4)
-        carry = self._carry0(init, wlh)
-        sh = self._gt_shift
-        if self.cuda_graph:
-            g = self._graph_for(B, P, first_pts.shape[1], carry)
-            g.first_pts.copy_(first_pts)
-            g.first_count.copy_(first_count)
-            for buf, value in zip(g.carry, carry):
-                buf.copy_(value)
+        with profiling.annotate("scan.frame_loop", card=self.device.index, B=B, T=T):
+            boxes = pts.new_empty(B, T - 1, 4)
+            carry = self._carry0(init, wlh)
+            sh = self._gt_shift
+            if self.cuda_graph:
+                g = self._graph_for(B, P, first_pts.shape[1], carry)
+                g.first_pts.copy_(first_pts)
+                g.first_count.copy_(first_count)
+                for buf, value in zip(g.carry, carry):
+                    buf.copy_(value)
+                for t in range(T - 1):
+                    g.pts.copy_(pts[:, t:t + 2])
+                    g.counts.copy_(counts[:, t:t + 2])
+                    if g.gt:
+                        g.gt[0].copy_(gt_params[:, t + sh])
+                        g.gt[1].copy_(gt_wlh[:, t + sh])
+                    with profiling.annotate("graph.replay"):
+                        g.graph.replay()
+                    boxes[:, t].copy_(g.carry[0])
+                self.replays += T - 1
+                return boxes
+            valid = _expand_counts(counts, P)
+            first_valid = _expand_counts(first_count, first_pts.shape[1])
             for t in range(T - 1):
-                g.pts.copy_(pts[:, t:t + 2])
-                g.counts.copy_(counts[:, t:t + 2])
-                if g.gt:
-                    g.gt[0].copy_(gt_params[:, t + sh])
-                    g.gt[1].copy_(gt_wlh[:, t + sh])
-                g.graph.replay()
-                boxes[:, t].copy_(g.carry[0])
-            self.replays += T - 1
+                xs = (pts[:, t], valid[:, t], pts[:, t + 1], valid[:, t + 1])
+                if self.gt_inputs:
+                    xs += (gt_params[:, t + sh], gt_wlh[:, t + sh])
+                carry, boxes[:, t] = self._step(first_pts, first_valid, carry, xs)
             return boxes
-        valid = _expand_counts(counts, P)
-        first_valid = _expand_counts(first_count, first_pts.shape[1])
-        for t in range(T - 1):
-            xs = (pts[:, t], valid[:, t], pts[:, t + 1], valid[:, t + 1])
-            if self.gt_inputs:
-                xs += (gt_params[:, t + sh], gt_wlh[:, t + sh])
-            carry, boxes[:, t] = self._step(first_pts, first_valid, carry, xs)
-        return boxes
 
     # --- scoring ------------------------------------------------------------
     def _pred_wlh(self, wlh: torch.Tensor, gt_wlh: torch.Tensor) -> torch.Tensor:

@@ -63,7 +63,7 @@ from open3dsot_tpu_torch.geometry.quaternion import Quaternion
 from open3dsot_tpu_torch.models.layers import set_compute_dtype, to_f32
 from open3dsot_tpu_torch.models.pointnet import weights_key
 from open3dsot_tpu_torch.ops.chain_fused import BF16, is_bf16
-from open3dsot_tpu_torch.utils import prng
+from open3dsot_tpu_torch.utils import prng, profiling
 from open3dsot_tpu_torch.utils.quant import dequantize, quantize_per_sample
 
 # The limit-box redraw's key, jax.random.PRNGKey(2) in the JAX package's scan steps
@@ -259,7 +259,8 @@ def pipelined_scores(tracker, batches, depth: int = 3, prep_cache=None):
     def drain():
         seqs, iou_h, dist_h, ready = q.popleft()
         if ready is not None:
-            ready.synchronize()
+            with profiling.annotate("scan.wait"):
+                ready.synchronize()
         iou, dist = iou_h.numpy(), dist_h.numpy()
         for b, seq in enumerate(seqs):
             T = len(seq)
@@ -354,7 +355,7 @@ class _CapturedStep:
     `counted`, its launches in one replay."""
 
     def __init__(self, device: torch.device, counted: Sequence) -> None:
-        with torch.cuda.device(device):
+        with profiling.annotate("graph.capture"), torch.cuda.device(device):
             side = torch.cuda.Stream(device)
             side.wait_stream(torch.cuda.current_stream(device))
             with torch.cuda.stream(side):
@@ -550,25 +551,26 @@ class _ScanTracker(_DeviceTracker):
         T_pad, host tensors [*packed points, counts, wlh, init, *extra]). A
         split tracker's batch is padded to a multiple of its card count by
         repeating the last tracklet (JAX scan_tracker.py:442-446)."""
-        sequences = list(sequences)
-        sequences += sequences[-1:] * (-len(sequences) % self.cards)
-        B = len(sequences)
-        T_pad = max(self._bucket_len(len(s)) for s in sequences)
-        P = self.max_points
-        pts = np.zeros((B, T_pad, P, 3), np.float32)
-        valid = np.zeros((B, T_pad, P), bool)
-        wlh = np.zeros((B, 3), np.float32)
-        init = np.zeros((B, 4), np.float32)
-        for b, seq in enumerate(sequences):
-            for t, frame in enumerate(seq):
-                pts[b, t], valid[b, t] = pad_frame(frame["pc"].points.T, P)
-            first_box = seq[0]["3d_bbox"]
-            wlh[b] = first_box.wlh
-            theta0 = rigid.theta_from_rotation(first_box.rotation_matrix, self._A_np)
-            init[b] = np.append(first_box.center, theta0)
-        host = self._host(*_pack_transfer(self.transfer_dtype, pts, valid), _counts(valid),
-                          wlh, init, *self._extra_inputs(sequences))
-        return sequences, T_pad, host
+        with profiling.annotate("scan.prepare"):
+            sequences = list(sequences)
+            sequences += sequences[-1:] * (-len(sequences) % self.cards)
+            B = len(sequences)
+            T_pad = max(self._bucket_len(len(s)) for s in sequences)
+            P = self.max_points
+            pts = np.zeros((B, T_pad, P, 3), np.float32)
+            valid = np.zeros((B, T_pad, P), bool)
+            wlh = np.zeros((B, 3), np.float32)
+            init = np.zeros((B, 4), np.float32)
+            for b, seq in enumerate(sequences):
+                for t, frame in enumerate(seq):
+                    pts[b, t], valid[b, t] = pad_frame(frame["pc"].points.T, P)
+                first_box = seq[0]["3d_bbox"]
+                wlh[b] = first_box.wlh
+                theta0 = rigid.theta_from_rotation(first_box.rotation_matrix, self._A_np)
+                init[b] = np.append(first_box.center, theta0)
+            host = self._host(*_pack_transfer(self.transfer_dtype, pts, valid), _counts(valid),
+                              wlh, init, *self._extra_inputs(sequences))
+            return sequences, T_pad, host
 
     def _on_device(self, host: list) -> list:
         """A batch's host tensors -> [pts f32, counts, wlh, init, *extra] on
@@ -646,7 +648,8 @@ class _ScanTracker(_DeviceTracker):
         boxes, wlh, init, (gt_params, gt_wlh) = self._dispatch(host, gt)
         if self._scorer is None:
             self._scorer = _make_scorer(self.config)
-        return self._scorer(boxes, init, self._pred_wlh(wlh, gt_wlh), gt_params, gt_wlh)
+        with profiling.annotate("scan.score"):
+            return self._scorer(boxes, init, self._pred_wlh(wlh, gt_wlh), gt_params, gt_wlh)
 
     def _frame_wlh(self, sequence) -> list:
         """Each predicted box's wlh: the first box's (getOffsetBB copies the
@@ -718,27 +721,29 @@ class M2ScanTracker(_ScanTracker):
         (B, T - 1, 4) on the device. No host sync."""
         self._refresh_rounded()
         B, T, P, _ = pts.shape
-        boxes = pts.new_empty(B, T - 1, 4)
-        steps = torch.arange(T - 1, device=pts.device)
-        if self.cuda_graph:
-            g = self._graph_for(B, P)
-            g.ref.copy_(init)
-            g.wlh.copy_(wlh)
+        with profiling.annotate("scan.frame_loop", card=self.device.index, B=B, T=T):
+            boxes = pts.new_empty(B, T - 1, 4)
+            steps = torch.arange(T - 1, device=pts.device)
+            if self.cuda_graph:
+                g = self._graph_for(B, P)
+                g.ref.copy_(init)
+                g.wlh.copy_(wlh)
+                for t in range(T - 1):
+                    g.pts.copy_(pts[:, t:t + 2])
+                    g.counts.copy_(counts[:, t:t + 2])
+                    g.step_idx.copy_(steps[t])
+                    with profiling.annotate("graph.replay"):
+                        g.graph.replay()
+                    boxes[:, t].copy_(g.ref)
+                self.replays += T - 1
+                return boxes
+            valid = _expand_counts(counts, P)
+            ref = init
             for t in range(T - 1):
-                g.pts.copy_(pts[:, t:t + 2])
-                g.counts.copy_(counts[:, t:t + 2])
-                g.step_idx.copy_(steps[t])
-                g.graph.replay()
-                boxes[:, t].copy_(g.ref)
-            self.replays += T - 1
+                ref = self._step(wlh, ref, pts[:, t], valid[:, t], pts[:, t + 1], valid[:, t + 1],
+                                 steps[t])
+                boxes[:, t] = ref
             return boxes
-        valid = _expand_counts(counts, P)
-        ref = init
-        for t in range(T - 1):
-            ref = self._step(wlh, ref, pts[:, t], valid[:, t], pts[:, t + 1], valid[:, t + 1],
-                             steps[t])
-            boxes[:, t] = ref
-        return boxes
 
 
 def evaluate_dataset_scan(model, test_sampler, config, max_points: int = 4096,

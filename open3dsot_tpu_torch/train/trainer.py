@@ -74,7 +74,7 @@ from open3dsot_tpu_torch.data.loader import BatchLoader
 from open3dsot_tpu_torch.parallel import distributed
 from open3dsot_tpu_torch.train.bn_momentum import BN_MOMENTUM, bn_momentum_schedule, set_bn_momentum
 from open3dsot_tpu_torch.train.optim import clip_gradients, make_optimizer
-from open3dsot_tpu_torch.utils import prng
+from open3dsot_tpu_torch.utils import prng, profiling
 
 
 # Config keys the JAX trainer honours and this one does not yet: key ->
@@ -112,32 +112,34 @@ def train_step(model, optimizer, batch: dict, scheduler=None, fetch: bool = Fals
     when `fetch`, else None. On several ranks `batch` is this rank's rows of
     the global batch, and `per_device_stats` chooses the mode (the module
     docstring): False takes statistics and losses over the global batch."""
-    with distributed.global_batch(not per_device_stats):
-        output = model.apply_train(batch)
-        if distributed.in_global_batch():
-            rows = next(iter(batch.values())).shape[0]
-            loss_dict = model.loss(_gathered(batch, rows), _gathered(output, rows))
-        else:
-            loss_dict = model.loss(batch, output)
-    optimizer.zero_grad(set_to_none=True)
-    loss_dict["loss_total"].backward()
-    params = list(model.net.parameters())
-    if distributed.world_size() > 1:
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        with torch.no_grad():
-            _average_over_ranks(p.grad for p in params)
-            if per_device_stats:  # the blend was each rank's: average it
-                _average_over_ranks(b for n, b in model.net.named_buffers() if "running" in n)
-    clip_gradients(model.config, params)
-    optimizer.step()
-    if scheduler is not None:
-        scheduler.step()
-    if fetch:
-        scalars = {k: float(v.detach()) for k, v in loss_dict.items()}
-        return distributed.mean_of_floats(scalars, model.device)
-    return None
+    with profiling.annotate("train.update"):
+        with distributed.global_batch(not per_device_stats):
+            output = model.apply_train(batch)
+            if distributed.in_global_batch():
+                rows = next(iter(batch.values())).shape[0]
+                loss_dict = model.loss(_gathered(batch, rows), _gathered(output, rows))
+            else:
+                loss_dict = model.loss(batch, output)
+        optimizer.zero_grad(set_to_none=True)
+        loss_dict["loss_total"].backward()
+        params = list(model.net.parameters())
+        if distributed.world_size() > 1:
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            with torch.no_grad():
+                _average_over_ranks(p.grad for p in params)
+                if per_device_stats:  # the blend was each rank's: average it
+                    _average_over_ranks(b for n, b in model.net.named_buffers() if "running" in n)
+        clip_gradients(model.config, params)
+        optimizer.step()
+        if scheduler is not None:
+            scheduler.step()
+        if fetch:
+            with profiling.annotate("train.fetch"):
+                scalars = {k: float(v.detach()) for k, v in loss_dict.items()}
+                return distributed.mean_of_floats(scalars, model.device)
+        return None
 
 
 class Trainer:
@@ -207,11 +209,13 @@ class Trainer:
                 if batch is None:
                     break
                 if builder is not None:
-                    raw = {k: v.to(self.model.device, non_blocking=True) for k, v in batch.items()}
-                    key = prng.fold_in(sampler_key, step)
-                    if self.per_device_stats and self.world > 1:
-                        key = prng.fold_in(key, self.rank)  # JAX's fold_in(key, axis_index)
-                    batch = builder(raw, key)
+                    with profiling.annotate("train.sample_build"):
+                        raw = {k: v.to(self.model.device, non_blocking=True)
+                               for k, v in batch.items()}
+                        key = prng.fold_in(sampler_key, step)
+                        if self.per_device_stats and self.world > 1:
+                            key = prng.fold_in(key, self.rank)  # JAX's fold_in(key, axis_index)
+                        batch = builder(raw, key)
                 else:
                     batch = self.model.device_batch(batch)
                 fetch = (i + 1) % self.log_every == 0 or i == 0
@@ -227,12 +231,14 @@ class Trainer:
                         self.logger.log_scalars(accs, step=step, prefix="train/")
             batches.close()  # ends the loader's background thread
             if self.model.device.type == "cuda":
-                torch.cuda.synchronize(self.model.device)
+                with profiling.annotate("train.fetch"):
+                    torch.cuda.synchronize(self.model.device)
             info = {"epoch": epoch, "steps": step,
                     "loss": float(np.mean(losses)) if losses else float("nan"),
                     "time_s": time.perf_counter() - t0, "data_wait_s": wait}
             if self.rank == 0:
-                self._end_epoch(info, val_sampler, (optimizer, scheduler, step, epoch))
+                with profiling.annotate("train.checkpoint"):
+                    self._end_epoch(info, val_sampler, (optimizer, scheduler, step, epoch))
             distributed.barrier(self.model.device)  # the other ranks wait for rank 0's writes
             self.history.append(info)
         loader.close()

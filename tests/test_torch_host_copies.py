@@ -3,7 +3,7 @@ original's output on seeded inputs (config, quaternion, data_classes,
 points_utils, iou, metrics, synthetic data, the test and siamese training
 samplers, the search spaces, the batch loader, the scalar logger, the
 visualization writers, the nuScenes split and category tables, the ops'
-numpy references, the Stopwatch; the real datasets' loaders are held in
+numpy references; the real datasets' loaders are held in
 tests/test_torch_datasets.py)."""
 
 from __future__ import annotations
@@ -318,30 +318,41 @@ def test_op_references_copy():
 
 
 def test_stopwatch_copy_and_trace(tmp_path):
-    """Stopwatch accumulates as the original (counts and keys; the times are
-    the clock's); trace writes a Chrome trace holding annotate's span."""
+    """trace() writes a Chrome trace holding annotate's span, and beside it
+    spans.json: the block's spans with their parents and attributes, their
+    summary (count, total, self time), its counters and the spans dropped."""
     import json
 
-    from open3dsot_tpu.utils.profiling import Stopwatch as JS
-    from open3dsot_tpu_torch.utils.profiling import Stopwatch as PS
-    from open3dsot_tpu_torch.utils.profiling import annotate, trace
-
-    summaries = []
-    for sw in (PS(), JS()):
-        for name in ("sample", "step", "sample"):
-            with sw(name):
-                pass
-        summaries.append(sw.summary())
-    for got, want in zip(*(sorted(s.items()) for s in summaries)):
-        assert got[0] == want[0] and got[1]["count"] == want[1]["count"]
-        assert set(got[1]) == set(want[1]) == {"total_s", "count", "mean_ms"}
     import torch
 
-    with trace(str(tmp_path / "tr")):
-        with annotate("span_of_the_test"):
-            torch.ones(8).sum()
+    from open3dsot_tpu_torch.utils import profiling
+
+    profiling.clear()
+    with profiling.recording():
+        with profiling.annotate("before.the.trace"):
+            pass
+    with profiling.trace(str(tmp_path / "tr")):
+        with profiling.annotate("span_of_the_test", B=2):
+            with profiling.annotate("child_of_the_test"):
+                torch.ones(8).sum()
+        with profiling.annotate("span_of_the_test", B=3):
+            pass
+        profiling.count("steps", 2)
     events = json.loads((tmp_path / "tr" / "trace.json").read_text())["traceEvents"]
     assert any(e.get("name") == "span_of_the_test" for e in events)
+    out = json.loads((tmp_path / "tr" / "spans.json").read_text())
+    assert set(out) == {"spans", "summary", "counters", "dropped"}
+    assert [s["name"] for s in out["spans"]] == [
+        "child_of_the_test", "span_of_the_test", "span_of_the_test"]
+    child, first, second = out["spans"]
+    assert child["parent"] == first["id"] and first["attrs"] == {"B": 2}
+    assert second["parent"] is None and second["attrs"] == {"B": 3}
+    summary = out["summary"]
+    assert set(summary) == {"span_of_the_test", "child_of_the_test"}
+    assert summary["span_of_the_test"]["count"] == 2
+    total, own = summary["span_of_the_test"]["total_ns"], summary["span_of_the_test"]["self_ns"]
+    assert own == total - (child["end_ns"] - child["start_ns"])
+    assert out["counters"] == {"steps": 2} and out["dropped"] == 0
 
 
 @pytest.mark.parametrize("cfg_path", ["cfgs/BAT_synthetic.yaml", "cfgs/P2B_synthetic.yaml"])
