@@ -41,11 +41,12 @@ def up_index(up_axis) -> int:
 def bev_quad(params: torch.Tensor, wlh: torch.Tensor, up_idx: int) -> torch.Tensor:
     """(..., 4) params, (..., 3) wlh -> (..., 4, 2) footprint quad."""
     theta = params[..., 3]
-    w, length = wlh[..., 0], wlh[..., 1]
-    sx = params.new_tensor([1.0, 1.0, -1.0, -1.0])
-    sy = params.new_tensor([1.0, -1.0, -1.0, 1.0])
-    lx = 0.5 * length[..., None] * sx
-    ly = 0.5 * w[..., None] * sy
+    hl, hw = 0.5 * wlh[..., 1, None], 0.5 * wlh[..., 0, None]
+    # the corners' signs as scalars: a tensor of them made on the host would
+    # be a blocking copy to the card. A product by -1.0 keeps a NaN's bits,
+    # where a negation would flip its sign.
+    lx = torch.cat([hl, hl, hl * -1.0, hl * -1.0], dim=-1)
+    ly = torch.cat([hw, hw * -1.0, hw * -1.0, hw], dim=-1)
     ct, st = torch.cos(theta)[..., None], torch.sin(theta)[..., None]
     u = lx * ct - ly * st
     v = lx * st + ly * ct

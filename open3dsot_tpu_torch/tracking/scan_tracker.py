@@ -249,7 +249,10 @@ def pipelined_scores(tracker, batches, depth: int = 3, prep_cache=None):
     """Yield per-tracklet (ious, distances) with `depth` batches in flight:
     the host pads batch j and bins batch j - depth while the card tracks.
     A batch's (B, T) scores come back by non-blocking copies into pinned
-    buffers, read only after their event has completed.
+    buffers, read only after their event has completed: the host's one wait
+    on the card. While spans record, the counter `scan.drains` counts the
+    batches read back and `scan.drains_pending` those whose scores were not
+    on the host yet when they were read (the card still behind the host).
 
     prep_cache: optional dict; the packed host tensors of batch j are kept
     under ("prep", j) and reused on later calls over the same batches.
@@ -258,7 +261,10 @@ def pipelined_scores(tracker, batches, depth: int = 3, prep_cache=None):
 
     def drain():
         seqs, iou_h, dist_h, ready = q.popleft()
+        profiling.count("scan.drains")
         if ready is not None:
+            if profiling.active() and not ready.query():
+                profiling.count("scan.drains_pending")
             with profiling.annotate("scan.wait"):
                 ready.synchronize()
         iou, dist = iou_h.numpy(), dist_h.numpy()
@@ -631,7 +637,9 @@ class _ScanTracker(_DeviceTracker):
         return wlh
 
     def dispatch_scored(self, sequences: Sequence[list], prep_cache=None, cache_key=None):
-        """Track AND score a batch on the device; no host sync.
+        """Track AND score a batch on the device; the host never waits on a
+        card here (split too: the boxes come to the first card by copies
+        ordered on the cards' streams).
 
         Returns (iou, dist) (B, T_pad) device tensors (slice [b, :len(seq)]
         per tracklet; a split tracker's B is padded, its scores on the first

@@ -14,8 +14,9 @@
   small attributes given (card index, B, T).
 - The store is a ring of `CAPACITY` spans: the oldest are dropped first
   and counted (`dropped()`). `count(name, n)` adds to a counter under the
-  same switch. `records()`, `counters()`, `summary()` read them; `clear()`
-  empties them.
+  same switch; `active()` reads the switch, for a count that costs a call
+  of its own to take. `records()`, `counters()`, `summary()` read them;
+  `clear()` empties them.
 - Clock: a span is stamped with `time.time_ns()`, the Unix-epoch clock
   (CLOCK_REALTIME) that torch's profiler converts its own records to
   (c10::getTime, against which its ApproximateClockToUnixTimeConverter
@@ -134,6 +135,11 @@ def annotate(name: str, **attrs):
     if not _gate():
         return _OFF
     return _Span(name, attrs)
+
+
+def active() -> bool:
+    """Whether spans and counters record now."""
+    return _gate()
 
 
 def count(name: str, n: int = 1) -> None:

@@ -20,6 +20,10 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers", "card: needs a CUDA card; skipped without one")
+
+
 def pytest_sessionstart(session):
     # fail fast if the backend ended up on the TPU anyway
     assert jax.default_backend() == "cpu", jax.devices()

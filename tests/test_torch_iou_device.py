@@ -20,6 +20,9 @@ from open3dsot_tpu.utils import quant as j_quant
 from open3dsot_tpu_torch.geometry import iou_device as p_iou
 from open3dsot_tpu_torch.geometry import rigid as p_rigid
 from open3dsot_tpu_torch.utils import quant as p_quant
+from tests.test_torch_scan_sync import _same_bits
+from tests.test_torch_scan_sync import bev_quad_host_signs as _bev_quad_host_signs
+
 
 def _pairs(kind: str, rng, n: int = 24):
     """(params_a, wlh_a, params_b, wlh_b) (n, 4) / (n, 3) float32 of a kind."""
@@ -67,6 +70,58 @@ def test_overlap_accuracy_matches_jax(kind, up_idx, dim):
         assert np.all(got[0].numpy() <= 1e-5)
     if kind == "nonfinite":
         assert np.all(got[0].numpy()[~np.isfinite(args[0] + args[2]).all(-1)] == 0)
+
+
+def _scan_boxes(seed: int, nonfinite: bool):
+    """Two sets of (64, 190) boxes as the scan scorer takes them; with
+    `nonfinite`, NaNs and infinities in centers, angles and sizes."""
+    pa, wa, pb, wb = (torch.from_numpy(a.reshape(64, 190, -1))
+                      for a in _pairs("random", np.random.default_rng(seed), 64 * 190))
+    if nonfinite:
+        pa[::5, ::7, 0] = float("nan")
+        pb[1::5, ::11, 3] = float("inf")
+        wa[2::5, ::13, 1] = float("nan")
+        wb[3::5, ::3, 0] = float("-inf")
+    return pa, wa, pb, wb
+
+
+def _no_host_tensors(monkeypatch):
+    """From here on, making a tensor from host data raises."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a tensor made from host data")
+
+    monkeypatch.setattr(torch.Tensor, "new_tensor", refuse)
+    monkeypatch.setattr(torch, "tensor", refuse)
+
+
+@pytest.mark.parametrize("nonfinite", [False, True])
+@pytest.mark.parametrize("up_idx", [1, 2])
+def test_bev_quad_bits_without_host_tensors(up_idx, nonfinite, monkeypatch):
+    """The footprint quads equal those of host-made signs bit for bit, NaNs
+    too, and no tensor is made from host data on the way."""
+    pa, wa, _, _ = _scan_boxes(up_idx, nonfinite)
+    want = _bev_quad_host_signs(pa, wa, up_idx)
+    _no_host_tensors(monkeypatch)
+    got = p_iou.bev_quad(pa, wa, up_idx)
+    assert _same_bits(got, want)
+    assert torch.isnan(got).any() == nonfinite
+
+
+@pytest.mark.parametrize("nonfinite", [False, True])
+@pytest.mark.parametrize("up_idx", [1, 2])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_overlap_accuracy_bits_without_host_tensors(dim, up_idx, nonfinite, monkeypatch):
+    """The scorer's IoU and distances equal those of host-made signs bit for
+    bit, and no tensor is made from host data on the way."""
+    boxes = _scan_boxes(10 * dim + up_idx, nonfinite)
+    monkeypatch.setattr(p_iou, "bev_quad", _bev_quad_host_signs)
+    want = p_iou.overlap_accuracy(*boxes, dim=dim, up_idx=up_idx)
+    monkeypatch.undo()
+    _no_host_tensors(monkeypatch)
+    got = p_iou.overlap_accuracy(*boxes, dim=dim, up_idx=up_idx)
+    for g, w in zip(got, want):
+        assert _same_bits(g, w)
+    assert 0 < (got[0] > 0).float().mean() < 1
 
 
 def test_up_index_and_errors():
